@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit and no result line):
 
-1. build the three hand-written kernels from ``proxtv_tpu_torch/csrc`` and
+1. build the five hand-written kernels from ``proxtv_tpu_torch/csrc`` and
    print the card (``nvidia-smi`` name and power limit) and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with the tolerances in ``TOL``;
@@ -13,12 +13,18 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    launches and host syncs per call: ``api.tv1_2d`` at 1024^2, lam 0.3 (auto
    -> PDHG, kernel B3; and ``dr`` -> projected Newton, B1),
    ``tv1_batched`` on 10000 x 1000 at lam 0.7 (B1), ``api.tv1_1d`` with
-   ``method="pn"`` (its Newton systems -> PCR, B2), and the image demo; then
-   hold the outputs against float64 references: an independent float64
-   primal-dual solve on the card for 1024^2, float64 ``tv1_pn`` on the CPU
-   for the 1D calls;
+   ``method="pn"`` (its Newton systems -> PCR, B2), the 3D volume
+   32 x 256 x 256 at lam 0.3 per axis through ``api.tvgen_nd`` cp-acc (3D
+   PDHG, B6) and ``api.tvgen`` (Parallel Dykstra, B1), TV-L2 through
+   ``tv2_batched`` on 10000 x 1000 at lam 1.0, ``api.tv2_1d`` and
+   ``api.tvp_2d`` with p = 2 at 1024^2 (More-Sorensen, B4), the 10^6-long
+   TV-L2 signal (the spectral path, no kernel), and the image demo; then
+   hold the outputs against float64 references: independent float64
+   primal-dual solves on the card for 1024^2 and for the volume, the same
+   calls in float64 on the CPU for the 1D and TV-L2 calls;
 4. time each kernel (CUDA events, many launches after warm-up), its plain
-   version, and the main-path calls, and print the ``kernels`` line.
+   version, and the main-path calls, and print the ``kernels`` line;
+5. profile the main-path calls: device time by kernel and the idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 card line and the ``kernels`` line come before it.  Details (the report and
@@ -51,6 +57,21 @@ TOL = {
     "pn": 2e-3,
     # PDHG chunk: absolute on the K-step state; certificate sums relative.
     "pdhg": 1e-4, "pdhg_cert": 1e-4,
+    # MS (B4): absolute on x in data units, alpha relative.  Both stop on
+    # the same secular test |‖w‖ - lam| <= 1e-5 lam, and the shifted systems
+    # (DD' + alpha I) at these lam are well conditioned ((4 + alpha) /
+    # alpha), so two float32 roundings (FMA contraction, sum order) part by
+    # ~1e-6 of the solution.  Iteration counts are printed, not held: on
+    # lam = 50 rows the small alpha leaves float32 noise in ||w|| at the stop
+    # tolerance, so one rounding stops and the other runs on, up to the cap,
+    # at the same x (PERF.md; ROADMAP C).
+    "ms": 1e-4, "ms_alpha": 1e-4,
+    # 3D PDHG chunk (B6): absolute on the K-step state (O(1) values, about
+    # ten float32 roundings per cell per step, FMA contraction differs).
+    "pdhg3d": 1e-5,
+    # TV-L2 outputs against float64 on the CPU: the bar of
+    # tests/test_kernels.py:197 (the fused MS kernel against its oracle).
+    "tv2": 2e-3,
 }
 
 # The cross-method bar of tests/test_tv2d.py:64-77: the solution within
@@ -70,6 +91,10 @@ M2D = N2D = 1024
 LAM2D = 0.3
 B1D, N1D = 10000, 1000
 LAM1D = 0.7
+L3, M3, N3 = 32, 256, 256   # the bench's 3D video (bench.py:40)
+LAM3 = 0.3
+LAML2 = 1.0                 # the bench's TV-L2 batch (bench.py:515)
+NLONG, LAMLONG = 1_000_000, 50.0  # the bench's long TV-L2 row (bench.py:37-39)
 SEED = 0
 
 
@@ -124,6 +149,10 @@ def profile_call(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # One PyTorch launch before the window: a window whose first launch
+        # is a ctypes kernel (tv2_batched) recorded no device time without.
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -184,6 +213,41 @@ def reference_2d(Y, lam, iters):
     return xh, float(gap)
 
 
+def reference_3d(V, lam, iters):
+    """Independent float64 reference for the 3D TV-L1 prox (lam on each
+    axis): Chambolle-Pock Alg. 2 (gamma = 1, uncapped acceleration) in plain
+    PyTorch on ``V``'s device, sigma0 = 0.5, ||D||^2 <= 12.  Returns
+    (xhat = V - D'u, certified gap F(xhat) - F* <= gap)."""
+    import torch
+
+    def d(X, a):
+        k = X.shape[a] - 1
+        return X.narrow(a, 0, k) - X.narrow(a, 1, k)
+
+    def dT(U, a):
+        z = torch.zeros_like(U.narrow(a, 0, 1))
+        return torch.cat([U, z], a) - torch.cat([z, U], a)
+
+    sigma = 0.5
+    tau = 1.0 / (12.0 * sigma)
+    x = xb = V
+    us = [V.new_zeros(d(V, a).shape) for a in range(3)]
+    for _ in range(iters):
+        us = [torch.clamp(u + sigma * d(xb, a), -lam, lam)
+              for a, u in enumerate(us)]
+        div = dT(us[0], 0) + dT(us[1], 1) + dT(us[2], 2)
+        xn = (x - tau * div + tau * V) / (1.0 + tau)
+        theta = 1.0 / math.sqrt(1.0 + 2.0 * tau)
+        xb = xn + theta * (xn - x)
+        x = xn
+        tau *= theta
+        sigma /= theta
+    xh = V - (dT(us[0], 0) + dT(us[1], 1) + dT(us[2], 2))
+    gap = sum(lam * d(xh, a).abs().sum() - (u * d(xh, a)).sum()
+              for a, u in enumerate(us))
+    return xh, float(gap)
+
+
 def bound_ms(nbytes, flops):
     t_b = nbytes / PEAK_BYTES_S * 1e3
     t_f = flops / PEAK_F32_FLOP_S * 1e3
@@ -197,6 +261,10 @@ PN_OPS_PER_ITER = 100     # mask 10, PCR init 8 + 4 head steps x 13, trial 12,
                           # gradient + gap 8, bookkeeping ~10
 PN_OPS_INIT = 40          # centering, dual init (2 log-shift scans), gap
 PDHG_OPS_PER_STEP = 22    # two dual updates 10, divergence 3, primal 6, xbar 3
+MS_PCR_OPS_PER_STEP = 16  # r: 2 mul 2 sub 1 div; d: 2 mul 2 sub 1 mul; b, c 6
+MS_OPS_PER_SOLVE = 10     # normalization 6, norm and secant update 4
+PDHG3D_OPS_PER_STEP = 30  # three dual updates 15, divergence 6, primal 6,
+                          # xbar 3
 
 
 def main(out_dir):
@@ -212,10 +280,12 @@ def main(out_dir):
         raise Fail(f"the port (proxtv_tpu_torch) is not beside this script: "
                    f"{e}")
     from proxtv_tpu_torch.demos import demo_filter_image as demo
-    from proxtv_tpu_torch.models import tv2d
-    from proxtv_tpu_torch.ops import tv1d_l1
-    from proxtv_tpu_torch.ops.kernels import build
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2
+    from proxtv_tpu_torch.ops.kernels import build, gating
+    from proxtv_tpu_torch.ops.kernels import ms_fused as B4
     from proxtv_tpu_torch.ops.kernels import pcr as B2
+    from proxtv_tpu_torch.ops.kernels import pdhg3d_fused as B6
     from proxtv_tpu_torch.ops.kernels import pdhg_fused as B3
     from proxtv_tpu_torch.ops.kernels import pn_fused as B1
     from proxtv_tpu_torch.utils import debug
@@ -235,7 +305,8 @@ def main(out_dir):
     build.build(force=True)
     build.lib()
     report["build_s"] = time.perf_counter() - t0
-    print(f"[build] 3 kernels ({', '.join(build.SOURCES)}) built in "
+    print(f"[build] {len(build.SOURCES)} kernels ({', '.join(build.SOURCES)}) "
+          f"built in "
           f"{report['build_s']:.1f} s on {card}")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
@@ -246,7 +317,13 @@ def main(out_dir):
     Y1 = rng.randn(B1D, N1D).astype(np.float32)          # the bench batch
     y1 = (np.cumsum(rng.randn(N1D)) * 0.3)               # one 1D signal
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0}
+    rng3 = np.random.RandomState(SEED + 1)  # this slice's data
+    V = rng3.randn(L3, M3, N3).astype(np.float32)        # the bench volume
+    ylong = (np.cumsum(rng3.randn(NLONG)) * 0.05
+             + rng3.randn(NLONG)).astype(np.float32)     # the long TV-L2 row
+    noise1 = (0.05 * rng3.randn(B1D, N1D)).astype(np.float32)
+    noise2 = (0.05 * rng3.randn(M2D, N2D)).astype(np.float32)
+    errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0}
 
     # -- 2. kernels vs plain versions at main-path shapes -----------------
     d = t((0.01 * rng.randn(B1D, N1D)).astype(np.float32))
@@ -360,8 +437,72 @@ def main(out_dir):
         print(msg)
         errs["pdhg"] = max(errs["pdhg"], err)
 
+    # B4 at the TV-L2 batch (10000, 1000), lam 1.0: scalar cold, per-row lam
+    # with zero-penalty and large-penalty rows, warm from the cold alpha; and
+    # at the fiber shape of the tvp_2d p = 2 path (1024 fibers x 1024), warm.
+    def ms_case(name, y, **kw):
+        x_r, a_r, _, it_r = B4.ms_tv2_fused_plain(y, tb=1, **kw)
+        x, a, g, it = B4.ms_tv2_fused(y, **kw)
+        torch.cuda.synchronize()
+        ex = float((x - x_r).abs().max())
+        ea = float(((a - a_r).abs() / torch.clamp(a_r.abs(), min=1.0)).max())
+        capped = (it >= 100) | (it_r >= 100)
+        di = int(torch.where(capped, 0, (it - it_r).abs()).max())
+        print(f"[B4 ms] {name}: max|kernel - plain| x {ex:.3e} (tol "
+              f"{TOL['ms']}), alpha rel {ea:.3e} (tol {TOL['ms_alpha']}); "
+              f"iterations at most {di} apart on the rows under the cap, {int(capped.sum())} rows at the cap (kernel "
+              f"{int((it >= 100).sum())}, plain {int((it_r >= 100).sum())})"
+              f"; mean iterations kernel {float(it.float().mean()):.2f}, "
+              f"plain {float(it_r.float().mean()):.2f}")
+        check(ex <= TOL["ms"] and ea <= TOL["ms_alpha"]
+              and bool((g >= 0).all()),
+              f"MS {name} disagrees")
+        errs["ms"] = max(errs["ms"], ex)
+        return a, it
+
+    a_cold, it_cold = ms_case("(10000, 1000) lam 1.0 cold", Y1t, lam=LAML2)
+    lam_rows = t(np.resize(np.array([0.0, 0.5, 1.0, 2.0, 50.0], np.float32),
+                           B1D))
+    ms_case("(10000, 1000) lam_rows in {0, 0.5, 1, 2, 50}", Y1t,
+            lam_rows=lam_rows)
+    ms_case("(10000, 1000) lam 1.0 warm from the cold alpha", Y1t + t(noise1),
+            lam=LAML2, alpha_init=a_cold)
+    _, a_img, _, _ = B4.ms_tv2_fused(Yf, lam=LAM2D)
+    ms_case("(1024, 1024) lam 0.3 warm", Yf + t(noise2), lam=LAM2D,
+            alpha_init=a_img)
+
+    # B6: one chunk at the 32 x 256 x 256 canvas of the tvgen_nd path,
+    # mid-solve, for each variant.
+    k3, tile3 = gating.pdhg3d_params()
+    Vc = t(V)
+    geo3 = dict(k_steps=k3, n_valid=N3, m_valid=M3, l_valid=L3, stride=L3,
+                count=1)
+
+    def sched3(variant):
+        return torch.from_numpy(B6.make_schedule3(
+            k3, (LAM3,) * 3, np.float32(0.5), np.float32(0.15), variant,
+            4.0)).to(dev)
+
+    st3 = (Vc, Vc, torch.zeros_like(Vc), torch.zeros_like(Vc),
+           torch.zeros_like(Vc))
+    for _ in range(6):  # a mid-solve state: 6 chunks of the plain version
+        st3 = B6.pdhg3d_chunk_plain(sched3("cp-acc"), *st3, Vc, **geo3)
+    st3 = tuple(a.contiguous() for a in st3)
+    for variant in ("cp", "cp-acc", "condat"):
+        kw = dict(geo3, grad_step=variant == "condat")
+        ref = B6.pdhg3d_chunk_plain(sched3(variant), *st3, Vc, **kw)
+        out = B6.pdhg3d_chunk(sched3(variant), *st3, Vc, **kw)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        print(f"[B6 pdhg3d] {variant} ({L3}, {M3}, {N3}) K={k3} core "
+              f"{tile3}: max|kernel - plain| = {err:.3e} (tol "
+              f"{TOL['pdhg3d']})")
+        check(err <= TOL["pdhg3d"], f"3D PDHG {variant} disagrees ({err})")
+        errs["pdhg3d"] = max(errs["pdhg3d"], err)
+
     # -- 3. main path -------------------------------------------------------
-    counters = {"B1": B1.LAUNCHES, "B2": B2.LAUNCHES, "B3": B3.LAUNCHES}
+    counters = {"B1": B1.LAUNCHES, "B2": B2.LAUNCHES, "B3": B3.LAUNCHES,
+                "B4": B4.LAUNCHES, "B6": B6.LAUNCHES}
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
@@ -406,13 +547,44 @@ def main(out_dir):
                         lambda: ptv.tv1_1d(y1, 2.0, method="pn",
                                            return_info=True), ["B2"])
     check(int(info_1d.rc[0]) == RC_OK, "tv1_1d (pn) did not certify")
+    x_3d, info_3d = run(
+        "api.tvgen_nd 32x256x256 lam 0.3 chambolle-pock-acc",
+        lambda: ptv.tvgen_nd(V, [LAM3] * 3, [1, 2, 3], [1.0] * 3,
+                             method="chambolle-pock-acc", return_info=True),
+        ["B6"])
+    check(int(info_3d.rc[0]) == RC_OK, "tvgen_nd cp-acc did not certify")
+    x_gen, info_gen = run(
+        "api.tvgen 32x256x256 lam 0.3 (Parallel Dykstra)",
+        lambda: ptv.tvgen(V, [LAM3] * 3, [1, 2, 3], [1.0] * 3,
+                          return_info=True), ["B1"])
+    x_l2, info_l2 = run(
+        "tv2_batched 10000x1000 lam 1.0 ms",
+        lambda: tv1d_l2.tv2_batched(Y1t, LAML2, method="ms"), ["B4"])
+    check(main["tv2_batched 10000x1000 lam 1.0 ms"]["launches"]["B4"] == 1,
+          "tv2_batched did not run in one B4 launch")
+    check(bool((info_l2.rc == RC_OK).all()), "tv2_batched did not certify")
+    x_t2, info_t2 = run("api.tv2_1d n=1000 w 2.0 mspg",
+                        lambda: ptv.tv2_1d(y1, 2.0, return_info=True),
+                        ["B4"])
+    x_p2, info_p2 = run(
+        "api.tvp_2d 1024^2 lam 0.3 p 2 (dr)",
+        lambda: ptv.tvp_2d(Y2, LAM2D, LAM2D, 2, 2, return_info=True), ["B4"])
+    x_long, info_long = run(
+        "api.tv2_1d n=1e6 w 50 ms (spectral path, no kernel)",
+        lambda: ptv.tv2_1d(ylong, LAMLONG, method="ms", return_info=True), [])
+    check(int(info_long.rc[0]) == RC_OK, "long tv2_1d did not certify")
     demo_res = run("demo_filter_image (dr, kolmogorov, chambolle-pock-acc)",
                    demo.main, ["B1", "B3"], main_path=False)
 
     # Outputs: finite and shaped.
     for name, a, shp in (("auto", x_auto, (M2D, N2D)), ("dr", x_dr, (M2D, N2D)),
                          ("tv1_batched", x1.cpu().numpy(), (B1D, N1D)),
-                         ("tv1_1d", x_1d, (N1D,))):
+                         ("tv1_1d", x_1d, (N1D,)),
+                         ("tvgen_nd cp-acc", x_3d, (L3, M3, N3)),
+                         ("tvgen", x_gen, (L3, M3, N3)),
+                         ("tv2_batched", x_l2.cpu().numpy(), (B1D, N1D)),
+                         ("tv2_1d", x_t2, (N1D,)), ("tvp_2d", x_p2, (M2D, N2D)),
+                         ("tv2_1d long", x_long, (NLONG,))):
         check(a.shape == shp and np.isfinite(a).all(),
               f"{name}: bad output {a.shape}")
 
@@ -477,6 +649,67 @@ def main(out_dir):
     for m_, (mse0, mse1) in demo_res.items():
         check(mse1 < mse0, f"demo {m_} did not denoise")
 
+    # The volume against an independent float64 solve on the card.  The
+    # main path's certificate must hold; the engine run 1000 iterations must
+    # land within XBAR elementwise, as the 2D check does; Parallel Dykstra
+    # at the reference's 35 sweeps is printed.
+    def obj3d(X, Y, lam):
+        X = X.astype(np.float64)
+        return (0.5 * np.sum((X - Y) ** 2)
+                + lam * sum(np.abs(np.diff(X, axis=a)).sum()
+                            for a in range(3)))
+
+    t0 = time.perf_counter()
+    x_ref3, gap_ref3 = reference_3d(t(V.astype(np.float64)), LAM3, 20000)
+    x_ref3 = x_ref3.cpu().numpy()
+    F3_ref = obj3d(x_ref3, V, LAM3)
+    print(f"[check] float64 3D reference (20000 Chambolle-Pock iterations, "
+          f"{time.perf_counter() - t0:.1f} s): F* >= F_ref - {gap_ref3:.3e}, "
+          f"F_ref = {F3_ref:.6f}")
+
+    def vs_ref3(name, x, info):
+        F = obj3d(x, V, LAM3)
+        e = float(np.abs(x.astype(np.float64) - x_ref3).max())
+        xc[name] = {"F_minus_F_ref": F - F3_ref, "max_abs_err": e,
+                    "iters": int(info.iters[0]), "rc": int(info.rc[0]),
+                    "gap": float(info.gap[0])}
+        print(f"[check] {name}: F - F_ref = {F - F3_ref:.4e}, max|x - x_ref| "
+              f"= {e:.3e}, iters {int(info.iters[0])}, rc {int(info.rc[0])}, "
+              f"gap {float(info.gap[0]):.4e}")
+        return F - F3_ref, e
+
+    dF, _ = vs_ref3("tvgen_nd cp-acc (main path, relative gap 1e-5)", x_3d,
+                    info_3d)
+    gap_3d = float(info_3d.gap[0])
+    check(dF <= gap_3d + gap_ref3 + F_ROUND * F3_ref,
+          f"tvgen_nd's certificate does not hold ({dF} > {gap_3d})")
+    x3, i3 = tvnd._run_pdhg3d_fused(t(V)[None], (LAM3,) * 3, 1000,
+                                    DEFAULT_COMBINER, "cp-acc", gap_tol=0.0)
+    _, e = vs_ref3("3D engine, 1000 iterations", x3[0].cpu().numpy(), i3)
+    check(e <= XBAR, f"3D PDHG at 1000 iterations is {e} from the float64 "
+          f"reference (bar {XBAR})")
+    vs_ref3("tvgen Parallel Dykstra (main path, 35 sweeps)", x_gen, info_gen)
+
+    # TV-L2 against the same solves in float64 on the CPU.
+    xs_ref, _ = tv1d_l2.tv2_ms(Y1t[:64].double().cpu(), LAML2)
+    e_l2 = float((x_l2[:64].double().cpu() - xs_ref).abs().max())
+    e_t2 = float(np.abs(x_t2 - ptv.tv2_1d(y1, 2.0, device="cpu")).max())
+    t0 = time.perf_counter()
+    x_p2_ref = ptv.tvp_2d(Y2.astype(np.float64), LAM2D, LAM2D, 2, 2,
+                          device="cpu")
+    e_p2 = float(np.abs(x_p2 - x_p2_ref).max())
+    x_long_ref = ptv.tv2_1d(ylong.astype(np.float64), LAMLONG, method="ms",
+                            device="cpu")
+    e_long = float(np.abs(x_long - x_long_ref).max())
+    print(f"[check] TV-L2 vs float64 on the CPU ({time.perf_counter() - t0:.1f}"
+          f" s for the 2D and long references): tv2_batched (64 rows) "
+          f"{e_l2:.3e}, tv2_1d {e_t2:.3e}, tvp_2d p=2 1024^2 {e_p2:.3e}, "
+          f"tv2_1d n=1e6 {e_long:.3e} (tol {TOL['tv2']})")
+    for name, e_ in (("tv2_batched", e_l2), ("tv2_1d", e_t2),
+                     ("tvp_2d p=2", e_p2), ("tv2_1d n=1e6", e_long)):
+        check(e_ <= TOL["tv2"], f"{name} disagrees with float64 on the CPU")
+        xc[name + " vs float64 CPU"] = {"max_abs_err": e_}
+
     # -- 4. times -----------------------------------------------------------
     # Whole calls, numpy in and out (CUDA events around host-synchronous
     # calls: wall time on the card's clock).
@@ -491,6 +724,22 @@ def main(out_dir):
     times["tv1_batched_signals_s"] = B1D / (times["tv1_batched_ms"] / 1e3)
     times["tv1_1d_ms"] = cuda_ms(lambda: ptv.tv1_1d(y1, 2.0, method="pn"),
                                  reps=3)
+    times["tvgen_nd_cp_acc_3d_ms"] = cuda_ms(
+        lambda: ptv.tvgen_nd(V, [LAM3] * 3, [1, 2, 3], [1.0] * 3,
+                             method="chambolle-pock-acc"), reps=3)
+    times["tvgen_nd_cp_acc_3d_mvox_s"] = (
+        L3 * M3 * N3 / 1e6 / (times["tvgen_nd_cp_acc_3d_ms"] / 1e3))
+    times["tvgen_pd_3d_ms"] = cuda_ms(
+        lambda: ptv.tvgen(V, [LAM3] * 3, [1, 2, 3], [1.0] * 3), reps=1)
+    times["tv2_batched_ms"] = cuda_ms(
+        lambda: tv1d_l2.tv2_batched(Y1t, LAML2, method="ms"), reps=3)
+    times["tv2_batched_signals_s"] = B1D / (times["tv2_batched_ms"] / 1e3)
+    times["tv2_1d_ms"] = cuda_ms(lambda: ptv.tv2_1d(y1, 2.0), reps=3)
+    times["tvp_2d_p2_ms"] = cuda_ms(
+        lambda: ptv.tvp_2d(Y2, LAM2D, LAM2D, 2, 2), reps=1)
+    times["tvp_2d_p2_mpx_s"] = M2D * N2D / 1e6 / (times["tvp_2d_p2_ms"] / 1e3)
+    times["tv2_1d_long_ms"] = cuda_ms(
+        lambda: ptv.tv2_1d(ylong, LAMLONG, method="ms"), reps=3)
     for k_, v in times.items():
         print(f"[time] {k_} = {v:.4f}  ({card})")
 
@@ -537,6 +786,39 @@ def main(out_dir):
                      launches_by_path=by_path["B3"], max_abs_err=errs["pdhg"],
                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
                      library_ms=None))
+    # B4, scalar lam 1.0 at (10000, 1000) (the tv2_batched call), cold: each
+    # fiber runs 2 bootstrap solves plus its secant steps.
+    steps = math.ceil(math.log2(N1D))
+    solves = int((it_cold + 2).sum())
+    ms = cuda_ms(lambda: B4.ms_tv2_fused(Y1t, lam=LAML2))
+    plain_ms = cuda_ms(lambda: B4.ms_tv2_fused_plain(Y1t, lam=LAML2), reps=1)
+    b, f = bound_ms(B1D * N1D * 8,
+                    N1D * solves * (MS_PCR_OPS_PER_STEP * steps
+                                    + MS_OPS_PER_SOLVE))
+    kern.append(dict(name="B4 ms_tv2_fused (scalar lam, 10000x1000)",
+                     route="cuda", source="proxtv_tpu_torch/csrc/ms_fused.cu",
+                     replaces="proxtv_tpu/ops/kernels/ms_fused.py:194",
+                     launches=sum(by_path["B4"].values()),
+                     launches_by_path=by_path["B4"], max_abs_err=errs["ms"],
+                     ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
+                     library_ms=None, secant_iters_mean=float(
+                         it_cold.float().mean())))
+    # B6, one cp-acc chunk of the 32 x 256 x 256 tvgen_nd path.
+    cells = L3 * M3 * N3
+    sd3 = sched3("cp-acc")
+    ms = cuda_ms(lambda: B6.pdhg3d_chunk(sd3, *st3, Vc, **geo3))
+    plain_ms = cuda_ms(lambda: B6.pdhg3d_chunk_plain(sd3, *st3, Vc, **geo3),
+                       reps=3)
+    b, f = bound_ms(cells * 4 * 11, cells * k3 * PDHG3D_OPS_PER_STEP)
+    kern.append(dict(name=f"B6 pdhg3d_chunk (K={k3}, core {tile3}, "
+                          f"32x256x256 canvas)",
+                     route="cuda",
+                     source="proxtv_tpu_torch/csrc/pdhg3d_fused.cu",
+                     replaces="proxtv_tpu/ops/kernels/pdhg3d_fused.py:262",
+                     launches=sum(by_path["B6"].values()),
+                     launches_by_path=by_path["B6"],
+                     max_abs_err=errs["pdhg3d"], ms=ms, plain_ms=plain_ms,
+                     bound_ms=b, bound_by=f, library_ms=None))
     for k_ in kern:
         print(f"[kernel] {k_['name']}: {k_['ms']:.4f} ms (plain "
               f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms by "
@@ -547,7 +829,12 @@ def main(out_dir):
     breakdown = {}
     for name, fn in (("tv1_2d auto", lambda: ptv.tv1_2d(Y2, LAM2D)),
                      ("tv1_2d dr", lambda: ptv.tv1_2d(Y2, LAM2D, method="dr")),
-                     ("tv1_1d pn", lambda: ptv.tv1_1d(y1, 2.0, method="pn"))):
+                     ("tv1_1d pn", lambda: ptv.tv1_1d(y1, 2.0, method="pn")),
+                     ("tvgen_nd cp-acc 3d", lambda: ptv.tvgen_nd(
+                         V, [LAM3] * 3, [1, 2, 3], [1.0] * 3,
+                         method="chambolle-pock-acc")),
+                     ("tv2_batched ms", lambda: tv1d_l2.tv2_batched(
+                         Y1t, LAML2, method="ms"))):
         breakdown[name] = profile_call(fn)
         b_ = breakdown[name]
         top = ", ".join(f"{k_} {v:.3f} ms" for k_, v in b_["top"])
@@ -560,7 +847,9 @@ def main(out_dir):
                   tolerances=TOL, total_s=time.perf_counter() - t_all,
                   auto_iters=int(info_auto.iters[0]),
                   dr_sweeps=int(info_dr.iters[0]), cross_check=xc,
-                  F_ref=F_ref, gap_ref=gap_ref)
+                  F_ref=F_ref, gap_ref=gap_ref, F3_ref=F3_ref,
+                  gap_ref3=gap_ref3, tvgen_nd_iters=int(info_3d.iters[0]),
+                  tvgen_sweeps=int(info_gen.iters[0]))
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(f"[done] {report['total_s']:.1f} s")

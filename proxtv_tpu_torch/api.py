@@ -1,6 +1,11 @@
 """User-facing API with the reference's function names, signatures and defaults
 (the port's counterpart of ``proxtv_tpu.api``; reference ``prox_tv/__init__.py``).
 
+This slice: ``tv1_1d`` (projected Newton), ``tv2_1d``, ``tv1_2d``,
+``tvp_2d`` (p in {1, 2}), ``tvgen``, ``tvgen_nd``, ``tv`` (scalar-lam
+branches) and ``tv_value``.  What is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
+
 Inputs are numpy-like arrays; outputs are numpy arrays.  The entry points run
 on the card (``device="cuda"``, float32, the JAX package's accelerator
 precision) unless the caller passes ``device="cpu"`` (float64, as the tests
@@ -35,6 +40,11 @@ def _device(device):
     return dev, torch.float64
 
 
+def _tensor(x, dev, dt):
+    """numpy-like input -> tensor of the solve's dtype on its device."""
+    return torch.as_tensor(np.asarray(x, dtype=float), dtype=dt).to(dev)
+
+
 def _ret(x2d, info, return_info):
     x = x2d[0].detach().cpu().numpy()
     if return_info:
@@ -63,8 +73,7 @@ def tv1_1d(x, w, method="auto", sigma=0.05, maxbacktracks=None,
             f"method={method!r}: the direct 1D engines are not ported yet "
             "(ROADMAP A8); use method='pn' or 'auto'")
     dev, dt = _device(device)
-    y = torch.as_tensor(np.asarray(x, dtype=float).reshape(1, -1),
-                        dtype=dt).to(dev)
+    y = _tensor(x, dev, dt).reshape(1, -1)
     cfg = TV1Config(sigma=float(sigma))
     out, info = tv1d_l1.tv1_pn(y, float(w), cfg=cfg)
     return _ret(out, info, return_info)
@@ -84,11 +93,120 @@ def tv1_2d(x, w, n_threads=1, max_iters=0, method="auto", return_info=False,
     from .models import tv2d
 
     dev, dt = _device(device)
-    y = torch.as_tensor(np.asarray(x, dtype=float)[None, ...],
-                        dtype=dt).to(dev)
+    y = _tensor(x, dev, dt)[None]
     if method == "auto":
         method = ("chambolle-pock-acc"
                   if y.is_cuda and y.dtype == torch.float32 else "dr")
     out, info = tv2d.tv1_2d_batched(y, float(w), method=method,
                                     max_iters=int(max_iters))
     return _ret(out, info, return_info)
+
+
+def tv2_1d(x, w, method="mspg", return_info=False, device=None):
+    """1D TV-L2 (grouped-norm) prox: min_y 0.5||x-y||^2 + w ||Dy||_2.
+
+    Reference: prox_tv/__init__.py:257-309.  Methods: ms, pg, mspg
+    (default).  On the card ms and mspg run kernel B4 (n <= 8192; longer
+    signals take the spectral secular path on ``torch.fft``).
+    """
+    assert w >= 0
+    from .ops import tv1d_l2
+
+    dev, dt = _device(device)
+    y = _tensor(x, dev, dt).reshape(1, -1)
+    out, info = tv1d_l2.tv2_batched(y, float(w), method=method)
+    return _ret(out, info, return_info)
+
+
+def tvp_2d(x, w_col, w_row, p_col, p_row, n_threads=1, max_iters=0,
+           return_info=False, device=None):
+    """2D general-norm TV prox via Douglas-Rachford (reference :484-530).
+    This slice takes p_col, p_row in {1, 2} (fiber passes on kernels B1 / B4
+    on the card); other p raise ``NotImplementedError`` (ROADMAP A10)."""
+    from .models import tv2d
+
+    assert w_col >= 0 and w_row >= 0 and p_col >= 1 and p_row >= 1
+    dev, dt = _device(device)
+    y = _tensor(x, dev, dt)[None]
+    out, info = tv2d.tvp_2d_batched(y, float(w_col), float(w_row),
+                                    float(p_col), float(p_row),
+                                    max_iters=int(max_iters))
+    return _ret(out, info, return_info)
+
+
+def tvgen(x, ws, ds, ps, n_threads=1, max_iters=0, return_info=False,
+          device=None):
+    """Generalized multidimensional TV prox (reference :533-600), with the
+    intended (MATLAB) dispatch: a 2D signal penalized on both dims goes to
+    Douglas-Rachford, two terms to Proximal Dykstra, more to Parallel
+    Proximal Dykstra.  Each p in {1, 2} (ROADMAP A10 for the rest)."""
+    from .models import tvnd
+
+    ws = [float(v) for v in ws]
+    ds = [int(v) for v in ds]
+    ps = [float(v) for v in ps]
+    assert len(ws) == len(ds) == len(ps)
+    dev, dt = _device(device)
+    out, info = tvnd.tvgen_dispatch(_tensor(x, dev, dt), ws, ds, ps,
+                                    max_iters=int(max_iters))
+    return _ret(out[None], info, return_info)
+
+
+def tvgen_nd(x, ws, ds, ps, max_iters=0, method="pd", return_info=False,
+             device=None):
+    """ND combiner with explicit method choice: 'pd' (Parallel Proximal
+    Dykstra), 'pd2', 'pdr' (Parallel Douglas-Rachford, reference
+    src/TVNDopt.cpp:280), 'yang', and for a 3D volume penalized on all dims
+    with p = 1 on the card, 'condat' / 'chambolle-pock' /
+    'chambolle-pock-acc' (kernel B6)."""
+    from .models import tvnd
+
+    dev, dt = _device(device)
+    out, info = tvnd.tv_nd_batched(_tensor(x, dev, dt)[None],
+                                   tuple(float(v) for v in ws),
+                                   tuple(int(v) for v in ds),
+                                   tuple(float(v) for v in ps),
+                                   max_iters=int(max_iters), method=method)
+    return _ret(out, info, return_info)
+
+
+def tv(y, lam, p=1.0, threads=1, max_iters=0, return_info=False,
+       device=None):
+    """Polymorphic TV prox front end, dispatching on the type of ``lam``
+    (reference ``matlab/TV.m:22-84``).  This slice ports the scalar-lam
+    branches: a 1D ``y`` with p = 1 goes to :func:`tv1_1d`, p = 2 to
+    :func:`tv2_1d`; an ND ``y`` goes to :func:`tvgen` with ``lam`` and ``p``
+    replicated over every dimension (TV.m:79-80).  A pair of weight
+    matrices (weighted 2D, ROADMAP A6w), a weight vector (weighted 1D,
+    ROADMAP A8) and a 1D p outside {1, 2} (TV-Lp, ROADMAP A10) raise
+    ``NotImplementedError``."""
+    if isinstance(lam, (list, tuple)):
+        raise NotImplementedError("weighted 2D TV (a pair of weight "
+                                  "matrices) is not ported yet: ROADMAP A6w")
+    lam_arr = np.asarray(lam, dtype=float)
+    if lam_arr.size > 1:
+        raise NotImplementedError("vector-weighted 1D TV is not ported yet: "
+                                  "ROADMAP A8")
+    w = float(lam_arr)
+    yv = np.asarray(y)
+    if yv.ndim == 1:
+        if p == 1:
+            return tv1_1d(yv, w, return_info=return_info, device=device)
+        if p == 2:
+            return tv2_1d(yv, w, return_info=return_info, device=device)
+        raise NotImplementedError(f"1D TV-Lp (p = {p}) is not ported yet: "
+                                  "ROADMAP A10")
+    nd = yv.ndim
+    return tvgen(yv, [w] * nd, list(range(1, nd + 1)), [float(p)] * nd,
+                 n_threads=threads, max_iters=max_iters,
+                 return_info=return_info, device=device)
+
+
+def tv_value(x, ws, ds, ps, device=None):
+    """Value of the generalized TV penalty (reference TVval,
+    src/TVNDopt.cpp:524)."""
+    from .models import tvnd
+
+    dev, dt = _device(device)
+    return float(tvnd.tv_value(_tensor(x, dev, dt), [float(v) for v in ws],
+                               [int(v) for v in ds], [float(v) for v in ps]))

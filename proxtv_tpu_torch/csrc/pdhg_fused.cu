@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block.cuh"
+
 namespace {
 
 constexpr int kTile = 32;
@@ -53,22 +55,6 @@ __device__ __forceinline__ Masks masks(int row, int col, int n_valid,
   m.vr = col < n_valid - 1 && m.in_img && q <= m_valid - 1;
   m.vc = q <= m_valid - 2 && m.in_img && col < n_valid;
   return m;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  v = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0.f;
-  return warp_sum(v);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -187,8 +173,8 @@ pdhg_kernel(const float* __restrict__ sched, const float* __restrict__ X,
     }
   }
   if (GAP != nullptr) {
-    const float gs = block_sum(e_gap, red);
-    const float os = block_sum(e_obj, red);
+    const float gs = block_reduce<kSum>(e_gap, red);
+    const float os = block_reduce<kSum>(e_obj, red);
     if (threadIdx.x == 0) {
       const int b = blockIdx.y * gridDim.x + blockIdx.x;
       GAP[b] = gs;

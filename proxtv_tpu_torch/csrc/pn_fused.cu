@@ -35,62 +35,11 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "block.cuh"
+
 namespace {
 
 constexpr float kEps = 1e-10f;
-
-__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
-
-enum { kSum = 0, kMax = 1, kMin = 2 };
-
-template <int OP>
-__device__ __forceinline__ float op2(float a, float b) {
-  if (OP == kSum) return a + b;
-  if (OP == kMax) return fmaxf(a, b);
-  return fminf(a, b);
-}
-
-template <int OP>
-__device__ __forceinline__ float warp_reduce(float v) {
-  // Butterfly: every lane ends with the same (commutative) pair sums, so
-  // the result is bitwise identical across lanes.
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = op2<OP>(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide reduction; every thread returns the same value.  The leading
-// barrier keeps the previous reduction's readers off the buffer.
-template <int OP>
-__device__ float block_reduce(float v, float* red) {
-  v = warp_reduce<OP>(v);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-  const float ident = OP == kSum ? 0.f : (OP == kMax ? -inf_f() : inf_f());
-  v = lane < nw ? red[lane] : ident;
-  return warp_reduce<OP>(v);
-}
-
-// Last element of the previous thread's chunk (0 for thread 0): the
-// shift_right(x, 1, 0) neighbour of this thread's first element.
-__device__ float from_prev(float last, float* xch) {
-  __syncthreads();
-  xch[threadIdx.x] = last;
-  __syncthreads();
-  return threadIdx.x > 0 ? xch[threadIdx.x - 1] : 0.f;
-}
-
-// First element of the next thread's chunk (0 for the last thread).
-__device__ float from_next(float first, float* xch) {
-  __syncthreads();
-  xch[threadIdx.x] = first;
-  __syncthreads();
-  return threadIdx.x + 1 < blockDim.x ? xch[threadIdx.x + 1] : 0.f;
-}
 
 // Inclusive prefix sum over the row in the TPU kernel's log-shift order
 // (x += shift_right(x, sh) for sh = 1, 2, 4, ... < n).

@@ -1,14 +1,16 @@
 """Batched 2D anisotropic-TV proximity combiners (port of
-``proxtv_tpu.models.tv2d``, scalar-lam TV-L1 methods).
+``proxtv_tpu.models.tv2d``: the scalar-lam TV-L1 methods, and TV-Lp for
+p in {1, 2} by dr).
 
 Solves, for every image in a batch,
 
-    min_X 0.5 ||X - Y||_F^2 + lam * colTV(X) + lam * rowTV(X)
+    min_X 0.5 ||X - Y||_F^2 + w_col * colTV_p(X) + w_row * rowTV_p(X)
 
 where colTV/rowTV are sums of 1D TV penalties over every column/row fiber.
 Fibers are a batch axis: each row/column pass is ONE batched 1D prox call on
-a (B*fibers, len) tensor.  Every splitting engine carries the projected-Newton
-dual of every fiber across outer iterations (the reference's Workspace warm
+a (B*fibers, len) tensor.  Every splitting engine carries the warm-start
+state of every fiber across outer iterations (the projected-Newton dual for
+p = 1, the More-Sorensen alpha for p = 2: the reference's Workspace warm
 restart, src/utils.h:30-33).
 
 Engines (method strings of the reference Python layer,
@@ -19,10 +21,10 @@ prox_tv/__init__.py:355-443): ``pd`` (Proximal Dykstra, src/TV2Dopt.cpp:59),
 src/TV2Dopt.cpp:587) and ``kolmogorov`` (exact column prox + dualized rows,
 src/TV2Dopt.cpp:907).
 
-On the card the fiber passes run kernel B1 and the primal-dual engines run
-the chunked PDHG solve over kernel B3; a CUDA input those kernels cannot take
-(not float32, a side outside 2..8192) raises.  On the CPU the plain
-compositions run.  The loops are Python loops: each
+On the card the fiber passes run kernel B1 (p = 1) or B4 (p = 2) and the
+primal-dual engines run the chunked PDHG solve over kernel B3; a CUDA input
+those kernels cannot take (not float32, a side outside 2..8192) raises.  On
+the CPU the plain compositions run.  The loops are Python loops: each
 combiner sweep and each PDHG certificate reads one small value to the host.
 """
 from __future__ import annotations
@@ -31,14 +33,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops import tv1d_l1
+from ..ops import tv1d_l1, tv1d_l2
 from ..ops.kernels import gating
 from ..utils import debug
 from ..utils.config import DEFAULT_COMBINER, CombinerConfig
 from ..utils.info import RC_ITERS, RC_OK, make_info
 
 _PER_IMAGE_LAM = ("per-image lam needs the weighted 2D solver "
-                  "(tv1w_2d_batched), not ported yet: ROADMAP A6")
+                  "(tv1w_2d_batched), not ported yet: ROADMAP A6w")
 
 
 def _np_dtype(dtype):
@@ -73,14 +75,17 @@ def _lam_padded(lam, K, n, dtype, device):
 
 
 def _check_p(p):
-    if p != 1.0:
-        raise NotImplementedError("TV-L2 / TV-Lp fiber proxes are not ported "
-                                  "yet (ROADMAP A9, A10)")
+    if p not in (1.0, 2.0):
+        raise NotImplementedError(f"TV-Lp fiber proxes (p = {p}) are not "
+                                  "ported yet (ROADMAP A10)")
 
 
 def _prox1d(Y2, lam, p: float, method: str):
-    """Batched 1D prox on (K, n) with penalty lam (scalar or (K, n-1))."""
+    """Batched 1D prox on (K, n) with penalty lam (scalar or (K, n-1)) and
+    norm p in {1, 2}."""
     _check_p(p)
+    if p == 2.0:
+        return tv1d_l2.tv2_ms(Y2, lam)[0]
     if method == "pn":
         if gating.gate(Y2, "pn"):
             from ..ops.kernels import pn_fused
@@ -97,15 +102,24 @@ def _prox1d(Y2, lam, p: float, method: str):
 
 
 def _prox_state_init(K, n, p: float, dtype, device):
-    """Warm-start state per fiber: the projected-Newton dual (p = 1)."""
+    """Warm-start state per fiber: the projected-Newton dual (p = 1) or the
+    More-Sorensen secular multiplier (p = 2) — the reference's Workspace
+    warm restart (src/utils.h:30-33, src/TVL2opt.cpp:255-257)."""
     _check_p(p)
+    if p == 2.0:
+        return torch.zeros((K,), dtype=dtype, device=device)
     return torch.zeros((K, n - 1), dtype=dtype, device=device)
 
 
 def _prox1d_ws(Y2, lam, p: float, method: str, state):
     """Stateful variant: returns (x, state), warm-starting projected Newton
-    from its dual; direct engines pass the state through."""
+    from its dual and TV-L2 More-Sorensen from its alpha; direct engines pass
+    the state through."""
     _check_p(p)
+    if p == 2.0:
+        x, _, alpha = tv1d_l2.tv2_ms(Y2, lam, alpha_init=state,
+                                     return_alpha=True)
+        return x, alpha
     if method == "pn":
         if gating.gate(Y2, "pn"):
             from ..ops.kernels import pn_fused
@@ -644,7 +658,7 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
     Methods: dr (default), pd, yang, condat, chambolle-pock,
     chambolle-pock-acc, kolmogorov (reference prox_tv/__init__.py:355-443).
     ``lam`` is a scalar; a per-image (B,) lam raises ``NotImplementedError``
-    until the weighted solver is ported (ROADMAP A6).  The device decides
+    until the weighted solver is ported (ROADMAP A6w).  The device decides
     the path: CUDA runs the kernels, the CPU the plain compositions.
 
     Returns (X, SolverInfo) with per-image iters / gap / rc.
@@ -684,3 +698,22 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
         cap = max_iters or cfg.max_iters_kolmogorov
         return _run_kolmogorov(Y, lam, lam, cap, tol, inner_method)
     raise ValueError(f"Unknown 2D method: {method!r}")
+
+
+def tvp_2d_batched(Y, w_col, w_row, p_col: float, p_row: float,
+                   max_iters: int = 0, cfg: CombinerConfig = DEFAULT_COMBINER):
+    """Batched general-norm 2D TV prox by the dr splitting (reference DR2_TV
+    with p arguments), on whatever device ``Y`` lies.  ``p_col``/``p_row``
+    in {1, 2}: the fiber passes run kernel B1 (p = 1) or B4 (p = 2, warm
+    started from each fiber's alpha) on the card; other p raise
+    ``NotImplementedError`` until TV-Lp is ported (ROADMAP A10)."""
+    B, M, N = Y.shape
+    _check_p(p_col)
+    _check_p(p_row)
+    w_col = _scalar(w_col, Y.dtype)
+    w_row = _scalar(w_row, Y.dtype)
+    cfgs = (_make_col_prox(B, M, N, w_col, p_col, "pn", None, Y.dtype,
+                           Y.device),
+            _make_row_prox(B, M, N, w_row, p_row, "pn", None, Y.dtype,
+                           Y.device))
+    return _dispatch(Y, cfgs, "dr", max_iters, cfg)

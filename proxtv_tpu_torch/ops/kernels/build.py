@@ -20,7 +20,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "proxtv_tpu_torch")
-SOURCES = ("pcr.cu", "pn_fused.cu", "pdhg_fused.cu")
+SOURCES = ("pcr.cu", "pn_fused.cu", "pdhg_fused.cu", "ms_fused.cu",
+           "pdhg3d_fused.cu")
+HEADERS = ("block.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +47,14 @@ _SIGNATURES = {
     "pdhg_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "pdhg_cert_blocks": (_I, _I),
+    # y, lam_rows (or NULL), lam_scalar, alpha_init (or NULL), x, alpha, gap,
+    # iters, B, n, max_iters, stop_boundary, stream
+    "ms_tv2_fused": (_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # sched, x, xb, u1, u2, u3, y, xo, xbo, u1o, u2o, u3o, Lp, Mp, N, k_steps,
+    # tl, tm, tn, n_valid, m_valid, l_valid, stride, count, pad_top, pad_m,
+    # grad_step, stream
+    "pdhg3d_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -60,7 +70,7 @@ def _nvcc():
 
 def _digest():
     h = hashlib.sha256()
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         with open(os.path.join(CSRC, s), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -38,11 +38,13 @@ def fused_ctx(on: bool):
 
 
 # Lane-length (last-axis) limits per kernel family, the JAX package's limits
-# (gating.py:59-67) for the three kernels the port has.
+# (gating.py:59-67) for the five kernels the port has.
 _KIND_LANE_LIMITS = {
     "pn": (2, 8192),        # projected Newton (csrc/pn_fused.cu)
+    "ms": (2, 8192),        # More-Sorensen TV-L2 (csrc/ms_fused.cu)
     "pcr": (2, 8192),       # PCR tridiagonal solve (csrc/pcr.cu)
     "pdhg2d": (1, 8192),    # 2D PDHG chunk (csrc/pdhg_fused.cu)
+    "pdhg3d": (1, 2048),    # 3D PDHG chunk (csrc/pdhg3d_fused.cu)
 }
 
 
@@ -84,3 +86,22 @@ def pdhg2d_params():
     (one certificate and one host read per chunk); ``tm`` is the core height,
     which sets the canvas's row padding."""
     return 8, 32
+
+
+def pdhg3d_params():
+    """(k_steps, (tl, tm, tn)) of the CUDA 3D PDHG chunk.
+
+    The TPU's VMEM budget (``proxtv_tpu.ops.kernels.pdhg3d_fused.
+    best_params``) kept whole N-lines resident; a block's 227 KB of shared
+    memory cannot (6 fields of a 12 x 12 window of 256-long lines take
+    884 KB).  So the CUDA kernel tiles all three axes: a (tl, tm, tn) core
+    plus a halo of K cells on every side.  The stencil reaches one cell per
+    step in each direction (the dual update reads xbar one cell ahead, the
+    primal update reads the duals one cell behind), so after K steps the
+    cells at least K inside the window are exact; the certificate runs
+    outside the kernel, so no wider ring is needed.  K = 2 with an
+    8 x 8 x 32 core gives a 12 x 12 x 36 window: 6 fields x 5184 cells x
+    4 B = 124 KB (one block per SM), computing 2.5x the cells it keeps, and
+    two iterations per pass over device memory (a chunk reads 6 fields and
+    writes 5, so the traffic per iteration halves against K = 1)."""
+    return 2, (8, 8, 32)

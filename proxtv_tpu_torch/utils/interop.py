@@ -40,6 +40,16 @@ def pn_dual(w, device="cpu", dtype=None) -> torch.Tensor:
     return t
 
 
+def ms_alpha(a, device="cpu", dtype=None) -> torch.Tensor:
+    """A ``(B,)`` More-Sorensen secular multiplier
+    (``tv2_ms(..., return_alpha=True)``) as a warm start for the port's
+    ``tv2_ms(alpha_init=...)``."""
+    t = tensor(a, device, dtype)
+    if t.ndim != 1:
+        raise ValueError(f"MS alpha must be (B,), got {tuple(t.shape)}")
+    return t
+
+
 def pdhg_duals(u0, device="cpu", dtype=None):
     """A PDHG dual pair ``(u_row, u_col)`` as the port's ``u0``."""
     u_row, u_col = u0

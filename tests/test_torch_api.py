@@ -54,6 +54,14 @@ def test_api_without_card_raises(monkeypatch):
         ptv.tv1_2d(np.zeros((8, 8)), 0.1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ptv.tv1_1d(np.zeros(8), 0.1)
+    for call in (lambda: ptv.tv2_1d(np.zeros(8), 0.1),
+                 lambda: ptv.tvp_2d(np.zeros((8, 8)), 0.1, 0.1, 2, 2),
+                 lambda: ptv.tvgen(np.zeros((3, 4, 5)), [0.1] * 3, [1, 2, 3],
+                                   [1] * 3),
+                 lambda: ptv.tv(np.zeros(8), 0.1, p=2),
+                 lambda: ptv.tv_value(np.zeros(8), [1.0], [1], [1.0])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_pn_dual_warm_start_carried_from_jax():
@@ -96,10 +104,11 @@ def test_port_imports_neither_jax_nor_reference_package():
     code = (
         "import sys\n"
         "import proxtv_tpu_torch, proxtv_tpu_torch.api\n"
-        "from proxtv_tpu_torch.models import tv2d\n"
+        "from proxtv_tpu_torch.models import tv2d, tvnd\n"
+        "from proxtv_tpu_torch.ops import tv1d_l2\n"
         "from proxtv_tpu_torch.ops.kernels import build, pcr, pn_fused, "
-        "pdhg_fused\n"
-        "from proxtv_tpu_torch.utils import interop, debug\n"
+        "pdhg_fused, ms_fused, pdhg3d_fused\n"
+        "from proxtv_tpu_torch.utils import interop, debug, lpnorms\n"
         "from proxtv_tpu_torch.demos import demo_filter_image\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'proxtv_tpu' or m.startswith('proxtv_tpu.')]\n"
@@ -120,3 +129,64 @@ def test_demo_runs_through_port(monkeypatch):
     res = demo.main(device="cpu", methods=("dr", "chambolle-pock-acc"))
     for noisy, den in res.values():
         assert den < noisy
+
+
+@pytest.mark.parametrize("method", ["ms", "pg", "mspg"])
+def test_api_tv2_1d_matches_jax(method):
+    rng = np.random.RandomState(4)
+    x = np.cumsum(rng.randn(150)) * 0.3
+    xj, ij = jptv.tv2_1d(x, 2.0, method=method, return_info=True)
+    xp, ip = ptv.tv2_1d(x, 2.0, method=method, return_info=True,
+                        device="cpu")
+    assert xp.dtype == np.float64 and xp.shape == x.shape
+    np.testing.assert_allclose(xp, xj, atol=1e-8)
+    np.testing.assert_array_equal(ip.iters.numpy(), np.asarray(ij.iters))
+
+
+def test_api_tvp_2d_tvgen_and_tvgen_nd_match_jax():
+    rng = np.random.RandomState(5)
+    X = rng.randn(9, 8)
+    V = rng.randn(4, 5, 6)
+    np.testing.assert_allclose(
+        ptv.tvp_2d(X, 0.3, 0.2, 2, 1, device="cpu"),
+        jptv.tvp_2d(X, 0.3, 0.2, 2, 1), atol=1e-8)
+    np.testing.assert_allclose(
+        ptv.tvgen(V, [0.3, 0.2, 0.25], [1, 2, 3], [1, 2, 1], device="cpu"),
+        jptv.tvgen(V, [0.3, 0.2, 0.25], [1, 2, 3], [1, 2, 1]), atol=1e-8)
+    xp, ip = ptv.tvgen_nd(V, [0.3] * 3, [1, 2, 3], [1, 1, 2], method="pdr",
+                          return_info=True, device="cpu")
+    xj, ij = jptv.tvgen_nd(V, [0.3] * 3, [1, 2, 3], [1, 1, 2], method="pdr",
+                           return_info=True)
+    np.testing.assert_allclose(xp, xj, atol=1e-8)
+    np.testing.assert_array_equal(ip.iters.numpy(), np.asarray(ij.iters))
+
+
+@pytest.mark.parametrize("case", ["1d_p1", "1d_p2", "2d", "3d_p2"])
+def test_api_tv_dispatch_matches_jax(case):
+    rng = np.random.RandomState(6)
+    y, p = {"1d_p1": (np.cumsum(rng.randn(60)), 1), "1d_p2":
+            (np.cumsum(rng.randn(60)), 2), "2d": (rng.randn(8, 7), 1),
+            "3d_p2": (rng.randn(4, 5, 3), 2)}[case]
+    ref = (jptv.tv1_1d(y, 0.8, method="pn") if case == "1d_p1"
+           else jptv.tv(y, 0.8, p=p))
+    np.testing.assert_allclose(ptv.tv(y, 0.8, p=p, device="cpu"), ref,
+                               atol=1e-8)
+
+
+def test_api_tv_unported_branches_raise():
+    y = np.zeros((6, 5))
+    with pytest.raises(NotImplementedError, match="A6w"):
+        ptv.tv(y, [np.ones((5, 5)), np.ones((6, 4))], device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        ptv.tv(np.zeros(6), np.ones(5), device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        ptv.tv(np.zeros(6), 0.5, p=1.5, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        ptv.tvp_2d(y, 0.5, 0.5, 3, 1, device="cpu")
+
+
+def test_api_tv_value_matches_jax():
+    X = np.random.RandomState(7).randn(4, 5, 6)
+    args = ([1.0, 2.0, 0.5], [1, 3, 2], [2.0, 1.0, 1.5])
+    np.testing.assert_allclose(ptv.tv_value(X, *args, device="cpu"),
+                               jptv.tv_value(X, *args), rtol=1e-12)

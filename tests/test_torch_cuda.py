@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from proxtv_tpu_torch.ops.kernels import ms_fused as MSK
 from proxtv_tpu_torch.ops.kernels import pcr as PK
+from proxtv_tpu_torch.ops.kernels import pdhg3d_fused as P3K
 from proxtv_tpu_torch.ops.kernels import pdhg_fused as PPK
 from proxtv_tpu_torch.ops.kernels import pn_fused as PPF
 
@@ -224,3 +226,143 @@ def test_small_image_runs_the_pdhg_kernel(dev):
     assert PPK.LAUNCHES.value > b3
     np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
                                atol=1e-3)
+
+
+def _ms_inputs(rng, mode, B, n):
+    Y = torch.from_numpy(rng.randn(B, n).astype(np.float32))
+    kw = {"lam": 1.0}
+    if mode in ("rows", "warm"):
+        lams = np.resize(np.array([0.0, 0.4, 1.0, 2.0, 50.0, 1e6],
+                                  np.float32), B)
+        kw = {"lam_rows": torch.from_numpy(lams)}
+    if mode == "warm":
+        kw["alpha_init"] = MSK.ms_tv2_fused_plain(Y * 0.9, **kw)[1]
+    return Y, kw
+
+
+@pytest.mark.parametrize("mode,B,n", [("scalar", 64, 1000), ("rows", 64, 1000),
+                                      ("warm", 64, 1000), ("scalar", 8, 2),
+                                      ("scalar", 8, 3), ("rows", 12, 129),
+                                      ("warm", 8, 1025), ("scalar", 8, 2049),
+                                      ("rows", 6, 8192)])
+def test_ms_kernel_matches_plain(mode, B, n, dev):
+    """B4 against its plain version (tb = 1), across every template
+    instance: x to 1e-4 in data units, alpha to 1e-4 relative, iteration
+    counts at most one apart (the stop test can sit at rounding noise)."""
+    rng = np.random.RandomState(n)
+    Y, kw = _ms_inputs(rng, mode, B, n)
+    ref, a_ref, g_ref, it_ref = MSK.ms_tv2_fused_plain(Y, tb=1, **kw)
+    before = MSK.LAUNCHES.value
+    x, a, g, it = MSK.ms_tv2_fused(
+        Y.to(dev), **{k: (v.to(dev) if torch.is_tensor(v) else v)
+                      for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert MSK.LAUNCHES.value == before + 1
+    np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(a.cpu().numpy(), a_ref.numpy(), rtol=1e-4,
+                               atol=1e-6)
+    assert np.abs(it.cpu().numpy() - it_ref.numpy()).max() <= 1
+    assert np.all(g.cpu().numpy() >= 0)
+
+
+def _canvas3(rng, Lp, Mp, N, hl):
+    f = [rng.randn(Lp, Mp, N).astype(np.float32) for _ in range(6)]
+    for a in f[:5]:
+        a[:hl] = np.nan  # garbage the kernel must keep out of the volumes
+    return [torch.from_numpy(a) for a in f]
+
+
+@pytest.mark.parametrize("variant,tile", [("cp", None), ("cp-acc", None),
+                                          ("condat", None),
+                                          ("cp-acc", (3, 5, 7))])
+def test_pdhg3d_kernel_matches_plain(variant, tile, dev):
+    """B6 against its plain version on a padded canvas of two stacked
+    volumes (gap layers, M offset, NaN in the leading layers): every cell,
+    NaN where the plain version has NaN."""
+    rng = np.random.RandomState(5)
+    L, M, N, count, k = 4, 11, 37, 2, 2
+    stride, hl, hm = L + 2, 4, 3
+    Lp, Mp = count * stride + 2 * hl, M + 2 * hm + 1
+    t = _canvas3(rng, Lp, Mp, N, hl)
+    sched = torch.from_numpy(P3K.make_schedule3(
+        k, (0.3, 0.4, 0.35), np.float32(0.6), np.float32(0.1), variant, 4.0))
+    kw = dict(k_steps=k, n_valid=N - 2, m_valid=M, l_valid=L, stride=stride,
+              count=count, pad_top=hl, pad_m=hm,
+              grad_step=variant == "condat")
+    ref = P3K.pdhg3d_chunk_plain(sched, *t, **kw)
+    before = P3K.LAUNCHES.value
+    out = P3K.pdhg3d_chunk(sched.to(dev), *(a.to(dev) for a in t), tile=tile,
+                           **kw)
+    torch.cuda.synchronize()
+    assert P3K.LAUNCHES.value == before + 1
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5)
+
+
+def test_tv2_and_tvnd_on_card_match_cpu_float64(dev):
+    """The new call sites through their kernels against the float64 CPU
+    compositions: tv2_ms (B4), the spectral path (n > 8192, no kernel),
+    tvp_2d_batched with p = 2 (warm-started B4) and the 3D cp-acc engine
+    (B6) against Parallel Dykstra, at the JAX tests' bars."""
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import tv1d_l2
+
+    rng = np.random.RandomState(13)
+    Y = rng.randn(16, 300)
+    lams = torch.from_numpy(np.resize([0.0, 0.7, 3.0, 1e4], 16))
+    ref, _ = tv1d_l2.tv2_ms(torch.from_numpy(Y), lams)
+    b4 = MSK.LAUNCHES.value
+    x, info = tv1d_l2.tv2_ms(torch.from_numpy(Y).float().to(dev),
+                             lams.float().to(dev))
+    assert MSK.LAUNCHES.value == b4 + 1
+    np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                               atol=2e-3)
+    ylong = np.cumsum(rng.randn(1, 12289)) * 0.05 + rng.randn(1, 12289)
+    ref, _ = tv1d_l2.tv2_ms(torch.from_numpy(ylong), 8.0)
+    x, info = tv1d_l2.tv2_ms(torch.from_numpy(ylong).float().to(dev), 8.0)
+    assert int(info.rc[0]) == 0
+    np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                               atol=2e-3)
+    X = rng.randn(1, 20, 24)
+    ref, _ = tv2d.tvp_2d_batched(torch.from_numpy(X), 0.4, 0.3, 2.0, 2.0,
+                                 max_iters=300)
+    b4 = MSK.LAUNCHES.value
+    x, _ = tv2d.tvp_2d_batched(torch.from_numpy(X).float().to(dev), 0.4, 0.3,
+                               2.0, 2.0, max_iters=300)
+    assert MSK.LAUNCHES.value > b4
+    np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                               atol=2e-3)
+    V = rng.randn(1, 4, 10, 9)
+    ref, _ = tvnd.tv_nd_batched(torch.from_numpy(V), (0.3,) * 3, (1, 2, 3),
+                                (1.0,) * 3, max_iters=600, method="pd")
+    b6 = P3K.LAUNCHES.value
+    x, info = tvnd.tv_nd_batched(torch.from_numpy(V).float().to(dev),
+                                 (0.3,) * 3, (1, 2, 3), (1.0,) * 3,
+                                 method="chambolle-pock-acc")
+    assert P3K.LAUNCHES.value > b6 and int(info.rc[0]) == 0
+    np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("case", ["tv2_ms_f64", "tv2_mspg_f64", "tvnd_cp_f64",
+                                  "tvnd_wide_n", "ms_n1"])
+def test_new_call_sites_raise_on_the_card(case, dev):
+    """B4's and B6's call sites launch their kernel for a CUDA tensor or
+    raise; none runs the plain composition on the card."""
+    from proxtv_tpu_torch.models import tvnd
+    from proxtv_tpu_torch.ops import tv1d_l2
+
+    y64 = torch.randn((4, 32), dtype=torch.float64, device=dev)
+    calls = {
+        "tv2_ms_f64": lambda: tv1d_l2.tv2_ms(y64, 0.5),
+        "tv2_mspg_f64": lambda: tv1d_l2.tv2_mspg(y64, 0.5),
+        "tvnd_cp_f64": lambda: tvnd.tv_nd_batched(
+            torch.randn((1, 3, 4, 5), dtype=torch.float64, device=dev),
+            (0.3,) * 3, (1, 2, 3), (1.0,) * 3, method="chambolle-pock-acc"),
+        "tvnd_wide_n": lambda: tvnd.tv_nd_batched(
+            torch.randn((1, 2, 3, 2049), device=dev), (0.3,) * 3, (1, 2, 3),
+            (1.0,) * 3, method="chambolle-pock-acc"),
+        "ms_n1": lambda: tv1d_l2.tv2_ms(y64[:, :1].float(), 0.5),
+    }
+    with pytest.raises(ValueError):
+        calls[case]()

@@ -5,7 +5,7 @@
 
 Phases (each failure ends the run with a non-zero exit and no result line):
 
-1. build the five hand-written kernels from ``proxtv_tpu_torch/csrc`` and
+1. build the six hand-written kernels from ``proxtv_tpu_torch/csrc`` and
    print the card (``nvidia-smi`` name and power limit) and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with the tolerances in ``TOL``;
@@ -18,10 +18,15 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    PDHG, B6) and ``api.tvgen`` (Parallel Dykstra, B1), TV-L2 through
    ``tv2_batched`` on 10000 x 1000 at lam 1.0, ``api.tv2_1d`` and
    ``api.tvp_2d`` with p = 2 at 1024^2 (More-Sorensen, B4), the 10^6-long
-   TV-L2 signal (the spectral path, no kernel), and the image demo; then
-   hold the outputs against float64 references: independent float64
+   TV-L2 signal (the spectral path, no kernel), TV-Lp through ``tvp_batched``
+   on 512 x 1000 at lam 0.7 for p in {1.5, 3, 5}, ``api.tvp_1d`` and
+   ``api.tv`` with p = 1.5, ``api.tvp_2d`` with p = 1.5 at 512^2, 35 sweeps
+   (GPFW, B5; the setup solve on B2), the 10^6-long TV-Lp signal (the FW
+   composition and the PCR composition, no kernel), and the image demo;
+   then hold the outputs against float64 references: independent float64
    primal-dual solves on the card for 1024^2 and for the volume, the same
-   calls in float64 on the CPU for the 1D and TV-L2 calls;
+   calls in float64 on the CPU for the 1D, TV-L2 and TV-Lp calls, the
+   KKT certificate of tests/test_tv1d_lp.py for the long TV-Lp signal;
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line;
 5. profile the main-path calls: device time by kernel and the idle share.
@@ -69,9 +74,24 @@ TOL = {
     # 3D PDHG chunk (B6): absolute on the K-step state (O(1) values, about
     # ten float32 roundings per cell per step, FMA contraction differs).
     "pdhg3d": 1e-5,
+    # GPFW (B5), stated before its first smoke run.  Converged: the primal
+    # x = y + D'w within 5e-3 absolute and its objective within 1e-5
+    # relative (plus 1e-4 absolute), the bars of tests/test_kernels.py:366-
+    # 368 (kernel against the XLA driver): both stop on the same Holder gap,
+    # and float32 line searches part the iterates at ~1e-3 in directions the
+    # objective barely sees (float32 against float64 of the plain version
+    # parts w by 2.7e-3 at 64 x 1000, p = 1.5).  Fixed 3 trips (max_iters =
+    # 30, both sides): the dual objective 0.5 ||D'w||^2 + y'D'w within 1e-6
+    # relative (float32 against float64 of the plain version: 1.2e-7).
+    # Iteration counts and multipliers are printed, not held.
+    "lp": 5e-3, "lp_obj": 1e-5, "lp_obj_abs": 1e-4, "lp_fixed": 1e-6,
     # TV-L2 outputs against float64 on the CPU: the bar of
     # tests/test_kernels.py:197 (the fused MS kernel against its oracle).
     "tv2": 2e-3,
+    # TV-Lp outputs against the same calls in float64 on the CPU: x within
+    # the "lp" bars above; the 2D call's objective within 1e-4 relative of
+    # the float64 run of the same 35 sweeps (max |dx| printed).
+    "tvp_2d_obj": 1e-4,
 }
 
 # The cross-method bar of tests/test_tv2d.py:64-77: the solution within
@@ -95,6 +115,11 @@ L3, M3, N3 = 32, 256, 256   # the bench's 3D video (bench.py:40)
 LAM3 = 0.3
 LAML2 = 1.0                 # the bench's TV-L2 batch (bench.py:515)
 NLONG, LAMLONG = 1_000_000, 50.0  # the bench's long TV-L2 row (bench.py:37-39)
+BLP, LAMP = 512, 0.7        # the bench's TV-Lp rows (bench.py:516-524)
+PS = (1.5, 3.0, 5.0)
+M5 = N5 = 512               # the bench's general-norm 2D row (bench.py:54-55)
+LAM2P, P2P = 0.3, 1.5
+PLONG = 1.5                 # the bench's long TV-Lp row (bench.py:591-595)
 SEED = 0
 
 
@@ -265,6 +290,9 @@ MS_PCR_OPS_PER_STEP = 16  # r: 2 mul 2 sub 1 div; d: 2 mul 2 sub 1 mul; b, c 6
 MS_OPS_PER_SOLVE = 10     # normalization 6, norm and secant update 4
 PDHG3D_OPS_PER_STEP = 30  # three dual updates 15, divergence 6, primal 6,
                           # xbar 3
+LP_OPS_PER_TRIP = 440     # p = 1.5 (q = 3, chain powers): gradient and gap
+                          # 12, projection 187 (8 Newton steps of 21), nine
+                          # FW steps of 27
 
 
 def main(out_dir):
@@ -281,8 +309,9 @@ def main(out_dir):
                    f"{e}")
     from proxtv_tpu_torch.demos import demo_filter_image as demo
     from proxtv_tpu_torch.models import tv2d, tvnd
-    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_lp
     from proxtv_tpu_torch.ops.kernels import build, gating
+    from proxtv_tpu_torch.ops.kernels import lp_fused as B5
     from proxtv_tpu_torch.ops.kernels import ms_fused as B4
     from proxtv_tpu_torch.ops.kernels import pcr as B2
     from proxtv_tpu_torch.ops.kernels import pdhg3d_fused as B6
@@ -323,7 +352,10 @@ def main(out_dir):
              + rng3.randn(NLONG)).astype(np.float32)     # the long TV-L2 row
     noise1 = (0.05 * rng3.randn(B1D, N1D)).astype(np.float32)
     noise2 = (0.05 * rng3.randn(M2D, N2D)).astype(np.float32)
-    errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0}
+    rng4 = np.random.RandomState(SEED + 2)  # the TV-Lp slice's data
+    Y5 = rng4.randn(M5, N5).astype(np.float32)           # the bench's Y5
+    errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0,
+            "lp": 0.0}
 
     # -- 2. kernels vs plain versions at main-path shapes -----------------
     d = t((0.01 * rng.randn(B1D, N1D)).astype(np.float32))
@@ -500,9 +532,96 @@ def main(out_dir):
         check(err <= TOL["pdhg3d"], f"3D PDHG {variant} disagrees ({err})")
         errs["pdhg3d"] = max(errs["pdhg3d"], err)
 
+    # B5 at the bench's TV-Lp batch (512 x 1000 randn, lam 0.7) for
+    # p in {1.5, 3, 5} (p = 5 is the u-substitution branch), with the inputs
+    # the gpfw driver gives it (centered rows, the projected unconstrained
+    # dual), converged and for a fixed 3 trips; then at one warm-started
+    # fiber pass of the 512^2 2D call, recorded from that call.
+    Yp = Y1t[:BLP]
+
+    def lp_inputs(Y, lam, p):
+        yc, _, B, _, dt, lamv, _, q, w0, inter, zpen = tv1d_lp._common_setup(
+            Y, lam, p)
+        w_s, mu0 = tv1d_lp._start(w0, lamv, q, None, None, dt)
+        return (yc.contiguous(), torch.cat([w_s, yc.new_zeros((B, 1))],
+                                           1).contiguous(),
+                lamv.contiguous(), mu0.contiguous(),
+                (~inter & ~zpen).to(dt).contiguous())
+
+    def lp_primal(yc, w):
+        return yc + np.diff(np.concatenate([np.zeros((yc.shape[0], 1)), w],
+                                           axis=1), axis=1)
+
+    def lp_obj(x, y, lam, p):
+        g = np.abs(np.diff(x, axis=1))
+        return (0.5 * np.sum((x - y) ** 2, axis=1)
+                + lam * np.sum(g ** p, axis=1) ** (1.0 / p))
+
+    def lp_case(name, args, p, max_iters=10 ** 6):
+        w_r, mu_r, _, it_r = B5.gpfw_fused_plain(*args, p, max_iters, tb=1)
+        w, mu, g, it = B5.gpfw_fused(*args, p, max_iters)
+        torch.cuda.synchronize()
+        yc = args[0].double().cpu().numpy()
+        lam = args[2].double().cpu().numpy()
+        w, w_r = w.double().cpu().numpy(), w_r.double().cpu().numpy()
+        x, x_r = lp_primal(yc, w), lp_primal(yc, w_r)
+        ex = float(np.abs(x - x_r).max())
+        F, F_r = lp_obj(x, yc, lam, p), lp_obj(x_r, yc, lam, p)
+        ef = float(np.max(np.abs(F - F_r) / np.maximum(np.abs(F_r), 1e-30)))
+        ok_f = bool(np.all(np.abs(F - F_r) <= TOL["lp_obj"] * np.abs(F_r)
+                           + TOL["lp_obj_abs"]))
+        em = float((torch.abs(mu.cpu() - mu_r.cpu())
+                    / torch.clamp(mu_r.cpu().abs(), min=1e-30)).max())
+        msg = (f"[B5 gpfw] {name}: max|x - x_plain| {ex:.3e} (tol "
+               f"{TOL['lp']}), objective rel {ef:.3e} (tol {TOL['lp_obj']}); "
+               f"mu rel {em:.3e}; mean iterations kernel "
+               f"{float(it.float().mean()):.3f}, plain "
+               f"{float(it_r.float().mean()):.3f}")
+        ok = ex <= TOL["lp"] and ok_f and bool((g >= 0).all())
+        if max_iters < 10 ** 6:
+            def dual(wk):
+                dtw = np.diff(np.concatenate([np.zeros((wk.shape[0], 1)),
+                                              wk[:, :-1],
+                                              np.zeros((wk.shape[0], 1))], 1),
+                              axis=1)
+                return np.sum(dtw * (0.5 * dtw + yc), axis=1)
+            d, d_r = dual(w), dual(w_r)
+            ed = float(np.max(np.abs(d - d_r) / np.maximum(np.abs(d_r),
+                                                           1e-30)))
+            msg += f"; dual objective rel {ed:.3e} (tol {TOL['lp_fixed']})"
+            ok = ok and ed <= TOL["lp_fixed"]
+        print(msg)
+        check(ok, f"GPFW {name} disagrees")
+        errs["lp"] = max(errs["lp"], ex)
+        return it
+
+    lp_args = {}
+    for p in PS:
+        lp_args[p] = lp_inputs(Yp, LAMP, p)
+        lp_case(f"({BLP}, {N1D}) lam {LAMP} p {p}", lp_args[p], p)
+        lp_case(f"({BLP}, {N1D}) lam {LAMP} p {p}, 3 trips", lp_args[p], p,
+                max_iters=30)
+    seen5 = []
+    launch_b5 = B5.gpfw_fused
+
+    def record5(*a, **kw):
+        seen5.append(tuple(x.clone() if torch.is_tensor(x) else x
+                           for x in a) + (kw,))
+        return launch_b5(*a, **kw)
+
+    B5.gpfw_fused = record5
+    try:
+        ptv.tvp_2d(Y5, LAM2P, LAM2P, P2P, P2P, max_iters=2)
+    finally:
+        B5.gpfw_fused = launch_b5
+    check(len(seen5) >= 3, "tvp_2d gave B5 no warm-started pass")
+    *a5, kw5 = seen5[2]
+    lp_case(f"tvp_2d {M5}^2 lam {LAM2P} p {P2P}, warm column pass "
+            f"{tuple(a5[0].shape)}", tuple(a5), P2P, kw5["max_iters"])
+
     # -- 3. main path -------------------------------------------------------
     counters = {"B1": B1.LAUNCHES, "B2": B2.LAUNCHES, "B3": B3.LAUNCHES,
-                "B4": B4.LAUNCHES, "B6": B6.LAUNCHES}
+                "B4": B4.LAUNCHES, "B5": B5.LAUNCHES, "B6": B6.LAUNCHES}
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
@@ -573,6 +692,29 @@ def main(out_dir):
         "api.tv2_1d n=1e6 w 50 ms (spectral path, no kernel)",
         lambda: ptv.tv2_1d(ylong, LAMLONG, method="ms", return_info=True), [])
     check(int(info_long.rc[0]) == RC_OK, "long tv2_1d did not certify")
+    xps = {}
+    for p in PS:
+        name = f"tvp_batched {BLP}x{N1D} lam {LAMP} p {p} gpfw"
+        xps[p] = run(name, lambda p=p: tv1d_lp.tvp_batched(Yp, LAMP, p),
+                     ["B5"])
+        check(main[name]["launches"]["B5"] == 1,
+              f"{name} did not run in one B5 launch")
+        check(bool((xps[p][1].rc == RC_OK).all()), f"{name} did not certify")
+    x_tp1, info_tp1 = run(f"api.tvp_1d n={N1D} w 2.0 p 1.5 gpfw",
+                          lambda: ptv.tvp_1d(y1, 2.0, 1.5, return_info=True),
+                          ["B2", "B5"])
+    x_tvp, info_tvp = run(f"api.tv n={N1D} lam {LAMP} p 1.5",
+                          lambda: ptv.tv(y1, LAMP, p=1.5, return_info=True),
+                          ["B5"])
+    x_2p, info_2p = run(
+        f"api.tvp_2d {M5}^2 lam {LAM2P} p {P2P} (dr, 35 sweeps)",
+        lambda: ptv.tvp_2d(Y5, LAM2P, LAM2P, P2P, P2P, max_iters=35,
+                           return_info=True), ["B5"])
+    x_lpl, info_lpl = run(
+        f"tvp_gpfw n=1e6 lam {LAMLONG} p {PLONG} (FW and PCR compositions, "
+        "no kernel)", lambda: tv1d_lp.tvp_gpfw(t(ylong)[None], LAMLONG, PLONG),
+        [])
+    check(int(info_lpl.rc[0]) == RC_OK, "long tvp_gpfw did not certify")
     demo_res = run("demo_filter_image (dr, kolmogorov, chambolle-pock-acc)",
                    demo.main, ["B1", "B3"], main_path=False)
 
@@ -584,7 +726,12 @@ def main(out_dir):
                          ("tvgen", x_gen, (L3, M3, N3)),
                          ("tv2_batched", x_l2.cpu().numpy(), (B1D, N1D)),
                          ("tv2_1d", x_t2, (N1D,)), ("tvp_2d", x_p2, (M2D, N2D)),
-                         ("tv2_1d long", x_long, (NLONG,))):
+                         ("tv2_1d long", x_long, (NLONG,)),
+                         *((f"tvp_batched p {p}", xps[p][0].cpu().numpy(),
+                            (BLP, N1D)) for p in PS),
+                         ("tvp_1d", x_tp1, (N1D,)), ("tv p 1.5", x_tvp, (N1D,)),
+                         ("tvp_2d p 1.5", x_2p, (M5, N5)),
+                         ("tvp_gpfw long", x_lpl[0].cpu().numpy(), (NLONG,))):
         check(a.shape == shp and np.isfinite(a).all(),
               f"{name}: bad output {a.shape}")
 
@@ -710,6 +857,95 @@ def main(out_dir):
         check(e_ <= TOL["tv2"], f"{name} disagrees with float64 on the CPU")
         xc[name + " vs float64 CPU"] = {"max_abs_err": e_}
 
+    # TV-Lp against the same calls in float64 on the CPU (the CPU runs the
+    # JAX package's composition route; the card ran B5).
+    def vs_cpu_lp(name, x, ref, y, lam, p):
+        x, ref = np.atleast_2d(x).astype(np.float64), np.atleast_2d(ref)
+        y = np.atleast_2d(y).astype(np.float64)
+        e = float(np.abs(x - ref).max())
+        F, F_r = lp_obj(x, y, lam, p), lp_obj(ref, y, lam, p)
+        ef = float(np.max(np.abs(F - F_r) / np.abs(F_r)))
+        print(f"[check] {name} vs float64 on the CPU: max|dx| {e:.3e} (tol "
+              f"{TOL['lp']}), objective rel {ef:.3e} (tol {TOL['lp_obj']})")
+        check(e <= TOL["lp"] and bool(np.all(
+            np.abs(F - F_r) <= TOL["lp_obj"] * np.abs(F_r)
+            + TOL["lp_obj_abs"])), f"{name} disagrees with float64")
+        xc[name + " vs float64 CPU"] = {"max_abs_err": e, "obj_rel": ef}
+
+    Y64 = Yp[:64].double().cpu()
+    for p in PS:
+        ref, _ = tv1d_lp.tvp_batched(Y64, LAMP, p)
+        vs_cpu_lp(f"tvp_batched p {p} (64 rows)",
+                  xps[p][0][:64].cpu().numpy(), ref.numpy(), Y64.numpy(),
+                  LAMP, p)
+    vs_cpu_lp("api.tvp_1d p 1.5", x_tp1,
+              ptv.tvp_1d(y1, 2.0, 1.5, device="cpu"), y1, 2.0, 1.5)
+    vs_cpu_lp("api.tv p 1.5", x_tvp, ptv.tv(y1, LAMP, p=1.5, device="cpu"),
+              y1, LAMP, 1.5)
+
+    def obj_2dp(X, Y, lam, p):  # bench.py:_obj_2dp
+        X = X.astype(np.float64)
+        col = np.sum(np.sum(np.abs(np.diff(X, axis=0)) ** p, axis=0)
+                     ** (1.0 / p))
+        row = np.sum(np.sum(np.abs(np.diff(X, axis=1)) ** p, axis=1)
+                     ** (1.0 / p))
+        return 0.5 * np.sum((X - Y) ** 2) + lam * (col + row)
+
+    t0 = time.time()
+    x_2p_ref, info_2p_ref = ptv.tvp_2d(Y5.astype(np.float64), LAM2P, LAM2P,
+                                       P2P, P2P, max_iters=35,
+                                       return_info=True, device="cpu")
+    t_2p_ref = time.time() - t0
+    F_2p, F_2p_ref = obj_2dp(x_2p, Y5, LAM2P, P2P), obj_2dp(x_2p_ref, Y5,
+                                                             LAM2P, P2P)
+    e_2p = float(np.abs(x_2p - x_2p_ref).max())
+    rel_2p = abs(F_2p - F_2p_ref) / abs(F_2p_ref)
+    print(f"[check] tvp_2d p {P2P} {M5}^2 vs the float64 CPU run of the same "
+          f"35-sweep call ({t_2p_ref:.1f} s; sweeps card "
+          f"{int(info_2p.iters[0])}, CPU {int(info_2p_ref.iters[0])}): "
+          f"objective {F_2p:.6f} vs {F_2p_ref:.6f}, rel {rel_2p:.3e} (tol "
+          f"{TOL['tvp_2d_obj']}), max|dx| {e_2p:.3e}")
+    check(rel_2p <= TOL["tvp_2d_obj"], "tvp_2d p 1.5 objective disagrees")
+    xc["tvp_2d p 1.5 vs float64 CPU"] = {"obj_rel": rel_2p,
+                                         "max_abs_err": e_2p,
+                                         "cpu_s": t_2p_ref}
+    # The long TV-Lp signal: its certificate (gap <= 1e-5 objective, the
+    # bar of tests/test_tv1d_lp.py:121-141), and its objective against the
+    # same call in float64 on the CPU.  The KKT residual of that test
+    # (bar 1e-3 lam in float64 at n = 60000) is printed: in float32 at
+    # n = 10^6 the stop floor 10 eps max(1, den) leaves a gap of ~0.5, and
+    # the residual reads 1.07e-3 lam on the H100 (PERF.md).
+    xl = x_lpl[0].double().cpu().numpy()
+    yl = ylong.astype(np.float64)
+    g = xl[:-1] - xl[1:]
+    w = np.cumsum(xl - yl)[:-1]
+    nrm = np.linalg.norm(g, PLONG)
+    w_kkt = (-LAMLONG * np.sign(g) * np.abs(g) ** (PLONG - 1.0)
+             / nrm ** (PLONG - 1.0))
+    kkt = float(np.abs(w - w_kkt).max())
+    F_l = float(0.5 * np.sum((xl - yl) ** 2) + LAMLONG * nrm)
+    gap_l = float(info_lpl.gap[0])
+    t0 = time.time()
+    xl_ref, il_ref = tv1d_lp.tvp_gpfw(torch.from_numpy(yl)[None], LAMLONG,
+                                      PLONG)
+    t_l_ref = time.time() - t0
+    xl_ref = xl_ref[0].numpy()
+    F_l_ref = float(0.5 * np.sum((xl_ref - yl) ** 2)
+                    + LAMLONG * np.linalg.norm(np.diff(xl_ref), PLONG))
+    rel_l = abs(F_l - F_l_ref) / F_l_ref
+    e_l = float(np.abs(xl - xl_ref).max())
+    print(f"[check] tvp_gpfw n=1e6: iterations {int(info_lpl.iters[0])} "
+          f"(float64 CPU {int(il_ref.iters[0])}, {t_l_ref:.1f} s), gap "
+          f"{gap_l:.4e} vs 1e-5 x objective {1e-5 * F_l:.4e}; objective "
+          f"rel {rel_l:.3e} to float64 (tol {TOL['lp_obj']}), max|dx| "
+          f"{e_l:.3e}; KKT max|w - w_kkt| {kkt:.3e} (printed)")
+    check(gap_l <= 1e-5 * F_l and rel_l <= TOL["lp_obj"],
+          "long tvp_gpfw fails its certificate or its float64 objective")
+    xc["tvp_gpfw n=1e6"] = {"gap": gap_l, "objective": F_l, "kkt": kkt,
+                            "obj_rel": rel_l, "max_abs_err": e_l,
+                            "iters": int(info_lpl.iters[0]),
+                            "cpu_s": t_l_ref}
+
     # -- 4. times -----------------------------------------------------------
     # Whole calls, numpy in and out (CUDA events around host-synchronous
     # calls: wall time on the card's clock).
@@ -740,6 +976,18 @@ def main(out_dir):
     times["tvp_2d_p2_mpx_s"] = M2D * N2D / 1e6 / (times["tvp_2d_p2_ms"] / 1e3)
     times["tv2_1d_long_ms"] = cuda_ms(
         lambda: ptv.tv2_1d(ylong, LAMLONG, method="ms"), reps=3)
+    for p in PS:
+        times[f"tvp_batched_p{p}_ms"] = cuda_ms(
+            lambda p=p: tv1d_lp.tvp_batched(Yp, LAMP, p), reps=3)
+        times[f"tvp_batched_p{p}_signals_s"] = BLP / (
+            times[f"tvp_batched_p{p}_ms"] / 1e3)
+    times["tvp_1d_ms"] = cuda_ms(lambda: ptv.tvp_1d(y1, 2.0, 1.5), reps=3)
+    times["tvp_2d_p1.5_ms"] = cuda_ms(
+        lambda: ptv.tvp_2d(Y5, LAM2P, LAM2P, P2P, P2P, max_iters=35), reps=1)
+    times["tvp_2d_p1.5_mpx_s"] = M5 * N5 / 1e6 / (times["tvp_2d_p1.5_ms"]
+                                                  / 1e3)
+    times["tvp_gpfw_long_ms"] = cuda_ms(
+        lambda: tv1d_lp.tvp_gpfw(t(ylong)[None], LAMLONG, PLONG), reps=1)
     for k_, v in times.items():
         print(f"[time] {k_} = {v:.4f}  ({card})")
 
@@ -819,6 +1067,23 @@ def main(out_dir):
                      launches_by_path=by_path["B6"],
                      max_abs_err=errs["pdhg3d"], ms=ms, plain_ms=plain_ms,
                      bound_ms=b, bound_by=f, library_ms=None))
+    # B5, p = 1.5 at (512, 1000) (the tvp_batched call): each row runs its
+    # trips of one projection and nine FW steps.
+    a15 = lp_args[1.5]
+    _, _, _, it15 = B5.gpfw_fused(*a15, 1.5, 10 ** 6)
+    trips = float(it15.sum()) / 10.0
+    ms = cuda_ms(lambda: B5.gpfw_fused(*a15, 1.5, 10 ** 6))
+    plain_ms = cuda_ms(lambda: B5.gpfw_fused_plain(*a15, 1.5, 10 ** 6),
+                       reps=1)
+    b, f = bound_ms(BLP * N1D * 4 * 3 + BLP * 4 * 9,
+                    N1D * trips * LP_OPS_PER_TRIP)
+    kern.append(dict(name=f"B5 gpfw_fused (p 1.5, lam {LAMP}, {BLP}x{N1D})",
+                     route="cuda", source="proxtv_tpu_torch/csrc/lp_fused.cu",
+                     replaces="proxtv_tpu/ops/kernels/lp_fused.py:267",
+                     launches=sum(by_path["B5"].values()),
+                     launches_by_path=by_path["B5"], max_abs_err=errs["lp"],
+                     ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
+                     library_ms=None, trips_mean=trips / BLP))
     for k_ in kern:
         print(f"[kernel] {k_['name']}: {k_['ms']:.4f} ms (plain "
               f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms by "
@@ -834,7 +1099,11 @@ def main(out_dir):
                          V, [LAM3] * 3, [1, 2, 3], [1.0] * 3,
                          method="chambolle-pock-acc")),
                      ("tv2_batched ms", lambda: tv1d_l2.tv2_batched(
-                         Y1t, LAML2, method="ms"))):
+                         Y1t, LAML2, method="ms")),
+                     ("tvp_batched p 1.5", lambda: tv1d_lp.tvp_batched(
+                         Yp, LAMP, 1.5)),
+                     ("tvp_2d p 1.5 512^2", lambda: ptv.tvp_2d(
+                         Y5, LAM2P, LAM2P, P2P, P2P, max_iters=35))):
         breakdown[name] = profile_call(fn)
         b_ = breakdown[name]
         top = ", ".join(f"{k_} {v:.3f} ms" for k_, v in b_["top"])

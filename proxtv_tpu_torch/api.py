@@ -1,8 +1,8 @@
 """User-facing API with the reference's function names, signatures and defaults
 (the port's counterpart of ``proxtv_tpu.api``; reference ``prox_tv/__init__.py``).
 
-This slice: ``tv1_1d`` (projected Newton), ``tv2_1d``, ``tv1_2d``,
-``tvp_2d`` (p in {1, 2}), ``tvgen``, ``tvgen_nd``, ``tv`` (scalar-lam
+Ported so far: ``tv1_1d`` (projected Newton), ``tv2_1d``, ``tvp_1d``,
+``tv1_2d``, ``tvp_2d``, ``tvgen``, ``tvgen_nd``, ``tv`` (scalar-lam
 branches) and ``tv_value``.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 
@@ -118,11 +118,31 @@ def tv2_1d(x, w, method="mspg", return_info=False, device=None):
     return _ret(out, info, return_info)
 
 
+def tvp_1d(x, w, p, method="gpfw", max_iters=0, return_info=False,
+           device=None):
+    """1D TV-Lp prox: min_y 0.5||x-y||^2 + w ||Dy||_p.
+
+    Reference: prox_tv/__init__.py:311-352.  Methods: gp, fw, gpfw
+    (default), plus ogp and fista.  ``max_iters`` is honoured.  On the card
+    gpfw runs kernel B5 for q = p/(p-1) in [1.12, 3.1] and n <= 8192 (its
+    setup solve on B2), p = 2 kernel B4 and p <= 1.002 kernel B1; the other
+    cases run the TV-Lp torch composition, as the JAX package does.
+    """
+    assert w >= 0 and p >= 1
+    from .ops import tv1d_lp
+
+    dev, dt = _device(device)
+    y = _tensor(x, dev, dt).reshape(1, -1)
+    out, info = tv1d_lp.tvp_batched(y, float(w), float(p), method=method,
+                                    max_iters=int(max_iters))
+    return _ret(out, info, return_info)
+
+
 def tvp_2d(x, w_col, w_row, p_col, p_row, n_threads=1, max_iters=0,
            return_info=False, device=None):
-    """2D general-norm TV prox via Douglas-Rachford (reference :484-530).
-    This slice takes p_col, p_row in {1, 2} (fiber passes on kernels B1 / B4
-    on the card); other p raise ``NotImplementedError`` (ROADMAP A10)."""
+    """2D general-norm TV prox via Douglas-Rachford (reference :484-530),
+    for any p_col, p_row >= 1: on the card the fiber passes run kernel B1
+    (p = 1), B4 (p = 2) or B5 (TV-Lp inside its gate)."""
     from .models import tv2d
 
     assert w_col >= 0 and w_row >= 0 and p_col >= 1 and p_row >= 1
@@ -139,7 +159,7 @@ def tvgen(x, ws, ds, ps, n_threads=1, max_iters=0, return_info=False,
     """Generalized multidimensional TV prox (reference :533-600), with the
     intended (MATLAB) dispatch: a 2D signal penalized on both dims goes to
     Douglas-Rachford, two terms to Proximal Dykstra, more to Parallel
-    Proximal Dykstra.  Each p in {1, 2} (ROADMAP A10 for the rest)."""
+    Proximal Dykstra.  Any p >= 1 per term."""
     from .models import tvnd
 
     ws = [float(v) for v in ws]
@@ -173,13 +193,12 @@ def tvgen_nd(x, ws, ds, ps, max_iters=0, method="pd", return_info=False,
 def tv(y, lam, p=1.0, threads=1, max_iters=0, return_info=False,
        device=None):
     """Polymorphic TV prox front end, dispatching on the type of ``lam``
-    (reference ``matlab/TV.m:22-84``).  This slice ports the scalar-lam
-    branches: a 1D ``y`` with p = 1 goes to :func:`tv1_1d`, p = 2 to
-    :func:`tv2_1d`; an ND ``y`` goes to :func:`tvgen` with ``lam`` and ``p``
-    replicated over every dimension (TV.m:79-80).  A pair of weight
-    matrices (weighted 2D, ROADMAP A6w), a weight vector (weighted 1D,
-    ROADMAP A8) and a 1D p outside {1, 2} (TV-Lp, ROADMAP A10) raise
-    ``NotImplementedError``."""
+    (reference ``matlab/TV.m:22-84``).  The scalar-lam branches are ported:
+    a 1D ``y`` with p = 1 goes to :func:`tv1_1d`, p = 2 to :func:`tv2_1d`,
+    any other p to :func:`tvp_1d`; an ND ``y`` goes to :func:`tvgen` with
+    ``lam`` and ``p`` replicated over every dimension (TV.m:79-80).  A pair
+    of weight matrices (weighted 2D, ROADMAP A6w) and a weight vector
+    (weighted 1D, ROADMAP A8) raise ``NotImplementedError``."""
     if isinstance(lam, (list, tuple)):
         raise NotImplementedError("weighted 2D TV (a pair of weight "
                                   "matrices) is not ported yet: ROADMAP A6w")
@@ -194,8 +213,8 @@ def tv(y, lam, p=1.0, threads=1, max_iters=0, return_info=False,
             return tv1_1d(yv, w, return_info=return_info, device=device)
         if p == 2:
             return tv2_1d(yv, w, return_info=return_info, device=device)
-        raise NotImplementedError(f"1D TV-Lp (p = {p}) is not ported yet: "
-                                  "ROADMAP A10")
+        return tvp_1d(yv, w, float(p), max_iters=max_iters,
+                      return_info=return_info, device=device)
     nd = yv.ndim
     return tvgen(yv, [w] * nd, list(range(1, nd + 1)), [float(p)] * nd,
                  n_threads=threads, max_iters=max_iters,

@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "proxtv_tpu_torch")
 SOURCES = ("pcr.cu", "pn_fused.cu", "pdhg_fused.cu", "ms_fused.cu",
-           "pdhg3d_fused.cu")
+           "pdhg3d_fused.cu", "lp_fused.cu")
 HEADERS = ("block.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,6 +33,8 @@ BUILD_LOG = {"seconds": None, "ptxas": ""}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PF = ctypes.POINTER(ctypes.c_float)  # host arrays
+_PI = ctypes.POINTER(ctypes.c_int)
 # C entry points: every one returns cudaGetLastError() after its launch.
 _SIGNATURES = {
     # rhs, mask (u8 or NULL), shift (or NULL), out, B, n, stream
@@ -55,6 +57,11 @@ _SIGNATURES = {
     # grad_step, stream
     "pdhg3d_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # y, w0, lam, mu0, run_mask, w, mu, gap, iters, B, n, max_trips,
+    # fw_cycles, stop_rel, newton_iters, q_ge2, exponents (host float[13]),
+    # codes (host int[13]), stream
+    "gpfw_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                   _I, _PF, _PI, _P),
 }
 
 

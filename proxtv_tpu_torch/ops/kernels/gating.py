@@ -38,10 +38,11 @@ def fused_ctx(on: bool):
 
 
 # Lane-length (last-axis) limits per kernel family, the JAX package's limits
-# (gating.py:59-67) for the five kernels the port has.
+# (gating.py:59-67) for the six kernels the port has.
 _KIND_LANE_LIMITS = {
     "pn": (2, 8192),        # projected Newton (csrc/pn_fused.cu)
     "ms": (2, 8192),        # More-Sorensen TV-L2 (csrc/ms_fused.cu)
+    "lp": (2, 8192),        # GPFW TV-Lp dual loop (csrc/lp_fused.cu)
     "pcr": (2, 8192),       # PCR tridiagonal solve (csrc/pcr.cu)
     "pdhg2d": (1, 8192),    # 2D PDHG chunk (csrc/pdhg_fused.cu)
     "pdhg3d": (1, 2048),    # 3D PDHG chunk (csrc/pdhg3d_fused.cu)

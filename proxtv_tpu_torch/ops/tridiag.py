@@ -95,13 +95,21 @@ def spd_second_difference_solve(rhs, diag_shift=0.0, mask=None, method="pcr"):
     constant along the system axis, not both (the JAX package's routing,
     ``tridiag.py:145-164``, where the rest falls to the plain composition).
     """
-    n = rhs.shape[-1]
-    dtype = rhs.dtype
     from .kernels import gating
 
     if gating.gate(rhs, "pcr"):
         return _spd_solve_kernel(rhs, diag_shift, mask, method)
+    return spd_second_difference_composition(rhs, diag_shift, mask, method)
 
+
+def spd_second_difference_composition(rhs, diag_shift=0.0, mask=None,
+                                      method="pcr"):
+    """The plain composition of :func:`spd_second_difference_solve` on the
+    tensor's own device: what the CPU runs, and what a caller runs where the
+    JAX package solves with its XLA ``pcr_solve`` past the kernel's lane
+    limit (the TV-Lp setup solve with n - 1 > 8192)."""
+    n = rhs.shape[-1]
+    dtype = rhs.dtype
     a = torch.full(rhs.shape, 2.0, dtype=dtype, device=rhs.device) \
         + torch.as_tensor(diag_shift, dtype=dtype, device=rhs.device)
     zero = torch.zeros(rhs.shape[:-1] + (1,), dtype=dtype, device=rhs.device)

@@ -55,3 +55,11 @@ def tv1w_objective(x, y, w):
     fid = 0.5 * torch.sum((x - y) ** 2, dim=-1)
     tv = torch.sum(w * torch.abs(forward_diff(x)), dim=-1)
     return fid + tv
+
+
+def tvp_objective(x, y, lam, p):
+    """Lp primal objective ``0.5 ||x - y||^2 + lam * ||Dx||_p``."""
+    from .lpnorms import lp_norm
+
+    fid = 0.5 * torch.sum((x - y) ** 2, dim=-1)
+    return fid + lam * lp_norm(forward_diff(x), p)

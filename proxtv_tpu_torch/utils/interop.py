@@ -2,8 +2,8 @@
 
 The system has no learned weights; what crosses between the JAX package and
 the port is solver state — projected-Newton dual warm starts ``(K, n-1)``,
-PDHG dual pairs ``u0 = (u_row (B, M, N-1), u_col (B, M-1, N))``, the
-``SolverInfo`` fields and the config dataclasses.  Both sides speak numpy at
+PDHG dual pairs ``u0 = (u_row (B, M, N-1), u_col (B, M-1, N))``, TV-Lp
+``(w, mu)`` pairs, the ``SolverInfo`` fields and the config dataclasses.  Both sides speak numpy at
 the boundary, so each helper takes or returns numpy arrays / plain dicts.
 """
 from __future__ import annotations
@@ -48,6 +48,17 @@ def ms_alpha(a, device="cpu", dtype=None) -> torch.Tensor:
     if t.ndim != 1:
         raise ValueError(f"MS alpha must be (B,), got {tuple(t.shape)}")
     return t
+
+
+def lp_state(w, mu, device="cpu", dtype=None):
+    """A TV-Lp warm start ``(w (K, n-1), mu (K,))``
+    (``tvp_gpfw(..., return_state=True)``) as the port's
+    ``tvp_gpfw(w_init=, mu_init=)`` pair."""
+    tw, tm = tensor(w, device, dtype), tensor(mu, device, dtype)
+    if tw.ndim != 2 or tm.ndim != 1 or tm.shape[0] != tw.shape[0]:
+        raise ValueError(f"TV-Lp state must be (w (K, n-1), mu (K,)), got "
+                         f"{tuple(tw.shape)} and {tuple(tm.shape)}")
+    return tw, tm
 
 
 def pdhg_duals(u0, device="cpu", dtype=None):

@@ -59,6 +59,7 @@ def test_api_without_card_raises(monkeypatch):
                  lambda: ptv.tvgen(np.zeros((3, 4, 5)), [0.1] * 3, [1, 2, 3],
                                    [1] * 3),
                  lambda: ptv.tv(np.zeros(8), 0.1, p=2),
+                 lambda: ptv.tvp_1d(np.zeros(8), 0.1, 1.5),
                  lambda: ptv.tv_value(np.zeros(8), [1.0], [1], [1.0])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -105,9 +106,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "import sys\n"
         "import proxtv_tpu_torch, proxtv_tpu_torch.api\n"
         "from proxtv_tpu_torch.models import tv2d, tvnd\n"
-        "from proxtv_tpu_torch.ops import tv1d_l2\n"
+        "from proxtv_tpu_torch.ops import lp, tv1d_l2, tv1d_lp\n"
         "from proxtv_tpu_torch.ops.kernels import build, pcr, pn_fused, "
-        "pdhg_fused, ms_fused, pdhg3d_fused\n"
+        "pdhg_fused, ms_fused, pdhg3d_fused, lp_fused\n"
         "from proxtv_tpu_torch.utils import interop, debug, lpnorms\n"
         "from proxtv_tpu_torch.demos import demo_filter_image\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -179,10 +180,6 @@ def test_api_tv_unported_branches_raise():
         ptv.tv(y, [np.ones((5, 5)), np.ones((6, 4))], device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         ptv.tv(np.zeros(6), np.ones(5), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ptv.tv(np.zeros(6), 0.5, p=1.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ptv.tvp_2d(y, 0.5, 0.5, 3, 1, device="cpu")
 
 
 def test_api_tv_value_matches_jax():

@@ -366,3 +366,153 @@ def test_new_call_sites_raise_on_the_card(case, dev):
     }
     with pytest.raises(ValueError):
         calls[case]()
+
+
+def _lp_obj(x, y, lam, p):
+    """Primal TV-Lp objective per row, in float64."""
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    g = np.abs(np.diff(x, axis=1))
+    return (0.5 * np.sum((x - y) ** 2, axis=1)
+            + np.asarray(lam) * np.sum(g ** p, axis=1) ** (1.0 / p))
+
+
+@pytest.mark.parametrize("p,B,n", [(1.5, 64, 1000), (3.0, 64, 1000),
+                                   (5.0, 64, 1000), (1.5, 8, 2), (3.0, 8, 3),
+                                   (5.0, 12, 129), (1.5, 16, 300),
+                                   (3.0, 8, 1025), (1.5, 6, 2049),
+                                   (5.0, 4, 8192)])
+def test_lp_kernel_matches_plain(p, B, n, dev):
+    """B5 against its plain version (tb = 1) across every template instance
+    and both Newton branches (q >= 2 for p = 1.5, the u-substitution for
+    p = 3, 5), with per-row lam, a frozen row and a warm
+    multiplier: the primal x = y + D'w within 5e-3 and its objective within
+    rtol 1e-5 (the bars of tests/test_kernels.py:366-368; float32 line
+    searches part the iterates at ~1e-3, in directions the objective barely
+    sees), the frozen row bitwise unchanged."""
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+
+    rng = np.random.RandomState(n)
+    y = rng.randn(B, n).astype(np.float32)
+    y -= y.mean(axis=1, keepdims=True)
+    lam = np.resize(np.array([0.7, 0.3, 1.0, 2.0], np.float32), B)
+    run = np.ones(B, np.float32)
+    run[1] = 0.0
+    w0 = np.zeros((B, n), np.float32)
+    w0[1, :-1] = rng.rand(n - 1).astype(np.float32) * 0.01
+    mu0 = np.resize(np.array([1.0, 0.5], np.float32), B)
+    args = [torch.from_numpy(a) for a in (y, w0, lam, mu0, run)]
+    w_r, mu_r, g_r, it_r = LPK.gpfw_fused_plain(*args, p, 100000, tb=1)
+    before = LPK.LAUNCHES.value
+    w, mu, g, it = LPK.gpfw_fused(*[a.to(dev) for a in args], p, 100000)
+    torch.cuda.synchronize()
+    assert LPK.LAUNCHES.value == before + 1
+    w, g, it = w.cpu().numpy(), g.cpu().numpy(), it.cpu().numpy()
+
+    def primal(wk):
+        return y + np.diff(np.concatenate([np.zeros((B, 1)), wk], 1), axis=1)
+
+    x, x_r = primal(w), primal(w_r.numpy())
+    np.testing.assert_allclose(x, x_r, atol=5e-3)
+    np.testing.assert_allclose(_lp_obj(x, y, lam, p), _lp_obj(x_r, y, lam, p),
+                               rtol=1e-5, atol=1e-4)
+    assert np.array_equal(w[1], w0[1]) and it[1] == 0.0
+    assert np.all(np.isfinite(w)) and np.all(g >= 0)
+    assert np.all(it[run > 0] == np.floor(it[run > 0]))  # none at the cap
+
+
+def test_lp_kernel_fixed_trips_match_plain(dev):
+    """Three trips on both sides (max_iters = 30) from a cold start on
+    random walks at lam 2 (p = 1.5 does not converge in three trips): the
+    dual objective 0.5 ||D'w||^2 + y'D'w within 1e-6 relative (both run the
+    same steps; float32 line searches part the iterates, not the objective:
+    float32 against float64 of the plain version parts it by 1.2e-7)."""
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+
+    rng = np.random.RandomState(21)
+    B, n = 32, 1000
+    y = (np.cumsum(rng.randn(B, n), axis=1) * 0.3).astype(np.float32)
+    y -= y.mean(axis=1, keepdims=True)
+    args = [torch.from_numpy(a) for a in (
+        y, np.zeros((B, n), np.float32), np.full(B, 2.0, np.float32),
+        np.ones(B, np.float32), np.ones(B, np.float32))]
+    for p in (1.5, 3.0, 5.0):
+        w_r, _, _, it_r = LPK.gpfw_fused_plain(*args, p, 30, tb=1)
+        w, _, _, it = LPK.gpfw_fused(*[a.to(dev) for a in args], p, 30)
+        torch.cuda.synchronize()
+
+        def dual(wk):
+            wk = np.asarray(wk, np.float64)[:, :-1]
+            dtw = np.diff(np.concatenate([np.zeros((B, 1)), wk,
+                                          np.zeros((B, 1))], 1), axis=1)
+            return np.sum(dtw * (0.5 * dtw + y), axis=1)
+
+        np.testing.assert_allclose(dual(w.cpu().numpy()), dual(w_r.numpy()),
+                                   rtol=1e-6)
+        assert int(it.max()) <= 30 and int(it_r.max()) <= 30
+
+
+def test_tvp_paths_on_card_match_cpu_float64(dev):
+    """The TV-Lp call sites on the card against the float64 CPU
+    compositions at the JAX tests' bar (5e-3 on x): tvp_batched gpfw
+    (one B5 launch), the 2D dr with warm-started B5 fiber passes, p outside
+    B5's gate (the torch composition, B2 for its setup solve) and a signal
+    longer than 8192 (the PCR composition for the setup solve, no kernel)."""
+    from proxtv_tpu_torch.models import tv2d
+    from proxtv_tpu_torch.ops import tv1d_lp
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+    from proxtv_tpu_torch.ops.kernels import pcr as PCRK
+
+    rng = np.random.RandomState(22)
+    Y = rng.randn(16, 300)
+    for p in (1.5, 3.0, 5.0):
+        ref, _ = tv1d_lp.tvp_batched(torch.from_numpy(Y), 0.7, p)
+        b5 = LPK.LAUNCHES.value
+        x, info = tv1d_lp.tvp_batched(torch.from_numpy(Y).float().to(dev),
+                                      0.7, p)
+        assert LPK.LAUNCHES.value == b5 + 1
+        assert np.all(info.rc.cpu().numpy() == 0)
+        np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                                   atol=5e-3)
+    for p in (1.25,):  # q outside [1.12, 3.1]: the composition
+        ref, _ = tv1d_lp.tvp_batched(torch.from_numpy(Y[:4]), 0.7, p)
+        b5, b2 = LPK.LAUNCHES.value, PCRK.LAUNCHES.value
+        x, _ = tv1d_lp.tvp_batched(torch.from_numpy(Y[:4]).float().to(dev),
+                                   0.7, p)
+        assert LPK.LAUNCHES.value == b5 and PCRK.LAUNCHES.value == b2 + 1
+        np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                                   atol=5e-3)
+    X = rng.randn(1, 24, 20)
+    ref, _ = tv2d.tvp_2d_batched(torch.from_numpy(X), 0.4, 0.3, 1.5, 3.0,
+                                 max_iters=100)
+    b5 = LPK.LAUNCHES.value
+    x, _ = tv2d.tvp_2d_batched(torch.from_numpy(X).float().to(dev), 0.4, 0.3,
+                               1.5, 3.0, max_iters=100)
+    assert LPK.LAUNCHES.value > b5
+    np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                               atol=5e-3)
+    ylong = np.cumsum(rng.randn(1, 9000), axis=1) * 0.05 + rng.randn(1, 9000)
+    ref, _ = tv1d_lp.tvp_gpfw(torch.from_numpy(ylong), 5.0, 1.5)
+    x, info = tv1d_lp.tvp_gpfw(torch.from_numpy(ylong).float().to(dev), 5.0,
+                               1.5)
+    assert int(info.rc[0]) == 0
+    np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("case", ["gpfw_f64", "fw_f64", "switch_off"])
+def test_lp_call_sites_raise_on_the_card(case, dev):
+    """B5's call site launches it for a CUDA tensor or raises (float64, the
+    switch off); the composition's setup solve raises at B2's call site."""
+    from proxtv_tpu_torch.ops import tv1d_lp
+    from proxtv_tpu_torch.ops.kernels import gating
+
+    y64 = torch.randn((4, 32), dtype=torch.float64, device=dev)
+    if case == "switch_off":
+        with gating.fused_ctx(False), pytest.raises(RuntimeError):
+            tv1d_lp.tvp_gpfw(y64.float(), 0.5, 1.5)
+        return
+    with pytest.raises(ValueError):
+        if case == "gpfw_f64":
+            tv1d_lp.tvp_gpfw(y64, 0.5, 1.5)
+        else:
+            tv1d_lp.tvp_batched(y64, 0.5, 1.5, method="fw")

@@ -1,6 +1,5 @@
 """Port vs JAX package: the ND generalized-TV combiners, the chunked 3D
-primal-dual solve and kernel B6's plain version, and 2D TV-Lp for
-p in {1, 2}.
+primal-dual solve and kernel B6's plain version, and 2D TV-Lp.
 
 The JAX 3D driver runs its Pallas chunk kernel in interpret mode (float32);
 the port's driver runs B6's plain version on the CPU.  The combiners run in
@@ -215,20 +214,27 @@ def test_tv_nd_batched_rejects_bad_methods_and_p():
         PN.tv_nd_batched(Y, (0.3,) * 3, (1, 2, 3), (1.0,) * 3, method="pd2")
     with pytest.raises(ValueError, match="Unknown"):
         PN.tv_nd_batched(Y, (0.3,) * 2, (1, 2), (1.0,) * 2, method="nope")
-    with pytest.raises(NotImplementedError, match="A10"):
-        PN.tv_nd_batched(Y, (0.3,) * 2, (1, 2), (1.0, 1.5))
 
 
-@pytest.mark.parametrize("ps", [(1.0, 2.0), (2.0, 2.0), (2.0, 1.0)])
+@pytest.mark.parametrize("ps", [(1.0, 2.0), (2.0, 2.0), (2.0, 1.0),
+                                (1.5, 1.5), (3.0, 1.0)])
 def test_tvp_2d_batched_matches_jax(ps):
+    """p in {1, 2} to 1e-10 with equal sweep counts.  A TV-Lp axis: the
+    first pass projects each fiber's zero dual, where the JAX package's
+    joint Newton returns a NaN multiplier that degrades its later warm
+    projections; the port keeps the warm multiplier (ROADMAP C), so the two
+    reach the optimum by different paths and are held to the cross-method
+    bar of tests/test_tv2d.py (1e-3).  At (0.5, 0.4) the JAX package's
+    degraded fiber solves at p = 1.5 run toward their 10^6-iteration cap
+    (minutes), so the TV-Lp cases take (0.2, 0.15)."""
     X = np.random.RandomState(8).randn(2, 9, 8)
-    xj, ij = J2.tvp_2d_batched(jnp.asarray(X), 0.5, 0.4, *ps)
-    xp, ip = P2.tvp_2d_batched(torch.from_numpy(X), 0.5, 0.4, *ps)
+    lp_case = not set(ps) <= {1.0, 2.0}
+    lams = (0.2, 0.15) if lp_case else (0.5, 0.4)
+    xj, ij = J2.tvp_2d_batched(jnp.asarray(X), *lams, *ps)
+    xp, ip = P2.tvp_2d_batched(torch.from_numpy(X), *lams, *ps)
+    if lp_case:
+        np.testing.assert_allclose(xp.numpy(), np.asarray(xj), atol=1e-3)
+        assert np.all(ip.rc.numpy() == 0)
+        return
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), atol=1e-10)
     np.testing.assert_array_equal(ip.iters.numpy(), np.asarray(ij.iters))
-
-
-def test_tvp_2d_batched_other_p_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        P2.tvp_2d_batched(torch.zeros((1, 4, 4), dtype=torch.float64), 0.5,
-                          0.4, 3.0, 1.0)

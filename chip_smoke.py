@@ -27,8 +27,11 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    primal-dual solves on the card for 1024^2 and for the volume, the same
    calls in float64 on the CPU for the 1D, TV-L2 and TV-Lp calls, the
    KKT certificate of tests/test_tv1d_lp.py for the long TV-Lp signal;
+   3b. hold B1 against its plain version on every launch of the main path,
+   with the inputs the path gave it (a tap on the wrapper records them);
 4. time each kernel (CUDA events, many launches after warm-up), its plain
-   version, and the main-path calls, and print the ``kernels`` line;
+   version, and the main-path calls, and print the ``kernels`` line; B1 at
+   each of its four main-path shapes, by replaying that shape's launches;
 5. profile the main-path calls: device time by kernel and the idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -60,6 +63,9 @@ TOL = {
     # PN: absolute, in data units (y ~ N(0, 1)): both stop on the same
     # relative duality gap, the JAX kernel test's oracle bar is 1e-3.
     "pn": 2e-3,
+    # ... and their Newton iteration counts per fiber at most 2 apart, the
+    # bar of the card test test_pn_kernel_matches_plain.
+    "pn_iters": 2,
     # PDHG chunk: absolute on the K-step state; certificate sums relative.
     "pdhg": 1e-4, "pdhg_cert": 1e-4,
     # MS (B4): absolute on x in data units, alpha relative.  Both stop on
@@ -191,9 +197,20 @@ def profile_call(fn):
         n += 1
     busy = sum(per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    ours = {}  # device ms of the port's kernels, by kernel id
+    for name, ms in per.items():
+        for kid, fn in KERNEL_FNS.items():
+            if fn in name:
+                ours[kid] = ours.get(kid, 0.0) + ms
     return {"wall_ms": wall, "busy_ms": busy, "kernels": n,
             "idle_share": (1.0 - busy / wall) if busy > 0 else "not measured",
-            "top": [(k[:60], v) for k, v in top]}
+            "top": [(k[:60], v) for k, v in top], "ours": ours}
+
+
+# The __global__ functions of each kernel, as the profiler names them.
+KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
+              "B4": "::ms_kernel", "B5": "::gpfw_kernel",
+              "B6": "::pdhg3d_kernel"}
 
 
 def reference_2d(Y, lam, iters):
@@ -285,6 +302,7 @@ PCR_OPS_PER_STEP = 18     # 2 divides, 8 multiplies, 6 adds, 2 negations
 PN_OPS_PER_ITER = 100     # mask 10, PCR init 8 + 4 head steps x 13, trial 12,
                           # gradient + gap 8, bookkeeping ~10
 PN_OPS_INIT = 40          # centering, dual init (2 log-shift scans), gap
+PN_OPS_INIT_WARM = 20     # centering, clamped warm dual, x, g, gap
 PDHG_OPS_PER_STEP = 22    # two dual updates 10, divergence 3, primal 6, xbar 3
 MS_PCR_OPS_PER_STEP = 16  # r: 2 mul 2 sub 1 div; d: 2 mul 2 sub 1 mul; b, c 6
 MS_OPS_PER_SOLVE = 10     # normalization 6, norm and secant update 4
@@ -406,16 +424,61 @@ def main(out_dir):
           f"{worst['plain']:.3e}, masked {worst['masked']:.3e} (tol "
           f"{TOL['pcr_path']})")
 
-    def pn_case(name, y, **kw):
-        ref, wref, it_ref = B1.pn_tv1_fused_plain(y, tb=1, **kw)
-        x, w, it = B1.pn_tv1_fused(y, return_iters=True, **kw)
+    def gap_over_tol(x, w, y, lam_full, lam_scalar, stop_rel):
+        """Each row's duality gap over its stop tolerance (pn_solve's rule),
+        in float64 from the outputs."""
+        x, w, y = x.double(), w.double(), y.double()
+        g = x[:, :-1] - x[:, 1:]
+        lam = lam_full[:, :-1].double() if lam_full is not None else lam_scalar
+        gap = (g.abs() * lam + w[:, :-1] * g).sum(1).abs()
+        yc = y - y.mean(1, keepdim=True)
+        scale = (0.5 * (yc * yc).sum(1)).clamp(min=1.0)
+        eps = float(np.finfo(np.float32).eps)
+        return gap / (10.0 * eps * scale).clamp(min=stop_rel)
+
+    def pn_compare(y, lam_full=None, w_init=None, **kw):
+        """One B1 launch against its plain version (tb = 1), both with the
+        launch's own settings: max |x - x_plain| and |w - w_plain|, the
+        largest per-fiber difference of the Newton iteration counts, the
+        kernel's and the plain version's counts, the kernel's w, and where
+        the worst fiber lies: the largest difference among fibers whose
+        counts agree and among those whose counts part, and the worst
+        fiber's counts and gap over tolerance on each side."""
+        kw = {k_: v for k_, v in kw.items()
+              if k_ not in ("return_dual", "return_iters")}
+        ref, wref, it_ref = B1.pn_tv1_fused_plain(y, lam_full, w_init, tb=1,
+                                                  **kw)
+        x, w, it = B1.pn_tv1_fused(y, lam_full, w_init, return_iters=True,
+                                   **kw)
         torch.cuda.synchronize()
-        err = max(float((x - ref).abs().max()), float((w - wref).abs().max()))
+        fib = torch.maximum((x - ref).abs().amax(1), (w - wref).abs().amax(1))
+        err = float(fib.max())
+        di = int((it - it_ref).abs().max())
+        part = it != it_ref
+        j = int(fib.argmax())
+        row = slice(j, j + 1)
+        lf = None if lam_full is None else lam_full[row]
+        args = (y[row], lf, kw.get("lam_scalar"), kw.get("stop_rel", 1e-6))
+        where = {
+            "err_counts_agree": float(torch.where(part, 0.0, fib).max()),
+            "err_counts_part": float(torch.where(part, fib, 0.0).max()),
+            "fibers_counts_part": int(part.sum()),
+            "worst_iters": [int(it[j]), int(it_ref[j])],
+            "worst_gap_over_tol": [float(gap_over_tol(x[row], w[row], *args)),
+                                   float(gap_over_tol(ref[row], wref[row],
+                                                      *args))],
+        }
+        return err, di, it, it_ref, w, where
+
+    def pn_case(name, y, **kw):
+        err, di, it, it_ref, w, _ = pn_compare(y, **kw)
         print(f"[B1 pn] {name}: max|kernel - plain| = {err:.3e} (tol "
-              f"{TOL['pn']}); Newton iterations kernel mean "
+              f"{TOL['pn']}); Newton iterations at most {di} apart (tol "
+              f"{TOL['pn_iters']}), kernel mean "
               f"{float(it.float().mean()):.2f}, plain mean "
               f"{float(it_ref.float().mean()):.2f}")
-        check(err <= TOL["pn"], f"PN {name} disagrees")
+        check(err <= TOL["pn"] and di <= TOL["pn_iters"],
+              f"PN {name} disagrees")
         errs["pn"] = max(errs["pn"], err)
         return w
 
@@ -625,16 +688,33 @@ def main(out_dir):
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
+    # B1 runs at four shapes on the main path.  A tap on its wrapper keeps
+    # each main-path launch's inputs, by (B, n), and calls through; phase 3b
+    # holds the kernel against its plain version on them and phase 4 replays
+    # them for the per-shape times.
+    b1_calls = {}
+    b1_path = [None]
+    launch_b1 = B1.pn_tv1_fused
+
+    def tap_b1(y, lam_full=None, w_init=None, **kw):
+        if b1_path[0] is not None:
+            b1_calls.setdefault(tuple(y.shape), []).append(
+                (b1_path[0], y.clone(),
+                 None if lam_full is None else lam_full.clone(),
+                 None if w_init is None else w_init.clone(), dict(kw)))
+        return launch_b1(y, lam_full, w_init, **kw)
 
     def run(name, fn, must, main_path=True):
         for c in counters.values():
             c.reset()
         debug.HOST_SYNCS.reset()
+        b1_path[0] = name if main_path else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        b1_path[0] = None
         got = {k_: c.value for k_, c in counters.items()}
         for k_ in counters:
             if main_path and got[k_]:
@@ -653,6 +733,7 @@ def main(out_dir):
                 + lam * (np.abs(np.diff(X, axis=0)).sum()
                          + np.abs(np.diff(X, axis=1)).sum()))
 
+    B1.pn_tv1_fused = tap_b1  # restored after the main path (the demo)
     x_auto, info_auto = run("api.tv1_2d 1024^2 lam 0.3 auto",
                             lambda: ptv.tv1_2d(Y2, LAM2D, return_info=True),
                             ["B3"])
@@ -717,6 +798,53 @@ def main(out_dir):
     check(int(info_lpl.rc[0]) == RC_OK, "long tvp_gpfw did not certify")
     demo_res = run("demo_filter_image (dr, kolmogorov, chambolle-pock-acc)",
                    demo.main, ["B1", "B3"], main_path=False)
+    B1.pn_tv1_fused = launch_b1
+
+    # -- 3b. B1 against its plain version at the main path's own inputs ----
+    # Every recorded launch, by shape: the 1024^2 dr fibers and the tvgen
+    # fibers are warm-started from the duals of the sweeps before them.
+    check(sum(len(v) for v in b1_calls.values())
+          == sum(by_path["B1"].values()),
+          "the B1 tap missed main-path launches")
+    b1_shapes = {}
+    for shp, calls in b1_calls.items():
+        worst, di_max, its = 0.0, 0, []
+        agree, part, n_part, worst_where = 0.0, 0.0, 0, None
+        for _, y_, lf_, w0_, kw_ in calls:
+            err, di, it, _, _, where = pn_compare(y_, lf_, w0_, **kw_)
+            if worst_where is None or err > worst:
+                worst_where = where
+            worst, di_max = max(worst, err), max(di_max, di)
+            agree = max(agree, where["err_counts_agree"])
+            part = max(part, where["err_counts_part"])
+            n_part += where["fibers_counts_part"]
+            its.append(int(it.sum()))
+        paths = sorted({c[0] for c in calls})
+        warm = calls[-1][3] is not None
+        b1_shapes[shp] = {"launches": len(calls), "paths": paths,
+                          "warm": warm, "iters": its, "max_abs_err": worst,
+                          "iters_apart": di_max,
+                          "err_counts_agree": agree, "err_counts_part": part,
+                          "fibers_counts_part": n_part,
+                          "worst_iters": worst_where["worst_iters"],
+                          "worst_gap_over_tol":
+                              worst_where["worst_gap_over_tol"]}
+        name = f"{shp[0]}x{shp[1]} {'warm' if warm else 'cold'}"
+        print(f"[B1 pn] main path {name} ({len(calls)} launches, "
+              f"{', '.join(paths)}): max|kernel - plain| = {worst:.3e} (tol "
+              f"{TOL['pn']}); Newton iterations at most {di_max} apart (tol "
+              f"{TOL['pn_iters']}), kernel mean per fiber "
+              f"{sum(its) / (len(calls) * shp[0]):.2f}")
+        wi, wg = worst_where["worst_iters"], worst_where["worst_gap_over_tol"]
+        print(f"[B1 pn] main path {name}: fibers whose Newton counts agree "
+              f"differ by at most {agree:.3e}; {n_part} of "
+              f"{len(calls) * shp[0]} fibers part in count, differing by at "
+              f"most {part:.3e}; worst fiber: iterations kernel {wi[0]} / "
+              f"plain {wi[1]}, gap over stop tolerance kernel {wg[0]:.3f} / "
+              f"plain {wg[1]:.3f}")
+        check(worst <= TOL["pn"] and di_max <= TOL["pn_iters"],
+              f"PN main path {name} disagrees")
+        errs["pn"] = max(errs["pn"], worst)
 
     # Outputs: finite and shaped.
     for name, a, shp in (("auto", x_auto, (M2D, N2D)), ("dr", x_dr, (M2D, N2D)),
@@ -1005,23 +1133,38 @@ def main(out_dir):
                      launches_by_path=by_path["B2"], max_abs_err=errs["pcr"],
                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
                      library_ms=None))
-    # B1, scalar lam 0.7 at (10000, 1000) (the tv1_batched call), cold.
-    _, _, its = B1.pn_tv1_fused(Y1t, lam_scalar=LAM1D, return_dual=False,
-                                return_iters=True)
-    it_sum = int(its.sum())
-    ms = cuda_ms(lambda: B1.pn_tv1_fused(Y1t, lam_scalar=LAM1D,
-                                         return_dual=False))
-    plain_ms = cuda_ms(lambda: B1.pn_tv1_fused_plain(
-        Y1t, lam_scalar=LAM1D, return_dual=False), reps=1)
-    b, f = bound_ms(B1D * N1D * 8,
-                    N1D * (it_sum * PN_OPS_PER_ITER + B1D * PN_OPS_INIT))
-    kern.append(dict(name="B1 pn_tv1_fused (scalar lam, 10000x1000)",
-                     route="cuda", source="proxtv_tpu_torch/csrc/pn_fused.cu",
-                     replaces="proxtv_tpu/ops/kernels/pn_fused.py:329",
-                     launches=sum(by_path["B1"].values()),
-                     launches_by_path=by_path["B1"], max_abs_err=errs["pn"],
-                     ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
-                     library_ms=None, newton_iters_mean=it_sum / B1D))
+    # B1 at each main-path shape: the path's own launches replayed in order
+    # (ms per launch); the bound from the iterations they ran.  Bytes: y and
+    # x, plus w_init and w where the path passes a warm start (lam is a
+    # scalar on every main path).
+    for shp, s in b1_shapes.items():
+        calls = b1_calls[shp]
+
+        def replay(fn, calls=calls):
+            for _, y_, lf_, w0_, kw_ in calls:
+                fn(y_, lf_, w0_, **kw_)
+
+        ms = cuda_ms(lambda: replay(B1.pn_tv1_fused)) / len(calls)
+        plain_ms = cuda_ms(lambda: replay(B1.pn_tv1_fused_plain),
+                           reps=1) / len(calls)
+        Bs, ns = shp
+        per_el = 16 if s["warm"] else 8
+        b, f = bound_ms(Bs * ns * per_el,
+                        ns * (sum(s["iters"]) / len(calls) * PN_OPS_PER_ITER
+                              + Bs * (PN_OPS_INIT_WARM if s["warm"]
+                                      else PN_OPS_INIT)))
+        kern.append(dict(
+            name=f"B1 pn_tv1_fused ({Bs}x{ns} "
+                 f"{'warm' if s['warm'] else 'cold'}, {', '.join(s['paths'])})",
+            route="cuda", source="proxtv_tpu_torch/csrc/pn_fused.cu",
+            replaces="proxtv_tpu/ops/kernels/pn_fused.py:329",
+            launches=s["launches"],
+            launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
+                              for p_ in s["paths"]},
+            max_abs_err=s["max_abs_err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=f, library_ms=None,
+            newton_iters_mean=sum(s["iters"]) / (len(calls) * Bs),
+            iters_apart=s["iters_apart"]))
     # B3, one cert chunk of the 1024^2 auto path.
     ms = cuda_ms(lambda: B3.pdhg_chunk(sched, *st, ypad, **geo, cert=True))
     plain_ms = cuda_ms(lambda: B3.pdhg_chunk_plain(sched, *st, ypad, **geo,
@@ -1103,7 +1246,20 @@ def main(out_dir):
                      ("tvp_batched p 1.5", lambda: tv1d_lp.tvp_batched(
                          Yp, LAMP, 1.5)),
                      ("tvp_2d p 1.5 512^2", lambda: ptv.tvp_2d(
-                         Y5, LAM2P, LAM2P, P2P, P2P, max_iters=35))):
+                         Y5, LAM2P, LAM2P, P2P, P2P, max_iters=35)),
+                     ("tv1_batched pn", lambda: tv1d_l1.tv1_batched(
+                         Y1t, LAM1D, method="pn")),
+                     ("tvgen pd 3d", lambda: ptv.tvgen(
+                         V, [LAM3] * 3, [1, 2, 3], [1.0] * 3)),
+                     ("tv2_1d mspg", lambda: ptv.tv2_1d(y1, 2.0)),
+                     ("tvp_2d p 2 1024^2", lambda: ptv.tvp_2d(
+                         Y2, LAM2D, LAM2D, 2, 2)),
+                     ("tvp_batched p 3", lambda: tv1d_lp.tvp_batched(
+                         Yp, LAMP, 3.0)),
+                     ("tvp_batched p 5", lambda: tv1d_lp.tvp_batched(
+                         Yp, LAMP, 5.0)),
+                     ("tvp_1d p 1.5", lambda: ptv.tvp_1d(y1, 2.0, 1.5)),
+                     ("tv p 1.5", lambda: ptv.tv(y1, LAMP, p=1.5))):
         breakdown[name] = profile_call(fn)
         b_ = breakdown[name]
         top = ", ".join(f"{k_} {v:.3f} ms" for k_, v in b_["top"])
@@ -1111,14 +1267,41 @@ def main(out_dir):
               f"{b_['busy_ms']:.3f} ms, idle share {b_['idle_share']}; "
               f"{b_['kernels']} kernel launches; top: {top}  ({card})")
 
+    # The redesign queue: each kernel's device time over one pass of every
+    # main-path call that launches it (the profiled calls above), less the
+    # bounds of those launches where phase 4 timed the kernel at the path's
+    # own shape (B1 at each of its shapes, B3, B6, B4's tv2_batched launch,
+    # B5's tvp_batched p = 1.5 launch; the others' bounds at their smaller
+    # shapes are not computed and count as 0).
+    at_shape = {"B3": sum(by_path["B3"].values()),
+                "B6": sum(by_path["B6"].values()),
+                "B4": by_path["B4"]["tv2_batched 10000x1000 lam 1.0 ms"],
+                "B5": by_path["B5"][f"tvp_batched {BLP}x{N1D} lam {LAMP} "
+                                    "p 1.5 gpfw"]}
+    queue = {}
+    for kid in counters:
+        dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in breakdown.values())
+        bnd = sum(k_["bound_ms"] * (k_["launches"] if kid == "B1"
+                                    else at_shape.get(kid, 0))
+                  for k_ in kern if k_["name"].startswith(kid + " "))
+        queue[kid] = {"device_ms": dev_ms, "bound_ms": bnd,
+                      "gap_ms": dev_ms - bnd,
+                      "launches": sum(by_path[kid].values())}
+    for kid, q in sorted(queue.items(), key=lambda kv: -kv[1]["gap_ms"]):
+        print(f"[queue] {kid}: {q['device_ms']:.4f} ms of device time over "
+              f"{q['launches']} main-path launches, bounds {q['bound_ms']:.4f}"
+              f" ms: {q['gap_ms']:.4f} ms over  ({card})")
+
     report.update(errors=errs, main_path=main, times=times, kernels=kern,
+                  queue=queue,
                   breakdown=breakdown,
                   tolerances=TOL, total_s=time.perf_counter() - t_all,
                   auto_iters=int(info_auto.iters[0]),
                   dr_sweeps=int(info_dr.iters[0]), cross_check=xc,
                   F_ref=F_ref, gap_ref=gap_ref, F3_ref=F3_ref,
                   gap_ref3=gap_ref3, tvgen_nd_iters=int(info_3d.iters[0]),
-                  tvgen_sweeps=int(info_gen.iters[0]))
+                  tvgen_sweeps=int(info_gen.iters[0]),
+                  b1_shapes={f"{a}x{b}": v for (a, b), v in b1_shapes.items()})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(f"[done] {report['total_s']:.1f} s")

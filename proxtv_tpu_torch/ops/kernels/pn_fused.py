@@ -9,8 +9,9 @@ search with the cancellation-free improvement, the relative duality-gap stop
 and the degenerate guards.  Device traffic is one read of (y, lam, w_init)
 and one write of (x, w).
 
-:func:`pn_tv1_fused` launches the kernel for a CUDA tensor (one block per
-fiber, so every decision is per fiber) and runs
+:func:`pn_tv1_fused` launches the kernel for a CUDA tensor (one warp per
+fiber for n <= 256, one block per fiber above; either way every decision is
+per fiber, see the design note in ``csrc/pn_fused.cu``) and runs
 :func:`pn_tv1_fused_plain` for a CPU tensor.  The plain version repeats the
 TPU kernel's arithmetic on tensors and takes its ``tb``: the TPU kernel makes
 the PCR-tail, line-search and deep-search decisions once per tile of ``tb``

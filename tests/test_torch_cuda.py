@@ -64,14 +64,46 @@ def _lam_full(W):
     return np.concatenate([W, np.zeros((W.shape[0], 1), W.dtype)], axis=1)
 
 
-@pytest.mark.parametrize("mode", ["scalar", "lam_full", "warm", "long"])
-def test_pn_kernel_matches_plain(mode, dev):
+@pytest.mark.parametrize("mode", ["scalar", "lam_full", "warm", "long",
+                                  "short_rows", "search_warp",
+                                  "search_block"])
+def test_pn_kernel_matches_plain(mode, dev, monkeypatch):
     rng = np.random.RandomState(8)
-    B, n = (16, 5000) if mode == "long" else (64, 1000)
+    B, n = {"long": (16, 5000), "short_rows": (4 * 5 + 3, 32),
+            "search_warp": (32, 200), "search_block": (16, 300)}.get(
+        mode, (64, 1000))
     Y = torch.from_numpy(rng.randn(B, n).astype(np.float32))
+    fallbacks = []
+    if mode.startswith("search"):
+        # Random walks at lam 3: some rows' full Newton step breaks the
+        # Armijo test, so the halving search runs (counted on the plain
+        # version's tile decisions), in the warp and in the block kernel.
+        Y = torch.from_numpy((np.cumsum(rng.randn(B, n), 1) * 0.3
+                              + rng.randn(B, n)).astype(np.float32))
+        tile_all = PPF._tile_all
+
+        def spy(flag, tb):
+            out = tile_all(flag, tb)
+            fallbacks.append(int((out < 1.0).sum()))
+            return out
+
+        monkeypatch.setattr(PPF, "_tile_all", spy)
     lf = torch.from_numpy(_lam_full((rng.rand(B, n - 1) * 1.2)
                                     .astype(np.float32)))
-    kw = {"lam_full": lf} if mode in ("lam_full", "warm") else {"lam_scalar": 0.7}
+    if mode == "short_rows":
+        # The warp-per-fiber kernel (4 fibers per block) on a batch that is
+        # not a multiple of 4: per-row lam, so the rows stop at different
+        # iterations; row 0 has zero penalty (identity guard), row 1 a huge
+        # one (mean guard: lam >= n^2 max|dy|), both in the first block.
+        # Row 1 is scaled down so that lam * (rounding of g) stays under the
+        # stop tolerance: at lam 1e6 on O(1) data the gap is float32 noise
+        # and the iteration count is chance.
+        per = (rng.rand(B) * 1.5).astype(np.float32)
+        per[0], per[1] = 0.0, 10.0
+        Y[1] *= 1e-3
+        lf = torch.from_numpy(_lam_full(np.repeat(per[:, None], n - 1, 1)))
+    kw = ({"lam_full": lf} if mode in ("lam_full", "warm", "short_rows")
+          else {"lam_scalar": 3.0 if mode.startswith("search") else 0.7})
     if mode == "warm":
         kw["w_init"] = PPF.pn_tv1_fused_plain(Y * 0.9, lf)[1]
     ref, wref, it_ref = PPF.pn_tv1_fused_plain(Y, tb=1, **kw)
@@ -81,6 +113,13 @@ def test_pn_kernel_matches_plain(mode, dev):
     np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), atol=2e-3)
     np.testing.assert_allclose(w.cpu().numpy(), wref.numpy(), atol=2e-3)
     assert np.abs(iters.cpu().numpy() - it_ref.numpy()).max() <= 2
+    if mode.startswith("search"):
+        assert sum(fallbacks) > 0
+    if mode == "short_rows":
+        xs = x.cpu().numpy()
+        np.testing.assert_allclose(xs[0], Y[0].numpy(), atol=1e-6)
+        np.testing.assert_allclose(xs[1], float(Y[1].mean()), atol=1e-6)
+        assert len(set(iters.cpu().numpy().tolist())) > 2
 
 
 def _canvas_state(rng, Mp, Np, M, N, stride, count, halo):
@@ -127,9 +166,12 @@ def test_pdhg_kernel_matches_plain(mode, dev):
                                        rtol=1e-4)
 
 
-@pytest.mark.parametrize("n", [2, 3, 33, 129, 1025, 2049, 8192])
+@pytest.mark.parametrize("n", [2, 3, 32, 33, 64, 65, 128, 129, 256, 257,
+                               1024, 1025, 2049, 8192])
 def test_kernels_across_the_lane_range(n, dev):
-    """PN (every template instance) and PCR at the edges of 2..8192."""
+    """PN and PCR at the edges of 2..8192 and at every edge of PN's template
+    instances (one warp per fiber up to 32, 64, 128 and 256; one block per
+    fiber up to 1024, 2048 and 8192)."""
     rng = np.random.RandomState(n)
     B = 8
     Y = torch.from_numpy(rng.randn(B, n).astype(np.float32))

@@ -29,6 +29,12 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    KKT certificate of tests/test_tv1d_lp.py for the long TV-Lp signal;
    3b. hold B1 against its plain version on every launch of the main path,
    with the inputs the path gave it (a tap on the wrapper records them);
+   3c. lengths past the TPU's 8192 lanes, where the port takes the JAX
+   package's route instead of raising: ``api.tv1_1d`` pn at n = 10000
+   (the PCR composition), ``tv1_batched`` at 4 x 10000 and a dr sweep on
+   16 x 9000 (``tv1_pn`` past B1's limit), ``api.tv1_2d`` auto on 64 x 9000
+   (B3 at any width), each held against the same call in float64 on the
+   CPU, and printed as one ``[C1]`` line each;
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1 at
    each of its four main-path shapes, by replaying that shape's launches;
@@ -210,7 +216,7 @@ def profile_call(fn):
 # The __global__ functions of each kernel, as the profiler names them.
 KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
               "B4": "::ms_kernel", "B5": "::gpfw_kernel",
-              "B6": "::pdhg3d_kernel"}
+              "B6": "::pdhg3d_march"}
 
 
 def reference_2d(Y, lam, iters):
@@ -589,7 +595,7 @@ def main(out_dir):
         out = B6.pdhg3d_chunk(sched3(variant), *st3, Vc, **kw)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
-        print(f"[B6 pdhg3d] {variant} ({L3}, {M3}, {N3}) K={k3} core "
+        print(f"[B6 pdhg3d] {variant} ({L3}, {M3}, {N3}) K={k3} tile "
               f"{tile3}: max|kernel - plain| = {err:.3e} (tol "
               f"{TOL['pdhg3d']})")
         check(err <= TOL["pdhg3d"], f"3D PDHG {variant} disagrees ({err})")
@@ -1074,6 +1080,124 @@ def main(out_dir):
                             "iters": int(info_lpl.iters[0]),
                             "cpu_s": t_l_ref}
 
+    # -- 3c. past the TPU's lane limits (ROADMAP C1) -----------------------
+    # Each instance on the card against the same call in float64 on the
+    # CPU, at the bars the port already uses: 2e-3 on 1D TV-L1 outputs (the
+    # dr sweep's too: its fibers are 1D TV-L1 solves); tv1_2d auto by the
+    # certified-gap rule above against float64 chambolle-pock-acc, and its
+    # first chunk against B3's plain version (TOL["pdhg"]).
+    # tv1_1d at n = 10000 is also held by the certified-gap rule against
+    # float64.  The card test's instance (seed 21) parts from float64 by
+    # more than TOL["pn"]: the reference's float32 stop floor, 2 eps
+    # 0.5||y - mean||^2, lets the solve stop early (ROADMAP C), and the JAX
+    # package's float32 tv1_pn does the same.  So that instance is held
+    # within TOL["pn"] of the JAX package's float32 result on its input
+    # (tests/data, kept true by tests/test_torch_pn.py), its distance from
+    # float64 printed.
+    rng5 = np.random.RandomState(SEED + 3)  # this phase's data
+    c1 = {}
+    yc1 = np.cumsum(rng5.randn(10000)) * 0.3 + rng5.randn(10000)
+
+    def obj1d(x, y, lam):
+        x = x.astype(np.float64)
+        return 0.5 * np.sum((x - y) ** 2) + lam * np.abs(np.diff(x)).sum()
+
+    b2 = B2.LAUNCHES.value
+    x_c, i_c = ptv.tv1_1d(yc1, 2.0, method="pn", return_info=True)
+    check(B2.LAUNCHES.value == b2, "tv1_1d at n = 10000 launched B2")
+    x_r, i_r = ptv.tv1_1d(yc1, 2.0, method="pn", return_info=True,
+                          device="cpu")
+    F_c, F_r = obj1d(x_c, yc1, 2.0), obj1d(x_r, yc1, 2.0)
+    bar1 = float(i_c.gap[0]) + float(i_r.gap[0]) + F_ROUND * F_r
+    print(f"[C1] tv1_1d pn n=10000: F - F_ref = {F_c - F_r:.4e} (bar "
+          f"{bar1:.4e}: both certified gaps; card {int(i_c.iters[0])} "
+          f"iterations, float64 {int(i_r.iters[0])})")
+    check(F_c - F_r <= bar1, "tv1_1d at n = 10000 misses its certificate")
+    c1["tv1_1d pn n=10000"] = (float(np.abs(x_c - x_r).max()), TOL["pn"],
+                               int(i_c.rc[0]), int(i_r.rc[0]))
+    rng21 = np.random.RandomState(21)  # the card test's instance
+    y21 = np.cumsum(rng21.randn(10000)) * 0.3 + rng21.randn(10000)
+    x21, i21 = ptv.tv1_1d(y21, 2.0, method="pn", return_info=True)
+    x21_r, i21_r = ptv.tv1_1d(y21, 2.0, method="pn", return_info=True,
+                              device="cpu")
+    x21_j = np.load(os.path.join(REPO, "tests", "data",
+                                 "tv1_pn_float32_walk21.npy"))
+    F_c, F_r = obj1d(x21, y21, 2.0), obj1d(x21_r, y21, 2.0)
+    bar21 = float(i21.gap[0]) + float(i21_r.gap[0]) + F_ROUND * F_r
+    e21_j = float(np.abs(x21 - x21_j).max())
+    e21 = float(np.abs(x21 - x21_r).max())
+    print(f"[C1] tv1_1d pn n=10000 (seed 21): max|card - JAX float32| = "
+          f"{e21_j:.3e} (tol {TOL['pn']}); F - F_ref = {F_c - F_r:.4e} (bar "
+          f"{bar21:.4e}); max|card - float64| = {e21:.3e} (printed: the "
+          f"float32 stop floor), rc card {int(i21.rc[0])} / float64 "
+          f"{int(i21_r.rc[0])}")
+    check(e21_j <= TOL["pn"] and F_c - F_r <= bar21
+          and int(i21.rc[0]) in (RC_OK, int(i21_r.rc[0])),
+          "tv1_1d at n = 10000 (seed 21) misses JAX float32 or its "
+          "certificate")
+    xc["C1 tv1_1d pn n=10000 seed 21"] = {
+        "max_abs_err_jax_float32": e21_j, "max_abs_err_float64": e21,
+        "rc": int(i21.rc[0]), "rc_ref": int(i21_r.rc[0])}
+    Yc1 = rng5.randn(4, 10000)
+    b1 = B1.LAUNCHES.value
+    x_c = tv1d_l1.tv1_batched(t(Yc1.astype(np.float32)), LAM1D, method="pn")
+    x_r = tv1d_l1.tv1_batched(torch.from_numpy(Yc1), LAM1D, method="pn")
+    c1["tv1_batched pn 4x10000"] = (
+        float((x_c.double().cpu() - x_r).abs().max()), TOL["pn"], None, None)
+    check(B1.LAUNCHES.value == b1, "tv1_batched at n = 10000 launched B1")
+    Yc2 = rng5.randn(1, 16, 9000)
+    x_c, i_c = tv2d.tv1_2d_batched(t(Yc2.astype(np.float32)), LAM2D,
+                                   method="dr", max_iters=1)
+    x_r, i_r = tv2d.tv1_2d_batched(torch.from_numpy(Yc2), LAM2D, method="dr",
+                                   max_iters=1)
+    c1["tv1_2d dr one sweep 16x9000"] = (
+        float((x_c.double().cpu() - x_r).abs().max()), TOL["pn"],
+        int(i_c.rc[0]), int(i_r.rc[0]))
+    Yc3 = rng5.randn(64, 9000)
+    seen3 = []
+    launch_b3 = B3.pdhg_chunk
+
+    def tap_b3(*a, **kw):
+        if not seen3:
+            seen3.append(([v.clone() if torch.is_tensor(v) else v for v in a],
+                          dict(kw)))
+        return launch_b3(*a, **kw)
+
+    B3.pdhg_chunk = tap_b3
+    try:
+        x_c, i_c = ptv.tv1_2d(Yc3, LAM2D, return_info=True)
+    finally:
+        B3.pdhg_chunk = launch_b3
+    a3, kw3 = seen3[0]
+    out = B3.pdhg_chunk(*a3, **kw3)
+    ref = B3.pdhg_chunk_plain(*a3, **{k_: v for k_, v in kw3.items()})
+    torch.cuda.synchronize()
+    e3 = max(float((o - r_).abs().max()) for o, r_ in zip(out[:4], ref[:4]))
+    print(f"[C1] B3 first chunk of tv1_2d auto 64x9000 (canvas "
+          f"{tuple(a3[1].shape)}): max|kernel - plain| = {e3:.3e} (tol "
+          f"{TOL['pdhg']})")
+    check(e3 <= TOL["pdhg"], "B3 at N = 9000 disagrees with its plain version")
+    t0 = time.perf_counter()
+    x_r, i_r = ptv.tv1_2d(Yc3, LAM2D, method="chambolle-pock-acc",
+                          return_info=True, device="cpu")
+    F_c, F_r = obj2d(x_c, Yc3, LAM2D), obj2d(x_r, Yc3, LAM2D)
+    bar3 = float(i_c.gap[0]) + float(i_r.gap[0]) + F_ROUND * F_r
+    c1["tv1_2d auto 64x9000"] = (float(np.abs(x_c - x_r).max()), None,
+                                 int(i_c.rc[0]), int(i_r.rc[0]))
+    print(f"[C1] tv1_2d auto 64x9000: F - F_ref = {F_c - F_r:.4e} (bar "
+          f"{bar3:.4e}: both certified gaps), float64 CPU cp-acc "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(F_c - F_r <= bar3, "tv1_2d auto at 64 x 9000 misses the bar")
+    for name, (e_, bar, rc_c, rc_r) in c1.items():
+        print(f"[C1] {name}: max|card - float64| = {e_:.3e}"
+              + (f" (tol {bar})" if bar is not None else " (printed)")
+              + (f", rc card {rc_c} / float64 {rc_r}" if rc_c is not None
+                 else ""))
+        check(bar is None or e_ <= bar, f"C1 {name} disagrees with float64")
+        check(rc_c is None or rc_c in (RC_OK, rc_r),
+              f"C1 {name}: rc {rc_c} (float64 {rc_r})")
+        xc["C1 " + name] = {"max_abs_err": e_, "rc": rc_c, "rc_ref": rc_r}
+
     # -- 4. times -----------------------------------------------------------
     # Whole calls, numpy in and out (CUDA events around host-synchronous
     # calls: wall time on the card's clock).
@@ -1194,14 +1318,30 @@ def main(out_dir):
                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
                      library_ms=None, secant_iters_mean=float(
                          it_cold.float().mean())))
-    # B6, one cp-acc chunk of the 32 x 256 x 256 tvgen_nd path.
+    # B6, one cp-acc chunk of the 32 x 256 x 256 tvgen_nd path.  ms times
+    # the wrapper, as the tvgen_nd driver calls it and as every earlier
+    # kernels line did; the kernel (~0.05 ms) is about as short as the
+    # wrapper's host work, so kernel_ms also times its C entry point called
+    # with arguments made once (as tools/time_b6.py does).
     cells = L3 * M3 * N3
     sd3 = sched3("cp-acc")
+    outs3 = torch.empty((5,) + tuple(Vc.shape), device=dev).unbind(0)
+    args3 = ([build.ptr(sd3)] + [build.ptr(f_) for f_ in (*st3, Vc)]
+             + [build.ptr(o) for o in outs3]
+             + [L3, M3, N3, k3, *tile3, N3, M3, L3, L3, 1, 0, 0, 0,
+                build.stream_ptr(dev)])
+    lib = build.lib()
+    build.check(lib.pdhg3d_chunk(*args3), "pdhg3d_chunk")
+    ref3 = B6.pdhg3d_chunk(sd3, *st3, Vc, **geo3)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(a, b)) for a, b in zip(outs3, ref3)),
+          "B6's C entry point and its wrapper disagree")
     ms = cuda_ms(lambda: B6.pdhg3d_chunk(sd3, *st3, Vc, **geo3))
+    kernel_ms = cuda_ms(lambda: lib.pdhg3d_chunk(*args3))
     plain_ms = cuda_ms(lambda: B6.pdhg3d_chunk_plain(sd3, *st3, Vc, **geo3),
                        reps=3)
     b, f = bound_ms(cells * 4 * 11, cells * k3 * PDHG3D_OPS_PER_STEP)
-    kern.append(dict(name=f"B6 pdhg3d_chunk (K={k3}, core {tile3}, "
+    kern.append(dict(name=f"B6 pdhg3d_chunk (K={k3}, tile {tile3}, "
                           f"32x256x256 canvas)",
                      route="cuda",
                      source="proxtv_tpu_torch/csrc/pdhg3d_fused.cu",
@@ -1209,7 +1349,9 @@ def main(out_dir):
                      launches=sum(by_path["B6"].values()),
                      launches_by_path=by_path["B6"],
                      max_abs_err=errs["pdhg3d"], ms=ms, plain_ms=plain_ms,
-                     bound_ms=b, bound_by=f, library_ms=None))
+                     bound_ms=b, bound_by=f, library_ms=None, k_steps=k3,
+                     ms_per_iter=ms / k3, kernel_ms=kernel_ms,
+                     kernel_ms_per_iter=kernel_ms / k3))
     # B5, p = 1.5 at (512, 1000) (the tvp_batched call): each row runs its
     # trips of one projection and nine FW steps.
     a15 = lp_args[1.5]

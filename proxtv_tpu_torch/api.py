@@ -60,7 +60,8 @@ def tv1_1d(x, w, method="auto", sigma=0.05, maxbacktracks=None,
     (auto, classictautstring, linearizedtautstring, hybridtautstring, pn,
     condat, dp, condattautstring, kolmogorov); this slice runs ``pn`` and
     ``auto``, and ``auto`` goes to projected Newton (:func:`tv1d_l1.tv1_pn`,
-    whose Newton systems run kernel B2 on the card): the native host engine
+    whose Newton systems run kernel B2 on the card up to n - 1 = 8192 and
+    the PCR composition past it): the native host engine
     and the direct scan engines the JAX package's auto picks arrive with
     ROADMAP A4 / A8.  An explicit direct method raises
     ``NotImplementedError``.  ``maxbacktracks`` is accepted for

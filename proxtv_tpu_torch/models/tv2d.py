@@ -24,9 +24,10 @@ src/TV2Dopt.cpp:907).
 On the card the fiber passes run kernel B1 (p = 1), B4 (p = 2) or B5
 (other p with q = p/(p-1) in [1.12, 3.1]; the rest run the TV-Lp torch
 composition, as the JAX package does) and the primal-dual engines run the
-chunked PDHG solve over kernel B3; a CUDA input those kernels cannot take
-(not float32, a side outside 2..8192) raises.  On the CPU the plain
-compositions run.  The loops are Python loops: each
+chunked PDHG solve over kernel B3.  A fiber longer than 8192 runs the
+composition the JAX package runs there (``tv1_pn`` for p = 1); a CUDA
+input the kernels cannot take (not float32, a side of 1) raises.  On the
+CPU the plain compositions run.  The loops are Python loops: each
 combiner sweep and each PDHG certificate reads one small value to the host.
 """
 from __future__ import annotations

@@ -156,11 +156,13 @@ def _run_pdhg3d_fused(Y, lams_by_dim, cap, cfg, variant: str, gap_tol=None,
     ``lams_by_dim``: (lam_L, lam_M, lam_N) scalar penalties per signal dim.
     ``schedule_override``: optional (sigma0, cap_mult) replacing the
     auto-tuned cp-acc schedule (cap_mult only acts with ``'cp-acc'``).
-    ``k_steps``/``tile``: chunk length and the kernel's core (default
+    ``k_steps``/``tile``: chunk length and the kernel's block, a (tm, tn)
+    core of columns that marches along segments of tl layers (default
     :func:`gating.pdhg3d_params`; pinning ``k_steps`` to the JAX package's
     value reproduces its certificate cadence).  The JAX driver's rotation of
     the best lane axis into last place and its canvas padding (TPU lane and
-    sublane rules) are dropped: the CUDA kernel tiles all three axes.
+    sublane rules) are dropped: the CUDA kernel tiles M and N and marches
+    along L, so any canvas fits it.
 
     The certificate runs between chunks, every ~24 iterations, as a torch
     composition: from the duals, xhat = Y - D'u is dual-feasible and

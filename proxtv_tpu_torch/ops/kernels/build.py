@@ -57,6 +57,8 @@ _SIGNATURES = {
     # grad_step, stream
     "pdhg3d_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # k_steps, tm, tn -> resident blocks per SM (or a negative CUDA error)
+    "pdhg3d_blocks_per_sm": (_I, _I, _I),
     # y, w0, lam, mu0, run_mask, w, mu, gap, iters, B, n, max_trips,
     # fw_cycles, stop_rel, newton_iters, q_ge2, exponents (host float[13]),
     # codes (host int[13]), stream

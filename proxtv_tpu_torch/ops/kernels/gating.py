@@ -9,7 +9,11 @@ alone:
 *   a CUDA tensor takes the kernel, or the call raises with the limit it
     broke: the kernels are float32 by design, one fiber/line must fit the
     kernel's lane limits, and the fused-kernel switch (:func:`fused_ctx`)
-    must be on.  Nothing on the card runs the plain composition instead.
+    must be on.  Nothing on the card runs the plain composition instead,
+    with one exception, a property of the kernel family: past the upper
+    lane limit of a family whose JAX callers run an XLA composition there,
+    the gate says "not this kernel" and the port's caller runs the same
+    composition on the card.
 """
 from __future__ import annotations
 
@@ -37,28 +41,37 @@ def fused_ctx(on: bool):
         _fused_flag.reset(token)
 
 
-# Lane-length (last-axis) limits per kernel family, the JAX package's limits
-# (gating.py:59-67) for the six kernels the port has.
+# Lane-length (last-axis) limits per kernel family: the JAX package's limits
+# (gating.py:59-67) for the five kernels that hold a whole fiber or line, and
+# the 3D chunk's, which the JAX driver also enforces (models/tvnd.py:548-552).
+# The 2D chunk tiles its canvas in 32 x 32 cores with size_t offsets, so the
+# TPU's 8192 is no limit of it; only the C interface's int bounds N.  The
+# third entry says whether the family's callers run a composition past the
+# upper limit, as the JAX package's do (tv1_pn and the XLA PCR past B1 and
+# B2, the spectral secular iteration past B4, the GPFW composition past B5).
 _KIND_LANE_LIMITS = {
-    "pn": (2, 8192),        # projected Newton (csrc/pn_fused.cu)
-    "ms": (2, 8192),        # More-Sorensen TV-L2 (csrc/ms_fused.cu)
-    "lp": (2, 8192),        # GPFW TV-Lp dual loop (csrc/lp_fused.cu)
-    "pcr": (2, 8192),       # PCR tridiagonal solve (csrc/pcr.cu)
-    "pdhg2d": (1, 8192),    # 2D PDHG chunk (csrc/pdhg_fused.cu)
-    "pdhg3d": (1, 2048),    # 3D PDHG chunk (csrc/pdhg3d_fused.cu)
+    "pn": (2, 8192, True),        # projected Newton (csrc/pn_fused.cu)
+    "ms": (2, 8192, True),        # More-Sorensen TV-L2 (csrc/ms_fused.cu)
+    "lp": (2, 8192, True),        # GPFW TV-Lp dual loop (csrc/lp_fused.cu)
+    "pcr": (2, 8192, True),       # PCR tridiagonal solve (csrc/pcr.cu)
+    "pdhg2d": (1, 2 ** 31 - 1, False),  # 2D PDHG chunk (csrc/pdhg_fused.cu)
+    "pdhg3d": (1, 2048, False),   # 3D PDHG chunk (csrc/pdhg3d_fused.cu)
 }
 
 
 def lane_limits(kind: str):
-    return _KIND_LANE_LIMITS[kind]
+    return _KIND_LANE_LIMITS[kind][:2]
 
 
 def gate(y: torch.Tensor, kind: str) -> bool:
     """Route for kernel family ``kind``: False for a CPU tensor (the plain
     composition runs), True for a CUDA tensor the kernel takes.  A CUDA
-    tensor the kernel cannot take raises: not float32, last axis outside the
-    family's lane limits, or the switch off.  A torch tensor lives on one
-    device, so there is no sharding test."""
+    tensor the kernel cannot take raises: the switch off, not float32, or
+    last axis outside the family's lane limits, except that a float32
+    tensor longer than the upper limit of a family whose callers compose
+    there returns False (its caller runs the composition the JAX package
+    runs there).  A torch tensor lives on one device, so there is no
+    sharding test."""
     if not y.is_cuda:
         return False
     if not _fused_flag.get():
@@ -68,7 +81,9 @@ def gate(y: torch.Tensor, kind: str) -> bool:
     if y.dtype != torch.float32:
         raise ValueError(f"the {kind} kernel takes float32 on the card; got "
                          f"{y.dtype} (float64 solves run on the CPU)")
-    lo, hi = _KIND_LANE_LIMITS[kind]
+    lo, hi, composes = _KIND_LANE_LIMITS[kind]
+    if composes and y.shape[-1] > hi:
+        return False
     if not lo <= y.shape[-1] <= hi:
         raise ValueError(f"the {kind} kernel takes {lo} <= n <= {hi} along "
                          f"the last axis; got n = {y.shape[-1]}")
@@ -93,16 +108,18 @@ def pdhg3d_params():
     """(k_steps, (tl, tm, tn)) of the CUDA 3D PDHG chunk.
 
     The TPU's VMEM budget (``proxtv_tpu.ops.kernels.pdhg3d_fused.
-    best_params``) kept whole N-lines resident; a block's 227 KB of shared
-    memory cannot (6 fields of a 12 x 12 window of 256-long lines take
-    884 KB).  So the CUDA kernel tiles all three axes: a (tl, tm, tn) core
-    plus a halo of K cells on every side.  The stencil reaches one cell per
-    step in each direction (the dual update reads xbar one cell ahead, the
-    primal update reads the duals one cell behind), so after K steps the
-    cells at least K inside the window are exact; the certificate runs
-    outside the kernel, so no wider ring is needed.  K = 2 with an
-    8 x 8 x 32 core gives a 12 x 12 x 36 window: 6 fields x 5184 cells x
-    4 B = 124 KB (one block per SM), computing 2.5x the cells it keeps, and
-    two iterations per pass over device memory (a chunk reads 6 fields and
-    writes 5, so the traffic per iteration halves against K = 1)."""
-    return 2, (8, 8, 32)
+    best_params``) kept whole N-lines resident; a block's shared memory
+    cannot.  The CUDA kernel marches along L instead: a block owns a
+    (tm, tn) core of columns plus a halo of K cells in M and N, one thread
+    per column of the window, and walks a segment of tl layers (plus K
+    layers below and above it), with the K steps pipelined one layer behind
+    each other, so the L neighbours stay in registers and only one layer of
+    xbar, u1 and u2 sits in shared memory.  K = 2 with a 16 x 16 core and
+    32-layer segments: a 20 x 20 window (400 threads, 4.8 KB), 1.56x the
+    columns it keeps, two iterations per pass over device memory.  Timed on
+    the H100 at the 32 x 256 x 256 canvas (``tools/time_b6.py``, PERF.md):
+    K = 3 and 4 cost as much or more per iteration (their windows are
+    larger and fit one block per SM), and other cores or 16-layer segments
+    were slower.  K divides 24, so the driver's certificate every 24
+    iterations stays on a chunk boundary."""
+    return 2, (32, 16, 16)

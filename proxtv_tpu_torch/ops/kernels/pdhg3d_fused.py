@@ -37,7 +37,6 @@ from .gating import lane_limits, pdhg3d_params
 from .pdhg_fused import sched_chunk
 
 LAUNCHES = Counter()
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 
 def sched_chunk3(carry, k_steps, lams, sigma0, cap_mult, variant):
@@ -123,13 +122,18 @@ def pdhg3d_chunk_plain(sched, x, xb, u1, u2, u3, y, k_steps: int,
     return x, xb, u1, u2, u3
 
 
+def window_columns(k_steps: int, tile) -> int:
+    """Threads of one CUDA block: the (tm + 2K) x (tn + 2K) window of
+    columns around the block's (tm, tn) core."""
+    _, tm, tn = tile
+    return (tm + 2 * k_steps) * (tn + 2 * k_steps)
+
+
 def smem_bytes(k_steps: int, tile) -> int:
-    """Shared memory of one CUDA block: 6 float windows of the core plus a
-    K halo on every side, a 16-bit mask per window cell, the schedule."""
-    win = 1
-    for t in tile:
-        win *= t + 2 * k_steps
-    return 6 * 4 * win + 2 * win + 4 * 6 * k_steps + 16
+    """Shared memory of one CUDA block: xbar, u1 and u2 of one layer of the
+    window (the in-layer neighbours' values, reused by every step), and the
+    schedule with 1 / (1 + tau) per step."""
+    return 3 * 4 * window_columns(k_steps, tile) + 4 * 7 * k_steps
 
 
 def pdhg3d_chunk(sched, x, xb, u1, u2, u3, y, k_steps: int, n_valid: int,
@@ -139,9 +143,13 @@ def pdhg3d_chunk(sched, x, xb, u1, u2, u3, y, k_steps: int, n_valid: int,
     """Run one K-iteration chunk over a whole (Lp, Mp, N) canvas.
 
     ``sched`` is the (k_steps, 6) schedule slice (a tensor on the canvas's
-    device).  ``tile`` is the CUDA kernel's (tl, tm, tn) core (default
-    :func:`gating.pdhg3d_params`).  Returns fresh (x, xbar, u1, u2, u3);
-    outputs never alias inputs.
+    device).  ``tile`` is the CUDA kernel's block: a (tm, tn) core of
+    columns that marches along a segment of tl layers (default
+    :func:`gating.pdhg3d_params`).  The C entry point takes ``k_steps`` in
+    1, 2, 3, 4, 6, 8 and a window of (tm + 2K)(tn + 2K) columns within its
+    thread cap for that K (``csrc/pdhg3d_fused.cu:max_threads``), and
+    reports anything else as an invalid argument, which raises here.
+    Returns fresh (x, xbar, u1, u2, u3); outputs never alias inputs.
     """
     if not x.is_cuda:
         return pdhg3d_chunk_plain(sched, x, xb, u1, u2, u3, y, k_steps,
@@ -158,16 +166,18 @@ def pdhg3d_chunk(sched, x, xb, u1, u2, u3, y, k_steps: int, n_valid: int,
     if not lo <= n_valid <= hi or n_valid > N:
         raise ValueError(f"3D PDHG kernel takes {lo} <= N <= {hi}; got "
                          f"{n_valid}")
-    if (k_steps < 1 or len(tile) != 3 or min(tile) < 1
-            or smem_bytes(k_steps, tile) > _SMEM_LIMIT):
-        raise ValueError(f"k_steps={k_steps}, tile={tile} does not fit "
-                         "shared memory")
+    if len(tile) != 3 or min(tile) < 1:
+        raise ValueError(f"tile={tile}: the kernel takes (tl, tm, tn) >= 1")
     if (tuple(sched.shape) != (k_steps, 6) or sched.dtype != torch.float32
             or sched.device != x.device):
         raise ValueError("sched must be a (k_steps, 6) float32 tensor on the "
                          "canvas's device")
     sched = sched.contiguous()
-    outs = [torch.empty_like(x) for _ in range(5)]
+    # One allocation for the five outputs: the kernel takes ~47 us on an
+    # H100 at the main path's 32 x 256 x 256 canvas, and each allocation
+    # costs the host a few.
+    outs = torch.empty((5, Lp, Mp, N), dtype=x.dtype,
+                       device=x.device).unbind(0)
     lib = build.lib()
     err = lib.pdhg3d_chunk(
         build.ptr(sched), *(build.ptr(f) for f in (x, xb, u1, u2, u3, y)),
@@ -176,4 +186,4 @@ def pdhg3d_chunk(sched, x, xb, u1, u2, u3, y, k_steps: int, n_valid: int,
         int(pad_top), int(pad_m), int(grad_step), build.stream_ptr(x.device))
     build.check(err, "pdhg3d_chunk")
     LAUNCHES.value += 1
-    return tuple(outs)
+    return outs

@@ -90,10 +90,13 @@ def spd_second_difference_solve(rhs, diag_shift=0.0, mask=None, method="pcr"):
             when both endpoints are True (reference ``src/TVL1opt.cpp:177-181``).
         method: 'pcr' or 'thomas'.
 
-    A CUDA tensor runs the PCR kernel (:mod:`.kernels.pcr`) or raises: the
-    kernel takes float32, 2 <= n <= 8192, and a mask or a shift that is
-    constant along the system axis, not both (the JAX package's routing,
+    A CUDA tensor up to n = 8192 runs the PCR kernel (:mod:`.kernels.pcr`)
+    or raises: the kernel takes float32, n >= 2, and a mask or a shift that
+    is constant along the system axis, not both (the JAX package's routing,
     ``tridiag.py:145-164``, where the rest falls to the plain composition).
+    A float32 CUDA tensor past n = 8192 runs the plain composition, where
+    the JAX package solves with its XLA ``pcr_solve``
+    (``proxtv_tpu/ops/tridiag.py:153-179``).
     """
     from .kernels import gating
 
@@ -105,9 +108,8 @@ def spd_second_difference_solve(rhs, diag_shift=0.0, mask=None, method="pcr"):
 def spd_second_difference_composition(rhs, diag_shift=0.0, mask=None,
                                       method="pcr"):
     """The plain composition of :func:`spd_second_difference_solve` on the
-    tensor's own device: what the CPU runs, and what a caller runs where the
-    JAX package solves with its XLA ``pcr_solve`` past the kernel's lane
-    limit (the TV-Lp setup solve with n - 1 > 8192)."""
+    tensor's own device: what the CPU runs, and what the card runs past the
+    kernel's lane limit."""
     n = rhs.shape[-1]
     dtype = rhs.dtype
     a = torch.full(rhs.shape, 2.0, dtype=dtype, device=rhs.device) \

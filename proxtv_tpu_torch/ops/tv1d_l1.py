@@ -15,7 +15,8 @@ with scalar or per-edge weights.
     run kernel B2 (float32 only).
 *   :func:`tv1_batched` — reference-compatible method names.  On a CUDA
     float32 batch every method runs the projected-Newton kernel B1
-    (:mod:`.kernels.pn_fused`).
+    (:mod:`.kernels.pn_fused`) up to its lane limit, :func:`tv1_pn` past
+    it.
 
 The direct engines of the JAX package (taut string, Condat, message passing,
 classic taut string) are not ported yet (ROADMAP A8): a strict call that names
@@ -277,8 +278,9 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
     reference's tests assert cross-method equality, prox_tv_test.py:37-62).
     On a CUDA batch that is kernel B1 (the JAX package does the same on its
     accelerator, ``tv1d_l1.py:1186-1191``), which takes float32 and
-    2 <= n <= 8192 or raises; on the CPU it is :func:`tv1_pn`, where the JAX
-    package would run the named direct engine.
+    2 <= n <= 8192 or raises; past n = 8192, where the JAX package runs its
+    taut string, and on the CPU, where it would run the named direct
+    engine, it is :func:`tv1_pn` (the same fixed point).
     With ``strict=True`` a direct engine name raises ``NotImplementedError``:
     those engines are ROADMAP item A8.
     """
@@ -320,5 +322,5 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
         lam_full = torch.cat([lamv, y.new_zeros((B, 1))], dim=-1)
         x, _ = pn_fused.pn_tv1_fused(y, lam_full, return_dual=False)
         return x
-    x, _ = tv1_pn(y, lam, cfg=cfg)  # CPU: gate() raised for CUDA misfits
+    x, _ = tv1_pn(y, lam, cfg=cfg)  # CPU, or past B1's lane limit
     return x

@@ -205,11 +205,10 @@ def _fft_friendly(L: int) -> bool:
 def _ms_kernel_ok(y):
     """Route to kernel B4: True for a CUDA tensor with n <= 8192 the kernel
     takes (anything else there raises in ``gating.gate``); False on the CPU
-    and for n > 8192, where the secular iteration runs spectrally."""
+    and for a float32 CUDA tensor with n > 8192, where the secular iteration
+    runs spectrally."""
     from .kernels import gating
 
-    if y.shape[-1] > gating.lane_limits("ms")[1]:
-        return False
     return gating.gate(y, "ms")
 
 

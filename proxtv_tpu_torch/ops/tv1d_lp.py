@@ -84,14 +84,6 @@ def _tol_of(cfg, den, dtype):
                        * torch.clamp(den, min=1.0), min=cfg.stop)
 
 
-def _unconstrained_dual(dy):
-    """Solve DD' w = dy: kernel B2 on the card up to its lane limit, the
-    PCR composition past it (the JAX package's XLA ``pcr_solve`` there)."""
-    if dy.shape[-1] > gating.lane_limits("pcr")[1]:
-        return tridiag.spd_second_difference_composition(dy)
-    return tridiag.spd_second_difference_solve(dy)
-
-
 def _common_setup(y, lam, p):
     B, n = y.shape
     dtype, dev = y.dtype, y.device
@@ -107,7 +99,7 @@ def _common_setup(y, lam, p):
         return (y, ybar, B, n, dtype, lamv, z0, q, z0,
                 torch.zeros((B,), dtype=torch.bool, device=dev), lamv <= 0)
     # Closed-form exit: unconstrained solution inside the ball -> x = mean.
-    w0 = _unconstrained_dual(dy)
+    w0 = tridiag.spd_second_difference_solve(dy)
     interior = (lp_norm(w0, q) <= lamv) & (lamv > 0)
     zero_pen = lamv <= 0
     return y, ybar, B, n, dtype, lamv, dy, q, w0, interior, zero_pen
@@ -316,14 +308,14 @@ def tvp_fw(y, lam, p: float, cfg: TVpConfig = DEFAULT_TVP, max_iters: int = 0):
 def _fused_lp_ok(y, p: float) -> bool:
     """Route the GPFW driver to kernel B5, decided by p, q and n before any
     launch: q = p/(p-1) inside the joint-KKT Newton's float32 range
-    [1.12, 3.1] (p ~ 1.47-9.3, p != 2) and 2 <= n <= 8192.  Then
-    ``gating.gate``: False on the CPU; on the card True, or it raises for a
-    tensor the kernel cannot take (not float32, the switch off)."""
+    [1.12, 3.1] (p ~ 1.47-9.3, p != 2) and n >= 2.  Then ``gating.gate``:
+    False on the CPU and for a float32 CUDA tensor with n > 8192; on the
+    card True, or it raises for a tensor the kernel cannot take (not
+    float32, the switch off)."""
     if p <= P_SMALL or p >= P_LARGE or p == 2.0:
         return False
     q = lp.dual_p(p)
-    lo, hi = gating.lane_limits("lp")
-    if not (1.12 <= q <= 3.1 and lo <= y.shape[-1] <= hi):
+    if not (1.12 <= q <= 3.1 and y.shape[-1] >= gating.lane_limits("lp")[0]):
         return False
     return gating.gate(y, "lp")
 

@@ -6,6 +6,8 @@ machine with a card and without JAX it runs on its own:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -253,6 +255,101 @@ def test_call_sites_raise_instead_of_running_plain_on_the_card(case, dev):
         calls[case]()
 
 
+def _obj2d(X, Y, lam):
+    return (0.5 * np.sum((X - Y) ** 2)
+            + lam * (np.abs(np.diff(X, axis=0)).sum()
+                     + np.abs(np.diff(X, axis=1)).sum()))
+
+
+@pytest.mark.parametrize("case", ["tv1_1d_pn", "tv1_1d_auto", "tv1_batched",
+                                  "dr_sweep", "tv1_2d_auto"])
+def test_past_the_tpu_lane_limits_matches_cpu_float64(case, dev, monkeypatch):
+    """Lengths past the TPU's 8192 lanes take the JAX package's route on the
+    card instead of raising: tv1_pn's tridiagonal solves run the PCR
+    composition past B2's limit, fibers past B1's run tv1_pn, and B3 takes
+    any width.  Each call is held against the same call in float64 on the
+    CPU: 2e-3 on 1D TV-L1 outputs; tv1_2d auto by the certified-gap rule of
+    chip_smoke.py against float64 chambolle-pock-acc, and its first chunk
+    against B3's plain version (1e-4).  tv1_1d at n = 10000 misses 2e-3
+    against float64 by the reference's own float32 stop floor (ROADMAP C:
+    2 eps 0.5||y||^2 = 0.57 here; the JAX package's float32 tv1_pn parts
+    from float64 by the same 1.097e-2): it is held by the certified-gap
+    rule against float64, and within 2e-3 of the JAX package's float32
+    tv1_pn on the same input (``tests/data``, kept true by
+    test_torch_pn.py)."""
+    from proxtv_tpu_torch import api
+    from proxtv_tpu_torch.models import tv2d
+    from proxtv_tpu_torch.ops import tv1d_l1
+
+    rng = np.random.RandomState(21)
+    b1, b2 = PPF.LAUNCHES.value, PK.LAUNCHES.value
+    if case.startswith("tv1_1d"):
+        y = np.cumsum(rng.randn(10000)) * 0.3 + rng.randn(10000)
+        method = case.split("_")[-1]
+        x, info = api.tv1_1d(y, 2.0, method=method, return_info=True)
+        ref, info_ref = api.tv1_1d(y, 2.0, method=method, return_info=True,
+                                   device="cpu")
+        assert PK.LAUNCHES.value == b2  # n - 1 > 8192: the composition
+        assert int(info.rc[0]) in (0, int(info_ref.rc[0]))
+        xj = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                  "tv1_pn_float32_walk21.npy"))
+        np.testing.assert_allclose(x, xj, atol=2e-3)
+
+        def F(v):
+            v = v.astype(np.float64)
+            return 0.5 * np.sum((v - y) ** 2) + 2.0 * np.abs(np.diff(v)).sum()
+
+        assert F(x) - F(ref) <= (float(info.gap[0]) + float(info_ref.gap[0])
+                                 + 1e-6 * F(ref))
+        return
+    if case == "tv1_batched":
+        Y = rng.randn(4, 10000)
+        x = tv1d_l1.tv1_batched(torch.from_numpy(Y).float().to(dev), 0.7,
+                                method="pn")
+        ref = tv1d_l1.tv1_batched(torch.from_numpy(Y), 0.7, method="pn")
+        assert PPF.LAUNCHES.value == b1  # n > 8192: tv1_pn, not B1
+        np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                                   atol=2e-3)
+        return
+    if case == "dr_sweep":
+        Y = rng.randn(1, 16, 9000)
+        x, _ = tv2d.tv1_2d_batched(torch.from_numpy(Y).float().to(dev), 0.3,
+                                   method="dr", max_iters=1)
+        ref, _ = tv2d.tv1_2d_batched(torch.from_numpy(Y), 0.3, method="dr",
+                                     max_iters=1)
+        assert PPF.LAUNCHES.value > b1  # the 16-long columns run B1
+        np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                                   atol=2e-3)
+        return
+    Y = rng.randn(64, 9000)
+    seen = []
+    chunk = PPK.pdhg_chunk
+
+    def tap(*a, **kw):
+        if not seen:
+            seen.append(([v.clone() if torch.is_tensor(v) else v for v in a],
+                         {k_: (v.clone() if torch.is_tensor(v) else v)
+                          for k_, v in kw.items()}))
+        return chunk(*a, **kw)
+
+    monkeypatch.setattr(PPK, "pdhg_chunk", tap)
+    x, info = api.tv1_2d(Y, 0.3, return_info=True)
+    monkeypatch.setattr(PPK, "pdhg_chunk", chunk)
+    a, kw = seen[0]
+    out = PPK.pdhg_chunk(*a, **kw)
+    ref = PPK.pdhg_chunk(*(v.cpu() if torch.is_tensor(v) else v for v in a),
+                         **{k_: (v.cpu() if torch.is_tensor(v) else v)
+                            for k_, v in kw.items()})  # the plain version
+    torch.cuda.synchronize()
+    for o, r in zip(out[:4], ref[:4]):
+        np.testing.assert_allclose(o.cpu().numpy(), r.numpy(), atol=1e-4)
+    xr, ir = api.tv1_2d(Y, 0.3, method="chambolle-pock-acc",
+                        return_info=True, device="cpu")
+    assert int(info.rc[0]) == 0 and int(ir.rc[0]) == 0
+    F, F_ref = _obj2d(x.astype(np.float64), Y, 0.3), _obj2d(xr, Y, 0.3)
+    assert F - F_ref <= float(info.gap[0]) + float(ir.gap[0]) + 1e-6 * F_ref
+
+
 def test_small_image_runs_the_pdhg_kernel(dev):
     """An image shorter than a PDHG tile (M = 5) still takes kernel B3."""
     from proxtv_tpu_torch.models import tv2d
@@ -314,15 +411,21 @@ def _canvas3(rng, Lp, Mp, N, hl):
     return [torch.from_numpy(a) for a in f]
 
 
-@pytest.mark.parametrize("variant,tile", [("cp", None), ("cp-acc", None),
-                                          ("condat", None),
-                                          ("cp-acc", (3, 5, 7))])
-def test_pdhg3d_kernel_matches_plain(variant, tile, dev):
+@pytest.mark.parametrize("variant,k,tile", [
+    ("cp", None, None), ("cp-acc", None, None), ("condat", None, None),
+    ("cp-acc", 2, (3, 5, 7)), ("cp", 1, (2, 3, 5)), ("condat", 3, (5, 4, 7)),
+    ("cp-acc", 4, (7, 6, 5)), ("cp", 6, (4, 4, 4)), ("cp-acc", 8, (5, 2, 2))])
+def test_pdhg3d_kernel_matches_plain(variant, k, tile, dev):
     """B6 against its plain version on a padded canvas of two stacked
     volumes (gap layers, M offset, NaN in the leading layers): every cell,
-    NaN where the plain version has NaN."""
+    NaN where the plain version has NaN.  Every step count the kernel is
+    built for; ``tile`` is (L segment, M core, N core).  Lp = 36 and
+    Mp = 18, N = 37 are multiples of no segment or core, and the segment
+    boundaries fall inside the volumes, where the K layers under a segment
+    carry valid L edges."""
     rng = np.random.RandomState(5)
-    L, M, N, count, k = 4, 11, 37, 2, 2
+    L, M, N, count = 12, 11, 37, 2
+    k = k or P3K.pdhg3d_params()[0]
     stride, hl, hm = L + 2, 4, 3
     Lp, Mp = count * stride + 2 * hl, M + 2 * hm + 1
     t = _canvas3(rng, Lp, Mp, N, hl)
@@ -339,6 +442,21 @@ def test_pdhg3d_kernel_matches_plain(variant, tile, dev):
     assert P3K.LAUNCHES.value == before + 1
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("k,tile", [(5, (4, 4, 4)), (2, (4, 32, 32))])
+def test_pdhg3d_c_entry_rejects_what_it_cannot_launch(k, tile, dev):
+    """The step counts and the thread cap per K live in the C entry point
+    alone: K = 5 is not built, and a 32 x 32 core at K = 2 needs 1296
+    threads.  It reports an invalid argument, the wrapper raises, and
+    nothing is launched or counted."""
+    f = [torch.zeros((8, 8, 8), device=dev) for _ in range(6)]
+    sched = torch.zeros((k, 6), device=dev)
+    before = P3K.LAUNCHES.value
+    with pytest.raises(RuntimeError, match="pdhg3d_chunk"):
+        P3K.pdhg3d_chunk(sched, *f, k_steps=k, n_valid=8, m_valid=8,
+                         l_valid=8, stride=8, count=1, tile=tile)
+    assert P3K.LAUNCHES.value == before
 
 
 def test_tv2_and_tvnd_on_card_match_cpu_float64(dev):

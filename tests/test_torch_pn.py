@@ -4,6 +4,8 @@ Inputs are made by numpy from a seed.  The JAX Pallas kernel runs in
 interpret mode; the port's plain version of B1 is pinned to the JAX tile
 height ``tb`` so its tile-wide decisions match.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +63,31 @@ def test_tv1_pn_warm_start_and_dual_match_jax():
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), atol=1e-8)
     np.testing.assert_allclose(wp.numpy(), np.asarray(wj), atol=1e-8)
     np.testing.assert_array_equal(ip.iters.numpy(), np.asarray(ij.iters))
+
+
+def test_tv1_pn_float32_past_the_lane_limit_matches_jax():
+    """float32 at n = 10000, past the PCR kernel's 8192, where both packages
+    solve with the PCR composition, on the card test's random walk
+    (tests/test_torch_cuda.py, seed 21): the port reproduces the JAX
+    package's float32 solve iteration for iteration, to a few float32 ulps,
+    also where the float32 stop floor, 2 eps 0.5||y - mean||^2, lets both
+    stop about 1e-2 from the float64 solution (ROADMAP C).  The JAX
+    result is kept in ``tests/data/tv1_pn_float32_walk21.npy``, the
+    reference the card test holds the card's solve against (the card
+    machine has no JAX); this test keeps that file true."""
+    rng = np.random.RandomState(21)
+    y = (np.cumsum(rng.randn(10000)) * 0.3
+         + rng.randn(10000)).astype(np.float32)
+    xj, ij = JL.tv1_pn(jnp.asarray(y)[None], jnp.float32(2.0))
+    xp, ip = PL.tv1_pn(torch.from_numpy(y)[None], 2.0)
+    # Two float32 summation orders: a few ulps of the largest |x| (~61).
+    ulps = 4 * np.finfo(np.float32).eps * float(np.abs(y).max())
+    np.testing.assert_allclose(xp.numpy(), np.asarray(xj), atol=ulps)
+    kept = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                "tv1_pn_float32_walk21.npy"))
+    np.testing.assert_allclose(kept, np.asarray(xj)[0], atol=ulps)
+    np.testing.assert_array_equal(ip.iters.numpy(), np.asarray(ij.iters))
+    np.testing.assert_array_equal(ip.rc.numpy(), np.asarray(ij.rc))
 
 
 def test_degenerate_guards_match_jax():

@@ -103,3 +103,20 @@ def test_pcr_wrapper_cpu_takes_plain_and_checks_args():
     with pytest.raises(ValueError):
         PK.pcr_spd_solve(t, mask=torch.from_numpy(mask),
                          diag_shift=torch.from_numpy(sh))
+
+
+@pytest.mark.parametrize("mode", ["plain", "masked"])
+def test_solve_matches_jax_past_the_kernel_limit(mode):
+    """``spd_second_difference_solve`` at n - 1 > 8192, the length
+    where the JAX package leaves its PCR kernel for the XLA composition (as
+    ``tv1_pn``'s init and Newton solves do there): float64, the same
+    solution."""
+    rng = np.random.RandomState(7)
+    d = rng.randn(2, 8200) * 1e-3
+    mask = rng.rand(2, 8200) > 0.05 if mode == "masked" else None
+    kw_j = {} if mask is None else {"mask": jnp.asarray(mask)}
+    kw_p = {} if mask is None else {"mask": torch.from_numpy(mask)}
+    xj = JT.spd_second_difference_solve(jnp.asarray(d), **kw_j)
+    xp = PT.spd_second_difference_solve(torch.from_numpy(d), **kw_p)
+    np.testing.assert_allclose(xp.numpy(), np.asarray(xj),
+                               atol=1e-9 * max(1.0, float(np.abs(xj).max())))

@@ -59,18 +59,49 @@ def test_gate_refuses_cpu_and_follows_the_switch():
                                   "switch_off"])
 def test_gate_raises_for_cuda_input_the_kernel_cannot_take(case):
     """A CUDA tensor takes its kernel or raises; it never takes the plain
-    composition.  The gate reads only device, dtype and shape, so a stand-in
-    with those attributes plays the card tensor here."""
+    composition (past the upper limit of a family whose callers compose
+    there, it is routed to them: see the next test; the 3D PDHG chunk's
+    callers do not).  The gate reads only device, dtype and shape, so a
+    stand-in with those attributes plays the card tensor here."""
     n = {"lane_too_long": 9000, "lane_too_short": 1}.get(case, 64)
+    kind = "pdhg3d" if case == "lane_too_long" else "pn"
     dtype = torch.float64 if case == "float64" else torch.float32
     y = types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=(4, n))
     err = RuntimeError if case == "switch_off" else ValueError
     with gating.fused_ctx(case != "switch_off"):
-        with pytest.raises(err, match="pn kernel"):
-            gating.gate(y, "pn")
+        with pytest.raises(err, match=f"{kind} kernel"):
+            gating.gate(y, kind)
     ok = types.SimpleNamespace(is_cuda=True, dtype=torch.float32,
                                shape=(4, 64))
     assert gating.gate(ok, "pn") is True
+
+
+@pytest.mark.parametrize("kind", ["pn", "pcr", "ms", "lp", "pdhg2d",
+                                  "pdhg3d"])
+@pytest.mark.parametrize("case", ["long", "long_float64", "long_switch_off",
+                                  "too_short", "in_range"])
+def test_gate_composes_past_the_upper_limit_per_family(kind, case):
+    """Past the upper lane limit of a family whose JAX callers run a
+    composition there (B1, B2, B4, B5), a float32 CUDA tensor routes to the
+    port's caller, which runs the same composition (False).  Float64 and
+    the switch off still raise at any length, and so does a lane below the
+    lower limit.  The 3D chunk raises past its N = 2048, as the JAX driver
+    does; the 2D chunk has no such limit."""
+    lo, hi = gating.lane_limits(kind)
+    n = {"too_short": lo - 1, "in_range": 64}.get(case, 9000)
+    dtype = torch.float64 if case == "long_float64" else torch.float32
+    y = types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=(4, n))
+    with gating.fused_ctx(case != "long_switch_off"):
+        if case == "long_switch_off":
+            with pytest.raises(RuntimeError, match=f"{kind} kernel"):
+                gating.gate(y, kind)
+        elif (case in ("long_float64", "too_short")
+              or (case == "long" and kind == "pdhg3d")):
+            with pytest.raises(ValueError, match=f"{kind} kernel"):
+                gating.gate(y, kind)
+        else:
+            want = case == "in_range" or kind == "pdhg2d"
+            assert gating.gate(y, kind) is want
 
 
 def test_profile_ctx_writes_a_trace(tmp_path, monkeypatch):

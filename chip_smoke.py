@@ -37,7 +37,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    CPU, and printed as one ``[C1]`` line each;
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1 at
-   each of its four main-path shapes, by replaying that shape's launches;
+   each of its four main-path shapes and B4 at each of its three, by
+   replaying that shape's launches;
 5. profile the main-path calls: device time by kernel and the idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -303,15 +304,24 @@ def bound_ms(nbytes, flops):
 
 
 # Operation counts per element, read off the CUDA sources (adds, multiplies,
-# divides, compares and selects counted one each; a lower bound).
+# divides, compares and selects counted one each; a lower bound).  The
+# tridiagonal solves of B2 and B4 are counted as the least work of their
+# function, one exact O(n) elimination (TRIDIAG_OPS: the pivot's subtract
+# and reciprocal, forward add and multiply, backward multiply and add), and
+# beside it as the TPU kernels' PCR does it (the *_PCR_* counts, kept in
+# each row as bound_ms_pcr).
+TRIDIAG_OPS = 6
 PCR_OPS_PER_STEP = 18     # 2 divides, 8 multiplies, 6 adds, 2 negations
+PCR_OPS_MASK = 2          # B2: the mask or the shift on the diagonal
 PN_OPS_PER_ITER = 100     # mask 10, PCR init 8 + 4 head steps x 13, trial 12,
                           # gradient + gap 8, bookkeeping ~10
 PN_OPS_INIT = 40          # centering, dual init (2 log-shift scans), gap
 PN_OPS_INIT_WARM = 20     # centering, clamped warm dual, x, g, gap
 PDHG_OPS_PER_STEP = 22    # two dual updates 10, divergence 3, primal 6, xbar 3
 MS_PCR_OPS_PER_STEP = 16  # r: 2 mul 2 sub 1 div; d: 2 mul 2 sub 1 mul; b, c 6
-MS_OPS_PER_SOLVE = 10     # normalization 6, norm and secant update 4
+MS_PCR_OPS_PER_SOLVE = 10  # normalization 6, norm and secant update 4
+MS_OPS_PER_SOLVE = TRIDIAG_OPS + 2  # the solve, the norm's multiply and add
+MS_OPS_PER_FIBER = 10     # mean 1, center 1, dy 1, x 2, g 1, g'g 2, w'g 2
 PDHG3D_OPS_PER_STEP = 30  # three dual updates 15, divergence 6, primal 6,
                           # xbar 3
 LP_OPS_PER_TRIP = 440     # p = 1.5 (q = 3, chain powers): gradient and gap
@@ -561,7 +571,7 @@ def main(out_dir):
         errs["ms"] = max(errs["ms"], ex)
         return a, it
 
-    a_cold, it_cold = ms_case("(10000, 1000) lam 1.0 cold", Y1t, lam=LAML2)
+    a_cold, _ = ms_case("(10000, 1000) lam 1.0 cold", Y1t, lam=LAML2)
     lam_rows = t(np.resize(np.array([0.0, 0.5, 1.0, 2.0, 50.0], np.float32),
                            B1D))
     ms_case("(10000, 1000) lam_rows in {0, 0.5, 1, 2, 50}", Y1t,
@@ -694,18 +704,28 @@ def main(out_dir):
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
-    # B1 runs at four shapes on the main path.  A tap on its wrapper keeps
-    # each main-path launch's inputs, by (B, n), and calls through; phase 3b
-    # holds the kernel against its plain version on them and phase 4 replays
-    # them for the per-shape times.
+    # B1 runs at four shapes on the main path, B4 at three.  A tap on each
+    # wrapper keeps each main-path launch's inputs, by (B, n), and calls
+    # through; phase 3b holds B1 against its plain version on them and phase
+    # 4 replays them for the per-shape times.
     b1_calls = {}
-    b1_path = [None]
+    b4_calls = {}
+    tap_path = [None]
     launch_b1 = B1.pn_tv1_fused
+    launch_b4 = B4.ms_tv2_fused
+
+    def tap_b4(y, **kw):
+        if tap_path[0] is not None:
+            b4_calls.setdefault(tuple(y.shape), []).append(
+                (tap_path[0], y.contiguous().clone(),  # columns come as .T
+                 {k_: v.clone() if torch.is_tensor(v) else v
+                  for k_, v in kw.items()}))
+        return launch_b4(y, **kw)
 
     def tap_b1(y, lam_full=None, w_init=None, **kw):
-        if b1_path[0] is not None:
+        if tap_path[0] is not None:
             b1_calls.setdefault(tuple(y.shape), []).append(
-                (b1_path[0], y.clone(),
+                (tap_path[0], y.clone(),
                  None if lam_full is None else lam_full.clone(),
                  None if w_init is None else w_init.clone(), dict(kw)))
         return launch_b1(y, lam_full, w_init, **kw)
@@ -714,13 +734,13 @@ def main(out_dir):
         for c in counters.values():
             c.reset()
         debug.HOST_SYNCS.reset()
-        b1_path[0] = name if main_path else None
+        tap_path[0] = name if main_path else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        b1_path[0] = None
+        tap_path[0] = None
         got = {k_: c.value for k_, c in counters.items()}
         for k_ in counters:
             if main_path and got[k_]:
@@ -739,7 +759,8 @@ def main(out_dir):
                 + lam * (np.abs(np.diff(X, axis=0)).sum()
                          + np.abs(np.diff(X, axis=1)).sum()))
 
-    B1.pn_tv1_fused = tap_b1  # restored after the main path (the demo)
+    B1.pn_tv1_fused = tap_b1  # both restored after the main path
+    B4.ms_tv2_fused = tap_b4
     x_auto, info_auto = run("api.tv1_2d 1024^2 lam 0.3 auto",
                             lambda: ptv.tv1_2d(Y2, LAM2D, return_info=True),
                             ["B3"])
@@ -805,6 +826,7 @@ def main(out_dir):
     demo_res = run("demo_filter_image (dr, kolmogorov, chambolle-pock-acc)",
                    demo.main, ["B1", "B3"], main_path=False)
     B1.pn_tv1_fused = launch_b1
+    B4.ms_tv2_fused = launch_b4
 
     # -- 3b. B1 against its plain version at the main path's own inputs ----
     # Every recorded launch, by shape: the 1024^2 dr fibers and the tvgen
@@ -1249,14 +1271,17 @@ def main(out_dir):
     plain_ms = cuda_ms(lambda: B2.pcr_spd_solve_plain(d, mask=mask), reps=3)
     steps = math.ceil(math.log2(N1D))
     b, f = bound_ms(B1D * N1D * (4 + 1 + 4),
-                    B1D * N1D * (PCR_OPS_PER_STEP * steps + 5))
+                    B1D * N1D * (TRIDIAG_OPS + PCR_OPS_MASK))
+    b_pcr, f_pcr = bound_ms(B1D * N1D * (4 + 1 + 4),
+                            B1D * N1D * (PCR_OPS_PER_STEP * steps + 5))
     kern.append(dict(name="B2 pcr_spd_solve (masked, 10000x1000)",
                      route="cuda", source="proxtv_tpu_torch/csrc/pcr.cu",
                      replaces="proxtv_tpu/ops/kernels/pcr.py:100",
                      launches=sum(by_path["B2"].values()),
                      launches_by_path=by_path["B2"], max_abs_err=errs["pcr"],
                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
-                     library_ms=None))
+                     library_ms=None, bound_ms_pcr=b_pcr,
+                     bound_by_pcr=f_pcr))
     # B1 at each main-path shape: the path's own launches replayed in order
     # (ms per launch); the bound from the iterations they ran.  Bytes: y and
     # x, plus w_init and w where the path passes a warm start (lam is a
@@ -1301,23 +1326,83 @@ def main(out_dir):
                      launches_by_path=by_path["B3"], max_abs_err=errs["pdhg"],
                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
                      library_ms=None))
-    # B4, scalar lam 1.0 at (10000, 1000) (the tv2_batched call), cold: each
-    # fiber runs 2 bootstrap solves plus its secant steps.
-    steps = math.ceil(math.log2(N1D))
-    solves = int((it_cold + 2).sum())
-    ms = cuda_ms(lambda: B4.ms_tv2_fused(Y1t, lam=LAML2))
-    plain_ms = cuda_ms(lambda: B4.ms_tv2_fused_plain(Y1t, lam=LAML2), reps=1)
-    b, f = bound_ms(B1D * N1D * 8,
-                    N1D * solves * (MS_PCR_OPS_PER_STEP * steps
-                                    + MS_OPS_PER_SOLVE))
-    kern.append(dict(name="B4 ms_tv2_fused (scalar lam, 10000x1000)",
-                     route="cuda", source="proxtv_tpu_torch/csrc/ms_fused.cu",
-                     replaces="proxtv_tpu/ops/kernels/ms_fused.py:194",
-                     launches=sum(by_path["B4"].values()),
-                     launches_by_path=by_path["B4"], max_abs_err=errs["ms"],
-                     ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
-                     library_ms=None, secant_iters_mean=float(
-                         it_cold.float().mean())))
+    # B4 at each main-path shape (tv2_batched 10000x1000 cold, tvp_2d's
+    # 1024x1024 fiber passes warm, tv2_1d's one fiber): the path's own
+    # launches replayed in order.  ms times the wrapper per launch, as every
+    # earlier kernels line did; kernel_ms the C entry point, called with its
+    # arguments made once.  The bound from the solves those launches ran
+    # (2 bootstrap solves plus the secant steps per fiber): one exact
+    # tridiagonal solve each (MS_OPS_PER_SOLVE) plus the fiber's own work;
+    # bound_ms_pcr counts the TPU kernel's PCR, as the bound did before.
+    lib = build.lib()
+    for shp, calls in b4_calls.items():
+        Bs, ns = shp
+        c_args, solves, iters = [], 0, 0
+        for _, y_, kw_ in calls:
+            x_, _, _, it_ = B4.ms_tv2_fused(y_, **kw_)
+            solves += int((it_ + 2).sum())
+            iters += int(it_.sum())
+
+            def rows(a):
+                return None if a is None else torch.as_tensor(
+                    a, device=dev).to(torch.float32).reshape(-1).contiguous()
+
+            keep = (rows(kw_.get("lam_rows")), rows(kw_.get("alpha_init")),
+                    torch.empty_like(y_), torch.empty((Bs,), device=dev),
+                    torch.empty((Bs,), device=dev),
+                    torch.empty((Bs,), dtype=torch.int32, device=dev))
+            lam_ = kw_.get("lam")
+            c_args.append((keep, (
+                build.ptr(y_), build.ptr(keep[0]),
+                float(lam_) if lam_ is not None else 0.0, build.ptr(keep[1]),
+                *(build.ptr(o) for o in keep[2:]), Bs, ns,
+                int(kw_.get("max_iters", 100)),
+                float(kw_.get("stop_boundary", 1e-5)),
+                build.stream_ptr(dev))))
+            build.check(lib.ms_tv2_fused(*c_args[-1][1]), "ms_tv2_fused")
+            torch.cuda.synchronize()
+            check(bool(torch.equal(keep[2], x_)),
+                  "B4's C entry point and its wrapper disagree")
+
+        def replay(fn, calls=calls):
+            for _, y_, kw_ in calls:
+                fn(y_, **kw_)
+
+        def replay_c(c_args=c_args):
+            for _, a_ in c_args:
+                lib.ms_tv2_fused(*a_)
+
+        ms = cuda_ms(lambda: replay(B4.ms_tv2_fused)) / len(calls)
+        kernel_ms = cuda_ms(replay_c) / len(calls)
+        plain_ms = cuda_ms(lambda: replay(B4.ms_tv2_fused_plain),
+                           reps=1) / len(calls)
+        per_launch = solves / len(calls)
+        nbytes = Bs * ns * 8 + Bs * 4 * (3 + sum(
+            calls[0][2].get(k_) is not None
+            for k_ in ("lam_rows", "alpha_init")))
+        b, f = bound_ms(nbytes, ns * (per_launch * MS_OPS_PER_SOLVE
+                                      + Bs * MS_OPS_PER_FIBER))
+        b_pcr, f_pcr = bound_ms(
+            nbytes, ns * per_launch * (MS_PCR_OPS_PER_STEP
+                                       * math.ceil(math.log2(ns))
+                                       + MS_PCR_OPS_PER_SOLVE))
+        paths = sorted({c[0] for c in calls})
+        warm = calls[0][2].get("alpha_init") is not None
+        kern.append(dict(
+            name=f"B4 ms_tv2_fused ({Bs}x{ns} {'warm' if warm else 'cold'}, "
+                 f"{', '.join(paths)})",
+            route="cuda", source="proxtv_tpu_torch/csrc/ms_fused.cu",
+            replaces="proxtv_tpu/ops/kernels/ms_fused.py:194",
+            launches=len(calls),
+            launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
+                              for p_ in paths},
+            max_abs_err=errs["ms"], ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=f, library_ms=None, kernel_ms=kernel_ms,
+            bound_ms_pcr=b_pcr, bound_by_pcr=f_pcr,
+            secant_iters_mean=iters / (len(calls) * Bs)))
+    check(sum(k_["launches"] for k_ in kern if k_["name"].startswith("B4 "))
+          == sum(by_path["B4"].values()),
+          "the B4 tap missed main-path launches")
     # B6, one cp-acc chunk of the 32 x 256 x 256 tvgen_nd path.  ms times
     # the wrapper, as the tvgen_nd driver calls it and as every earlier
     # kernels line did; the kernel (~0.05 ms) is about as short as the
@@ -1370,10 +1455,12 @@ def main(out_dir):
                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
                      library_ms=None, trips_mean=trips / BLP))
     for k_ in kern:
+        extra = "".join(f", {key} {k_[key]:.4f} ms" for key in (
+            "kernel_ms", "bound_ms_pcr") if key in k_)
         print(f"[kernel] {k_['name']}: {k_['ms']:.4f} ms (plain "
               f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms by "
-              f"{k_['bound_by']}), {k_['launches']} launches on the main "
-              f"path {k_['launches_by_path']}  ({card})")
+              f"{k_['bound_by']}{extra}), {k_['launches']} launches on the "
+              f"main path {k_['launches_by_path']}  ({card})")
 
     # -- 5. where the time goes: device time by kernel, idle share -------
     breakdown = {}
@@ -1412,18 +1499,17 @@ def main(out_dir):
     # The redesign queue: each kernel's device time over one pass of every
     # main-path call that launches it (the profiled calls above), less the
     # bounds of those launches where phase 4 timed the kernel at the path's
-    # own shape (B1 at each of its shapes, B3, B6, B4's tv2_batched launch,
-    # B5's tvp_batched p = 1.5 launch; the others' bounds at their smaller
-    # shapes are not computed and count as 0).
+    # own shape (B1 and B4 at each of their shapes, B3, B6, B5's tvp_batched
+    # p = 1.5 launch; the others' bounds at their smaller shapes are not
+    # computed and count as 0).
     at_shape = {"B3": sum(by_path["B3"].values()),
                 "B6": sum(by_path["B6"].values()),
-                "B4": by_path["B4"]["tv2_batched 10000x1000 lam 1.0 ms"],
                 "B5": by_path["B5"][f"tvp_batched {BLP}x{N1D} lam {LAMP} "
                                     "p 1.5 gpfw"]}
     queue = {}
     for kid in counters:
         dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in breakdown.values())
-        bnd = sum(k_["bound_ms"] * (k_["launches"] if kid == "B1"
+        bnd = sum(k_["bound_ms"] * (k_["launches"] if kid in ("B1", "B4")
                                     else at_shape.get(kid, 0))
                   for k_ in kern if k_["name"].startswith(kid + " "))
         queue[kid] = {"device_ms": dev_ms, "bound_ms": bnd,

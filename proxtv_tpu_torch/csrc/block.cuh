@@ -1,5 +1,5 @@
-// Block-wide helpers shared by the one-block-per-fiber kernels (pn_fused.cu,
-// ms_fused.cu) and the PDHG chunk (pdhg_fused.cu).
+// Warp- and block-wide reductions shared by the per-fiber kernels
+// (pn_fused.cu, ms_fused.cu, lp_fused.cu) and the PDHG chunk (pdhg_fused.cu).
 //
 // Every loop branch of a fiber solve must be uniform across the block, or a
 // __syncthreads() inside it deadlocks.  So the reductions here give every
@@ -45,23 +45,6 @@ __device__ float block_reduce(float v, float* red) {
   const float ident = OP == kSum ? 0.f : (OP == kMax ? -inf_f() : inf_f());
   v = lane < nw ? red[lane] : ident;
   return warp_reduce<OP>(v);
-}
-
-// Last element of the previous thread's chunk (0 for thread 0): the
-// shift_right(x, 1, 0) neighbour of this thread's first element.
-__device__ inline float from_prev(float last, float* xch) {
-  __syncthreads();
-  xch[threadIdx.x] = last;
-  __syncthreads();
-  return threadIdx.x > 0 ? xch[threadIdx.x - 1] : 0.f;
-}
-
-// First element of the next thread's chunk (0 for the last thread).
-__device__ inline float from_next(float first, float* xch) {
-  __syncthreads();
-  xch[threadIdx.x] = first;
-  __syncthreads();
-  return threadIdx.x + 1 < blockDim.x ? xch[threadIdx.x + 1] : 0.f;
 }
 
 }  // namespace

@@ -376,18 +376,28 @@ def _ms_inputs(rng, mode, B, n):
         kw = {"lam_rows": torch.from_numpy(lams)}
     if mode == "warm":
         kw["alpha_init"] = MSK.ms_tv2_fused_plain(Y * 0.9, **kw)[1]
+    if mode == "warm_image":  # the tvp_2d p = 2 fiber pass at lam 0.3
+        kw = {"lam": 0.3, "alpha_init": MSK.ms_tv2_fused_plain(Y, 0.3)[1]}
+        Y = Y + torch.from_numpy(0.05 * rng.randn(B, n).astype(np.float32))
     return Y, kw
 
 
-@pytest.mark.parametrize("mode,B,n", [("scalar", 64, 1000), ("rows", 64, 1000),
-                                      ("warm", 64, 1000), ("scalar", 8, 2),
-                                      ("scalar", 8, 3), ("rows", 12, 129),
-                                      ("warm", 8, 1025), ("scalar", 8, 2049),
-                                      ("rows", 6, 8192)])
+@pytest.mark.parametrize("mode,B,n", [
+    ("scalar", 64, 1000), ("rows", 64, 1000), ("warm", 64, 1000),
+    ("scalar", 8, 2), ("scalar", 8, 3), ("rows", 12, 129), ("warm", 8, 1025),
+    ("scalar", 8, 2049), ("rows", 6, 8192),
+    # every edge of the kernel's layouts (E elements a lane, W warps a
+    # fiber: 4 x 1 to 128, 8 x 1 to 256, 8 x 2 to 512, 8 x 4 to 1024,
+    # 8 x 8 to 2048, 8 x 16 to 4096, 16 x 16 above), partial blocks of the
+    # one-warp layout (4 fibers a block), one fiber, the 1024^2 warm pass
+    ("rows", 5, 32), ("scalar", 7, 33), ("warm", 6, 128), ("scalar", 9, 256),
+    ("rows", 6, 257), ("warm", 6, 512), ("scalar", 6, 513),
+    ("rows", 6, 1024), ("scalar", 1, 1000), ("warm", 4, 2048),
+    ("rows", 4, 4096), ("scalar", 4, 4097), ("warm_image", 6, 1024)])
 def test_ms_kernel_matches_plain(mode, B, n, dev):
-    """B4 against its plain version (tb = 1), across every template
-    instance: x to 1e-4 in data units, alpha to 1e-4 relative, iteration
-    counts at most one apart (the stop test can sit at rounding noise)."""
+    """B4 against its plain version (tb = 1), across every layout edge:
+    x to 1e-4 in data units, alpha to 1e-4 relative, iteration counts at
+    most one apart (the stop test can sit at rounding noise)."""
     rng = np.random.RandomState(n)
     Y, kw = _ms_inputs(rng, mode, B, n)
     ref, a_ref, g_ref, it_ref = MSK.ms_tv2_fused_plain(Y, tb=1, **kw)
@@ -400,7 +410,32 @@ def test_ms_kernel_matches_plain(mode, B, n, dev):
     np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), atol=1e-4)
     np.testing.assert_allclose(a.cpu().numpy(), a_ref.numpy(), rtol=1e-4,
                                atol=1e-6)
-    assert np.abs(it.cpu().numpy() - it_ref.numpy()).max() <= 1
+    it_k, it_p = it.cpu().numpy(), it_ref.numpy().copy()
+    # Where the float32 plain version runs to the cap, its stop test sits at
+    # rounding noise (its PCR at a small alpha: lam = 50 rows at n = 129 and
+    # 257); there the counts are held against the plain version in float64,
+    # the same algorithm without that noise, and so is the solution: x
+    # within the same 1e-4 and the objective within both certified gaps
+    # (ROADMAP C).
+    noisy = it_p >= 100
+    if noisy.any():
+        sel = torch.from_numpy(noisy)
+        kw64 = {k: (v[sel].double() if torch.is_tensor(v) else v)
+                for k, v in kw.items()}
+        y64 = Y[sel].double()
+        x64, _, g64, it64 = MSK.ms_tv2_fused_plain(y64, tb=1, **kw64)
+        it_p[noisy] = it64.numpy()
+        xk = x.cpu()[sel].double()
+        np.testing.assert_allclose(xk.numpy(), x64.numpy(), atol=1e-4)
+        lam = kw64["lam_rows"] if "lam_rows" in kw64 else kw64["lam"]
+
+        def obj(z):
+            return (0.5 * ((z - y64) ** 2).sum(1)
+                    + lam * torch.linalg.vector_norm(z.diff(dim=1), dim=1))
+
+        bar = g.cpu()[sel].double() + g64 + 1e-6 * obj(x64)
+        assert bool((obj(xk) - obj(x64) <= bar).all())
+    assert np.abs(it_k - it_p).max() <= 1
     assert np.all(g.cpu().numpy() >= 0)
 
 

@@ -38,7 +38,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1 at
    each of its four main-path shapes and B4 at each of its three, by
-   replaying that shape's launches;
+   replaying that shape's launches (B4's first held against its plain
+   version on each of them);
 5. profile the main-path calls: device time by kernel and the idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -551,20 +552,28 @@ def main(out_dir):
     # B4 at the TV-L2 batch (10000, 1000), lam 1.0: scalar cold, per-row lam
     # with zero-penalty and large-penalty rows, warm from the cold alpha; and
     # at the fiber shape of the tvp_2d p = 2 path (1024 fibers x 1024), warm.
-    def ms_case(name, y, **kw):
+    def ms_compare(y, **kw):
+        """B4 against its plain version on one launch's inputs: the kernel's
+        outputs, max|dx|, max alpha relative error, the largest count apart
+        on rows under the cap, and the kernel's and the plain rows at it."""
+        cap = kw.get("max_iters", 100)
         x_r, a_r, _, it_r = B4.ms_tv2_fused_plain(y, tb=1, **kw)
         x, a, g, it = B4.ms_tv2_fused(y, **kw)
         torch.cuda.synchronize()
         ex = float((x - x_r).abs().max())
         ea = float(((a - a_r).abs() / torch.clamp(a_r.abs(), min=1.0)).max())
-        capped = (it >= 100) | (it_r >= 100)
+        capped = (it >= cap) | (it_r >= cap)
         di = int(torch.where(capped, 0, (it - it_r).abs()).max())
+        return (x, a, g, it), ex, ea, di, (int((it >= cap).sum()),
+                                           int((it_r >= cap).sum()))
+
+    def ms_case(name, y, **kw):
+        (x, a, g, it), ex, ea, di, at_cap = ms_compare(y, **kw)
         print(f"[B4 ms] {name}: max|kernel - plain| x {ex:.3e} (tol "
               f"{TOL['ms']}), alpha rel {ea:.3e} (tol {TOL['ms_alpha']}); "
-              f"iterations at most {di} apart on the rows under the cap, {int(capped.sum())} rows at the cap (kernel "
-              f"{int((it >= 100).sum())}, plain {int((it_r >= 100).sum())})"
-              f"; mean iterations kernel {float(it.float().mean()):.2f}, "
-              f"plain {float(it_r.float().mean()):.2f}")
+              f"iterations at most {di} apart on the rows under the cap, "
+              f"rows at the cap kernel {at_cap[0]}, plain {at_cap[1]}"
+              f"; mean iterations kernel {float(it.float().mean()):.2f}")
         check(ex <= TOL["ms"] and ea <= TOL["ms_alpha"]
               and bool((g >= 0).all()),
               f"MS {name} disagrees")
@@ -706,8 +715,8 @@ def main(out_dir):
     main = {}
     # B1 runs at four shapes on the main path, B4 at three.  A tap on each
     # wrapper keeps each main-path launch's inputs, by (B, n), and calls
-    # through; phase 3b holds B1 against its plain version on them and phase
-    # 4 replays them for the per-shape times.
+    # through; phase 3b holds B1 against its plain version on them, phase 4
+    # holds B4 against its own and replays both for the per-shape times.
     b1_calls = {}
     b4_calls = {}
     tap_path = [None]
@@ -717,7 +726,7 @@ def main(out_dir):
     def tap_b4(y, **kw):
         if tap_path[0] is not None:
             b4_calls.setdefault(tuple(y.shape), []).append(
-                (tap_path[0], y.contiguous().clone(),  # columns come as .T
+                (tap_path[0], y.clone(),  # keeps the .T of column passes
                  {k_: v.clone() if torch.is_tensor(v) else v
                   for k_, v in kw.items()}))
         return launch_b4(y, **kw)
@@ -1328,49 +1337,53 @@ def main(out_dir):
                      library_ms=None))
     # B4 at each main-path shape (tv2_batched 10000x1000 cold, tvp_2d's
     # 1024x1024 fiber passes warm, tv2_1d's one fiber): the path's own
-    # launches replayed in order.  ms times the wrapper per launch, as every
-    # earlier kernels line did; kernel_ms the C entry point, called with its
-    # arguments made once.  The bound from the solves those launches ran
-    # (2 bootstrap solves plus the secant steps per fiber): one exact
-    # tridiagonal solve each (MS_OPS_PER_SOLVE) plus the fiber's own work;
-    # bound_ms_pcr counts the TPU kernel's PCR, as the bound did before.
-    lib = build.lib()
+    # launches, held against the plain version on their inputs (the bars of
+    # phase 3) and replayed in order.  ms times the wrapper per launch, as
+    # every earlier kernels line did, with the tvp_2d column passes' .T
+    # views as the path gives them; kernel_ms the C entry point, called with
+    # its arguments made once (ms_fused.bind).  The bound from the solves
+    # those launches ran (2 bootstrap solves plus the secant steps per
+    # fiber): one exact tridiagonal solve each (MS_OPS_PER_SOLVE) plus the
+    # fiber's own work; bound_ms_pcr counts the TPU kernel's PCR, as the
+    # bound did before.
     for shp, calls in b4_calls.items():
         Bs, ns = shp
-        c_args, solves, iters = [], 0, 0
+        launchers, solves, iters = [], 0, 0
+        ex_max, ea_max, di_max, at_cap = 0.0, 0.0, 0, [0, 0]
         for _, y_, kw_ in calls:
-            x_, _, _, it_ = B4.ms_tv2_fused(y_, **kw_)
+            (x_, _, g_, it_), ex, ea, di, cap_ = ms_compare(y_, **kw_)
+            ex_max, ea_max, di_max = max(ex_max, ex), max(ea_max, ea), max(
+                di_max, di)
+            at_cap = [at_cap[0] + cap_[0], at_cap[1] + cap_[1]]
+            check(ex <= TOL["ms"] and ea <= TOL["ms_alpha"]
+                  and bool((g_ >= 0).all()),
+                  f"MS main path {shp} disagrees with its plain version")
             solves += int((it_ + 2).sum())
             iters += int(it_.sum())
-
-            def rows(a):
-                return None if a is None else torch.as_tensor(
-                    a, device=dev).to(torch.float32).reshape(-1).contiguous()
-
-            keep = (rows(kw_.get("lam_rows")), rows(kw_.get("alpha_init")),
-                    torch.empty_like(y_), torch.empty((Bs,), device=dev),
-                    torch.empty((Bs,), device=dev),
-                    torch.empty((Bs,), dtype=torch.int32, device=dev))
-            lam_ = kw_.get("lam")
-            c_args.append((keep, (
-                build.ptr(y_), build.ptr(keep[0]),
-                float(lam_) if lam_ is not None else 0.0, build.ptr(keep[1]),
-                *(build.ptr(o) for o in keep[2:]), Bs, ns,
-                int(kw_.get("max_iters", 100)),
-                float(kw_.get("stop_boundary", 1e-5)),
-                build.stream_ptr(dev))))
-            build.check(lib.ms_tv2_fused(*c_args[-1][1]), "ms_tv2_fused")
+            outs, launch = B4.bind(y_, **kw_)
+            launch()
             torch.cuda.synchronize()
-            check(bool(torch.equal(keep[2], x_)),
+            check(bool(torch.equal(outs[0], x_)),
                   "B4's C entry point and its wrapper disagree")
+            launchers.append(launch)
+        errs["ms"] = max(errs["ms"], ex_max)
+        paths = sorted({c[0] for c in calls})
+        warm = calls[0][2].get("alpha_init") is not None
+        name = (f"B4 ms_tv2_fused ({Bs}x{ns} {'warm' if warm else 'cold'}, "
+                f"{', '.join(paths)})")
+        print(f"[B4 ms] main path {Bs}x{ns} ({len(calls)} launches): "
+              f"max|kernel - plain| x {ex_max:.3e} (tol {TOL['ms']}), alpha "
+              f"rel {ea_max:.3e} (tol {TOL['ms_alpha']}); iterations at most "
+              f"{di_max} apart on the rows under the cap, rows at the cap "
+              f"kernel {at_cap[0]}, plain {at_cap[1]}")
 
         def replay(fn, calls=calls):
             for _, y_, kw_ in calls:
                 fn(y_, **kw_)
 
-        def replay_c(c_args=c_args):
-            for _, a_ in c_args:
-                lib.ms_tv2_fused(*a_)
+        def replay_c(launchers=launchers):
+            for launch in launchers:
+                launch()
 
         ms = cuda_ms(lambda: replay(B4.ms_tv2_fused)) / len(calls)
         kernel_ms = cuda_ms(replay_c) / len(calls)
@@ -1386,20 +1399,16 @@ def main(out_dir):
             nbytes, ns * per_launch * (MS_PCR_OPS_PER_STEP
                                        * math.ceil(math.log2(ns))
                                        + MS_PCR_OPS_PER_SOLVE))
-        paths = sorted({c[0] for c in calls})
-        warm = calls[0][2].get("alpha_init") is not None
         kern.append(dict(
-            name=f"B4 ms_tv2_fused ({Bs}x{ns} {'warm' if warm else 'cold'}, "
-                 f"{', '.join(paths)})",
-            route="cuda", source="proxtv_tpu_torch/csrc/ms_fused.cu",
+            name=name, route="cuda", source="proxtv_tpu_torch/csrc/ms_fused.cu",
             replaces="proxtv_tpu/ops/kernels/ms_fused.py:194",
             launches=len(calls),
             launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
                               for p_ in paths},
-            max_abs_err=errs["ms"], ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=f, library_ms=None, kernel_ms=kernel_ms,
-            bound_ms_pcr=b_pcr, bound_by_pcr=f_pcr,
-            secant_iters_mean=iters / (len(calls) * Bs)))
+            max_abs_err=ex_max, alpha_rel_err=ea_max, iters_apart=di_max,
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
+            library_ms=None, kernel_ms=kernel_ms, bound_ms_pcr=b_pcr,
+            bound_by_pcr=f_pcr, secant_iters_mean=iters / (len(calls) * Bs)))
     check(sum(k_["launches"] for k_ in kern if k_["name"].startswith("B4 "))
           == sum(by_path["B4"].values()),
           "the B4 tap missed main-path launches")

@@ -17,7 +17,8 @@ one read of (y [, lam_rows, alpha_init]) and one write of (x, alpha, gap,
 iters).
 
 :func:`ms_tv2_fused` launches the kernel for a CUDA tensor and runs
-:func:`ms_tv2_fused_plain` for a CPU tensor.  The kernel runs a fiber on one
+:func:`ms_tv2_fused_plain` for a CPU tensor; :func:`bind` makes its C call
+once, for tools that time the kernel alone.  The kernel runs a fiber on one
 warp for n <= 256 (four fibers a block) and on a block of up to 16 warps
 above, each lane holding a contiguous chunk of E = 4, 8 or 16 elements in
 registers.  It solves each shifted system exactly in O(n): every lane
@@ -176,6 +177,49 @@ def ms_tv2_fused_plain(y, lam=None, lam_rows=None, alpha_init=None,
     return ((x + ybar)[:B], alpha[:B, 0], gap[:B, 0], itv[:B, 0])
 
 
+def bind(y, lam=None, lam_rows=None, alpha_init=None, max_iters: int = 100,
+         stop_boundary: float = 1e-5):
+    """The C entry point's call for a CUDA batch, its arguments made once.
+
+    Checks the arguments as :func:`ms_tv2_fused` does and allocates the
+    outputs.  Returns ``((x, alpha, gap, iters), launch)``: each
+    ``launch()`` runs the kernel into those outputs and raises on a refused
+    launch.  ``launch`` does not count in :data:`LAUNCHES`; timing tools call
+    it to time the kernel without the wrapper's host work."""
+    if (lam is None) == (lam_rows is None):
+        raise ValueError("pass exactly one of lam and lam_rows")
+    B, n = y.shape
+    lo, hi = lane_limits("ms")
+    if y.dtype != torch.float32 or not lo <= n <= hi:
+        raise ValueError(f"MS kernel takes float32 with {lo} <= n <= {hi}; "
+                         f"got {y.dtype}, n = {n}")
+
+    def rows(a, name):
+        if a is None:
+            return None
+        a = torch.as_tensor(a, device=y.device).to(torch.float32).reshape(-1)
+        if a.shape[0] != B:
+            raise ValueError(f"{name} must be (B,)")
+        return a.contiguous()
+
+    y = y.contiguous()
+    lam_t = rows(lam_rows, "lam_rows")
+    a0 = rows(alpha_init, "alpha_init")
+    outs = (torch.empty_like(y),
+            torch.empty((B,), dtype=torch.float32, device=y.device),
+            torch.empty((B,), dtype=torch.float32, device=y.device),
+            torch.empty((B,), dtype=torch.int32, device=y.device))
+    args = (build.ptr(y), build.ptr(lam_t),
+            float(lam) if lam_rows is None else 0.0, build.ptr(a0),
+            *(build.ptr(o) for o in outs), B, n, int(max_iters),
+            float(stop_boundary), build.stream_ptr(y.device))
+
+    def launch(keep=(y, lam_t, a0)):  # keep: the inputs the pointers name
+        build.check(build.lib().ms_tv2_fused(*args), "ms_tv2_fused")
+
+    return outs, launch
+
+
 def ms_tv2_fused(y, lam=None, lam_rows=None, alpha_init=None,
                  max_iters: int = 100, stop_boundary: float = 1e-5):
     """Fused batched TV-L2 More-Sorensen prox.
@@ -195,35 +239,9 @@ def ms_tv2_fused(y, lam=None, lam_rows=None, alpha_init=None,
     if not y.is_cuda:
         return ms_tv2_fused_plain(y, lam, lam_rows, alpha_init, max_iters,
                                   stop_boundary, tb=1)
-    B, n = y.shape
-    lo, hi = lane_limits("ms")
-    if y.dtype != torch.float32 or not lo <= n <= hi:
-        raise ValueError(f"MS kernel takes float32 with {lo} <= n <= {hi}; "
-                         f"got {y.dtype}, n = {n}")
-
-    def rows(a, name):
-        if a is None:
-            return None
-        a = torch.as_tensor(a, device=y.device).to(torch.float32).reshape(-1)
-        if a.shape[0] != B:
-            raise ValueError(f"{name} must be (B,)")
-        return a.contiguous()
-
-    y = y.contiguous()
-    lam_t = rows(lam_rows, "lam_rows")
-    a0 = rows(alpha_init, "alpha_init")
-    x = torch.empty_like(y)
-    alpha = torch.empty((B,), dtype=torch.float32, device=y.device)
-    gap = torch.empty_like(alpha)
-    iters = torch.empty((B,), dtype=torch.int32, device=y.device)
-    if B > 0:
-        lib = build.lib()
-        err = lib.ms_tv2_fused(
-            build.ptr(y), build.ptr(lam_t),
-            float(lam) if lam_rows is None else 0.0, build.ptr(a0),
-            build.ptr(x), build.ptr(alpha), build.ptr(gap), build.ptr(iters),
-            B, n, int(max_iters), float(stop_boundary),
-            build.stream_ptr(y.device))
-        build.check(err, "ms_tv2_fused")
+    outs, launch = bind(y, lam, lam_rows, alpha_init, max_iters,
+                        stop_boundary)
+    if y.shape[0] > 0:
+        launch()
         LAUNCHES.value += 1
-    return x, alpha, gap, iters
+    return outs

@@ -439,6 +439,26 @@ def test_ms_kernel_matches_plain(mode, B, n, dev):
     assert np.all(g.cpu().numpy() >= 0)
 
 
+@pytest.mark.parametrize("mode", ["scalar", "warm"])
+def test_ms_bind_launches_what_the_wrapper_does(mode, dev):
+    """ms_fused.bind's launch (the timing tools' call of the C entry point)
+    gives the wrapper's outputs bit for bit, on a column pass's .T view as
+    tvp_2d gives it, and does not count in LAUNCHES."""
+    rng = np.random.RandomState(7)
+    Y, kw = _ms_inputs(rng, mode, 48, 300)
+    kw = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in kw.items()}
+    yT = Y.T.contiguous().to(dev).T  # (48, 300) with column strides
+    ref = MSK.ms_tv2_fused(yT, **kw)
+    before = MSK.LAUNCHES.value
+    outs, launch = MSK.bind(yT, **kw)
+    launch()
+    launch()
+    torch.cuda.synchronize()
+    assert MSK.LAUNCHES.value == before
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r)
+
+
 def _canvas3(rng, Lp, Mp, N, hl):
     f = [rng.randn(Lp, Mp, N).astype(np.float32) for _ in range(6)]
     for a in f[:5]:

@@ -13,16 +13,16 @@ first held against the plain version (tb = 1): x within 1e-4, alpha within
 (the bars of ``chip_smoke.py`` ``TOL["ms"]`` and of the card test).  Then
 CUDA events time 20 launches after one untimed, every case in turn, ROUNDS
 times, so cases are compared within one call.  ``ms`` times the C entry
-point alone, called with its arguments made once (the kernel's time);
-``wrapper_ms`` times the Python wrapper ``ms_tv2_fused`` (argument checks,
-four allocations, the ctypes call).  Prints one JSON line with the card's
+point alone, called with its arguments made once by ``ms_fused.bind`` (the
+kernel's time); ``wrapper_ms`` times the Python wrapper ``ms_tv2_fused``
+(argument checks, four allocations, the ctypes call).  Prints one JSON line with the card's
 name and power limit, the compiler's register, shared-memory and spill
 lines of the B4 source, and each case's times, solves per fiber and
 agreement.
 
 The package is imported from the tree this file sits in, so a copy of this
-file in another checkout of the repo times that checkout's kernel.  Imports
-nothing of JAX.
+file in another checkout of the repo times that checkout's kernel (one
+whose ``ms_fused`` has ``bind``).  Imports nothing of JAX.
 """
 import json
 import os
@@ -70,7 +70,6 @@ def main(specs):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     build.build(force=True)  # in this process, for the compiler's lines
-    lib = build.lib()
     rng = np.random.RandomState(0)
     cases, ok = [], True
     for spec in specs:
@@ -93,13 +92,8 @@ def main(specs):
             di = int(torch.where(capped, 0, (it - it_r).abs()).max())
             ok = ok and (ex <= TOL_X and ea <= TOL_ALPHA and di <= TOL_ITERS
                          and bool((g >= 0).all()))
-            outs = [torch.empty_like(yy)] + [torch.empty_like(a)
-                                             for _ in range(2)] + [
-                torch.empty_like(it)]
-            args = (build.ptr(yy), None, lam, build.ptr(a0),
-                    *(build.ptr(o) for o in outs), B, n, CAP, 1e-5,
-                    build.stream_ptr(yy.device))
-            build.check(lib.ms_tv2_fused(*args), "ms_tv2_fused")
+            outs, launch = B4.bind(yy, lam=lam, alpha_init=a0, max_iters=CAP)
+            launch()
             torch.cuda.synchronize()
             ok = ok and bool(torch.equal(outs[0], x))
             cases.append(dict(
@@ -108,11 +102,11 @@ def main(specs):
                 rows_at_cap=int(capped.sum()),
                 iters_mean=float(it.float().mean()),
                 solves_per_fiber=float(it.float().mean()) + 2.0,
-                _run=(args, yy, a0, lam)))
+                _run=(launch, yy, a0, lam)))
     for _ in range(ROUNDS):
         for c in cases:
-            args, yy, a0, lam = c["_run"]
-            c["ms"].append(time_ms(lambda: lib.ms_tv2_fused(*args)))
+            launch, yy, a0, lam = c["_run"]
+            c["ms"].append(time_ms(launch))
             c["wrapper_ms"].append(time_ms(
                 lambda: B4.ms_tv2_fused(yy, lam=lam, alpha_init=a0)))
     for c in cases:

@@ -27,8 +27,9 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    primal-dual solves on the card for 1024^2 and for the volume, the same
    calls in float64 on the CPU for the 1D, TV-L2 and TV-Lp calls, the
    KKT certificate of tests/test_tv1d_lp.py for the long TV-Lp signal;
-   3b. hold B1 against its plain version on every launch of the main path,
-   with the inputs the path gave it (a tap on the wrapper records them);
+   3b. hold B1 and B3 against their plain versions on every launch of the
+   main path, with the inputs the path gave them (a tap on each wrapper
+   records them);
    3c. lengths past the TPU's 8192 lanes, where the port takes the JAX
    package's route instead of raising: ``api.tv1_1d`` pn at n = 10000
    (the PCR composition), ``tv1_batched`` at 4 x 10000 and a dr sweep on
@@ -36,10 +37,10 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    (B3 at any width), each held against the same call in float64 on the
    CPU, and printed as one ``[C1]`` line each;
 4. time each kernel (CUDA events, many launches after warm-up), its plain
-   version, and the main-path calls, and print the ``kernels`` line; B1 at
-   each of its four main-path shapes and B4 at each of its three, by
-   replaying that shape's launches (B4's first held against its plain
-   version on each of them);
+   version, and the main-path calls, and print the ``kernels`` line; B1, B2
+   and B4 at each of their main-path shapes, by replaying that shape's
+   launches (B2's and B4's first held against their plain versions on each
+   of them); B3 through its wrapper and through its C entry point;
 5. profile the main-path calls: device time by kernel and the idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -713,15 +714,36 @@ def main(out_dir):
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
-    # B1 runs at four shapes on the main path, B4 at three.  A tap on each
-    # wrapper keeps each main-path launch's inputs, by (B, n), and calls
-    # through; phase 3b holds B1 against its plain version on them, phase 4
-    # holds B4 against its own and replays both for the per-shape times.
+    # B1 runs at four shapes on the main path, B4 at three, B2 at several.
+    # A tap on each wrapper keeps each main-path launch's inputs, by (B, n),
+    # and calls through; phase 3b holds B1 against its plain version on
+    # them, phase 4 holds B2 and B4 against their own and replays all three
+    # for the per-shape times.  B3's tap keeps every main-path chunk, which
+    # phase 3b holds against the plain version.
     b1_calls = {}
+    b2_calls = {}
+    b3_calls = []
     b4_calls = {}
     tap_path = [None]
     launch_b1 = B1.pn_tv1_fused
+    launch_b2 = B2.pcr_spd_solve
+    launch_b3 = B3.pdhg_chunk
     launch_b4 = B4.ms_tv2_fused
+
+    def clone(v):
+        return v.clone() if torch.is_tensor(v) else v
+
+    def tap_b2(rhs, mask=None, diag_shift=None):
+        if tap_path[0] is not None:
+            b2_calls.setdefault(tuple(rhs.shape), []).append(
+                (tap_path[0], rhs.clone(), clone(mask), clone(diag_shift)))
+        return launch_b2(rhs, mask=mask, diag_shift=diag_shift)
+
+    def tap_b3(*a, **kw):
+        if tap_path[0] is not None:
+            b3_calls.append((tap_path[0], [clone(v) for v in a],
+                             {k_: clone(v) for k_, v in kw.items()}))
+        return launch_b3(*a, **kw)
 
     def tap_b4(y, **kw):
         if tap_path[0] is not None:
@@ -768,7 +790,9 @@ def main(out_dir):
                 + lam * (np.abs(np.diff(X, axis=0)).sum()
                          + np.abs(np.diff(X, axis=1)).sum()))
 
-    B1.pn_tv1_fused = tap_b1  # both restored after the main path
+    B1.pn_tv1_fused = tap_b1  # all four restored after the main path
+    B2.pcr_spd_solve = tap_b2
+    B3.pdhg_chunk = tap_b3
     B4.ms_tv2_fused = tap_b4
     x_auto, info_auto = run("api.tv1_2d 1024^2 lam 0.3 auto",
                             lambda: ptv.tv1_2d(Y2, LAM2D, return_info=True),
@@ -835,6 +859,8 @@ def main(out_dir):
     demo_res = run("demo_filter_image (dr, kolmogorov, chambolle-pock-acc)",
                    demo.main, ["B1", "B3"], main_path=False)
     B1.pn_tv1_fused = launch_b1
+    B2.pcr_spd_solve = launch_b2
+    B3.pdhg_chunk = launch_b3
     B4.ms_tv2_fused = launch_b4
 
     # -- 3b. B1 against its plain version at the main path's own inputs ----
@@ -882,6 +908,31 @@ def main(out_dir):
         check(worst <= TOL["pn"] and di_max <= TOL["pn_iters"],
               f"PN main path {name} disagrees")
         errs["pn"] = max(errs["pn"], worst)
+
+    # -- 3b. B3 against its plain version at each main-path chunk ---------
+    # The fields on the whole canvas within TOL["pdhg"], the certificate
+    # sums within TOL["pdhg_cert"] relative, each chunk on its own inputs.
+    check(len(b3_calls) == sum(by_path["B3"].values()),
+          "the B3 tap missed main-path launches")
+    b3_err = b3_rel = 0.0
+    for _, a_, kw_ in b3_calls:
+        ref = B3.pdhg_chunk_plain(*a_, **kw_)
+        out = B3.pdhg_chunk(*a_, **kw_)
+        torch.cuda.synchronize()
+        b3_err = max([b3_err] + [float((o - r_).abs().max())
+                                 for o, r_ in zip(out[:4], ref[:4])])
+        for o, r_ in zip(out[4:], ref[4:]):
+            ra, rb = float(o.sum()), float(r_.sum())
+            b3_rel = max(b3_rel, abs(ra - rb) / max(1.0, abs(rb)))
+    print(f"[B3 pdhg] main path ({len(b3_calls)} launches, "
+          f"{', '.join(sorted({c[0] for c in b3_calls}))}): max|kernel - "
+          f"plain| = {b3_err:.3e} (tol {TOL['pdhg']}), certificate sums rel "
+          f"{b3_rel:.1e} (tol {TOL['pdhg_cert']}); tv1_2d auto certified "
+          f"after {int(info_auto.iters[0])} iterations "
+          f"({int(info_auto.iters[0]) // k} chunks of K = {k})")
+    check(b3_err <= TOL["pdhg"] and b3_rel <= TOL["pdhg_cert"],
+          "PDHG main path disagrees with its plain version")
+    errs["pdhg"] = max(errs["pdhg"], b3_err)
 
     # Outputs: finite and shaped.
     for name, a, shp in (("auto", x_auto, (M2D, N2D)), ("dr", x_dr, (M2D, N2D)),
@@ -1186,15 +1237,13 @@ def main(out_dir):
         int(i_c.rc[0]), int(i_r.rc[0]))
     Yc3 = rng5.randn(64, 9000)
     seen3 = []
-    launch_b3 = B3.pdhg_chunk
 
-    def tap_b3(*a, **kw):
+    def tap_first_b3(*a, **kw):
         if not seen3:
-            seen3.append(([v.clone() if torch.is_tensor(v) else v for v in a],
-                          dict(kw)))
+            seen3.append(([clone(v) for v in a], dict(kw)))
         return launch_b3(*a, **kw)
 
-    B3.pdhg_chunk = tap_b3
+    B3.pdhg_chunk = tap_first_b3
     try:
         x_c, i_c = ptv.tv1_2d(Yc3, LAM2D, return_info=True)
     finally:
@@ -1275,22 +1324,59 @@ def main(out_dir):
         print(f"[time] {k_} = {v:.4f}  ({card})")
 
     kern = []
-    # B2, masked (the Newton-step system) at (10000, 1000).
-    ms = cuda_ms(lambda: B2.pcr_spd_solve(d, mask=mask))
-    plain_ms = cuda_ms(lambda: B2.pcr_spd_solve_plain(d, mask=mask), reps=3)
-    steps = math.ceil(math.log2(N1D))
-    b, f = bound_ms(B1D * N1D * (4 + 1 + 4),
-                    B1D * N1D * (TRIDIAG_OPS + PCR_OPS_MASK))
-    b_pcr, f_pcr = bound_ms(B1D * N1D * (4 + 1 + 4),
-                            B1D * N1D * (PCR_OPS_PER_STEP * steps + 5))
-    kern.append(dict(name="B2 pcr_spd_solve (masked, 10000x1000)",
-                     route="cuda", source="proxtv_tpu_torch/csrc/pcr.cu",
-                     replaces="proxtv_tpu/ops/kernels/pcr.py:100",
-                     launches=sum(by_path["B2"].values()),
-                     launches_by_path=by_path["B2"], max_abs_err=errs["pcr"],
-                     ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
-                     library_ms=None, bound_ms_pcr=b_pcr,
-                     bound_by_pcr=f_pcr))
+    # B2 at each main-path shape (tv1_1d's dual init and Newton systems at
+    # (1, 999), the TV-Lp setup solves, tvp_2d's per-sweep setups): the
+    # path's own launches, held against the plain version (TOL["pcr_path"],
+    # relative to the solution's size) and replayed in order.  Bytes: rhs
+    # and solution, plus the mask (1 byte a cell) or the shift (one float a
+    # system) where the launch has one; the bound counts one exact
+    # elimination per cell (TRIDIAG_OPS, plus the mask or shift), and
+    # bound_ms_pcr the TPU kernel's PCR.
+    check(sum(len(v) for v in b2_calls.values())
+          == sum(by_path["B2"].values()), "the B2 tap missed main-path launches")
+    for shp, calls in b2_calls.items():
+        Bs, ns = shp
+        worst = 0.0
+        for _, r_, m_, s_ in calls:
+            ref = B2.pcr_spd_solve_plain(r_, mask=m_, diag_shift=s_)
+            out = B2.pcr_spd_solve(r_, mask=m_, diag_shift=s_)
+            worst = max(worst, float((out - ref).abs().max())
+                        / max(1.0, float(ref.abs().max())))
+        paths = sorted({c[0] for c in calls})
+        kinds = sorted({"masked" if c[2] is not None else "shifted"
+                        if c[3] is not None else "plain" for c in calls})
+        print(f"[B2 pcr] main path {Bs}x{ns} ({len(calls)} launches, "
+              f"{', '.join(kinds)}): max|kernel - plain| / scale = "
+              f"{worst:.3e} (tol {TOL['pcr_path']})")
+        check(worst <= TOL["pcr_path"], f"PCR main path {shp} disagrees")
+        errs["pcr"] = max(errs["pcr"], worst)
+
+        def replay(fn, calls=calls):
+            for _, r_, m_, s_ in calls:
+                fn(r_, mask=m_, diag_shift=s_)
+
+        ms = cuda_ms(lambda: replay(B2.pcr_spd_solve)) / len(calls)
+        plain_ms = cuda_ms(lambda: replay(B2.pcr_spd_solve_plain),
+                           reps=3) / len(calls)
+        nbytes = sum(Bs * ns * 8 + (Bs * ns if m_ is not None else 0)
+                     + (Bs * 4 if s_ is not None else 0)
+                     for _, _, m_, s_ in calls) / len(calls)
+        extra = sum(PCR_OPS_MASK for c in calls if c[2] is not None
+                    or c[3] is not None) / len(calls)
+        b, f = bound_ms(nbytes, Bs * ns * (TRIDIAG_OPS + extra))
+        b_pcr, f_pcr = bound_ms(nbytes, Bs * ns * (
+            PCR_OPS_PER_STEP * math.ceil(math.log2(ns)) + 5))
+        kern.append(dict(
+            name=f"B2 pcr_spd_solve ({Bs}x{ns} {'/'.join(kinds)}, "
+                 f"{', '.join(paths)})",
+            route="cuda", source="proxtv_tpu_torch/csrc/pcr.cu",
+            replaces="proxtv_tpu/ops/kernels/pcr.py:100",
+            launches=len(calls),
+            launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
+                              for p_ in paths},
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=f, library_ms=None, bound_ms_pcr=b_pcr,
+            bound_by_pcr=f_pcr))
     # B1 at each main-path shape: the path's own launches replayed in order
     # (ms per launch); the bound from the iterations they ran.  Bytes: y and
     # x, plus w_init and w where the path passes a warm start (lam is a
@@ -1323,18 +1409,31 @@ def main(out_dir):
             bound_ms=b, bound_by=f, library_ms=None,
             newton_iters_mean=sum(s["iters"]) / (len(calls) * Bs),
             iters_apart=s["iters_apart"]))
-    # B3, one cert chunk of the 1024^2 auto path.
+    # B3, one cert chunk of the 1024^2 auto path (the shape of all its
+    # main-path launches): ms through the wrapper, as the 2D driver calls
+    # it; kernel_ms through the C entry point with its arguments made once
+    # (pdhg_fused.bind, as tools/time_b3.py times it).  max_abs_err is the
+    # main-path launches' (phase 3b).
+    outs3, launch3 = B3.bind(sched, *st, ypad, cert=True, **{
+        k_: v for k_, v in geo.items() if k_ != "tm"})
+    launch3()
+    ref3 = B3.pdhg_chunk(sched, *st, ypad, **geo, cert=True)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(a, b)) for a, b in zip(outs3, ref3)),
+          "B3's C entry point and its wrapper disagree")
     ms = cuda_ms(lambda: B3.pdhg_chunk(sched, *st, ypad, **geo, cert=True))
+    kernel_ms = cuda_ms(launch3)
     plain_ms = cuda_ms(lambda: B3.pdhg_chunk_plain(sched, *st, ypad, **geo,
                                                    cert=True), reps=3)
     b, f = bound_ms(Mp * Np * 4 * 9, Mp * Np * (k * PDHG_OPS_PER_STEP + 25))
-    kern.append(dict(name=f"B3 pdhg_chunk (cert, K={k}, 1088x1024 canvas)",
+    kern.append(dict(name=f"B3 pdhg_chunk (cert, K={k}, {Mp}x{Np} canvas)",
                      route="cuda", source="proxtv_tpu_torch/csrc/pdhg_fused.cu",
                      replaces="proxtv_tpu/ops/kernels/pdhg_fused.py:307",
                      launches=sum(by_path["B3"].values()),
-                     launches_by_path=by_path["B3"], max_abs_err=errs["pdhg"],
-                     ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
-                     library_ms=None))
+                     launches_by_path=by_path["B3"], max_abs_err=b3_err,
+                     cert_rel_err=b3_rel, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b, bound_by=f, library_ms=None,
+                     kernel_ms=kernel_ms))
     # B4 at each main-path shape (tv2_batched 10000x1000 cold, tvp_2d's
     # 1024x1024 fiber passes warm, tv2_1d's one fiber): the path's own
     # launches, held against the plain version on their inputs (the bars of
@@ -1508,8 +1607,8 @@ def main(out_dir):
     # The redesign queue: each kernel's device time over one pass of every
     # main-path call that launches it (the profiled calls above), less the
     # bounds of those launches where phase 4 timed the kernel at the path's
-    # own shape (B1 and B4 at each of their shapes, B3, B6, B5's tvp_batched
-    # p = 1.5 launch; the others' bounds at their smaller shapes are not
+    # own shape (B1, B2 and B4 at each of their shapes, B3, B6, B5's
+    # tvp_batched p = 1.5 launch; B5's bounds at its other shapes are not
     # computed and count as 0).
     at_shape = {"B3": sum(by_path["B3"].values()),
                 "B6": sum(by_path["B6"].values()),
@@ -1518,7 +1617,8 @@ def main(out_dir):
     queue = {}
     for kid in counters:
         dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in breakdown.values())
-        bnd = sum(k_["bound_ms"] * (k_["launches"] if kid in ("B1", "B4")
+        per_shape = kid in ("B1", "B2", "B4")
+        bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
                                     else at_shape.get(kid, 0))
                   for k_ in kern if k_["name"].startswith(kid + " "))
         queue[kid] = {"device_ms": dev_ms, "bound_ms": bnd,

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "pdhg_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "pdhg_cert_blocks": (_I, _I),
+    # weighted -> resident blocks per SM (or a negative CUDA error)
+    "pdhg_blocks_per_sm": (_I,),
     # y, lam_rows (or NULL), lam_scalar, alpha_init (or NULL), x, alpha, gap,
     # iters, B, n, max_iters, stop_boundary, stream
     "ms_tv2_fused": (_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),

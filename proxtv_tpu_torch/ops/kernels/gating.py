@@ -44,8 +44,8 @@ def fused_ctx(on: bool):
 # Lane-length (last-axis) limits per kernel family: the JAX package's limits
 # (gating.py:59-67) for the five kernels that hold a whole fiber or line, and
 # the 3D chunk's, which the JAX driver also enforces (models/tvnd.py:548-552).
-# The 2D chunk tiles its canvas in 32 x 32 cores with size_t offsets, so the
-# TPU's 8192 is no limit of it; only the C interface's int bounds N.  The
+# The 2D chunk tiles its canvas in the cores of its windows with size_t
+# offsets, so the TPU's 8192 is no limit of it; only the C interface's int bounds N.  The
 # third entry says whether the family's callers run a composition past the
 # upper limit, as the JAX package's do (tv1_pn and the XLA PCR past B1 and
 # B2, the spectral secular iteration past B4, the GPFW composition past B5).
@@ -94,13 +94,15 @@ def pdhg2d_params():
     """(k_steps, tm) of the CUDA PDHG chunk.
 
     The TPU's VMEM budgets (``proxtv_tpu.ops.kernels.gating.pdhg2d_params``)
-    do not carry over.  The CUDA kernel tiles the canvas in 2D: a 32x32 core
-    plus a 2K halo on all four sides in shared memory, so the window is
-    (32 + 4K)^2 cells per field.  K = 8 gives a 64^2 window: 5 fields x 16 KB
-    = 80 KB unweighted (two blocks per SM), 7 fields = 112 KB weighted, both
-    under the 227 KB a block may use.  K only moves the certificate cadence
-    (one certificate and one host read per chunk); ``tm`` is the core height,
-    which sets the canvas's row padding."""
+    do not carry over.  The CUDA kernel tiles the canvas in 2D: each block
+    keeps a window of 64 rows by 128 columns in registers, a core and a halo
+    of K + 1 cells on every side, so its core shrinks as K grows (110 x 46
+    at K = 8, 1.62x the cells the core keeps).  Timed on the H100 at the
+    1024^2 canvas (``tools/time_b3.py``, PERF.md, on a 64 x 64 window): the
+    time per iteration is least near K = 8, 7% more at K = 4 and 25% more
+    at K = 14.  K also sets the certificate cadence (one certificate and
+    one host read per chunk); ``tm`` sets only the canvas's row padding and
+    the plain version's certificate bands."""
     return 8, 32
 
 

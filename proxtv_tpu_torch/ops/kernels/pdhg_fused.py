@@ -33,12 +33,23 @@ from . import build
 from .gating import lane_limits
 
 LAUNCHES = Counter()
-_TILE = 32           # core tile side of the CUDA kernel (csrc/pdhg_fused.cu)
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+MAX_STEPS = 16  # largest k_steps of the CUDA kernel (csrc/pdhg_fused.cu)
+# The CUDA kernel's window, (rows, columns) = (kWH, kW) of the source; its
+# core is the window less window_halo(K) on every side.
+WINDOW = (64, 128)
 
 
 def _halo(k_steps):
+    """The TPU kernel's halo, 2K rows: its bands, and so the plain version's
+    certificate partials, start that far down the canvas."""
     return 2 * k_steps
+
+
+def window_halo(k_steps):
+    """Halo of the CUDA kernel's windows, K + 1 cells on every side: K keeps
+    the four fields exact on the core after K steps, and the certificate
+    reads xhat one cell further (tests/test_torch_pdhg.py proves both)."""
+    return k_steps + 1
 
 
 # Same-size difference stencils on the canvas (kernel convention).
@@ -157,11 +168,52 @@ def pdhg_chunk_plain(sched, x, xb, u1, u2, y, k_steps: int, tm: int,
     return x, xb, u1, u2, gap.reshape(tiles, 1), obj.reshape(tiles, 1)
 
 
-def smem_bytes(k_steps: int) -> int:
-    """Shared memory of one CUDA block: 7 (32 + 4K)^2 float windows, the
-    schedule and a reduction buffer."""
-    win = _TILE + 4 * k_steps
-    return 4 * (7 * win * win + 4 * k_steps + 32)
+def bind(sched, x, xb, u1, u2, y, k_steps: int, n_valid: int, m_valid: int,
+         stride: int, count: int, pad_top=0, grad_step: bool = False,
+         wr=None, wc=None, cert: bool = False):
+    """The C entry point's call for CUDA fields, its arguments made once.
+
+    Checks the arguments as :func:`pdhg_chunk` does and allocates the
+    outputs.  Returns ``(outs, launch)``: ``outs`` are the four fields and,
+    with ``cert``, the (pdhg_cert_blocks, 1) gap and objective partials;
+    each ``launch()`` runs the kernel into them and raises on a refused
+    launch.  ``launch`` does not count in :data:`LAUNCHES`; timing tools call
+    it to time the kernel without the wrapper's host work."""
+    Mp, Np = x.shape
+    lo, hi = lane_limits("pdhg2d")
+    fields = [x, xb, u1, u2, y] + ([wr, wc] if wr is not None else [])
+    for f in fields:
+        if (f.dtype != torch.float32 or f.shape != (Mp, Np)
+                or f.device != x.device or not f.is_contiguous()):
+            raise ValueError("PDHG kernel takes contiguous float32 (Mp, Np) "
+                             "fields on one device")
+    if not lo <= n_valid <= hi or n_valid > Np:
+        raise ValueError(f"PDHG kernel takes {lo} <= N <= {hi}; got {n_valid}")
+    if not 1 <= k_steps <= MAX_STEPS:
+        raise ValueError(f"PDHG kernel takes 1 <= k_steps <= {MAX_STEPS}; "
+                         f"got {k_steps}")
+    if (sched.shape != (k_steps, 4) or sched.dtype != torch.float32
+            or sched.device != x.device):
+        raise ValueError("sched must be a (k_steps, 4) float32 tensor on the "
+                         "canvas's device")
+    sched = sched.contiguous()
+    lib = build.lib()
+    outs = [torch.empty_like(x) for _ in range(4)]
+    if cert:
+        nblk = lib.pdhg_cert_blocks(Mp, Np)
+        outs += [torch.empty((nblk, 1), dtype=torch.float32, device=x.device)
+                 for _ in range(2)]
+    gap, obj = outs[4:] if cert else (None, None)
+    args = (build.ptr(sched), *(build.ptr(f) for f in (x, xb, u1, u2, y)),
+            build.ptr(wr), build.ptr(wc), *(build.ptr(o) for o in outs[:4]),
+            build.ptr(gap), build.ptr(obj), Mp, Np, int(k_steps),
+            int(n_valid), int(m_valid), int(stride), int(count),
+            int(pad_top), int(grad_step), build.stream_ptr(x.device))
+
+    def launch(keep=(sched, *fields)):  # keep: the inputs the pointers name
+        build.check(lib.pdhg_chunk(*args), "pdhg_chunk")
+
+    return tuple(outs), launch
 
 
 def pdhg_chunk(sched, x, xb, u1, u2, y, k_steps: int, tm: int,
@@ -175,43 +227,15 @@ def pdhg_chunk(sched, x, xb, u1, u2, y, k_steps: int, tm: int,
     ``cert=True`` appends two (tiles, 1) tensors of per-tile partial duality
     gap and objective of the post-chunk state (their sums are the canvas
     totals; ``tm`` sets the tiles only on the CPU, the CUDA kernel reports
-    one partial per 32x32 block).  Outputs never alias inputs.
+    one partial per block, ``pdhg_cert_blocks`` of them).  Outputs never
+    alias inputs.
     """
     if not x.is_cuda:
         return pdhg_chunk_plain(sched, x, xb, u1, u2, y, k_steps, tm,
                                 n_valid, m_valid, stride, count, pad_top,
                                 grad_step, wr, wc, cert)
-    Mp, Np = x.shape
-    lo, hi = lane_limits("pdhg2d")
-    fields = [x, xb, u1, u2, y] + ([wr, wc] if wr is not None else [])
-    for f in fields:
-        if (f.dtype != torch.float32 or f.shape != (Mp, Np)
-                or f.device != x.device or not f.is_contiguous()):
-            raise ValueError("PDHG kernel takes contiguous float32 (Mp, Np) "
-                             "fields on one device")
-    if not lo <= n_valid <= hi or n_valid > Np:
-        raise ValueError(f"PDHG kernel takes {lo} <= N <= {hi}; got {n_valid}")
-    if smem_bytes(k_steps) > _SMEM_LIMIT or k_steps < 1:
-        raise ValueError(f"k_steps={k_steps} does not fit shared memory")
-    if (sched.shape != (k_steps, 4) or sched.dtype != torch.float32
-            or sched.device != x.device):
-        raise ValueError("sched must be a (k_steps, 4) float32 tensor on the "
-                         "canvas's device")
-    sched = sched.contiguous()
-    outs = [torch.empty_like(x) for _ in range(4)]
-    lib = build.lib()
-    nblk = lib.pdhg_cert_blocks(Mp, Np)
-    gap = torch.empty((nblk, 1), dtype=torch.float32, device=x.device) \
-        if cert else None
-    obj = torch.empty_like(gap) if cert else None
-    err = lib.pdhg_chunk(
-        build.ptr(sched), *(build.ptr(f) for f in (x, xb, u1, u2, y)),
-        build.ptr(wr), build.ptr(wc), *(build.ptr(o) for o in outs),
-        build.ptr(gap), build.ptr(obj), Mp, Np, int(k_steps), int(n_valid),
-        int(m_valid), int(stride), int(count), int(pad_top), int(grad_step),
-        build.stream_ptr(x.device))
-    build.check(err, "pdhg_chunk")
+    outs, launch = bind(sched, x, xb, u1, u2, y, k_steps, n_valid, m_valid,
+                        stride, count, pad_top, grad_step, wr, wc, cert)
+    launch()
     LAUNCHES.value += 1
-    if cert:
-        return (*outs, gap, obj)
-    return tuple(outs)
+    return outs

@@ -134,15 +134,46 @@ def _canvas_state(rng, Mp, Np, M, N, stride, count, halo):
     return [torch.from_numpy(a.astype(np.float32)) for a in f]
 
 
-@pytest.mark.parametrize("mode", ["cp_cert", "condat", "weighted_cert"])
-def test_pdhg_kernel_matches_plain(mode, dev):
+# case: (mode, K, M, N, count, Np, rows of the canvas past a multiple of the
+# kernel's core height, or None for the driver's layout).  At K = 8 the core
+# is 46 x 46, so Np = 128 is no multiple of it.
+_PDHG_CASES = {
+    "cp_cert": ("cp_cert", 8, 100, 90, 2, 128, None),
+    "cp": ("cp", 8, 100, 90, 2, 128, None),
+    "condat": ("condat", 8, 100, 90, 2, 128, None),
+    "weighted_cert": ("weighted_cert", 8, 100, 90, 2, 128, None),
+    "k1": ("cp_cert", 1, 100, 90, 2, 128, None),
+    "k2": ("condat", 2, 100, 90, 2, 128, None),
+    "k14": ("cp_cert", 14, 100, 90, 2, 128, None),
+    "k14_weighted": ("weighted_cert", 14, 100, 90, 2, 128, None),
+    "core_rows_plus_one": ("cp_cert", 8, 100, 90, 2, 128, 1),
+    "image_shorter_than_core": ("cp_cert", 8, 5, 12, 3, 128, None),
+    "canvas_9088_wide": ("cp_cert", 8, 40, 9000, 1, 9088, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_PDHG_CASES))
+def test_pdhg_kernel_matches_plain(case, dev):
+    """B3 against its plain version on the whole canvas (every row, NaN
+    padding included): the four fields within 1e-4, the certificate sums
+    within 1e-4 relative."""
+    mode, k, M, N, count, Np, over = _PDHG_CASES[case]
     rng = np.random.RandomState(4)
-    M, N, count = 100, 90, 2
-    k, tm = 8, 32
+    tm = 32
     halo = 2 * k
     stride = M + 8
     tiles = -(-(count * stride) // tm)
-    Mp, Np = tiles * tm + 2 * halo, 128
+    Mp = tiles * tm + 2 * halo
+    if over is not None:
+        rows, cols = PPK.WINDOW
+        core_h = rows - 2 * PPK.window_halo(k)
+        Mp = -(-Mp // core_h) * core_h + over
+        # The window PPK.WINDOW names is the kernel's: its grid at the
+        # largest K is the number of certificate partials.
+        from proxtv_tpu_torch.ops.kernels import build
+        h = PPK.window_halo(PPK.MAX_STEPS)
+        assert build.lib().pdhg_cert_blocks(Mp, Np) == (
+            -(-Np // (cols - 2 * h)) * -(-Mp // (rows - 2 * h)))
     t = _canvas_state(rng, Mp, Np, M, N, stride, count, halo)
     sched = torch.from_numpy(PPK.make_schedule(k, 0.4, np.float32(0.6),
                                                np.float32(0.2), "cp-acc"))
@@ -152,16 +183,16 @@ def test_pdhg_kernel_matches_plain(mode, dev):
                               .astype(np.float32)) for _ in range(2)]
     kw = dict(k_steps=k, tm=tm, n_valid=N, m_valid=M, stride=stride,
               count=count, pad_top=halo, grad_step=mode == "condat",
-              cert=mode != "condat")
+              cert=mode.endswith("cert"))
     ref = PPK.pdhg_chunk_plain(sched, *t, wr=w[0], wc=w[1], **kw)
+    before = PPK.LAUNCHES.value
     out = PPK.pdhg_chunk(sched.to(dev), *(a.to(dev) for a in t),
                          wr=None if w[0] is None else w[0].to(dev),
                          wc=None if w[1] is None else w[1].to(dev), **kw)
     torch.cuda.synchronize()
-    core = slice(halo, Mp - halo)
+    assert PPK.LAUNCHES.value == before + 1
     for a, b in zip(out[:4], ref[:4]):
-        np.testing.assert_allclose(a.cpu().numpy()[core], b.numpy()[core],
-                                   atol=1e-4)
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
     if kw["cert"]:
         for a, b in zip(out[4:], ref[4:]):
             np.testing.assert_allclose(float(a.sum()), float(b.sum()),

@@ -189,3 +189,114 @@ def test_pdhg_fused_solver_options_match_jax(option):
     np.testing.assert_array_equal(ip.iters.numpy(), np.asarray(ij.iters))
     np.testing.assert_array_equal(ip.rc.numpy(), np.asarray(ij.rc))
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), atol=1e-4)
+
+
+def _chunk_on_fields(sched, x, xb, u1, u2, y, lamr, lamc, vr, vc, in_img,
+                     k_steps, grad_step):
+    """B3's plain arithmetic (``pdhg_chunk_plain``) with the masks and
+    lam x mask given as fields, as the CUDA kernel holds them: returns the
+    four fields and the per-cell gap and objective of the certificate."""
+    zero = torch.zeros((), dtype=x.dtype)
+    x = torch.where(in_img, x, zero)
+    xb = torch.where(in_img, xb, zero)
+    u1 = torch.where(vr, u1, zero)
+    u2 = torch.where(vc, u2, zero)
+    for k in range(k_steps):
+        sigma, tau, theta = sched[k, 0], sched[k, 1], sched[k, 2]
+        u1 = torch.minimum(torch.maximum(u1 + sigma * PPK._drow(xb), -lamr),
+                           lamr)
+        u2 = torch.minimum(torch.maximum(u2 + sigma * PPK._dcol(xb), -lamc),
+                           lamc)
+        div = PPK._drow_t(u1) + PPK._dcol_t(u2)
+        if grad_step:
+            xn = x - tau * ((x - y) + div)
+        else:
+            xn = (x - tau * div + tau * y) / (1.0 + tau)
+        xb = xn + theta * (xn - x)
+        x = xn
+    xhat = y - (PPK._drow_t(u1) + PPK._dcol_t(u2))
+    gr = PPK._drow(xhat) * vr.to(x.dtype)
+    gc = PPK._dcol(xhat) * vc.to(x.dtype)
+    e_gap = lamr * torch.abs(gr) - u1 * gr + lamc * torch.abs(gc) - u2 * gc
+    e_obj = (0.5 * (xhat - y) * (xhat - y) * in_img.to(x.dtype)
+             + lamr * torch.abs(gr) + lamc * torch.abs(gc))
+    return x, xb, u1, u2, e_gap, e_obj
+
+
+@pytest.mark.parametrize("halo", ["kernel", "fields_short", "cert_short"])
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("mode", ["cp", "condat", "weighted"])
+def test_pdhg_window_halo(mode, k, halo):
+    """The CUDA kernel's windows: cores of 8 x 8 cells, each cut from the
+    canvas with a halo of K + 1 (``window_halo``) and zero outside it, run
+    B3's plain arithmetic on their own and reproduce the whole canvas's
+    fields and per-core certificate sums.  One cell less fails: K - 1 for
+    the fields, K for the certificate.  Two images stacked with gap rows, a
+    column margin past N, NaN in the top padding; weights (or lam) of 20-50
+    keep the duals off their bounds, which would hide a spoiled cell."""
+    rng = np.random.RandomState(7)
+    M, N, count, pad_top, core = 20, 41, 2, 4, 8
+    stride = M + 8
+    Mp, Np = pad_top + count * stride + 4, 48
+    x, xb, u1, u2, y = (torch.from_numpy(a) for a in _canvas_state(
+        rng, Mp, Np, M, N, stride, count, pad_top))
+    u1, u2 = 5.0 * u1, 5.0 * u2
+    sched = torch.from_numpy(PPK.make_schedule(k, 30.0, np.float32(0.6),
+                                               np.float32(0.2), "cp-acc",
+                                               cap_mult=4.0))
+    wr = wc = None
+    if mode == "weighted":
+        wr, wc = (torch.from_numpy((20.0 + 30.0 * rng.rand(Mp, Np))
+                                   .astype(np.float32)) for _ in range(2))
+    grad = mode == "condat"
+    in_img, vr, vc = PPK._masks(Mp, Np, N, M, stride, count, pad_top,
+                                torch.float32, "cpu")
+    in_img = in_img.contiguous()
+    lam = sched[0, 3]
+    lamr = (wr if wr is not None else lam) * vr.to(torch.float32)
+    lamc = (wc if wc is not None else lam) * vc.to(torch.float32)
+    whole = _chunk_on_fields(sched, x, xb, u1, u2, y, lamr, lamc, vr, vc,
+                             in_img, k, grad)
+    # The helper is the plain version on the whole canvas.
+    ref = PPK.pdhg_chunk_plain(sched, x, xb, u1, u2, y, k, core, N, M,
+                               stride, count, pad_top, grad, wr, wc,
+                               cert=True)
+    for a, b in zip(whole[:4], ref[:4]):
+        assert torch.equal(a, b)
+    h0 = PPK._halo(k)
+    band = slice(h0, h0 + (Mp - 2 * h0) // core * core)
+    np.testing.assert_allclose(float(whole[4][band].sum()),
+                               float(ref[4].sum()), rtol=1e-6)
+
+    h = PPK.window_halo(k) - {"kernel": 0, "fields_short": 2,
+                              "cert_short": 1}[halo]
+    fields = (x, xb, u1, u2, y, lamr, lamc, vr, vc, in_img)
+    pad = [torch.nn.functional.pad(f.to(torch.float32), (h, h + core,
+                                                         h, h + core))
+           for f in fields]
+    pad[7:] = [f > 0 for f in pad[7:]]
+    worst_f = worst_cell = worst_sum = 0.0
+    for r0 in range(0, Mp, core):
+        for c0 in range(0, Np, core):
+            win = [f[r0:r0 + core + 2 * h, c0:c0 + core + 2 * h] for f in pad]
+            out = _chunk_on_fields(sched, *win, k, grad)
+            rows = slice(r0, min(r0 + core, Mp))
+            cols = slice(c0, min(c0 + core, Np))
+            cr = slice(h, h + rows.stop - rows.start)
+            cc = slice(h, h + cols.stop - cols.start)
+            for a, b in zip(out[:4], whole[:4]):
+                worst_f = max(worst_f, float((a[cr, cc] - b[rows, cols])
+                                             .abs().max()))
+            for a, b in zip(out[4:], whole[4:]):
+                worst_cell = max(worst_cell, float((a[cr, cc] - b[rows, cols])
+                                                   .abs().max()))
+                sa, sb = float(a[cr, cc].sum()), float(b[rows, cols].sum())
+                worst_sum = max(worst_sum, abs(sa - sb) / max(1.0, abs(sb)))
+    # A spoiled cell parts by far more than rounding: at K = 8 by ~7e-5 on
+    # the fields and ~1e-3 on a cell's certificate terms.
+    if halo == "kernel":
+        assert worst_f <= 1e-6 and worst_sum <= 1e-6, (worst_f, worst_sum)
+    elif halo == "cert_short":  # K keeps the fields, not the certificate
+        assert worst_f <= 1e-6 and worst_cell > 1e-5, (worst_f, worst_cell)
+    else:
+        assert worst_f > 1e-5, worst_f

@@ -37,10 +37,11 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    (B3 at any width), each held against the same call in float64 on the
    CPU, and printed as one ``[C1]`` line each;
 4. time each kernel (CUDA events, many launches after warm-up), its plain
-   version, and the main-path calls, and print the ``kernels`` line; B1, B2
-   and B4 at each of their main-path shapes, by replaying that shape's
-   launches (B2's and B4's first held against their plain versions on each
-   of them); B3 through its wrapper and through its C entry point;
+   version, and the main-path calls, and print the ``kernels`` line; B1, B2,
+   B4 and B5 at each of their main-path shapes, by replaying that shape's
+   launches (B2's, B4's and B5's first held against their plain versions on
+   each of them), through the wrapper and, for B2 to B6, through the C
+   entry point;
 5. profile the main-path calls: device time by kernel and the idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -97,8 +98,14 @@ TOL = {
     # objective barely sees (float32 against float64 of the plain version
     # parts w by 2.7e-3 at 64 x 1000, p = 1.5).  Fixed 3 trips (max_iters =
     # 30, both sides): the dual objective 0.5 ||D'w||^2 + y'D'w within 1e-6
-    # relative (float32 against float64 of the plain version: 1.2e-7).
-    # Iteration counts and multipliers are printed, not held.
+    # relative (float32 against float64 of the plain version: 1.2e-7 at
+    # 32 x 1000) on the rows that ran the same trips, or, where the float32
+    # plain version is itself further than that from its float64 run, no
+    # further from the float64 run than it; a
+    # row whose gap lands at the stop tolerance may stop earlier on one
+    # side, held to have stopped by its test, the other side a trip later
+    # or stopped by its test too.  Iteration counts and multipliers are
+    # printed, not held.
     "lp": 5e-3, "lp_obj": 1e-5, "lp_obj_abs": 1e-4, "lp_fixed": 1e-6,
     # TV-L2 outputs against float64 on the CPU: the bar of
     # tests/test_kernels.py:197 (the fused MS kernel against its oracle).
@@ -326,9 +333,50 @@ MS_OPS_PER_SOLVE = TRIDIAG_OPS + 2  # the solve, the norm's multiply and add
 MS_OPS_PER_FIBER = 10     # mean 1, center 1, dy 1, x 2, g 1, g'g 2, w'g 2
 PDHG3D_OPS_PER_STEP = 30  # three dual updates 15, divergence 6, primal 6,
                           # xbar 3
-LP_OPS_PER_TRIP = 440     # p = 1.5 (q = 3, chain powers): gradient and gap
-                          # 12, projection 187 (8 Newton steps of 21), nine
-                          # FW steps of 27
+LP_NEWTON_ITERS, LP_FW_CYCLES = 8, 10  # the TV-Lp defaults B5 runs with
+
+
+def lp_pow_ops(e):
+    """Operations of x^e as the function raises to it (lp_fused._spow): a
+    multiply / sqrt chain for an integer or half-integer e in (0, 8], else
+    powf, counted as its three steps (log, multiply, exp)."""
+    if e in (0.0, 1.0):
+        return 0
+    if not (0.0 < e <= 8.0) or 2.0 * e != round(2.0 * e):
+        return 3
+    k = int(round(2.0 * e))
+    m = k // 2
+    ops = (max(m.bit_length() - 1, 0) + bin(m).count("1") - 1) if m else 0
+    return ops + (k % 2) * (1 + (m > 0))
+
+
+def lp_ops_per_trip(p, newton_iters=LP_NEWTON_ITERS, fw_cycles=LP_FW_CYCLES):
+    """Operations per element of one GPFW trip, read off the plain version
+    (gpfw_fused_plain; adds, multiplies, divides, compares and selects one
+    each, powers by lp_pow_ops): the function's work, with each FW step's
+    gradient recomputed from w, not the kernel's shortcuts.  The q-ball
+    projection (start 8, per Newton step 20 or 21, clamp 5), fw_cycles - 1
+    FW steps of 23, the trip's gradient and gap 10, plus their powers."""
+    q = p / (p - 1.0)
+    pw = lp_pow_ops
+    start = 8 + pw(q)
+    if q >= 2.0:
+        newton = 20 + pw(q - 1.0) + pw(q - 2.0)
+        init = 1
+    else:
+        rr = 1.0 / (q - 1.0)
+        newton = 21 + pw(rr) + pw(rr - 1.0) + pw(rr * q) + pw(rr * q - 1.0)
+        init = 1 + 2 * pw(q - 1.0) + pw(rr)
+    clamp = 5 + pw(q)
+    fw = 23 + pw(p) + pw(p - 1.0)
+    gap = 10 + pw(p)
+    return (start + init + newton_iters * newton + clamp
+            + (fw_cycles - 1) * fw + gap)
+
+
+def lp_ops_init(p):
+    """Operations per element before the first trip: gradient and gap."""
+    return 10 + lp_pow_ops(p)
 
 
 def main(out_dir):
@@ -646,9 +694,18 @@ def main(out_dir):
         return (0.5 * np.sum((x - y) ** 2, axis=1)
                 + lam * np.sum(g ** p, axis=1) ** (1.0 / p))
 
-    def lp_case(name, args, p, max_iters=10 ** 6):
-        w_r, mu_r, _, it_r = B5.gpfw_fused_plain(*args, p, max_iters, tb=1)
-        w, mu, g, it = B5.gpfw_fused(*args, p, max_iters)
+    def lp_compare(args, p, max_iters=10 ** 6, **kw):
+        """One B5 launch against its plain version (tb = 1) on its inputs:
+        the primal x within TOL["lp"], its objective within TOL["lp_obj"]
+        relative, and after a fixed count (max_iters < 10^6) the dual
+        objective within TOL["lp_fixed"].  Returns (ok, numbers, it)."""
+        w_r, mu_r, _, it_r = B5.gpfw_fused_plain(*args, p, max_iters, tb=1,
+                                                 **kw)
+        w, mu, g, it = B5.gpfw_fused(*args, p, max_iters, **kw)
+        w64 = None
+        if max_iters < 10 ** 6:
+            w64 = B5.gpfw_fused_plain(*(a.double() for a in args), p,
+                                      max_iters, tb=1, **kw)[0]
         torch.cuda.synchronize()
         yc = args[0].double().cpu().numpy()
         lam = args[2].double().cpu().numpy()
@@ -661,13 +718,16 @@ def main(out_dir):
                            + TOL["lp_obj_abs"]))
         em = float((torch.abs(mu.cpu() - mu_r.cpu())
                     / torch.clamp(mu_r.cpu().abs(), min=1e-30)).max())
-        msg = (f"[B5 gpfw] {name}: max|x - x_plain| {ex:.3e} (tol "
-               f"{TOL['lp']}), objective rel {ef:.3e} (tol {TOL['lp_obj']}); "
-               f"mu rel {em:.3e}; mean iterations kernel "
-               f"{float(it.float().mean()):.3f}, plain "
-               f"{float(it_r.float().mean()):.3f}")
+        nums = dict(max_abs_err=ex, obj_rel=ef, mu_rel=em,
+                    iters=float(it.float().mean()),
+                    iters_plain=float(it_r.float().mean()))
         ok = ex <= TOL["lp"] and ok_f and bool((g >= 0).all())
         if max_iters < 10 ** 6:
+            # The dual objective on the rows that ran the same trips; a row
+            # whose gap lands at the stop tolerance may stop on one side and
+            # run on on the other: the earlier stopped by its test, and the
+            # other ran one more trip or stopped by its test too (both
+            # converged, held with every row at the converged bars above).
             def dual(wk):
                 dtw = np.diff(np.concatenate([np.zeros((wk.shape[0], 1)),
                                               wk[:, :-1],
@@ -675,13 +735,37 @@ def main(out_dir):
                               axis=1)
                 return np.sum(dtw * (0.5 * dtw + yc), axis=1)
             d, d_r = dual(w), dual(w_r)
-            ed = float(np.max(np.abs(d - d_r) / np.maximum(np.abs(d_r),
-                                                           1e-30)))
-            msg += f"; dual objective rel {ed:.3e} (tol {TOL['lp_fixed']})"
-            ok = ok and ed <= TOL["lp_fixed"]
+            d64 = dual(w64.cpu().numpy())
+            itk, itp = it.cpu().numpy(), it_r.cpu().numpy()
+            same = np.floor(itk) == np.floor(itp)
+            rel = np.abs(d - d_r) / np.maximum(np.abs(d_r), 1e-30)
+            closer = np.abs(d - d64) <= np.abs(d_r - d64)
+            nums["dual_rel"] = float(np.max(rel[same], initial=0.0))
+            nums["rows_closer_to_float64"] = int(
+                (same & (rel > TOL["lp_fixed"]) & closer).sum())
+            early = np.minimum(itk, itp)[~same]
+            nums["rows_a_trip_apart"] = int((~same).sum())
+            both = ~same & (itk == np.floor(itk)) & (itp == np.floor(itp))
+            ok = (ok and bool(np.all(((rel <= TOL["lp_fixed"])
+                                      | closer)[same]))
+                  and bool(np.all((np.abs(np.floor(itk) - np.floor(itp))
+                                   == LP_FW_CYCLES) | both | same))
+                  and bool(np.all(early == np.floor(early))))
+        errs["lp"] = max(errs["lp"], ex)
+        return ok, nums, it
+
+    def lp_case(name, args, p, max_iters=10 ** 6):
+        ok, nums, it = lp_compare(args, p, max_iters)
+        msg = (f"[B5 gpfw] {name}: max|x - x_plain| {nums['max_abs_err']:.3e}"
+               f" (tol {TOL['lp']}), objective rel {nums['obj_rel']:.3e} (tol "
+               f"{TOL['lp_obj']}); mu rel {nums['mu_rel']:.3e}; mean "
+               f"iterations kernel {nums['iters']:.3f}, plain "
+               f"{nums['iters_plain']:.3f}")
+        if "dual_rel" in nums:
+            msg += (f"; dual objective rel {nums['dual_rel']:.3e} (tol "
+                    f"{TOL['lp_fixed']})")
         print(msg)
         check(ok, f"GPFW {name} disagrees")
-        errs["lp"] = max(errs["lp"], ex)
         return it
 
     lp_args = {}
@@ -724,11 +808,13 @@ def main(out_dir):
     b2_calls = {}
     b3_calls = []
     b4_calls = {}
+    b5_calls = {}
     tap_path = [None]
     launch_b1 = B1.pn_tv1_fused
     launch_b2 = B2.pcr_spd_solve
     launch_b3 = B3.pdhg_chunk
     launch_b4 = B4.ms_tv2_fused
+    launch_b5 = B5.gpfw_fused
 
     def clone(v):
         return v.clone() if torch.is_tensor(v) else v
@@ -752,6 +838,14 @@ def main(out_dir):
                  {k_: v.clone() if torch.is_tensor(v) else v
                   for k_, v in kw.items()}))
         return launch_b4(y, **kw)
+
+    def tap_b5(*a, **kw):
+        if tap_path[0] is not None:
+            a_ = tuple(clone(v) for v in a[:5])
+            kw_ = dict(zip(("p", "max_iters"), a[5:]), **kw)
+            b5_calls.setdefault((*a[0].shape, float(kw_["p"])), []).append(
+                (tap_path[0], a_, kw_))
+        return launch_b5(*a, **kw)
 
     def tap_b1(y, lam_full=None, w_init=None, **kw):
         if tap_path[0] is not None:
@@ -790,10 +884,11 @@ def main(out_dir):
                 + lam * (np.abs(np.diff(X, axis=0)).sum()
                          + np.abs(np.diff(X, axis=1)).sum()))
 
-    B1.pn_tv1_fused = tap_b1  # all four restored after the main path
+    B1.pn_tv1_fused = tap_b1  # all five restored after the main path
     B2.pcr_spd_solve = tap_b2
     B3.pdhg_chunk = tap_b3
     B4.ms_tv2_fused = tap_b4
+    B5.gpfw_fused = tap_b5
     x_auto, info_auto = run("api.tv1_2d 1024^2 lam 0.3 auto",
                             lambda: ptv.tv1_2d(Y2, LAM2D, return_info=True),
                             ["B3"])
@@ -862,6 +957,7 @@ def main(out_dir):
     B2.pcr_spd_solve = launch_b2
     B3.pdhg_chunk = launch_b3
     B4.ms_tv2_fused = launch_b4
+    B5.gpfw_fused = launch_b5
 
     # -- 3b. B1 against its plain version at the main path's own inputs ----
     # Every recorded launch, by shape: the 1024^2 dr fibers and the tvgen
@@ -1350,12 +1446,26 @@ def main(out_dir):
               f"{worst:.3e} (tol {TOL['pcr_path']})")
         check(worst <= TOL["pcr_path"], f"PCR main path {shp} disagrees")
         errs["pcr"] = max(errs["pcr"], worst)
+        launchers = []
+        for _, r_, m_, s_ in calls:
+            out, launch = B2.bind(r_, mask=m_, diag_shift=s_)
+            launch()
+            torch.cuda.synchronize()
+            check(bool(torch.equal(out, B2.pcr_spd_solve(
+                r_, mask=m_, diag_shift=s_))),
+                "B2's C entry point and its wrapper disagree")
+            launchers.append(launch)
 
         def replay(fn, calls=calls):
             for _, r_, m_, s_ in calls:
                 fn(r_, mask=m_, diag_shift=s_)
 
+        def replay_c(launchers=launchers):
+            for launch in launchers:
+                launch()
+
         ms = cuda_ms(lambda: replay(B2.pcr_spd_solve)) / len(calls)
+        kernel_ms = cuda_ms(replay_c) / len(calls)
         plain_ms = cuda_ms(lambda: replay(B2.pcr_spd_solve_plain),
                            reps=3) / len(calls)
         nbytes = sum(Bs * ns * 8 + (Bs * ns if m_ is not None else 0)
@@ -1375,8 +1485,8 @@ def main(out_dir):
             launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
                               for p_ in paths},
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=f, library_ms=None, bound_ms_pcr=b_pcr,
-            bound_by_pcr=f_pcr))
+            bound_by=f, library_ms=None, kernel_ms=kernel_ms,
+            bound_ms_pcr=b_pcr, bound_by_pcr=f_pcr))
     # B1 at each main-path shape: the path's own launches replayed in order
     # (ms per launch); the bound from the iterations they ran.  Bytes: y and
     # x, plus w_init and w where the path passes a warm start (lam is a
@@ -1545,23 +1655,77 @@ def main(out_dir):
                      bound_ms=b, bound_by=f, library_ms=None, k_steps=k3,
                      ms_per_iter=ms / k3, kernel_ms=kernel_ms,
                      kernel_ms_per_iter=kernel_ms / k3))
-    # B5, p = 1.5 at (512, 1000) (the tvp_batched call): each row runs its
-    # trips of one projection and nine FW steps.
-    a15 = lp_args[1.5]
-    _, _, _, it15 = B5.gpfw_fused(*a15, 1.5, 10 ** 6)
-    trips = float(it15.sum()) / 10.0
-    ms = cuda_ms(lambda: B5.gpfw_fused(*a15, 1.5, 10 ** 6))
-    plain_ms = cuda_ms(lambda: B5.gpfw_fused_plain(*a15, 1.5, 10 ** 6),
-                       reps=1)
-    b, f = bound_ms(BLP * N1D * 4 * 3 + BLP * 4 * 9,
-                    N1D * trips * LP_OPS_PER_TRIP)
-    kern.append(dict(name=f"B5 gpfw_fused (p 1.5, lam {LAMP}, {BLP}x{N1D})",
-                     route="cuda", source="proxtv_tpu_torch/csrc/lp_fused.cu",
-                     replaces="proxtv_tpu/ops/kernels/lp_fused.py:267",
-                     launches=sum(by_path["B5"].values()),
-                     launches_by_path=by_path["B5"], max_abs_err=errs["lp"],
-                     ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=f,
-                     library_ms=None, trips_mean=trips / BLP))
+    # B5 at each main-path shape and p (tvp_batched 512x1000 for p in
+    # {1.5, 3, 5}, tvp_1d and tv on one row of 1000, tvp_2d p = 1.5's
+    # 512x512 fiber passes): every launch held against the plain version
+    # on its own inputs, run as the path ran it (x, objective) and for
+    # three trips (dual objective), then the launches replayed in order.
+    # ms times the wrapper per launch, kernel_ms the C entry point called
+    # with its arguments made once (lp_fused.bind).  The bound from the
+    # trips the path's rows ran: per element lp_ops_init before the first
+    # trip and lp_ops_per_trip(p) each trip; bytes y, w0 and w, and six
+    # floats a row (lam, mu0, run in; mu, gap, iters out).
+    for (Bs, ns, p5), calls in b5_calls.items():
+        launchers, worst, trips, per_row = [], {}, 0.0, 0.0
+        for _, a_, kw_ in calls:
+            for fixed in (False, True):
+                kwf = (dict(kw_, max_iters=min(kw_["max_iters"],
+                                               3 * LP_FW_CYCLES))
+                       if fixed else kw_)
+                ok5, nums, it5 = lp_compare(a_, **kwf)
+                check(ok5, f"GPFW main path {Bs}x{ns} p {p5} disagrees "
+                           f"({'3 trips' if fixed else 'converged'}): {nums}")
+                for key in ("max_abs_err", "obj_rel", "dual_rel"):
+                    if key in nums:
+                        worst[key] = max(worst.get(key, 0.0), nums[key])
+                if not fixed:
+                    trips += float(torch.floor(it5).sum()) / LP_FW_CYCLES
+                    per_row += float((a_[4] > 0).sum())
+            outs, launch = B5.bind(*a_, **kw_)
+            launch()
+            ref5 = B5.gpfw_fused(*a_, **kw_)
+            torch.cuda.synchronize()
+            check(all(bool(torch.equal(o, r)) for o, r in zip(outs, ref5)),
+                  "B5's C entry point and its wrapper disagree")
+            launchers.append(launch)
+        paths = sorted({c[0] for c in calls})
+        print(f"[B5 gpfw] main path {Bs}x{ns} p {p5} ({len(calls)} launches"
+              f", {', '.join(paths)}): max|x - x_plain| "
+              f"{worst['max_abs_err']:.3e} (tol {TOL['lp']}), objective rel "
+              f"{worst['obj_rel']:.3e} (tol {TOL['lp_obj']}), 3 trips dual "
+              f"objective rel {worst['dual_rel']:.3e} (tol {TOL['lp_fixed']})"
+              f"; trips per running row {trips / max(per_row, 1.0):.3f}")
+
+        def replay(fn, calls=calls):
+            for _, a_, kw_ in calls:
+                fn(*a_, **kw_)
+
+        def replay_c(launchers=launchers):
+            for launch in launchers:
+                launch()
+
+        ms = cuda_ms(lambda: replay(B5.gpfw_fused)) / len(calls)
+        kernel_ms = cuda_ms(replay_c) / len(calls)
+        plain_ms = cuda_ms(lambda: replay(B5.gpfw_fused_plain),
+                           reps=1) / len(calls)
+        b, f = bound_ms(Bs * ns * 12 + Bs * 24,
+                        ns * (trips / len(calls) * lp_ops_per_trip(p5)
+                              + Bs * lp_ops_init(p5)))
+        kern.append(dict(
+            name=f"B5 gpfw_fused ({Bs}x{ns} p {p5}, {', '.join(paths)})",
+            route="cuda", source="proxtv_tpu_torch/csrc/lp_fused.cu",
+            replaces="proxtv_tpu/ops/kernels/lp_fused.py:267",
+            launches=len(calls),
+            launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
+                              for p_ in paths},
+            max_abs_err=worst["max_abs_err"], obj_rel_err=worst["obj_rel"],
+            dual_rel_err_3_trips=worst["dual_rel"], ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=f, library_ms=None, kernel_ms=kernel_ms,
+            row_trips_per_launch=trips / len(calls),
+            ops_per_trip=lp_ops_per_trip(p5)))
+    check(sum(k_["launches"] for k_ in kern if k_["name"].startswith("B5 "))
+          == sum(by_path["B5"].values()),
+          "the B5 tap missed main-path launches")
     for k_ in kern:
         extra = "".join(f", {key} {k_[key]:.4f} ms" for key in (
             "kernel_ms", "bound_ms_pcr") if key in k_)
@@ -1607,17 +1771,13 @@ def main(out_dir):
     # The redesign queue: each kernel's device time over one pass of every
     # main-path call that launches it (the profiled calls above), less the
     # bounds of those launches where phase 4 timed the kernel at the path's
-    # own shape (B1, B2 and B4 at each of their shapes, B3, B6, B5's
-    # tvp_batched p = 1.5 launch; B5's bounds at its other shapes are not
-    # computed and count as 0).
+    # own shape (B1, B2, B4 and B5 at each of their shapes, B3, B6).
     at_shape = {"B3": sum(by_path["B3"].values()),
-                "B6": sum(by_path["B6"].values()),
-                "B5": by_path["B5"][f"tvp_batched {BLP}x{N1D} lam {LAMP} "
-                                    "p 1.5 gpfw"]}
+                "B6": sum(by_path["B6"].values())}
     queue = {}
     for kid in counters:
         dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in breakdown.values())
-        per_shape = kid in ("B1", "B2", "B4")
+        per_shape = kid in ("B1", "B2", "B4", "B5")
         bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
                                     else at_shape.get(kid, 0))
                   for k_ in kern if k_["name"].startswith(kid + " "))

@@ -16,35 +16,57 @@
 //
 // What bounds it on this card: device traffic is one read of (y, w0) and one
 // write of w, 6 MB for a (512, 1000) batch, ~2 us at 3.35 TB/s; the work is
-// ~500 operations per element per trip (the projection's 8 Newton steps
-// ~250, nine FW steps ~25 each), times the trips the rows need, so it is
-// operations-bound.  Each trip also runs ~50 block-wide reductions and
-// neighbour exchanges, two barriers each, so a fiber's solve is latency-
-// bound: the design keeps several fibers on each SM.
+// a few hundred operations per element per trip (the projection's Newton
+// steps and nine FW steps), times the trips the rows need, so it is
+// operations-bound.  A trip is a chain of ~29 row-wide reductions, so a
+// fiber's solve is latency-bound: the design cuts the crossings and keeps
+// the state in registers.
 //
-// Design: one block per fiber, so every fiber stops on its own (the TPU
-// kernel's loop runs per tile of rows with every update masked per row, so
-// the results are the same).  Thread t owns a contiguous chunk of E
-// elements held in registers; lanes past n are zero, like the TPU kernel's
-// lane padding.  Row sums and maxima are warp-butterfly + shared-memory
-// reductions whose result every thread computes bitwise identically, so
-// every loop branch is uniform across the block; the sums that share a pass
-// (G, A, Bq of a Newton step; num, den of a line search) reduce together.
-// A single exchange of each chunk's first and last element gives both
-// neighbours (x_{j+1} = y_{j+1} + w_{j+1} - w_j is rebuilt from them), so
-// the gradient needs one exchange and the line search's D D' d one more.
-// The fractional powers follow the TPU kernel's strength reduction: an
-// integer or half-integer exponent in (0, 8] is a multiply / sqrtf chain,
-// any other goes to powf (accurate: no fast math).
+// Design.  A fiber runs on W warps (fiber.cuh; W = 1, several fibers a
+// block, for n <= 256), lane r holding the contiguous chunk j = rE .. rE +
+// E - 1 of y, w and the gradient g in registers, plus the halo w_{j-1},
+// w_{j+E}, y_{j+E}; lanes past n are zero, like the TPU kernel's lane
+// padding.  A batch of up to one fiber an SM is a latency launch: E = 4 on
+// up to 16 warps, no register cap.  A larger batch keeps four fibers an SM
+// (E = 8, at most 128 registers a thread, which spills a little).  Every crossing between warps is one barrier on double-buffered
+// shared slots and carries everything that is known before it:
+// - a row sum, or several (a Newton step's three, a line search's two);
+// - a (max, power sum) pair: each warp takes its max by shuffles first and
+//   sums (|v| / m_w)^e against it; across warps (M, sum_w s_w (m_w / M)^e),
+//   so a norm costs one crossing, not two;
+// - chunk edges each way (shuffles inside a warp, the warp edges through
+//   the slot).
+// A trip crosses 1 + newton_iters + 1 times in the projection (its pair with
+// the z edges, the Newton sums, the radial clamp's sum with the new w's
+// edges), twice per FW step (the oracle's pair with the g edges; num, den
+// with the d edges) and once for the gap: 29 at the defaults, one barrier
+// each (the parent kernel: ~60 crossings of two barriers).  No crossing
+// exchanges w: the halo w_{j-1}, w_{j+E} is made by the same operations as
+// its owner makes that element (the projection's products from the
+// exchanged signed s, each FW step's fmaf from the exchanged d), so every
+// gradient, the one the gap certifies included, is recomputed from w in
+// registers, exactly as the plain version recomputes it (carrying it as
+// g + gamma Hd would save four operations an element but accumulate
+// rounding over the FW steps).  Every thread of a fiber holds the same bits
+// of every row scalar, so every branch is uniform.
+//
+// Divides are reciprocals (rcp, within 1 ulp): one per element per Newton
+// step, shared by its uses, and one per row scalar.  Powers follow the TPU
+// kernel's strength reduction: an integer or half-integer exponent in
+// (0, 8] is a multiply / square-root chain (sqrt.approx), any other goes to
+// powf (accurate); the chain's branches, uniform over the row, are taken
+// once per chunk.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block.cuh"
+#include "fiber.cuh"
 
 namespace {
 
 constexpr float kTiny = 1e-30f;
 constexpr int kNumPows = 13;
+constexpr int kSlot = 8 * 32;        // floats per shared slot
+constexpr int kFibersPerBlock = 4;   // W = 1: one warp per fiber
 // Exponent slots (ops/kernels/lp_fused.py:exponents).
 enum {
   kQ = 0, kIQ, kQ1, kQ2, kRR, kRRQ, kRR1, kRRQ1, kP, kIP, kQQ1, kQQ, kQQR
@@ -57,284 +79,419 @@ struct Pows {
   int k[kNumPows];
 };
 
-__device__ __forceinline__ float spow(float x, const Pows& pw, int slot) {
+// The hardware's approximate square root (sqrt.approx): the correctly
+// rounded sqrtf cost 27% of the kernel at (512, 1000), p = 1.5.
+__device__ __forceinline__ float asqrt(float x) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// out = x^e elementwise (out must not alias x) for x >= 0: 1 (k = 0), powf
+// (k < 0) or the square-and-multiply chain for e = k / 2, its branches
+// taken once for the N elements.
+template <int N>
+__device__ __forceinline__ void spow_n(const float (&x)[N], float (&out)[N],
+                                       const Pows& pw, int slot) {
   const int k = pw.k[slot];
-  if (k == 0) return 1.f;
-  if (k < 0) return powf(x, pw.e[slot]);
-  float acc = 0.f, base = x;
+  if (k == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = 1.f;
+    return;
+  }
+  if (k < 0) {
+    const float e = pw.e[slot];
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = powf(x[i], e);
+    return;
+  }
+  float base[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) base[i] = x[i];
   bool have = false;
   for (int m = k >> 1; m; ) {
     if (m & 1) {
-      acc = have ? acc * base : base;
+#pragma unroll
+      for (int i = 0; i < N; ++i) out[i] = have ? out[i] * base[i] : base[i];
       have = true;
     }
     m >>= 1;
-    if (m) base = base * base;
+    if (m) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) base[i] = base[i] * base[i];
+    }
   }
   if (k & 1) {
-    const float s = sqrtf(x);
-    acc = have ? acc * s : s;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float s = asqrt(x[i]);
+      out[i] = have ? out[i] * s : s;
+    }
   }
-  return acc;
+}
+
+__device__ __forceinline__ float spow(float x, const Pows& pw, int slot) {
+  const float a[1] = {x};
+  float r[1];
+  spow_n(a, r, pw, slot);
+  return r[0];
 }
 
 __device__ __forceinline__ float sgn(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
 }
 
-// Block-wide sums of N values at once: one barrier pair for all N.  Every
-// thread gets the same bitwise result (see block.cuh).
+// Reduction over the W lanes of each group lane & ~(W - 1): with every
+// group holding the same W values, every lane gets the same bits.
+template <int OP, int W>
+__device__ __forceinline__ float group_reduce(float v) {
+#pragma unroll
+  for (int o = 1; o < W; o <<= 1) v = op2<OP>(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Array arguments of a crossing that may carry no values.
 template <int N>
-__device__ void block_sums(float (&v)[N], float* red) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = warp_reduce<kSum>(v[i]);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) red[i * 32 + wid] = v[i];
-  }
-  __syncthreads();
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    v[i] = warp_reduce<kSum>(lane < nw ? red[i * 32 + lane] : 0.f);
-}
+using Arr = float[N > 0 ? N : 1];
 
-__device__ __forceinline__ float block_sum1(float v, float* red) {
-  float a[1] = {v};
-  block_sums<1>(a, red);
-  return a[0];
-}
-
-// The last element of the previous thread's chunk and the first element of
-// the next thread's chunk (0 past either end), in one barrier pair.
-__device__ __forceinline__ void neighbours(float first, float last,
-                                           float* xch, float& prev_last,
-                                           float& next_first) {
-  __syncthreads();
-  xch[threadIdx.x] = first;
-  xch[blockDim.x + threadIdx.x] = last;
-  __syncthreads();
-  prev_last = threadIdx.x > 0 ? xch[blockDim.x + threadIdx.x - 1] : 0.f;
-  next_first = threadIdx.x + 1 < blockDim.x ? xch[threadIdx.x + 1] : 0.f;
-}
-
-template <int E>
-struct Fiber {
+template <int E, int W>
+struct Row {
+  Fiber<W, kSlot> f;
   int j0, n;
-  float* xch;
-  float* red;
+  const Pows& pw;
 
   __device__ float valid(int k) const { return j0 + k < n - 1 ? 1.f : 0.f; }
 
+  // One crossing of the fiber: NS row sums, NX chunk edges each way (the
+  // previous chunk's last, the next chunk's first; 0 past the row's ends)
+  // and, with PAIR, the (max, power sum) pair: on entry pm is the warp's
+  // max and ps its sum of (|v| / pm)^e, on return the row's max M and
+  // sum (|v| / M)^e, e the exponent of `slot`.
+  template <bool PAIR, int NS, int NX>
+  __device__ __forceinline__ void cross(float& pm, float& ps, int slot,
+                                        Arr<NS>& sums, const Arr<NX>& first,
+                                        const Arr<NX>& last, Arr<NX>& prev,
+                                        Arr<NX>& next) {
+    const int lane = f.lane;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sums[i] = warp_reduce<kSum>(sums[i]);
+    if (PAIR) ps = warp_reduce<kSum>(ps);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      prev[i] = from_below(last[i], 1, lane);
+      next[i] = from_above(first[i], 1, lane);
+    }
+    if constexpr (W > 1) {
+      float* s = f.slot();
+      const int wid = f.wid;
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) s[i * 32 + wid] = sums[i];
+        if (PAIR) {
+          s[NS * 32 + wid] = pm;
+          s[(NS + 1) * 32 + wid] = ps;
+        }
+#pragma unroll
+        for (int i = 0; i < NX; ++i) s[(NS + 2 + i) * 32 + wid] = first[i];
+      }
+      if (lane == 31) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) s[(NS + 2 + NX + i) * 32 + wid] = last[i];
+      }
+      __syncthreads();
+      const int q = lane & (W - 1);
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        sums[i] = group_reduce<kSum, W>(s[i * 32 + q]);
+      if (PAIR) {
+        const float mw = s[NS * 32 + q];
+        const float M = group_reduce<kMax, W>(mw);
+        const float t = s[(NS + 1) * 32 + q] *
+                        spow(mw * rcp(fmaxf(M, kTiny)), pw, slot);
+        pm = M;
+        ps = group_reduce<kSum, W>(t);
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        if (lane == 0 && wid > 0) prev[i] = s[(NS + 2 + NX + i) * 32 + wid - 1];
+        if (lane == 31 && wid + 1 < W) next[i] = s[(NS + 2 + i) * 32 + wid + 1];
+      }
+    }
+  }
+
+  // The warp's half of a (max, power sum) pair of a >= 0 (see cross).
+  __device__ __forceinline__ void warp_pair(const float (&a)[E], int slot,
+                                            float& pm, float& ps) const {
+    float m = 0.f;
+#pragma unroll
+    for (int k = 0; k < E; ++k) m = fmaxf(m, a[k]);
+    m = warp_reduce<kMax>(m);
+    const float im = rcp(fmaxf(m, kTiny));
+    float t[E], tp[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) t[k] = a[k] * im;
+    spow_n(t, tp, pw, slot);
+    ps = 0.f;
+#pragma unroll
+    for (int k = 0; k < E; ++k) ps += tp[k];
+    pm = m;
+  }
+
   // g = grad(primal(w)) = (x_j - x_{j+1}) v_j with x = y + (w - w_{j-1}).
-  __device__ void grad(const float (&y)[E], float ynext0, const float (&w)[E],
-                       float (&g)[E]) const {
-    float wprev0, wnext0;
-    neighbours(w[0], w[E - 1], xch, wprev0, wnext0);
+  __device__ __forceinline__ void grad(const float (&y)[E], float yn,
+                                       const float (&w)[E], float wp,
+                                       float wn, float (&g)[E]) const {
     float x[E];
 #pragma unroll
-    for (int k = 0; k < E; ++k) x[k] = y[k] + (w[k] - (k > 0 ? w[k - 1] : wprev0));
-    const float xnext0 = ynext0 + (wnext0 - w[E - 1]);
+    for (int k = 0; k < E; ++k) x[k] = y[k] + (w[k] - (k > 0 ? w[k - 1] : wp));
+    const float xn = yn + (wn - w[E - 1]);
 #pragma unroll
     for (int k = 0; k < E; ++k)
-      g[k] = (x[k] - (k + 1 < E ? x[k + 1] : xnext0)) * valid(k);
+      g[k] = (x[k] - (k + 1 < E ? x[k + 1] : xn)) * valid(k);
   }
 
   // Holder gap |lam ||g||_p + w'g| and its cancellation magnitude.
-  __device__ void gap_of(const float (&w)[E], const float (&g)[E], float lam,
-                         const Pows& pw, float& gap, float& den) const {
-    float m = 0.f;
-#pragma unroll
-    for (int k = 0; k < E; ++k) m = fmaxf(m, fabsf(g[k]));
-    const float mx = fmaxf(block_reduce<kMax>(m, red), kTiny);
-    float s[2] = {0.f, 0.f};
+  __device__ __forceinline__ void gap_of(const float (&w)[E],
+                                         const float (&g)[E], float lam,
+                                         float& gap, float& den) {
+    float a[E];
+    float sums[1] = {0.f};
 #pragma unroll
     for (int k = 0; k < E; ++k) {
-      s[0] += spow(fabsf(g[k]) / mx, pw, kP);
-      s[1] += w[k] * g[k];
+      a[k] = fabsf(g[k]);
+      sums[0] += w[k] * g[k];
     }
-    block_sums<2>(s, red);
-    const float tv = lam * mx * spow(s[0], pw, kIP);
-    gap = fabsf(tv + s[1]);
-    den = tv + fabsf(s[1]);
+    float pm, ps, none[1];
+    warp_pair(a, kP, pm, ps);
+    cross<true, 1, 0>(pm, ps, kP, sums, none, none, none, none);
+    const float tv = lam * fmaxf(pm, kTiny) * spow(ps, pw, kIP);
+    gap = fabsf(tv + sums[0]);
+    den = tv + fabsf(sums[0]);
   }
 
-  // w <- proj_{||.||_q <= lam}(z) (zero on invalid lanes), mu <- its KKT
-  // multiplier, warm-started from mu.
-  __device__ void project(const float (&z)[E], float lam, float& mu,
-                          float (&w)[E], const Pows& pw, bool q_ge2,
-                          int newton_iters) const {
+  // w <- proj_{||.||_q <= lam}(z) (zero on invalid lanes) and its halo,
+  // mu <- its KKT multiplier, warm-started from mu.
+  __device__ __forceinline__ void project(const float (&z)[E], float lam,
+                                          float& mu, float (&w)[E],
+                                          float& wp, float& wn, bool q_ge2,
+                                          int newton_iters) {
     float an[E];
-    float m = 0.f;
 #pragma unroll
-    for (int k = 0; k < E; ++k) {
-      an[k] = fabsf(z[k]) * valid(k);
-      m = fmaxf(m, an[k]);
-    }
-    const float mx = fmaxf(block_reduce<kMax>(m, red), kTiny);
-    float sq = 0.f;
-#pragma unroll
-    for (int k = 0; k < E; ++k) sq += spow(an[k] / mx, pw, kQ);
-    sq = block_sum1(sq, red);
-    const float nrm = mx * spow(sq, pw, kIQ);
-    if (nrm <= lam) {  // inside the ball: z itself
+    for (int k = 0; k < E; ++k) an[k] = fabsf(z[k]) * valid(k);
+    float pm, ps, none[1];
+    float zf[1] = {z[0]}, zl[1] = {z[E - 1]}, zp[1], zn[1];
+    warp_pair(an, kQ, pm, ps);
+    cross<true, 0, 1>(pm, ps, kQ, none, zf, zl, zp, zn);
+    const float scale = fmaxf(pm, kTiny);
+    const float nrm_s = spow(ps, pw, kIQ);  // ||z||_q / scale
+    if (scale * nrm_s <= lam) {  // inside the ball: z itself
 #pragma unroll
       for (int k = 0; k < E; ++k) w[k] = z[k] * valid(k);
+      wp = zp[0] * valid(-1);
+      wn = zn[0] * valid(E);
       return;
     }
-    const float scale = mx;
+    const float isc = rcp(scale);
 #pragma unroll
-    for (int k = 0; k < E; ++k) an[k] = an[k] / scale;
-    const float Rn = lam / scale;
+    for (int k = 0; k < E; ++k) an[k] = an[k] * isc;
+    const float Rn = lam * isc;
     const float T = spow(Rn, pw, kQ);
-    const float fac0 = Rn / fmaxf(spow(sq, pw, kIQ), kTiny);
+    const float fac0 = Rn * rcp(fmaxf(nrm_s, kTiny));
     const float q = pw.e[kQ];
     float s[E];
     if (q_ge2) {
-      const float q1 = pw.e[kQ1];
 #pragma unroll
       for (int k = 0; k < E; ++k) s[k] = an[k] * fac0;
+      const float qq1 = q * pw.e[kQ1];
       for (int it = 0; it < newton_iters; ++it) {
-        float F[E], r[E], d[E];
+        float sq1[E], sq2[E], F[E], r[E], id[E];
+        spow_n(s, sq1, pw, kQ1);
+        spow_n(s, sq2, pw, kQ2);
         float sums[3] = {0.f, 0.f, 0.f};
 #pragma unroll
         for (int k = 0; k < E; ++k) {
-          const float sq1 = spow(s[k], pw, kQ1);
-          F[k] = s[k] + mu * q * sq1 - an[k];
-          d[k] = 1.f + mu * q * q1 * spow(s[k], pw, kQ2);
-          r[k] = q * sq1;
-          const float rod = r[k] / d[k];
-          sums[0] += s[k] * sq1;
+          F[k] = s[k] + mu * q * sq1[k] - an[k];
+          id[k] = rcp(1.f + mu * qq1 * sq2[k]);
+          r[k] = q * sq1[k];
+          const float rod = r[k] * id[k];
+          sums[0] += s[k] * sq1[k];
           sums[1] += rod * F[k];
           sums[2] += rod * r[k];
         }
-        block_sums<3>(sums, red);
+        cross<false, 3, 0>(pm, ps, 0, sums, none, none, none, none);
         const float G = sums[0] - T;
-        const float dmu = (G - sums[1]) / fmaxf(sums[2], kTiny);
+        const float dmu = (G - sums[1]) * rcp(fmaxf(sums[2], kTiny));
         const float mu_new = fmaxf(mu + dmu, 0.f);
 #pragma unroll
         for (int k = 0; k < E; ++k) {
-          const float ds = -(F[k] + r[k] * dmu) / d[k];
+          const float ds = -(F[k] + r[k] * dmu) * id[k];
           s[k] = an[k] > 0.f ? fminf(fmaxf(s[k] + ds, 1e-20f), an[k]) : 0.f;
         }
         mu = mu_new;
       }
     } else {
       const float rr = pw.e[kRR], rrq = pw.e[kRRQ];
-      float u[E], u_hi[E];
+      float u[E], u_hi[E], t[E];
+      spow_n(an, u_hi, pw, kQ1);  // loop-invariant clip ceiling
 #pragma unroll
-      for (int k = 0; k < E; ++k) {
-        u_hi[k] = spow(an[k], pw, kQ1);  // loop-invariant clip ceiling
-        u[k] = spow(an[k] * fac0, pw, kQ1);
-      }
+      for (int k = 0; k < E; ++k) t[k] = an[k] * fac0;
+      spow_n(t, u, pw, kQ1);
       for (int it = 0; it < newton_iters; ++it) {
-        float F[E], d[E], qu[E];
+        float ur[E], ur1[E], urq[E], urq1[E], F[E], id[E], gq[E];
+        spow_n(u, ur, pw, kRR);
+        spow_n(u, ur1, pw, kRR1);
+        spow_n(u, urq, pw, kRRQ);
+        spow_n(u, urq1, pw, kRRQ1);
         float sums[3] = {0.f, 0.f, 0.f};
 #pragma unroll
         for (int k = 0; k < E; ++k) {
-          F[k] = spow(u[k], pw, kRR) + mu * q * u[k] - an[k];
-          d[k] = rr * spow(u[k], pw, kRR1) + mu * q;
-          const float g = rrq * spow(u[k], pw, kRRQ1);
-          qu[k] = q * u[k];
-          sums[0] += spow(u[k], pw, kRRQ);
-          sums[1] += g * F[k] / d[k];
-          sums[2] += g * qu[k] / d[k];
+          F[k] = ur[k] + mu * q * u[k] - an[k];
+          id[k] = rcp(rr * ur1[k] + mu * q);
+          gq[k] = rrq * urq1[k] * id[k];
+          sums[0] += urq[k];
+          sums[1] += gq[k] * F[k];
+          sums[2] += gq[k] * (q * u[k]);
         }
-        block_sums<3>(sums, red);
+        cross<false, 3, 0>(pm, ps, 0, sums, none, none, none, none);
         const float G = sums[0] - T;
-        const float dmu = (G - sums[1]) / fmaxf(sums[2], kTiny);
+        const float dmu = (G - sums[1]) * rcp(fmaxf(sums[2], kTiny));
         const float mu_new = fmaxf(mu + dmu, 0.f);
 #pragma unroll
         for (int k = 0; k < E; ++k) {
-          const float du = -(F[k] + qu[k] * dmu) / d[k];
+          const float du = -(F[k] + q * u[k] * dmu) * id[k];
           u[k] = an[k] > 0.f ? fminf(fmaxf(u[k] + du, kTiny), u_hi[k]) : 0.f;
         }
         mu = mu_new;
       }
-#pragma unroll
-      for (int k = 0; k < E; ++k) s[k] = spow(u[k], pw, kRR);
+      spow_n(u, s, pw, kRR);
     }
     // Radial clamp to exact feasibility: if the Newton missed, the iterate
-    // stays feasible and the gap certificate stays truthful.
-    float ss = 0.f;
+    // stays feasible and the gap certificate stays truthful.  The signed
+    // s of the chunk edges travel with its sum, so the halo of the new w
+    // is made by the same products as its owner makes it.
+    float sqq[E], ts[E];
+    spow_n(s, sqq, pw, kQ);
+    float sums[1] = {0.f};
 #pragma unroll
-    for (int k = 0; k < E; ++k) ss += spow(s[k], pw, kQ);
-    const float snrm = spow(block_sum1(ss, red), pw, kIQ);
-    const float fac = fminf(1.f, Rn / fmaxf(snrm, kTiny));
+    for (int k = 0; k < E; ++k) {
+      sums[0] += sqq[k];
+      ts[k] = sgn(z[k]) * s[k];
+    }
+    float tf[1] = {ts[0]}, tl[1] = {ts[E - 1]}, tp[1], tn[1];
+    cross<false, 1, 1>(pm, ps, 0, sums, tf, tl, tp, tn);
+    const float snrm = spow(sums[0], pw, kIQ);
+    const float fac = fminf(1.f, Rn * rcp(fmaxf(snrm, kTiny)));
 #pragma unroll
-    for (int k = 0; k < E; ++k)
-      w[k] = sgn(z[k]) * s[k] * fac * scale * valid(k);
+    for (int k = 0; k < E; ++k) w[k] = ts[k] * fac * scale * valid(k);
+    wp = tp[0] * fac * scale * valid(-1);
+    wn = tn[0] * fac * scale * valid(E);
   }
 
-  // One Frank-Wolfe step: closed-form linear oracle over the q-ball
-  // (exponent qq = q/(q-1)), exact line search on the dual quadratic.
-  __device__ void fw_step(const float (&y)[E], float ynext0, float (&w)[E],
-                          float lam, const Pows& pw) const {
-    float g[E];
-    grad(y, ynext0, w, g);
-    float m = 0.f;
+  // One Frank-Wolfe step: g = grad(primal(w)) from w and its halo (no
+  // exchange), closed-form linear oracle over the q-ball (exponent
+  // qq = q/(q-1) = p), exact line search on the dual quadratic.
+  __device__ __forceinline__ void fw_step(const float (&y)[E], float yn,
+                                          float (&w)[E], float& wp,
+                                          float& wn, float (&g)[E],
+                                          float lam) {
+    grad(y, yn, w, wp, wn, g);
+    float a[E];
 #pragma unroll
-    for (int k = 0; k < E; ++k) m = fmaxf(m, fabsf(g[k]));
-    const float mx = fmaxf(block_reduce<kMax>(m, red), kTiny);
-    float sr = 0.f;
-#pragma unroll
-    for (int k = 0; k < E; ++k) sr += spow(fabsf(g[k]) / mx, pw, kQQ);
-    const float den_s = fmaxf(spow(block_sum1(sr, red), pw, kQQR), kTiny);
-    float d[E];
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      const float r = fabsf(g[k]) / mx;
-      const float s = -lam * sgn(g[k]) * spow(r, pw, kQQ1) / den_s;
-      d[k] = (s - w[k]) * valid(k);
-    }
-    float dprev0, dnext0;
-    neighbours(d[0], d[E - 1], xch, dprev0, dnext0);
-    float ad[E];
-#pragma unroll
-    for (int k = 0; k < E; ++k) ad[k] = d[k] - (k > 0 ? d[k - 1] : dprev0);
-    const float adnext0 = dnext0 - d[E - 1];
-    float nd[2] = {0.f, 0.f};
+    for (int k = 0; k < E; ++k) a[k] = fabsf(g[k]);
+    float pm, ps, none[1];
+    float gf[1] = {g[0]}, gl[1] = {g[E - 1]}, gp[1], gn[1];
+    warp_pair(a, kQQ, pm, ps);
+    cross<true, 0, 1>(pm, ps, kQQ, none, gf, gl, gp, gn);
+    const float imx = rcp(fmaxf(pm, kTiny));
+    const float c = -lam * rcp(fmaxf(spow(ps, pw, kQQR), kTiny));
+    // The direction on the chunk and its halo: element i of the arrays is
+    // j0 - 1 + i.
+    float ge[E + 2], we[E + 2], r[E + 2], rp[E + 2], d[E + 2];
+    ge[0] = gp[0];
+    we[0] = wp;
+    ge[E + 1] = gn[0];
+    we[E + 1] = wn;
 #pragma unroll
     for (int k = 0; k < E; ++k) {
-      const float Hd = (ad[k] - (k + 1 < E ? ad[k + 1] : adnext0)) * valid(k);
-      nd[0] += g[k] * d[k];
-      nd[1] += d[k] * Hd;
+      ge[k + 1] = g[k];
+      we[k + 1] = w[k];
     }
-    block_sums<2>(nd, red);
-    const float num = -nd[0], den = nd[1];
+#pragma unroll
+    for (int i = 0; i < E + 2; ++i) r[i] = fabsf(ge[i]) * imx;
+    spow_n(r, rp, pw, kQQ1);
+#pragma unroll
+    for (int i = 0; i < E + 2; ++i)
+      d[i] = (c * sgn(ge[i]) * rp[i] - we[i]) * valid(i - 1);
+    float Hd[E];
+    float sums[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const float ad = d[k + 1] - d[k], adn = d[k + 2] - d[k + 1];
+      Hd[k] = (ad - adn) * valid(k);
+      sums[0] += g[k] * d[k + 1];
+      sums[1] += d[k + 1] * Hd[k];
+    }
+    float df[1] = {d[1]}, dl[1] = {d[E]}, dp[1], dn[1];
+    cross<false, 2, 1>(pm, ps, 0, sums, df, dl, dp, dn);
+    const float num = -sums[0], den = sums[1];
     const float gamma =
-        den > 0.f ? fminf(fmaxf(num / fmaxf(den, kTiny), 0.f), 1.f)
+        den > 0.f ? fminf(fmaxf(num * rcp(fmaxf(den, kTiny)), 0.f), 1.f)
                   : (num > 0.f ? 1.f : 0.f);
 #pragma unroll
-    for (int k = 0; k < E; ++k) w[k] = w[k] + gamma * d[k];
+    for (int k = 0; k < E; ++k) w[k] = __fmaf_rn(gamma, d[k + 1], w[k]);
+    wp = __fmaf_rn(gamma, dp[0], wp);
+    wn = __fmaf_rn(gamma, dn[0], wn);
   }
 };
 
-template <int E, int MAXT>
-__global__ void __launch_bounds__(MAXT)
+template <int W>
+constexpr int threads_of() { return W == 1 ? 32 * kFibersPerBlock : 32 * W; }
+
+// MINB: the blocks an SM should hold, which caps the registers a thread.
+template <int E, int W, int MINB>
+__global__ void __launch_bounds__(threads_of<W>(), MINB)
 gpfw_kernel(const float* __restrict__ Y, const float* __restrict__ W0,
             const float* __restrict__ LAM, const float* __restrict__ MU0,
-            const float* __restrict__ RUN, float* __restrict__ W,
+            const float* __restrict__ RUN, float* __restrict__ Wout,
             float* __restrict__ MU, float* __restrict__ GAP,
-            float* __restrict__ IT, int n, int max_trips, int fw_cycles,
-            float stop_rel, int newton_iters, int q_ge2, Pows pw) {
-  __shared__ float xch[2 * MAXT];
-  __shared__ float red[3 * 32];
-  const size_t row = blockIdx.x;
+            float* __restrict__ IT, int nrows, int n, int max_trips,
+            int fw_cycles, float stop_rel, int newton_iters, int q_ge2,
+            Pows pw) {
+  __shared__ float slots[W > 1 ? 2 * kSlot : 1];
+  Row<E, W> r{Fiber<W, kSlot>{}, 0, n, pw};
+  r.f.lane = threadIdx.x & 31;
+  r.f.slots = slots;
+  size_t row;
+  if constexpr (W == 1) {
+    r.f.wid = 0;
+    row = static_cast<size_t>(blockIdx.x) * kFibersPerBlock + (threadIdx.x >> 5);
+    if (row >= static_cast<size_t>(nrows)) return;  // whole warps leave
+  } else {
+    r.f.wid = threadIdx.x >> 5;
+    row = blockIdx.x;
+  }
+  r.j0 = r.f.rank() * E;
+  const int j0 = r.j0;
   const size_t base = row * n;
-  Fiber<E> f{static_cast<int>(threadIdx.x) * E, n, xch, red};
 
   float y[E], w[E];
 #pragma unroll
   for (int k = 0; k < E; ++k) {
-    const int j = f.j0 + k;
+    const int j = j0 + k;
     y[k] = j < n ? Y[base + j] : 0.f;
-    w[k] = (j < n ? W0[base + j] : 0.f) * f.valid(k);
+    w[k] = (j < n ? W0[base + j] : 0.f) * r.valid(k);
   }
-  float yprev_unused, ynext0;
-  neighbours(y[0], y[E - 1], xch, yprev_unused, ynext0);
+  // The halo: y_{j0+E}, w_{j0-1}, w_{j0+E}.
+  float yn, wp, wn;
+  {
+    float pm = 0.f, ps = 0.f, none[1];
+    float fst[2] = {y[0], w[0]}, lst[2] = {y[E - 1], w[E - 1]}, prv[2],
+          nxt[2];
+    r.template cross<false, 0, 2>(pm, ps, 0, none, fst, lst, prv, nxt);
+    yn = nxt[0];
+    wp = prv[1];
+    wn = nxt[1];
+  }
 
   const float lam = LAM[row];
   const float run_mask = RUN[row];
@@ -343,9 +500,9 @@ gpfw_kernel(const float* __restrict__ Y, const float* __restrict__ W0,
   const float ten_eps = 1.1920928955078125e-06f;
 
   float g[E];
-  f.grad(y, ynext0, w, g);
+  r.grad(y, yn, w, wp, wn, g);
   float gap, den;
-  f.gap_of(w, g, lam, pw, gap, den);
+  r.gap_of(w, g, lam, gap, den);
   bool running = run_mask > 0.f && gap > fmaxf(stop_rel, ten_eps * fmaxf(1.f, den));
   int trips = 0;
   while (running && trips < max_trips) {
@@ -353,20 +510,20 @@ gpfw_kernel(const float* __restrict__ Y, const float* __restrict__ W0,
     float z[E];
 #pragma unroll
     for (int k = 0; k < E; ++k) z[k] = w[k] - 0.25f * g[k];
-    f.project(z, lam, mu, w, pw, q_ge2 != 0, newton_iters);
-    for (int c = 1; c < fw_cycles; ++c) f.fw_step(y, ynext0, w, lam, pw);
-    f.grad(y, ynext0, w, g);
-    f.gap_of(w, g, lam, pw, gap, den);
+    r.project(z, lam, mu, w, wp, wn, q_ge2 != 0, newton_iters);
+    for (int c = 1; c < fw_cycles; ++c) r.fw_step(y, yn, w, wp, wn, g, lam);
+    r.grad(y, yn, w, wp, wn, g);
+    r.gap_of(w, g, lam, gap, den);
     ++trips;
     running = gap > fmaxf(stop_rel, ten_eps * fmaxf(1.f, den));
   }
 
 #pragma unroll
   for (int k = 0; k < E; ++k) {
-    const int j = f.j0 + k;
-    if (j < n) W[base + j] = w[k] * f.valid(k);
+    const int j = j0 + k;
+    if (j < n) Wout[base + j] = w[k] * r.valid(k);
   }
-  if (threadIdx.x == 0) {
+  if (r.f.rank() == 0) {
     MU[row] = mu;
     GAP[row] = gap;
     IT[row] = static_cast<float>(trips * fw_cycles) * run_mask +
@@ -374,15 +531,15 @@ gpfw_kernel(const float* __restrict__ Y, const float* __restrict__ W0,
   }
 }
 
-template <int E, int MAXT>
+template <int E, int W, int MINB>
 int launch(const float* y, const float* w0, const float* lam, const float* mu0,
            const float* run, float* w, float* mu, float* gap, float* it,
            int B, int n, int max_trips, int fw_cycles, float stop_rel,
            int newton_iters, int q_ge2, const Pows& pw, cudaStream_t stream) {
-  const int threads = ((n + E - 1) / E + 31) / 32 * 32;
-  gpfw_kernel<E, MAXT><<<B, threads, 0, stream>>>(
-      y, w0, lam, mu0, run, w, mu, gap, it, n, max_trips, fw_cycles, stop_rel,
-      newton_iters, q_ge2, pw);
+  const int blocks = W == 1 ? (B + kFibersPerBlock - 1) / kFibersPerBlock : B;
+  gpfw_kernel<E, W, MINB><<<blocks, threads_of<W>(), 0, stream>>>(
+      y, w0, lam, mu0, run, w, mu, gap, it, B, n, max_trips, fw_cycles,
+      stop_rel, newton_iters, q_ge2, pw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,7 +548,8 @@ int launch(const float* y, const float* w0, const float* lam, const float* mu0,
 // y, w0, w: (B, n) float32 (w0 with a zero last column); lam, mu0, run, mu,
 // gap, it: (B,) float32.  exps / codes: the 13 host exponents and their
 // evaluation codes (ops/kernels/lp_fused.py:exponents, _pow_code), host
-// memory.  2 <= n <= 8192 (checked by the Python wrapper).
+// memory.  2 <= n <= 8192 (checked by the Python wrapper).  A fiber covers
+// 32 W E elements.
 extern "C" int gpfw_fused(const float* y, const float* w0, const float* lam,
                           const float* mu0, const float* run, float* w,
                           float* mu, float* gap, float* it, int B, int n,
@@ -403,23 +561,33 @@ extern "C" int gpfw_fused(const float* y, const float* w0, const float* lam,
     pw.e[i] = exps[i];
     pw.k[i] = codes[i];
   }
-  if (n <= 128)
-    return launch<1, 128>(y, w0, lam, mu0, run, w, mu, gap, it, B, n,
-                          max_trips, fw_cycles, stop_rel, newton_iters, q_ge2,
-                          pw, stream);
-  if (n <= 512)
-    return launch<2, 256>(y, w0, lam, mu0, run, w, mu, gap, it, B, n,
-                          max_trips, fw_cycles, stop_rel, newton_iters, q_ge2,
-                          pw, stream);
-  if (n <= 1024)
-    return launch<4, 256>(y, w0, lam, mu0, run, w, mu, gap, it, B, n,
-                          max_trips, fw_cycles, stop_rel, newton_iters, q_ge2,
-                          pw, stream);
-  if (n <= 2048)
-    return launch<8, 256>(y, w0, lam, mu0, run, w, mu, gap, it, B, n,
-                          max_trips, fw_cycles, stop_rel, newton_iters, q_ge2,
-                          pw, stream);
-  return launch<16, 512>(y, w0, lam, mu0, run, w, mu, gap, it, B, n,
-                         max_trips, fw_cycles, stop_rel, newton_iters, q_ge2,
-                         pw, stream);
+  // Up to one fiber an SM (a latency launch), 256 < n <= 2048 runs on more
+  // warps of E = 4 with no register cap; a larger batch keeps four fibers
+  // an SM (E = 8, at most 128 registers a thread).
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool latency = B <= sms;
+#define LP_LAUNCH(E, W, MINB)                                               \
+  return launch<E, W, MINB>(y, w0, lam, mu0, run, w, mu, gap, it, B, n,     \
+                            max_trips, fw_cycles, stop_rel, newton_iters,   \
+                            q_ge2, pw, stream)
+  if (n <= 128) LP_LAUNCH(4, 1, 8);
+  if (n <= 256) LP_LAUNCH(8, 1, 4);
+  if (n <= 512) {
+    if (latency) LP_LAUNCH(4, 4, 1);
+    LP_LAUNCH(8, 2, 8);
+  }
+  if (n <= 1024) {
+    if (latency) LP_LAUNCH(4, 8, 1);
+    LP_LAUNCH(8, 4, 4);
+  }
+  if (n <= 2048) {
+    if (latency) LP_LAUNCH(4, 16, 1);
+    LP_LAUNCH(8, 8, 2);
+  }
+  if (n <= 4096) LP_LAUNCH(8, 16, 1);
+  if (n <= 8192) LP_LAUNCH(16, 16, 1);
+#undef LP_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,108 +1,153 @@
-// Kernel B2: batched SPD second-difference tridiagonal solve by parallel
-// cyclic reduction, hand-written for Hopper (sm_90a).
+// Kernel B2: batched SPD second-difference tridiagonal solve, hand-written
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel proxtv_tpu/ops/kernels/pcr.py:pcr_spd_solve_pallas
 // (its three pallas_calls: plain, masked, shifted).  Solves
 //     (DD' [+ shift I]) x = rhs        per row of a (B, n) float32 batch,
-// masked rows becoming identity rows with zero right-hand side.
+// masked rows becoming identity rows with zero right-hand side and a
+// coupling surviving only between two unmasked rows.  The TPU kernel runs
+// parallel cyclic reduction; this one solves each row exactly in O(n)
+// (tridiag.cuh), so its roundings differ from the plain version's.
 //
 // What bounds it on this card: each row is read once and written once
-// (plus the mask), so a (10000, 1000) batch moves ~90 MB, ~27 us at
-// 3.35 TB/s; the reduction does ceil(log2 n) steps of ~20 flops per
-// element, ~2 GFLOP, ~30 us at 67 TFLOP/s f32 — compute-leaning.  In
-// practice the shared-memory traffic of the steps (12 loads / 4 stores of
-// 4 bytes per element per step) and two __syncthreads() per step set the
-// pace.
+// (plus the mask's bytes), so a (512, 999) batch moves ~4 MB, ~1.2 us at
+// 3.35 TB/s; the exact elimination is ~10 operations per element, under
+// that.  At the main path's shapes (one row of 999; 512 rows of 999 or
+// 511) a launch is latency: a row's solve is a chain of dependent steps.
 //
-// Design: one block per row, the four coefficient arrays (a, b, c, d) of the
-// whole row resident in shared memory (4 n floats, 128 KB at n = 8192, above
-// the 48 KB default, hence cudaFuncSetAttribute).  The TPU kernel double
-// buffers the shifted copies in VMEM; here each step is done in place: every
-// thread reads its stride neighbours into registers, the block syncs, every
-// thread writes its own new values, the block syncs.  Thread t owns elements
-// t, t + T, t + 2T, ... (coalesced loads/stores, up to 8 per thread).  The
-// arithmetic is the TPU kernel's general (a, b, c, d) form, step for step,
-// with the mask applied by the same float 0/1 algebra.
+// Design: a row runs on W warps (fiber.cuh; W = 1, four rows a block, for
+// n <= 256; E = 4 and 4 or 8 warps up to 1024, where a launch of one row
+// is latency and the shorter serial chain wins), lane r holding the chunk
+// j = rE .. rE + E - 1 of the right-hand side in registers; lanes past n
+// are identity rows.  Each lane
+// makes its chunk's couplings and row excesses from its own mask bytes
+// (and the one on each side), so the coefficients need no exchange:
+//   masked    c_j = m_j m_{j+1}, excess 1 + m_j - c_{j-1} - c_j,
+//   plain     c_j = [j + 1 < n], excess [j = 0] + [j = n - 1],
+//   shifted   as plain, plus the row's shift in every excess.
+// Then the partitioned solve of tridiag.cuh (the chunk serially in
+// registers, the lanes by PCR over shuffles, the warps' boundary rows after
+// one barrier), every pivot a sum of nonnegative terms, and one step of
+// iterative refinement on the same elimination, its residual formed in
+// float64, so that where the unmasked system's condition grows as n^2 the
+// float32 solution stays no further from the float64 one than the TPU
+// kernel's float32 PCR (tests/test_torch_cuda.py holds it).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tridiag.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxPer = 8;  // 8192 / 1024 elements per thread
+// The coefficients of a row's chunk, made from its mask bytes or its shift
+// (tridiag.cuh): every rhs is read (masked rows carry 0).
+template <int E>
+struct RowCoef {
+  unsigned cb;   // bit k: c of chunk element k
+  float a_0;     // a of element 0
+  float ex[E];   // the excesses
+  __device__ __forceinline__ bool c(int k) const { return (cb >> k) & 1u; }
+  __device__ __forceinline__ float a0() const { return a_0; }
+  __device__ __forceinline__ float e(int k) const { return ex[k]; }
+  __device__ __forceinline__ bool live(int) const { return true; }
+};
 
-__global__ void __launch_bounds__(kMaxThreads)
+constexpr int kSlot = 4 * 32;          // floats per shared slot
+constexpr int kRowsPerBlock = 4;       // W = 1: one warp per row
+
+template <int W>
+constexpr int threads_of() { return W == 1 ? 32 * kRowsPerBlock : 32 * W; }
+
+template <int E, int W>
+__global__ void __launch_bounds__(threads_of<W>())
 pcr_kernel(const float* __restrict__ rhs, const uint8_t* __restrict__ mask,
-           const float* __restrict__ shift, float* __restrict__ out, int n) {
-  extern __shared__ float smem[];
-  float* a = smem;
-  float* b = a + n;
-  float* c = b + n;
-  float* d = c + n;
-  const int T = blockDim.x;
-  const size_t row = blockIdx.x;
-  const float* r = rhs + row * n;
+           const float* __restrict__ shift, float* __restrict__ out,
+           int nrows, int n) {
+  __shared__ float slots[W > 1 ? 2 * kSlot : 1];
+  Fiber<W, kSlot> g;
+  g.lane = threadIdx.x & 31;
+  g.slots = slots;
+  size_t row;
+  if constexpr (W == 1) {
+    g.wid = 0;
+    row = static_cast<size_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+    if (row >= static_cast<size_t>(nrows)) return;  // whole warps leave
+  } else {
+    g.wid = threadIdx.x >> 5;
+    row = blockIdx.x;
+  }
+  const int j0 = g.rank() * E;
+  const size_t base = row * n;
 
+  Tridiag<E, RowCoef<E>> sys;
+  RowCoef<E>& cf = sys.cf;
+  cf.cb = 0;
+  float r[E];
   if (mask != nullptr) {
-    const uint8_t* mr = mask + row * n;
-    for (int j = threadIdx.x; j < n; j += T) {
-      const float m = mr[j] ? 1.f : 0.f;
-      const float mm = (j > 0 && mr[j - 1]) ? 1.f : 0.f;
-      const float mp = (j + 1 < n && mr[j + 1]) ? 1.f : 0.f;
-      a[j] = 1.f + m;
-      b[j] = -(m * mm);
-      c[j] = (j + 1 < n) ? -(mp * m) : 0.f;
-      d[j] = m * r[j];
+    const uint8_t* m = mask + base;
+    const bool prev = j0 >= 1 && j0 - 1 < n && m[j0 - 1] != 0;
+    bool cur = j0 < n && m[j0] != 0;
+    cf.a_0 = prev && cur ? 1.f : 0.f;
+    float ak = cf.a_0;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int j = j0 + k;
+      const bool nxt = j + 1 < n && m[j + 1] != 0;
+      const bool ck = cur && nxt;
+      cf.cb |= (ck ? 1u : 0u) << k;
+      cf.ex[k] = (cur ? 2.f : 1.f) - ak - (ck ? 1.f : 0.f);
+      r[k] = cur ? rhs[base + j] : 0.f;
+      ak = ck ? 1.f : 0.f;
+      cur = nxt;
     }
   } else {
     const float s = shift != nullptr ? shift[row] : 0.f;
-    for (int j = threadIdx.x; j < n; j += T) {
-      a[j] = 2.f + s;
-      b[j] = j > 0 ? -1.f : 0.f;
-      c[j] = j + 1 < n ? -1.f : 0.f;
-      d[j] = r[j];
+    cf.a_0 = j0 >= 1 && j0 < n ? 1.f : 0.f;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int j = j0 + k;
+      const bool act = j < n, ck = j + 1 < n;
+      const float ak = k == 0 ? cf.a_0 : (act ? 1.f : 0.f);
+      cf.cb |= (ck ? 1u : 0u) << k;
+      cf.ex[k] = act ? s + (1.f - ak) + (1.f - (ck ? 1.f : 0.f)) : 1.f;
+      r[k] = act ? rhs[base + j] : 0.f;
     }
   }
-  __syncthreads();
+  sys.setup();
+  float x[E], dx[E], res[E];
+  sys.solve(g, r, x);
+  // One step of iterative refinement.  The residual
+  // r_j - e_j x_j - a_j (x_j - x_{j-1}) - c_j (x_j - x_{j+1}) is formed in
+  // float64, where the products and differences of float32 values are
+  // exact, and rounded once.
+  float xp, xn;
+  g.exchange(x[0], x[E - 1], xp, xn);
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const double ak = k == 0 ? cf.a0() : (cf.c(k - 1) ? 1.0 : 0.0);
+    const double ck = cf.c(k) ? 1.0 : 0.0;
+    const double xk = x[k];
+    const double xl = k > 0 ? x[k - 1] : xp, xr = k + 1 < E ? x[k + 1] : xn;
+    res[k] = static_cast<float>(static_cast<double>(r[k]) - cf.ex[k] * xk -
+                                ak * (xk - xl) - ck * (xk - xr));
+  }
+  sys.solve(g, res, dx);
+#pragma unroll
+  for (int k = 0; k < E; ++k) x[k] += dx[k];
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const int j = j0 + k;
+    if (j < n) out[base + j] = x[k];
+  }
+}
 
-  for (int s = 1; s < n; s <<= 1) {
-    float na[kMaxPer], nb[kMaxPer], nc[kMaxPer], nd[kMaxPer];
-#pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
-      const int j = threadIdx.x + k * T;
-      if (j < n) {
-        const bool lo = j - s >= 0, hi = j + s < n;
-        const float am = lo ? a[j - s] : 1.f;
-        const float ap = hi ? a[j + s] : 1.f;
-        const float bm = lo ? b[j - s] : 0.f;
-        const float bp = hi ? b[j + s] : 0.f;
-        const float cm = lo ? c[j - s] : 0.f;
-        const float cp = hi ? c[j + s] : 0.f;
-        const float dm = lo ? d[j - s] : 0.f;
-        const float dp = hi ? d[j + s] : 0.f;
-        const float alpha = -b[j] / am;
-        const float beta = -c[j] / ap;
-        na[k] = a[j] + alpha * cm + beta * bp;
-        nd[k] = d[j] + alpha * dm + beta * dp;
-        nb[k] = alpha * bm;
-        nc[k] = beta * cp;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
-      const int j = threadIdx.x + k * T;
-      if (j < n) {
-        a[j] = na[k];
-        b[j] = nb[k];
-        c[j] = nc[k];
-        d[j] = nd[k];
-      }
-    }
-    __syncthreads();
-  }
-  float* o = out + row * n;
-  for (int j = threadIdx.x; j < n; j += T) o[j] = d[j] / a[j];
+template <int E, int W>
+int launch(const float* rhs, const uint8_t* mask, const float* shift,
+           float* out, int B, int n, cudaStream_t stream) {
+  const int blocks = W == 1 ? (B + kRowsPerBlock - 1) / kRowsPerBlock : B;
+  pcr_kernel<E, W><<<blocks, threads_of<W>(), 0, stream>>>(rhs, mask, shift,
+                                                           out, B, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -112,15 +157,19 @@ extern "C" const char* proxtv_error_string(int err) {
 }
 
 // rhs, out: (B, n) float32; mask: (B, n) uint8 or NULL; shift: (B,) or NULL.
+// 2 <= n <= 8192 (checked by the Python wrapper).  A row covers 32 W E
+// elements.
 extern "C" int pcr_spd_solve(const float* rhs, const uint8_t* mask,
                              const float* shift, float* out, int B, int n,
                              cudaStream_t stream) {
-  const int threads = ((n < kMaxThreads ? n : kMaxThreads) + 31) / 32 * 32;
-  const size_t smem = 4 * sizeof(float) * static_cast<size_t>(n);
-  cudaError_t e = cudaFuncSetAttribute(
-      pcr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  pcr_kernel<<<B, threads, smem, stream>>>(rhs, mask, shift, out, n);
-  return static_cast<int>(cudaGetLastError());
+#define PCR_LAUNCH(E, W) return launch<E, W>(rhs, mask, shift, out, B, n, stream)
+  if (n <= 128) PCR_LAUNCH(4, 1);
+  if (n <= 256) PCR_LAUNCH(8, 1);
+  if (n <= 512) PCR_LAUNCH(4, 4);
+  if (n <= 1024) PCR_LAUNCH(4, 8);
+  if (n <= 2048) PCR_LAUNCH(8, 8);
+  if (n <= 4096) PCR_LAUNCH(8, 16);
+  if (n <= 8192) PCR_LAUNCH(16, 16);
+#undef PCR_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,7 @@ sources at once in parallel, and the objects are linked into one shared
 library with a plain C interface, loaded through ``ctypes``.  The build runs
 at first use, into ``build/proxtv_tpu_torch/`` beside the package, and is
 reused while the sources are unchanged (the library's name carries a hash of
-them).  Nothing here runs at import.
+them; the compiler's log is kept beside it).  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "proxtv_tpu_torch")
 SOURCES = ("pcr.cu", "pn_fused.cu", "pdhg_fused.cu", "ms_fused.cu",
            "pdhg3d_fused.cu", "lp_fused.cu")
-HEADERS = ("block.cuh",)
+HEADERS = ("block.cuh", "fiber.cuh", "tridiag.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,7 +94,11 @@ def build(force: bool = False) -> str:
     Raises with the compiler's output when a step fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"libproxtv_kernels_{_digest()}.so")
+    log_path = lib_path + ".log"
     if os.path.exists(lib_path) and not force:
+        if not BUILD_LOG["ptxas"] and os.path.exists(log_path):
+            with open(log_path) as f:
+                BUILD_LOG["ptxas"] = f.read()
         return lib_path
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -119,9 +123,11 @@ def build(force: bool = False) -> str:
                           text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, lib_path)
     BUILD_LOG["seconds"] = time.perf_counter() - t0
     BUILD_LOG["ptxas"] = "\n".join(logs)
+    with open(log_path, "w") as f:
+        f.write(BUILD_LOG["ptxas"])
+    os.replace(tmp, lib_path)
     return lib_path
 
 

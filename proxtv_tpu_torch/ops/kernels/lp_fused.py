@@ -17,18 +17,24 @@ the CUDA source is ``proxtv_tpu_torch/csrc/lp_fused.cu``.  Device traffic is
 one read of (y, w0, lam, mu0, run_mask) and one write of (w, mu, gap, iters)
 for the whole solve.
 
-:func:`gpfw_fused` launches the kernel for a CUDA tensor (one block per
-fiber) and runs :func:`gpfw_fused_plain` for a CPU tensor.  The plain version
-repeats the TPU kernel's arithmetic on tensors, its strength-reduced powers
-included (:func:`_spow`), and takes its ``tb``: the TPU kernel loops while
-any row of its tile runs and the tile's largest iteration count is under the
-cap, with every update masked per row, so every ``tb`` gives the per-fiber
-result; ``tb = 1`` is the CUDA kernel's loop and the TPU's ``tb`` reproduces
-its tiles.
+:func:`gpfw_fused` launches the kernel for a CUDA tensor and runs
+:func:`gpfw_fused_plain` for a CPU tensor; :func:`bind` makes its C call
+once, for tools that time the kernel alone.  The kernel runs a fiber on one
+warp for n <= 256 (four fibers a block) and on a block of up to 16 warps
+above, each lane holding a chunk of the row in registers; every row-wide
+reduction crosses the warps once (one barrier), carrying its sums, a
+(max, power sum) pair and the chunk edges it needs together.  The plain
+version repeats the TPU kernel's arithmetic on tensors, its strength-reduced
+powers included (:func:`_spow`), and takes its ``tb``: the TPU kernel loops
+while any row of its tile runs and the tile's largest iteration count is
+under the cap, with every update masked per row, so every ``tb`` gives the
+per-fiber result; ``tb = 1`` is the CUDA kernel's loop and the TPU's ``tb``
+reproduces its tiles.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -93,6 +99,15 @@ def exponents(p: float):
     qq = q / (q - 1.0)
     return (q, 1.0 / q, q - 1.0, q - 2.0, rr, rr * q, rr - 1.0, rr * q - 1.0,
             p, 1.0 / p, qq - 1.0, qq, (qq - 1.0) / qq)
+
+
+@functools.lru_cache(maxsize=16)
+def _pow_args(p: float):
+    """The C call's host arrays for p: the 13 exponents and their codes."""
+    exps = exponents(p)
+    return ((ctypes.c_float * len(exps))(*exps),
+            (ctypes.c_int * len(exps))(*[_pow_code(e) for e in exps]),
+            int(exps[0] >= 2.0))
 
 
 def _rowsum(x):
@@ -265,6 +280,51 @@ def gpfw_fused_plain(y, w0, lam, mu0, run_mask, p: float, max_iters: int,
     return (w * v)[:B], mu[:B, 0], gap[:B, 0], it_f[:B, 0]
 
 
+def bind(y, w0, lam, mu0, run_mask, p: float, max_iters: int,
+         fw_cycles: int = 10, stop_rel: float = 1e-5, newton_iters: int = 8):
+    """The C entry point's call for a CUDA batch, its arguments made once.
+
+    Checks the arguments as :func:`gpfw_fused` does and allocates the
+    outputs.  Returns ``((w, mu, gap, iters_f), launch)``: each ``launch()``
+    runs the kernel into those outputs and raises on a refused launch.
+    ``launch`` does not count in :data:`LAUNCHES`; timing tools call it to
+    time the kernel without the wrapper's host work."""
+    if not y.is_cuda:
+        raise ValueError("bind takes a CUDA batch: the kernel has no CPU "
+                         "mode")
+    B, n = y.shape
+    lo, hi = lane_limits("lp")
+    if y.dtype != torch.float32 or not lo <= n <= hi:
+        raise ValueError(f"GPFW kernel takes float32 with {lo} <= n <= {hi}; "
+                         f"got {y.dtype}, n = {n}")
+    if tuple(w0.shape) != (B, n) or fw_cycles < 1:
+        raise ValueError(f"w0 must be (B, n) = {(B, n)} and fw_cycles >= 1")
+
+    def rows(a):
+        a = torch.as_tensor(a, device=y.device).to(torch.float32).reshape(-1)
+        return torch.broadcast_to(a, (B,)).contiguous()
+
+    y = y.contiguous()
+    w0 = w0.to(torch.float32).contiguous()
+    lam_t, mu_t, run_t = rows(lam), rows(mu0), rows(run_mask)
+    outs = (torch.empty_like(y),
+            *(torch.empty((B,), dtype=torch.float32, device=y.device)
+              for _ in range(3)))
+    e_arr, k_arr, q_ge2 = _pow_args(float(p))
+    max_trips = -(-int(max_iters) // fw_cycles)
+    args = (build.ptr(y), build.ptr(w0), build.ptr(lam_t), build.ptr(mu_t),
+            build.ptr(run_t), *(build.ptr(o) for o in outs), B, n,
+            max_trips, int(fw_cycles), float(stop_rel), int(newton_iters),
+            q_ge2, e_arr, k_arr, build.stream_ptr(y.device))
+
+    # keep: every tensor the pointers name, outputs too: a caller may drop
+    # the outputs and launch again.
+    def launch(keep=(y, w0, lam_t, mu_t, run_t, *outs)):
+        build.check(build.lib().gpfw_fused(*args), "gpfw_fused")
+
+    return outs, launch
+
+
 def gpfw_fused(y, w0, lam, mu0, run_mask, p: float, max_iters: int,
                fw_cycles: int = 10, stop_rel: float = 1e-5,
                newton_iters: int = 8):
@@ -289,36 +349,9 @@ def gpfw_fused(y, w0, lam, mu0, run_mask, p: float, max_iters: int,
     if not y.is_cuda:
         return gpfw_fused_plain(y, w0, lam, mu0, run_mask, p, max_iters,
                                 fw_cycles, stop_rel, newton_iters, tb=1)
-    B, n = y.shape
-    lo, hi = lane_limits("lp")
-    if y.dtype != torch.float32 or not lo <= n <= hi:
-        raise ValueError(f"GPFW kernel takes float32 with {lo} <= n <= {hi}; "
-                         f"got {y.dtype}, n = {n}")
-    if tuple(w0.shape) != (B, n) or fw_cycles < 1:
-        raise ValueError(f"w0 must be (B, n) = {(B, n)} and fw_cycles >= 1")
-
-    def rows(a):
-        a = torch.as_tensor(a, device=y.device).to(torch.float32).reshape(-1)
-        return torch.broadcast_to(a, (B,)).contiguous()
-
-    y = y.contiguous()
-    w0 = w0.to(torch.float32).contiguous()
-    lam_t, mu_t, run_t = rows(lam), rows(mu0), rows(run_mask)
-    w = torch.empty_like(y)
-    mu = torch.empty((B,), dtype=torch.float32, device=y.device)
-    gap = torch.empty_like(mu)
-    it = torch.empty_like(mu)
-    if B > 0:
-        exps = exponents(float(p))
-        e_arr = (ctypes.c_float * len(exps))(*exps)
-        k_arr = (ctypes.c_int * len(exps))(*[_pow_code(e) for e in exps])
-        max_trips = -(-int(max_iters) // fw_cycles)
-        err = build.lib().gpfw_fused(
-            build.ptr(y), build.ptr(w0), build.ptr(lam_t), build.ptr(mu_t),
-            build.ptr(run_t), build.ptr(w), build.ptr(mu), build.ptr(gap),
-            build.ptr(it), B, n, max_trips, int(fw_cycles), float(stop_rel),
-            int(newton_iters), int(exps[0] >= 2.0), e_arr, k_arr,
-            build.stream_ptr(y.device))
-        build.check(err, "gpfw_fused")
+    outs, launch = bind(y, w0, lam, mu0, run_mask, p, max_iters, fw_cycles,
+                        stop_rel, newton_iters)
+    if y.shape[0] > 0:
+        launch()
         LAUNCHES.value += 1
-    return w, mu, gap, it
+    return outs

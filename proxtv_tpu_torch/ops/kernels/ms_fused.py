@@ -214,7 +214,9 @@ def bind(y, lam=None, lam_rows=None, alpha_init=None, max_iters: int = 100,
             *(build.ptr(o) for o in outs), B, n, int(max_iters),
             float(stop_boundary), build.stream_ptr(y.device))
 
-    def launch(keep=(y, lam_t, a0)):  # keep: the inputs the pointers name
+    # keep: every tensor the pointers name, outputs too: a caller may drop
+    # the outputs and launch again.
+    def launch(keep=(y, lam_t, a0, *outs)):
         build.check(build.lib().ms_tv2_fused(*args), "ms_tv2_fused")
 
     return outs, launch

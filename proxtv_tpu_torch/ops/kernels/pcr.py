@@ -1,15 +1,21 @@
-"""Kernel B2: batched masked SPD second-difference tridiagonal solve (PCR).
+"""Kernel B2: batched masked SPD second-difference tridiagonal solve.
 
 Solves ``(DD' [+ shift I]) x = rhs`` per batch row — the Newton systems of
-the TV dual solvers — by parallel cyclic reduction.  Replaces the TPU kernel
-``proxtv_tpu/ops/kernels/pcr.py:pcr_spd_solve_pallas``; the CUDA source is
-``proxtv_tpu_torch/csrc/pcr.cu``.
+the TV dual solvers.  Replaces the TPU kernel
+``proxtv_tpu/ops/kernels/pcr.py:pcr_spd_solve_pallas``, which runs parallel
+cyclic reduction; the CUDA source is ``proxtv_tpu_torch/csrc/pcr.cu``, which
+solves each row exactly in O(n) (each lane's chunk in registers, the lanes'
+and warps' interface rows by PCR over shuffles, one step of iterative
+refinement), so it rounds differently from the plain version and lands
+closer to the float64 solution.
 
 :func:`pcr_spd_solve` launches the kernel for a CUDA tensor and runs
 :func:`pcr_spd_solve_plain` — the TPU kernel's arithmetic on tensors — for a
-CPU tensor.  Masking semantics match ``tridiag.spd_second_difference_solve``:
-masked-out rows become identity rows with zero RHS, and an off-diagonal
-survives only if both endpoints are unmasked.
+CPU tensor; :func:`bind` makes its C call once, for tools that time the
+kernel alone.  Masking semantics match
+``tridiag.spd_second_difference_solve``: masked-out rows become identity
+rows with zero RHS, and an off-diagonal survives only if both endpoints are
+unmasked.
 """
 from __future__ import annotations
 
@@ -68,17 +74,19 @@ def pcr_spd_solve_plain(rhs, mask=None, diag_shift=None):
     return _pcr_body(a, b, c, rhs, n)
 
 
-def pcr_spd_solve(rhs, mask=None, diag_shift=None):
-    """PCR solve of (DD' [+ shift I]) x = rhs on a (B, n) batch.
+def bind(rhs, mask=None, diag_shift=None):
+    """The C entry point's call for a CUDA batch, its arguments made once.
 
-    ``mask``: optional (B, n) bool active-row mask. ``diag_shift``: optional
-    (B,) per-row diagonal shift (at most one of the two).  A CUDA tensor must
-    be float32 with 2 <= n <= 8192; the kernel launches or this raises.
-    """
+    Checks the arguments as :func:`pcr_spd_solve` does and allocates the
+    output.  Returns ``(out, launch)``: each ``launch()`` runs the kernel
+    into ``out`` and raises on a refused launch.  ``launch`` does not count
+    in :data:`LAUNCHES`; timing tools call it to time the kernel without the
+    wrapper's host work."""
     if mask is not None and diag_shift is not None:
         raise ValueError("pcr_spd_solve takes a mask or a shift, not both")
     if not rhs.is_cuda:
-        return pcr_spd_solve_plain(rhs, mask, diag_shift)
+        raise ValueError("bind takes a CUDA batch: the kernel has no CPU "
+                         "mode")
     B, n = rhs.shape
     lo, hi = lane_limits("pcr")
     if rhs.dtype != torch.float32 or not lo <= n <= hi:
@@ -97,12 +105,30 @@ def pcr_spd_solve(rhs, mask=None, diag_shift=None):
         if sh.shape[0] != B:
             raise ValueError("diag_shift must be (B,)")
     out = torch.empty_like(rhs)
-    if B == 0:
-        return out
-    lib = build.lib()
-    err = lib.pcr_spd_solve(build.ptr(rhs), build.ptr(m8), build.ptr(sh),
-                            build.ptr(out), B, n,
-                            build.stream_ptr(rhs.device))
-    build.check(err, "pcr_spd_solve")
-    LAUNCHES.value += 1
+    args = (build.ptr(rhs), build.ptr(m8), build.ptr(sh), build.ptr(out), B,
+            n, build.stream_ptr(rhs.device))
+
+    # keep: every tensor the pointers name, the output too: a caller may
+    # drop it and launch again.
+    def launch(keep=(rhs, m8, sh, out)):
+        build.check(build.lib().pcr_spd_solve(*args), "pcr_spd_solve")
+
+    return out, launch
+
+
+def pcr_spd_solve(rhs, mask=None, diag_shift=None):
+    """Solve (DD' [+ shift I]) x = rhs on a (B, n) batch.
+
+    ``mask``: optional (B, n) bool active-row mask. ``diag_shift``: optional
+    (B,) per-row diagonal shift (at most one of the two).  A CUDA tensor must
+    be float32 with 2 <= n <= 8192; the kernel launches or this raises.
+    """
+    if mask is not None and diag_shift is not None:
+        raise ValueError("pcr_spd_solve takes a mask or a shift, not both")
+    if not rhs.is_cuda:
+        return pcr_spd_solve_plain(rhs, mask, diag_shift)
+    out, launch = bind(rhs, mask, diag_shift)
+    if rhs.shape[0] > 0:
+        launch()
+        LAUNCHES.value += 1
     return out

@@ -210,7 +210,9 @@ def bind(sched, x, xb, u1, u2, y, k_steps: int, n_valid: int, m_valid: int,
             int(n_valid), int(m_valid), int(stride), int(count),
             int(pad_top), int(grad_step), build.stream_ptr(x.device))
 
-    def launch(keep=(sched, *fields)):  # keep: the inputs the pointers name
+    # keep: every tensor the pointers name, outputs too: a caller may drop
+    # the outputs and launch again.
+    def launch(keep=(sched, *fields, *outs)):
         build.check(lib.pdhg_chunk(*args), "pdhg_chunk")
 
     return tuple(outs), launch

@@ -50,6 +50,83 @@ def test_pcr_kernel_matches_plain(mode, dev):
                                atol=rel * max(1.0, float(np.abs(ref).max())))
 
 
+def _pcr_masks(rng, B, n):
+    """Random masks with an all-active run, an all-masked run and masked
+    ends in every row; row 0 all active and row 1 all masked where B
+    allows."""
+    m = rng.rand(B, n) > 0.3
+    m[:, n // 8: n // 2] = True
+    m[:, n // 2: n // 2 + max(1, n // 8)] = False
+    m[:, 0] = m[:, -1] = False
+    if B > 1:
+        m[0] = True
+    if B > 2:
+        m[1] = False
+    return torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("B", [1, 5, 300])
+@pytest.mark.parametrize("n", [2, 3, 31, 32, 33, 255, 256, 257, 512, 513,
+                               999, 1000, 4097, 8192])
+def test_pcr_kernel_layouts_match_plain_and_float64(n, B, dev):
+    """B2 in all three modes at every edge of its layouts (E elements a
+    lane x W warps a row: 4 x 1 to 128, 8 x 1 to 256, 4 x 4 to 512, 4 x 8
+    to 1024, ..., 16 x 16 above) and partial blocks of the one-warp layout
+    (4 rows a block): against the float32 plain version (PCR) at the bars
+    of the main path (1e-3 of the solution's size where all-active runs
+    condition the system like the unmasked one, 1e-5 shifted), and against
+    the plain version in float64, where its error is no larger than the
+    float32 plain version's on the same input."""
+    rng = np.random.RandomState(1000 * n + B)
+    d = torch.from_numpy((0.01 * rng.randn(B, n)).astype(np.float32))
+    sh = torch.from_numpy((rng.rand(B) + 0.5).astype(np.float32))
+    for mode, kw in (("plain", {}), ("masked", {"mask": _pcr_masks(rng, B, n)}),
+                     ("shifted", {"diag_shift": sh})):
+        ref = PK.pcr_spd_solve_plain(d, **kw)
+        ref64 = PK.pcr_spd_solve_plain(
+            d.double(), **{k: (v.double() if k == "diag_shift" else v)
+                           for k, v in kw.items()})
+        out = PK.pcr_spd_solve(d.to(dev), **{k: v.to(dev)
+                                             for k, v in kw.items()})
+        torch.cuda.synchronize()
+        out = out.cpu()
+        rel = 1e-5 if mode == "shifted" else 1e-3
+        np.testing.assert_allclose(
+            out.numpy(), ref.numpy(),
+            atol=rel * max(1.0, float(ref.abs().max())), err_msg=mode)
+        err_k = float((out.double() - ref64).abs().max())
+        err_p = float((ref.double() - ref64).abs().max())
+        assert err_k <= err_p, (mode, err_k, err_p)
+
+
+def test_pcr_and_lp_bind_launch_what_the_wrappers_do(dev):
+    """pcr.bind's and lp_fused.bind's launches (the timing tools' and
+    chip_smoke.py's calls of the C entry points) give the wrappers' outputs
+    bit for bit and do not count in LAUNCHES."""
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+
+    rng = np.random.RandomState(8)
+    d = torch.from_numpy(rng.randn(6, 700).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.rand(6, 700) > 0.2).to(dev)
+    ref = PK.pcr_spd_solve(d, mask=mask)
+    before = PK.LAUNCHES.value
+    out, launch = PK.bind(d, mask=mask)
+    launch()
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES.value == before and torch.equal(out, ref)
+    y = d - d.mean(dim=1, keepdim=True)
+    args = (y, torch.zeros_like(y), torch.full((6,), 0.7, device=dev),
+            torch.ones(6, device=dev), torch.ones(6, device=dev))
+    ref = LPK.gpfw_fused(*args, 1.5, 1000)
+    before = LPK.LAUNCHES.value
+    outs, launch = LPK.bind(*args, 1.5, 1000)
+    launch()
+    torch.cuda.synchronize()
+    assert LPK.LAUNCHES.value == before
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r)
+
+
 def test_kernels_raise_on_unsupported_cuda_input(dev):
     y64 = torch.zeros((4, 16), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
@@ -490,6 +567,31 @@ def test_ms_bind_launches_what_the_wrapper_does(mode, dev):
         assert torch.equal(o, r)
 
 
+def test_bind_launch_keeps_its_outputs_alive(dev):
+    """A launch made by bind writes into the outputs bind allocated, so it
+    keeps them alive after the caller drops them: the caching allocator
+    must not hand their memory to a new tensor while the launch can still
+    write it (B2, B4 and B5; the timing replays drop the outputs)."""
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+
+    rng = np.random.RandomState(9)
+    y = torch.from_numpy(rng.randn(8, 300).astype(np.float32)).to(dev)
+    ones = torch.ones(8, device=dev)
+    for make in (lambda: PK.bind(y),
+                 lambda: MSK.bind(y, lam=1.0),
+                 lambda: LPK.bind(y, torch.zeros_like(y), ones, ones, ones,
+                                  1.5, 100)):
+        outs, launch = make()
+        held = {t.data_ptr() for t in (outs if isinstance(outs, tuple)
+                                       else (outs,))}
+        del outs
+        fresh = [torch.empty_like(y) for _ in range(8)]
+        fresh += [torch.empty(8, device=dev) for _ in range(8)]
+        assert held.isdisjoint(t.data_ptr() for t in fresh)
+        launch()
+        torch.cuda.synchronize()
+
+
 def _canvas3(rng, Lp, Mp, N, hl):
     f = [rng.randn(Lp, Mp, N).astype(np.float32) for _ in range(6)]
     for a in f[:5]:
@@ -622,15 +724,25 @@ def _lp_obj(x, y, lam, p):
             + np.asarray(lam) * np.sum(g ** p, axis=1) ** (1.0 / p))
 
 
-@pytest.mark.parametrize("p,B,n", [(1.5, 64, 1000), (3.0, 64, 1000),
-                                   (5.0, 64, 1000), (1.5, 8, 2), (3.0, 8, 3),
-                                   (5.0, 12, 129), (1.5, 16, 300),
-                                   (3.0, 8, 1025), (1.5, 6, 2049),
-                                   (5.0, 4, 8192)])
+@pytest.mark.parametrize("p,B,n", [
+    (1.5, 64, 1000), (3.0, 64, 1000), (5.0, 64, 1000), (1.5, 8, 2),
+    (3.0, 8, 3), (5.0, 12, 129), (1.5, 16, 300), (3.0, 8, 1025),
+    (1.5, 6, 2049), (5.0, 4, 8192),
+    # every edge of the kernel's layouts (E elements a lane x W warps a
+    # fiber: 4 x 1 to 128, 8 x 1 to 256; up to one fiber an SM (B <= 132)
+    # 4 x 4 to 512, 4 x 8 to 1024, 4 x 16 to 2048; more fibers 8 x 2,
+    # 8 x 4, 8 x 8; then 8 x 16 to 4096, 16 x 16 above), each layout with
+    # all three p, partial blocks of the one-warp layout (4 fibers a block)
+    (1.5, 5, 32), (3.0, 7, 33), (5.0, 6, 128), (1.5, 5, 200),
+    (3.0, 9, 256), (1.5, 6, 257), (3.0, 6, 400), (5.0, 6, 512),
+    (3.0, 6, 513), (1.5, 6, 1024), (1.5, 4, 1500), (5.0, 4, 2048),
+    (1.5, 200, 257), (3.0, 140, 512), (5.0, 140, 513), (1.5, 136, 1024),
+    (3.0, 136, 1025), (5.0, 133, 2048),
+    (3.0, 4, 4096), (5.0, 4, 3000), (1.5, 3, 4097), (3.0, 3, 6000)])
 def test_lp_kernel_matches_plain(p, B, n, dev):
     """B5 against its plain version (tb = 1) across every template instance
-    and both Newton branches (q >= 2 for p = 1.5, the u-substitution for
-    p = 3, 5), with per-row lam, a frozen row and a warm
+    and warp boundary and both Newton branches (q >= 2 for p = 1.5, the
+    u-substitution for p = 3, 5), with per-row lam, a frozen row and a warm
     multiplier: the primal x = y + D'w within 5e-3 and its objective within
     rtol 1e-5 (the bars of tests/test_kernels.py:366-368; float32 line
     searches part the iterates at ~1e-3, in directions the objective barely
@@ -666,16 +778,28 @@ def test_lp_kernel_matches_plain(p, B, n, dev):
     assert np.all(it[run > 0] == np.floor(it[run > 0]))  # none at the cap
 
 
-def test_lp_kernel_fixed_trips_match_plain(dev):
+@pytest.mark.parametrize("B,n", [(32, 1000), (5, 2), (7, 128), (6, 129),
+                                 (6, 256), (6, 257), (6, 512), (6, 513),
+                                 (4, 1024), (4, 1025), (4, 2048), (4, 2049),
+                                 (140, 513), (136, 1000), (133, 2048),
+                                 (3, 4096), (3, 4097), (3, 8192)])
+def test_lp_kernel_fixed_trips_match_plain(B, n, dev):
     """Three trips on both sides (max_iters = 30) from a cold start on
-    random walks at lam 2 (p = 1.5 does not converge in three trips): the
-    dual objective 0.5 ||D'w||^2 + y'D'w within 1e-6 relative (both run the
-    same steps; float32 line searches part the iterates, not the objective:
-    float32 against float64 of the plain version parts it by 1.2e-7)."""
+    random walks at lam 2 (p = 1.5 does not converge in three trips), at
+    both edges of every layout of the kernel: the dual objective
+    0.5 ||D'w||^2 + y'D'w within 1e-6 relative on the rows where both ran
+    the same steps (float32 line searches part the iterates, not the
+    objective: float32 against float64 of the plain version parts it by
+    1.2e-7 at 32 x 1000), or, on a row where the float32 plain version is
+    itself further than that from its float64 run, no further from the
+    float64 run than it.  A row whose gap
+    lands at the stop tolerance after a trip may stop on one side and run
+    on on the other: the side that stopped did so by its stop test, and
+    the other ran one more trip or stopped by its test too (converged:
+    then x and the objective are held at the converged bars)."""
     from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
 
     rng = np.random.RandomState(21)
-    B, n = 32, 1000
     y = (np.cumsum(rng.randn(B, n), axis=1) * 0.3).astype(np.float32)
     y -= y.mean(axis=1, keepdims=True)
     args = [torch.from_numpy(a) for a in (
@@ -683,6 +807,8 @@ def test_lp_kernel_fixed_trips_match_plain(dev):
         np.ones(B, np.float32), np.ones(B, np.float32))]
     for p in (1.5, 3.0, 5.0):
         w_r, _, _, it_r = LPK.gpfw_fused_plain(*args, p, 30, tb=1)
+        w64, _, _, _ = LPK.gpfw_fused_plain(*[a.double() for a in args], p,
+                                            30, tb=1)
         w, _, _, it = LPK.gpfw_fused(*[a.to(dev) for a in args], p, 30)
         torch.cuda.synchronize()
 
@@ -692,8 +818,29 @@ def test_lp_kernel_fixed_trips_match_plain(dev):
                                           np.zeros((B, 1))], 1), axis=1)
             return np.sum(dtw * (0.5 * dtw + y), axis=1)
 
-        np.testing.assert_allclose(dual(w.cpu().numpy()), dual(w_r.numpy()),
-                                   rtol=1e-6)
+        it, it_r = it.cpu().numpy(), it_r.numpy()
+        same = np.floor(it) == np.floor(it_r)  # the same trips
+        d, d_r, d64 = dual(w.cpu().numpy()), dual(w_r.numpy()), dual(w64)
+        near = np.abs(d - d_r) <= 1e-6 * np.abs(d_r)
+        closer = np.abs(d - d64) <= np.abs(d_r - d64)
+        assert np.all((near | closer)[same]), (p, d, d_r, d64)
+        # Elsewhere the row that stopped first did so by its test, and the
+        # other ran one more trip or stopped by its test too: then both
+        # are converged, held at test_lp_kernel_matches_plain's bars.
+        early = np.minimum(it, it_r)[~same]
+        assert np.all(early == np.floor(early))
+        both = (~same & (it == np.floor(it)) & (it_r == np.floor(it_r)))
+        assert np.all((np.abs(np.floor(it) - np.floor(it_r)) == 10)
+                      | both | same)
+        if both.any():
+            xk = y + np.diff(np.concatenate([np.zeros((B, 1)),
+                                             w.cpu().numpy()], 1), axis=1)
+            xr = y + np.diff(np.concatenate([np.zeros((B, 1)),
+                                             w_r.numpy()], 1), axis=1)
+            np.testing.assert_allclose(xk[both], xr[both], atol=5e-3)
+            np.testing.assert_allclose(_lp_obj(xk, y, 2.0, p)[both],
+                                       _lp_obj(xr, y, 2.0, p)[both],
+                                       rtol=1e-5, atol=1e-4)
         assert int(it.max()) <= 30 and int(it_r.max()) <= 30
 
 

@@ -175,3 +175,72 @@ def test_joint_projection_certificate_float32_gate():
     xn, _ = PLP._lp_ball_project_nested(Y32, 1.2, 1.1)
     xg, _ = PLP._lp_ball_project_general(Y32, 1.2, 1.1)
     np.testing.assert_array_equal(xg.numpy(), xn.numpy())
+
+
+@pytest.mark.parametrize("p", [1.5, 3.0, 5.0])
+def test_fw_gradient_by_update_matches_recomputed(p):
+    """What kernel B5's exact line search rests on, in float64: along
+    w + gamma d the gradient grad(primal(w)) is g + gamma Hd with
+    Hd = D D' d, so the dual's curvature along d is d'Hd and the gradient
+    at the step is known without an exchange.  Over one trip of
+    fw_cycles - 1 = 9 steps, carrying the updated gradient, it reproduces
+    the recomputed one to 1e-12 of its scale.  (In float32 the carried
+    gradient drifts, so the kernel recomputes g from w and its halo, which
+    its crossings keep exact.)"""
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+    from proxtv_tpu_torch.ops.kernels.common import shift_left, shift_right
+
+    rng = np.random.RandomState(int(p * 10))
+    B, n, lam = 3, 40, 0.7
+    y = _t(rng.randn(B, n))
+    y = y - y.mean(dim=1, keepdim=True)
+    v = (torch.arange(n) < n - 1).double().expand(B, n)
+    q = p / (p - 1.0)
+    w = torch.cat([PLP.lp_ball_project(_t(rng.randn(B, n - 1)), lam, q),
+                   torch.zeros((B, 1), dtype=torch.float64)], dim=1)
+
+    def grad(wk):
+        x = y + (wk - shift_right(wk, 1, 0.0))
+        return (x - shift_left(x, 1, 0.0)) * v
+
+    g = grad(w)
+    for _ in range(9):
+        ag = g.abs()
+        r = ag / ag.amax(dim=1, keepdim=True)
+        den = (LPK._spow(r, p).sum(dim=1, keepdim=True)) ** ((p - 1.0) / p)
+        d = (-lam * torch.sign(g) * LPK._spow(r, p - 1.0) / den - w) * v
+        ad = d - shift_right(d, 1, 0.0)
+        Hd = (ad - shift_left(ad, 1, 0.0)) * v
+        num = -(g * d).sum(dim=1, keepdim=True)
+        gamma = torch.clamp(num / (d * Hd).sum(dim=1, keepdim=True), 0.0, 1.0)
+        w = w + gamma * d
+        g = g + gamma * Hd
+        g_new = grad(w)
+        np.testing.assert_allclose(g.numpy(), g_new.numpy(),
+                                   atol=1e-12 * float(g_new.abs().max()))
+
+
+@pytest.mark.parametrize("p", [1.5, 3.0, 5.0])
+def test_max_power_sum_pair_merge_matches_two_pass(p):
+    """What kernel B5's one-crossing norms rest on, in float64: each warp
+    takes the max m_w of its chunk and s_w = sum (|v| / m_w)^e against it;
+    merged across warps as (M, sum_w s_w (m_w / M)^e), M = max m_w, the
+    pair equals the two-pass (max, sum (|v| / max)^e) to 1e-12 relative,
+    for the gap's and the oracle's exponent p and the projection's q, with
+    a warp of zeros (its max clamped to 1e-30, as the kernel clamps it)."""
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+
+    rng = np.random.RandomState(int(p * 10) + 1)
+    W, per_warp = 8, 32 * 4
+    a = np.abs(rng.randn(W, per_warp)) * np.logspace(-3, 2, W)[:, None]
+    a[3] = 0.0
+    for e in (p, p / (p - 1.0)):
+        flat = _t(a.reshape(-1))
+        M2 = flat.max()
+        S2 = LPK._spow(flat / M2, e).sum()
+        m = _t(a.max(axis=1))
+        s = LPK._spow(_t(a) / torch.clamp(m, min=1e-30)[:, None], e).sum(1)
+        M = m.max()
+        S = (s * LPK._spow(m / torch.clamp(M, min=1e-30), e)).sum()
+        assert float(M) == float(M2)
+        np.testing.assert_allclose(float(S), float(S2), rtol=1e-12)

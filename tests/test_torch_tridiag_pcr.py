@@ -120,3 +120,10 @@ def test_solve_matches_jax_past_the_kernel_limit(mode):
     xp = PT.spd_second_difference_solve(torch.from_numpy(d), **kw_p)
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj),
                                atol=1e-9 * max(1.0, float(np.abs(xj).max())))
+
+
+def test_bind_refuses_a_cpu_batch():
+    """pcr.bind makes the C call for a CUDA batch only: a CPU tensor raises
+    before anything is built or launched."""
+    with pytest.raises(ValueError):
+        PK.bind(torch.zeros((2, 8)))

@@ -336,3 +336,11 @@ def test_tvp_batched_unknown_method_raises():
     with pytest.raises(ValueError):
         PLP.tvp_batched(torch.zeros((2, 5), dtype=torch.float64), 1.0, 1.5,
                         method="nope")
+
+
+def test_lp_bind_refuses_a_cpu_batch():
+    """lp_fused.bind makes the C call for a CUDA batch only: a CPU tensor
+    raises before anything is built or launched."""
+    z = torch.zeros((2, 8), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        PK.bind(z, z, torch.ones(2), torch.ones(2), torch.ones(2), 1.5, 30)

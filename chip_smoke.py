@@ -97,15 +97,10 @@ TOL = {
     # and float32 line searches part the iterates at ~1e-3 in directions the
     # objective barely sees (float32 against float64 of the plain version
     # parts w by 2.7e-3 at 64 x 1000, p = 1.5).  Fixed 3 trips (max_iters =
-    # 30, both sides): the dual objective 0.5 ||D'w||^2 + y'D'w within 1e-6
-    # relative (float32 against float64 of the plain version: 1.2e-7 at
-    # 32 x 1000) on the rows that ran the same trips, or, where the float32
-    # plain version is itself further than that from its float64 run, no
-    # further from the float64 run than it; a
-    # row whose gap lands at the stop tolerance may stop earlier on one
-    # side, held to have stopped by its test, the other side a trip later
-    # or stopped by its test too.  Iteration counts and multipliers are
-    # printed, not held.
+    # 30, both sides): the dual objective 0.5 ||D'w||^2 + y'D'w of every row
+    # within 1e-6 relative (float32 against float64 of the plain version:
+    # 1.2e-7; lp_fused.fixed_trips_agree).  Iteration counts and
+    # multipliers are printed, not held.
     "lp": 5e-3, "lp_obj": 1e-5, "lp_obj_abs": 1e-4, "lp_fixed": 1e-6,
     # TV-L2 outputs against float64 on the CPU: the bar of
     # tests/test_kernels.py:197 (the fused MS kernel against its oracle).
@@ -702,10 +697,6 @@ def main(out_dir):
         w_r, mu_r, _, it_r = B5.gpfw_fused_plain(*args, p, max_iters, tb=1,
                                                  **kw)
         w, mu, g, it = B5.gpfw_fused(*args, p, max_iters, **kw)
-        w64 = None
-        if max_iters < 10 ** 6:
-            w64 = B5.gpfw_fused_plain(*(a.double() for a in args), p,
-                                      max_iters, tb=1, **kw)[0]
         torch.cuda.synchronize()
         yc = args[0].double().cpu().numpy()
         lam = args[2].double().cpu().numpy()
@@ -722,35 +713,12 @@ def main(out_dir):
                     iters=float(it.float().mean()),
                     iters_plain=float(it_r.float().mean()))
         ok = ex <= TOL["lp"] and ok_f and bool((g >= 0).all())
-        if max_iters < 10 ** 6:
-            # The dual objective on the rows that ran the same trips; a row
-            # whose gap lands at the stop tolerance may stop on one side and
-            # run on on the other: the earlier stopped by its test, and the
-            # other ran one more trip or stopped by its test too (both
-            # converged, held with every row at the converged bars above).
-            def dual(wk):
-                dtw = np.diff(np.concatenate([np.zeros((wk.shape[0], 1)),
-                                              wk[:, :-1],
-                                              np.zeros((wk.shape[0], 1))], 1),
-                              axis=1)
-                return np.sum(dtw * (0.5 * dtw + yc), axis=1)
-            d, d_r = dual(w), dual(w_r)
-            d64 = dual(w64.cpu().numpy())
-            itk, itp = it.cpu().numpy(), it_r.cpu().numpy()
-            same = np.floor(itk) == np.floor(itp)
-            rel = np.abs(d - d_r) / np.maximum(np.abs(d_r), 1e-30)
-            closer = np.abs(d - d64) <= np.abs(d_r - d64)
-            nums["dual_rel"] = float(np.max(rel[same], initial=0.0))
-            nums["rows_closer_to_float64"] = int(
-                (same & (rel > TOL["lp_fixed"]) & closer).sum())
-            early = np.minimum(itk, itp)[~same]
-            nums["rows_a_trip_apart"] = int((~same).sum())
-            both = ~same & (itk == np.floor(itk)) & (itp == np.floor(itp))
-            ok = (ok and bool(np.all(((rel <= TOL["lp_fixed"])
-                                      | closer)[same]))
-                  and bool(np.all((np.abs(np.floor(itk) - np.floor(itp))
-                                   == LP_FW_CYCLES) | both | same))
-                  and bool(np.all(early == np.floor(early))))
+        if max_iters < 10 ** 6:  # every row's dual objective
+            ok_d, dnums = B5.fixed_trips_agree(args[0], args[2], p, w, it,
+                                               w_r, it_r,
+                                               rtol=TOL["lp_fixed"])
+            ok = ok and ok_d
+            nums.update(dnums)
         errs["lp"] = max(errs["lp"], ex)
         return ok, nums, it
 

@@ -26,9 +26,11 @@
 // block, for n <= 256), lane r holding the contiguous chunk j = rE .. rE +
 // E - 1 of y, w and the gradient g in registers, plus the halo w_{j-1},
 // w_{j+E}, y_{j+E}; lanes past n are zero, like the TPU kernel's lane
-// padding.  A batch of up to one fiber an SM is a latency launch: E = 4 on
-// up to 16 warps, no register cap.  A larger batch keeps four fibers an SM
-// (E = 8, at most 128 registers a thread, which spills a little).  Every crossing between warps is one barrier on double-buffered
+// padding.  For 256 < n <= 2048 a batch that fits the card in one wave of
+// E = 4 on 4-16 warps, no register cap (4, 2, 1 fibers an SM), runs so; a
+// larger batch keeps more fibers an SM (E = 8, at most 128 registers a
+// thread, which spills a little).  Every crossing between warps is one
+// barrier on double-buffered
 // shared slots and carries everything that is known before it:
 // - a row sum, or several (a Newton step's three, a line search's two);
 // - a (max, power sum) pair: each warp takes its max by shuffles first and
@@ -543,6 +545,17 @@ int launch(const float* y, const float* w0, const float* lam, const float* mu0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Fibers of the layout <E, W, MINB> (W > 1: one a block) that the device
+// holds at once: one wave.
+template <int E, int W, int MINB>
+int one_wave(int device) {
+  int blocks = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, gpfw_kernel<E, W, MINB>, threads_of<W>(), 0);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return blocks * sms;
+}
+
 }  // namespace
 
 // y, w0, w: (B, n) float32 (w0 with a zero last column); lam, mu0, run, mu,
@@ -561,13 +574,18 @@ extern "C" int gpfw_fused(const float* y, const float* w0, const float* lam,
     pw.e[i] = exps[i];
     pw.k[i] = codes[i];
   }
-  // Up to one fiber an SM (a latency launch), 256 < n <= 2048 runs on more
-  // warps of E = 4 with no register cap; a larger batch keeps four fibers
-  // an SM (E = 8, at most 128 registers a thread).
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const bool latency = B <= sms;
+  // 256 < n <= 2048 runs on more warps of E = 4 with no register cap
+  // while the batch fits the card at once (one wave: at most 4, 2 and 1
+  // fibers an SM for n <= 512, 1024 and 2048 at 122-127 registers); a
+  // larger batch keeps more fibers an SM (E = 8, at most 128 registers a
+  // thread).  The SMs are those of the card that holds y.
+  cudaPointerAttributes at{};
+  const cudaError_t err = cudaPointerGetAttributes(&at, y);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not sticky: clear it for the next call
+    return static_cast<int>(err);
+  }
+  const int dev = at.device;
 #define LP_LAUNCH(E, W, MINB)                                               \
   return launch<E, W, MINB>(y, w0, lam, mu0, run, w, mu, gap, it, B, n,     \
                             max_trips, fw_cycles, stop_rel, newton_iters,   \
@@ -575,15 +593,15 @@ extern "C" int gpfw_fused(const float* y, const float* w0, const float* lam,
   if (n <= 128) LP_LAUNCH(4, 1, 8);
   if (n <= 256) LP_LAUNCH(8, 1, 4);
   if (n <= 512) {
-    if (latency) LP_LAUNCH(4, 4, 1);
+    if (B <= one_wave<4, 4, 1>(dev)) LP_LAUNCH(4, 4, 1);
     LP_LAUNCH(8, 2, 8);
   }
   if (n <= 1024) {
-    if (latency) LP_LAUNCH(4, 8, 1);
+    if (B <= one_wave<4, 8, 1>(dev)) LP_LAUNCH(4, 8, 1);
     LP_LAUNCH(8, 4, 4);
   }
   if (n <= 2048) {
-    if (latency) LP_LAUNCH(4, 16, 1);
+    if (B <= one_wave<4, 16, 1>(dev)) LP_LAUNCH(4, 16, 1);
     LP_LAUNCH(8, 8, 2);
   }
   if (n <= 4096) LP_LAUNCH(8, 16, 1);

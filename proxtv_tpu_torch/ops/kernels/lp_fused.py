@@ -355,3 +355,83 @@ def gpfw_fused(y, w0, lam, mu0, run_mask, p: float, max_iters: int,
         launch()
         LAUNCHES.value += 1
     return outs
+
+
+def fixed_trips_agree(y, lam, p: float, w, it, w_r, it_r, ref64=None,
+                      rtol: float = 1e-6, fw_cycles: int = 10,
+                      x_atol: float = 5e-3, obj_rtol: float = 1e-5,
+                      obj_atol: float = 1e-4):
+    """Hold a launch stopped after a fixed count of trips against its plain
+    version on the same inputs, by the dual objective
+    ``0.5 ||D'w||^2 + y'D'w`` (float32 line searches part the iterates, not
+    the objective).
+
+    ``w, it`` are the kernel's dual and iteration counts, ``w_r, it_r`` the
+    float32 plain version's.  Without ``ref64`` every row's dual objective
+    is held within ``rtol`` relative of the plain version's.  With
+    ``ref64 = (w64, it64)``, the plain version in float64 on the same
+    inputs: the float32 plain version's largest relative error against it,
+    over the rows where the two ran the same trips, is the rounding noise of
+    a float32 run at this shape (``noise``); a row that ran the same trips
+    on the kernel and the plain version is within ``rtol`` of the plain
+    version or within ``noise`` of the float64 run; a row whose trip counts
+    differ
+    stopped on the earlier side by its stop test (a whole count), and the
+    other side ran one trip more (``fw_cycles`` apart) or stopped by its
+    test too; the primal ``x = y + D'w`` and objective of such a row and of
+    every row that both sides stopped by their test are held at the
+    converged bars (``x_atol``; ``obj_rtol`` relative plus ``obj_atol``).
+    Returns ``(ok, numbers)``."""
+    def f64(a):
+        return torch.as_tensor(a).detach().to("cpu", torch.float64)
+
+    y, w, w_r, it, it_r = map(f64, (y, w, w_r, it, it_r))
+    B = y.shape[0]
+    lam = torch.broadcast_to(f64(lam).reshape(-1), (B,))
+
+    def dual(wk):
+        dtw = torch.diff(torch.nn.functional.pad(wk[:, :-1], (1, 1)), dim=1)
+        return (dtw * (0.5 * dtw + y)).sum(1)
+
+    def primal(wk):
+        return y + torch.diff(torch.nn.functional.pad(wk, (1, 0)), dim=1)
+
+    def objective(x):
+        g = torch.diff(x, dim=1).abs()
+        return (0.5 * ((x - y) ** 2).sum(1)
+                + lam * (g ** p).sum(1) ** (1.0 / p))
+
+    def most(a):
+        return float(a.max()) if a.numel() else 0.0
+
+    d, d_r = dual(w), dual(w_r)
+    rel = (d - d_r).abs() / d_r.abs().clamp(min=1e-30)
+    if ref64 is None:
+        return bool((rel <= rtol).all()), dict(dual_rel=most(rel))
+    w64, it64 = map(f64, ref64)
+    d64 = dual(w64)
+    e64, e64_r = ((dk - d64).abs() / d64.abs().clamp(min=1e-30)
+                  for dk in (d, d_r))
+    noise = most(e64_r[torch.floor(it_r) == torch.floor(it64)])
+    same = torch.floor(it) == torch.floor(it_r)
+    near64 = e64 <= noise
+    whole = (it == torch.floor(it)) & (it_r == torch.floor(it_r))
+    early = torch.minimum(it, it_r)[~same]
+    held = ~same | whole  # held at the converged bars
+    x, x_r = primal(w), primal(w_r)
+    ex = (x - x_r).abs().amax(1)
+    F, F_r = objective(x), objective(x_r)
+    ef = (F - F_r).abs() / F_r.abs().clamp(min=1e-30)
+    ok = (bool(((rel <= rtol) | near64)[same].all())
+          and bool((early == torch.floor(early)).all())
+          and bool(((torch.floor(it) - torch.floor(it_r)).abs()
+                    == fw_cycles)[~same & ~whole].all())
+          and bool((ex[held] <= x_atol).all())
+          and bool(((F - F_r).abs()
+                    <= obj_rtol * F_r.abs() + obj_atol)[held].all()))
+    return ok, dict(dual_rel=most(rel[same]),
+                    float32_noise=noise,
+                    rows_within_noise=int((same & (rel > rtol)
+                                           & near64).sum()),
+                    rows_trips_apart=int((~same).sum()),
+                    held_x_err=most(ex[held]), held_obj_rel=most(ef[held]))

@@ -344,3 +344,38 @@ def test_lp_bind_refuses_a_cpu_batch():
     z = torch.zeros((2, 8), dtype=torch.float32)
     with pytest.raises(ValueError):
         PK.bind(z, z, torch.ones(2), torch.ones(2), torch.ones(2), 1.5, 30)
+
+
+@pytest.mark.parametrize("with_float64", [False, True])
+def test_fixed_trips_agree_holds_the_dual_objective(with_float64):
+    """lp_fused.fixed_trips_agree, the rule by which the card test and
+    chip_smoke.py hold B5's fixed-trip launches: the plain version's tiled
+    loop (tb = 4) passes against tb = 1; a dual 1e-4 off fails; a row one
+    trip apart passes with the plain version's dual and fails with an
+    element 1e-2 off (held by its x with the float64 run, by its dual
+    objective without)."""
+    rng = np.random.RandomState(21)
+    B, n = 6, 200
+    y = np.cumsum(rng.randn(B, n), axis=1) * 0.3
+    y = (y - y.mean(axis=1, keepdims=True)).astype(np.float32)
+    args = [_t(a) for a in (y, np.zeros((B, n), np.float32),
+                            np.full(B, 2.0, np.float32),
+                            np.ones(B, np.float32), np.ones(B, np.float32))]
+    w_r, _, _, it_r = PK.gpfw_fused_plain(*args, 3.0, 30, tb=1)
+    w4, _, _, it4 = PK.gpfw_fused_plain(*args, 3.0, 30, tb=4)
+    ref64 = (PK.gpfw_fused_plain(*[a.double() for a in args], 3.0, 30,
+                                 tb=1)[::3] if with_float64 else None)
+    assert float(it_r[0]) == 20.0  # row 0 stops by its test after 2 trips
+
+    def agree(w, it):
+        return PK.fixed_trips_agree(args[0], args[2], 3.0, w, it, w_r, it_r,
+                                    ref64=ref64)[0]
+
+    assert agree(w4, it4)
+    assert not agree(w_r * (1 + 1e-4), it_r)
+    apart = it_r.clone()
+    apart[0] = 30.5  # still running at the cap, one trip later
+    assert agree(w_r, apart)
+    off = w_r.clone()
+    off[0, n // 2] += 1e-2
+    assert not agree(off, apart)

@@ -3,7 +3,7 @@
 card, at the main path's launches and at fixed trip counts.
 
     python3 tools/time_b5.py            # every case below
-    python3 tools/time_b5.py --trips 10,20,40,80
+    python3 tools/time_b5.py --trips 10,20,40,80 --rows 64,132,133,264
 
 Main-path cases, with the inputs the GPFW driver gives the kernel
 (centered rows, the projected unconstrained dual, ``tv1d_lp._start``):
@@ -13,17 +13,21 @@ warm-started column pass of ``tvp_2d`` p = 1.5 on 512^2 randn at lam 0.3
 (recorded from that call).  Fixed trips: 512 random walks of 1000 at lam 2,
 p = 1.5, from a cold start (w = 0), capped at each ``--trips`` count of
 single iterations (10 per trip): the launch's fixed cost and its cost per
-trip.
+trip.  Rows: the first ``--rows`` rows of the p = 1.5 batch, each count a
+case, to place the switch between the kernel's layouts for a batch that
+fits the card in one wave and for a larger one.
 
 Each case is first held against the plain version (tb = 1) on its inputs:
 the primal x = y + D'w within 5e-3 and its objective within 1e-5 relative
 (plus 1e-4) when run to convergence, and for the fixed trips the dual
-objective within 1e-6 relative on the rows that ran the same trips (or no
-further from the plain version's float64 run than its float32 run is); a
-row that stopped earlier on one side stopped by its test, the other one
-trip later or by its test too, and rows both sides stopped by their test
-are held at the converged bars (the bars of ``chip_smoke.py`` ``TOL``).  The fit of the fixed trips takes the slowest
-row's trips: a launch ends when its last fiber does.
+objective by ``lp_fused.fixed_trips_agree`` with the float64 run: within
+1e-6 relative on the rows that ran the same trips (or no further from the
+plain version's float64 run than its float32 run is at its worst row); a
+row whose trip counts differ stopped earlier on one side by its test, the
+other one trip later or by its test too, and its x and objective, as those
+of every row both sides stopped by their test, are held at the converged
+bars.  The fit of the fixed trips takes the slowest row's trips: a launch
+ends when its last fiber does.
 Then CUDA events time 20 launches after one untimed, every case in turn,
 ROUNDS times.  ``ms`` times the C entry point alone, called with its
 arguments made once by ``lp_fused.bind`` (the kernel's time);
@@ -84,20 +88,11 @@ def objective(x, y, lam, p):
             + lam * np.sum(g ** p, axis=1) ** (1.0 / p))
 
 
-def dual(w, yc):
-    w = w[:, :-1]
-    z = np.zeros((w.shape[0], 1))
-    dtw = np.diff(np.concatenate([z, w, z], axis=1), axis=1)
-    return np.sum(dtw * (0.5 * dtw + yc), axis=1)
-
-
 def agreement(B5, args, p, max_iters, fixed):
     """Kernel against the plain version on one launch's inputs."""
     import torch
 
     w_r, _, _, it_r = B5.gpfw_fused_plain(*args, p, max_iters, tb=1)
-    w64 = B5.gpfw_fused_plain(*(a.double() for a in args), p, max_iters,
-                              tb=1)[0].cpu().numpy()
     w, _, g, it = B5.gpfw_fused(*args, p, max_iters)
     torch.cuda.synchronize()
     yc = args[0].double().cpu().numpy()
@@ -113,27 +108,19 @@ def agreement(B5, args, p, max_iters, fixed):
                trips_mean_plain=float(it_r.mean()) / FW_CYCLES,
                trips_max=float(it.max()) / FW_CYCLES)
     ok = bool((g >= 0).all())
-    # Converged rows: both stopped by their test (no 0.5 marker).
-    conv = (itk == it) & (itp == it_r)
-    if not fixed:
-        conv = np.ones_like(conv)
-    ok = ok and bool(np.all(np.abs(x - x_r).max(axis=1)[conv] <= TOL_X)
-                     and np.all((np.abs(F - F_r)
-                                 <= TOL_OBJ * np.abs(F_r) + TOL_OBJ_ABS)[conv]))
-    if fixed:  # on the rows that ran the same trips (chip_smoke.py)
-        d, d_r, d64 = dual(w, yc), dual(w_r, yc), dual(w64, yc)
-        same = it == it_r
-        rel = np.abs(d - d_r) / np.abs(d_r)
-        closer = np.abs(d - d64) <= np.abs(d_r - d64)
-        out["dual_rel"] = float(np.max(rel[same], initial=0.0))
-        out["rows_closer_to_float64"] = int((same & (rel > TOL_DUAL)
-                                             & closer).sum())
-        out["rows_apart"] = int((~same).sum())
-        early = np.minimum(itk, itp)[~same]
-        ok = (ok and bool(np.all(((rel <= TOL_DUAL) | closer)[same]))
-              and bool(np.all(early == np.floor(early)))
-              and bool(np.all((np.abs(it - it_r) == FW_CYCLES) | conv
-                              | same)))
+    if fixed:  # lp_fused.fixed_trips_agree, with the float64 run
+        ref64 = B5.gpfw_fused_plain(*(a.double() for a in args), p,
+                                    max_iters, tb=1)[::3]
+        good, nums = B5.fixed_trips_agree(args[0], args[2], p, w, itk, w_r,
+                                          itp, ref64=ref64, rtol=TOL_DUAL,
+                                          fw_cycles=FW_CYCLES, x_atol=TOL_X,
+                                          obj_rtol=TOL_OBJ,
+                                          obj_atol=TOL_OBJ_ABS)
+        out.update(nums)
+        return out, ok and good
+    ok = ok and bool(np.abs(x - x_r).max() <= TOL_X
+                     and np.all(np.abs(F - F_r)
+                                <= TOL_OBJ * np.abs(F_r) + TOL_OBJ_ABS))
     return out, ok
 
 
@@ -177,7 +164,7 @@ def main_path_inputs(rng, dev):
     return cases
 
 
-def main(trips):
+def main(trips, rows):
     import torch
 
     if not torch.cuda.is_available():
@@ -191,8 +178,13 @@ def main(trips):
     build.build()  # reused if built; BUILD_LOG holds the compiler's lines
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
+    inputs = main_path_inputs(rng, dev)
     runs = [(name, args, p, mi, False)
-            for name, (args, p, mi) in main_path_inputs(rng, dev).items()]
+            for name, (args, p, mi) in inputs.items()]
+    first = inputs["512x1000 p1.5"][0]
+    runs += [(f"{r}x1000 p1.5 (first rows)",
+              tuple(a[:r].contiguous() for a in first), 1.5, 10 ** 6, False)
+             for r in rows]
     walks = (np.cumsum(rng.randn(512, 1000), axis=1) * 0.3).astype(np.float32)
     walks -= walks.mean(axis=1, keepdims=True)
     cold = tuple(torch.from_numpy(a).to(dev) for a in (
@@ -240,4 +232,8 @@ if __name__ == "__main__":
     ap.add_argument("--trips", default="10,20,40,80",
                     help="fixed iteration caps, comma-separated ('' for "
                          "none)")
-    main([int(t) for t in ap.parse_args().trips.split(",") if t])
+    ap.add_argument("--rows", default="",
+                    help="row counts of the p = 1.5 batch, comma-separated")
+    a = ap.parse_args()
+    main([int(t) for t in a.trips.split(",") if t],
+         [int(r) for r in a.rows.split(",") if r])

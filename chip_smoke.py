@@ -5,10 +5,13 @@
 
 Phases (each failure ends the run with a non-zero exit and no result line):
 
-1. build the six hand-written kernels from ``proxtv_tpu_torch/csrc`` and
-   print the card (``nvidia-smi`` name and power limit) and the build time;
+1. build the eight hand-written kernels from ``proxtv_tpu_torch/csrc`` (B1-B6
+   for the TPU's Pallas kernels, D1 and D2 for the JAX package's XLA
+   taut-string and DP scans) and print the card (``nvidia-smi`` name and
+   power limit) and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with the tolerances in ``TOL``;
+   shapes the main path gives it, with the tolerances in ``TOL`` (D1 and
+   D2 in phase 4, at each of their main-path launches);
 3. drive the main path through the public entry points, counting kernel
    launches and host syncs per call: ``api.tv1_2d`` at 1024^2, lam 0.3 (auto
    -> PDHG, kernel B3; and ``dr`` -> projected Newton, B1),
@@ -22,10 +25,20 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    on 512 x 1000 at lam 0.7 for p in {1.5, 3, 5}, ``api.tvp_1d`` and
    ``api.tv`` with p = 1.5, ``api.tvp_2d`` with p = 1.5 at 512^2, 35 sweeps
    (GPFW, B5; the setup solve on B2), the 10^6-long TV-Lp signal (the FW
-   composition and the PCR composition, no kernel), and the image demo;
+   composition and the PCR composition, no kernel), the direct 1D engines
+   through ``tv1_batched`` strict on 10000 x 1000 (taut string D1, DP D2)
+   and on a per-edge-weighted 512 x 1000 batch, Condat and the classic taut
+   string at 512 x 1000 (PyTorch ops, no kernel), ``api.tv1_1d`` and
+   ``api.tv1w_1d`` auto on one signal of 1000 (on the card: B1, D1; no
+   call gives way to the host) and with ``backend="host"`` (the native host
+   engine), ``api.tv1w_1d`` with ``backend="cuda"`` (D1, D2, B2),
+   ``api.tv1w_2d`` dr
+   at 1024^2 with seeded weight fields (B1 on weighted fibers), per-image
+   lam on 4 x 512^2 with cp-acc (B3's weighted route), and the demos;
    then hold the outputs against float64 references: independent float64
-   primal-dual solves on the card for 1024^2 and for the volume, the same
-   calls in float64 on the CPU for the 1D, TV-L2 and TV-Lp calls, the
+   primal-dual solves on the card for 1024^2 (weighted too), the 512^2
+   images and the volume, the same calls in float64 on the CPU for the 1D,
+   TV-L2 and TV-Lp calls, the
    KKT certificate of tests/test_tv1d_lp.py for the long TV-Lp signal;
    3b. hold B1 and B3 against their plain versions on every launch of the
    main path, with the inputs the path gave them (a tap on each wrapper
@@ -33,15 +46,17 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    3c. lengths past the TPU's 8192 lanes, where the port takes the JAX
    package's route instead of raising: ``api.tv1_1d`` pn at n = 10000
    (the PCR composition), ``tv1_batched`` at 4 x 10000 and a dr sweep on
-   16 x 9000 (``tv1_pn`` past B1's limit), ``api.tv1_2d`` auto on 64 x 9000
+   16 x 9000 (``tv1_pn`` past B1's limit), non-strict ``tv1_batched`` at
+   4 x 10000 and on the n = 10000 random walk (D1, as the JAX package runs
+   its taut string there), ``api.tv1_2d`` auto on 64 x 9000
    (B3 at any width), each held against the same call in float64 on the
    CPU, and printed as one ``[C1]`` line each;
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1, B2,
-   B4 and B5 at each of their main-path shapes, by replaying that shape's
-   launches (B2's, B4's and B5's first held against their plain versions on
-   each of them), through the wrapper and, for B2 to B6, through the C
-   entry point;
+   B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
+   shape's launches (B2's, B4's, B5's, D1's and D2's first held against
+   their plain versions on each of them), through the wrapper and, for B2
+   to B6, D1 and D2, through the C entry point;
 5. profile the main-path calls: device time by kernel and the idle share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -109,6 +124,12 @@ TOL = {
     # the "lp" bars above; the 2D call's objective within 1e-4 relative of
     # the float64 run of the same 35 sweeps (max |dx| printed).
     "tvp_2d_obj": 1e-4,
+    # D1 / D2 (the direct engines): relative to the data's size.  The kernel
+    # runs the plain version's events in the same float32 roundings (no FMA
+    # contraction), so the two agree bit for bit away from the degenerate
+    # guards, whose means are summed in another order.  Against float64 on
+    # the CPU they are held at TOL["pn"], the bar of the 1D TV-L1 outputs.
+    "direct": 1e-5,
 }
 
 # The cross-method bar of tests/test_tv2d.py:64-77: the solution within
@@ -137,6 +158,11 @@ PS = (1.5, 3.0, 5.0)
 M5 = N5 = 512               # the bench's general-norm 2D row (bench.py:54-55)
 LAM2P, P2P = 0.3, 1.5
 PLONG = 1.5                 # the bench's long TV-Lp row (bench.py:591-595)
+BW, LAMW = 512, 1.4         # the per-edge-weighted batch: weights U[0, 1.4]
+ZERO_W = 0.05               # ... with 5% of them zeroed
+LAMW2D = 0.3                # tv1w_2d: weight fields 0.3 x U[0.5, 1.5]
+B_PI, M_PI = 4, 512         # per-image lam: 4 x 512^2 images
+LAM_PI = (0.1, 0.2, 0.3, 0.5)
 SEED = 0
 
 
@@ -221,15 +247,19 @@ def profile_call(fn):
 # The __global__ functions of each kernel, as the profiler names them.
 KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
               "B4": "::ms_kernel", "B5": "::gpfw_kernel",
-              "B6": "::pdhg3d_march"}
+              "B6": "::pdhg3d_march", "D1": "::tautstring_kernel",
+              "D2": "::dp_kernel"}
 
 
 def reference_2d(Y, lam, iters):
     """Independent float64 reference for the 2D TV-L1 prox: Chambolle-Pock
     Alg. 2 (gamma = 1, uncapped acceleration) in plain PyTorch on ``Y``'s
-    device, sigma0 = 0.5.  Returns (xhat = Y - D'u, certified gap
-    F(xhat) - F* <= gap)."""
+    device, sigma0 = 0.5.  ``lam``: a scalar, or the weight fields
+    ``(W_row (M, N-1), W_col (M-1, N))`` of the weighted prox.  Returns
+    (xhat = Y - D'u, certified gap F(xhat) - F* <= gap)."""
     import torch
+
+    lam_r, lam_c = lam if isinstance(lam, tuple) else (lam, lam)
 
     def dr(X):
         return X[:, :-1] - X[:, 1:]
@@ -251,8 +281,8 @@ def reference_2d(Y, lam, iters):
     u1 = Y.new_zeros((Y.shape[0], Y.shape[1] - 1))
     u2 = Y.new_zeros((Y.shape[0] - 1, Y.shape[1]))
     for _ in range(iters):
-        u1 = torch.clamp(u1 + sigma * dr(xb), -lam, lam)
-        u2 = torch.clamp(u2 + sigma * dc(xb), -lam, lam)
+        u1 = torch.clamp(u1 + sigma * dr(xb), -lam_r, lam_r)
+        u2 = torch.clamp(u2 + sigma * dc(xb), -lam_c, lam_c)
         xn = (x - tau * (drT(u1) + dcT(u2)) + tau * Y) / (1.0 + tau)
         theta = 1.0 / math.sqrt(1.0 + 2.0 * tau)
         xb = xn + theta * (xn - x)
@@ -261,8 +291,8 @@ def reference_2d(Y, lam, iters):
         sigma /= theta
     xh = Y - (drT(u1) + dcT(u2))
     gr, gc = dr(xh), dc(xh)
-    gap = (lam * (gr.abs().sum() + gc.abs().sum()) - (u1 * gr).sum()
-           - (u2 * gc).sum())
+    gap = ((lam_r * gr.abs()).sum() + (lam_c * gc.abs()).sum()
+           - (u1 * gr).sum() - (u2 * gc).sum())
     return xh, float(gap)
 
 
@@ -329,6 +359,13 @@ MS_OPS_PER_FIBER = 10     # mean 1, center 1, dy 1, x 2, g 1, g'g 2, w'g 2
 PDHG3D_OPS_PER_STEP = 30  # three dual updates 15, divergence 6, primal 6,
                           # xbar 3
 LP_NEWTON_ITERS, LP_FW_CYCLES = 8, 10  # the TV-Lp defaults B5 runs with
+# D1 / D2: the guards' pass (sum, difference, max, weight min: 5) plus one
+# advance of every point, the least work any data needs (D1: two height
+# updates, two wall tests, two tightening tests, one divide and add: 10;
+# D2: the message's two sums, the two exits' clip bounds with a divide,
+# the push, the backward clamp: 14).  Backtracks and pops add to it.
+TS_OPS_PER_POINT = 15
+DP_OPS_PER_POINT = 19
 
 
 def lp_pow_ops(e):
@@ -387,15 +424,20 @@ def main(out_dir):
         raise Fail(f"the port (proxtv_tpu_torch) is not beside this script: "
                    f"{e}")
     from proxtv_tpu_torch.demos import demo_filter_image as demo
+    from proxtv_tpu_torch.demos import demo_filter_image_weighted as demo_w
+    from proxtv_tpu_torch.demos import demo_filter_signal as demo_s
     from proxtv_tpu_torch.models import tv2d, tvnd
     from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_lp
     from proxtv_tpu_torch.ops.kernels import build, gating
+    from proxtv_tpu_torch.ops.kernels import dp as D2
+    from proxtv_tpu_torch.ops.kernels import tautstring as D1
     from proxtv_tpu_torch.ops.kernels import lp_fused as B5
     from proxtv_tpu_torch.ops.kernels import ms_fused as B4
     from proxtv_tpu_torch.ops.kernels import pcr as B2
     from proxtv_tpu_torch.ops.kernels import pdhg3d_fused as B6
     from proxtv_tpu_torch.ops.kernels import pdhg_fused as B3
     from proxtv_tpu_torch.ops.kernels import pn_fused as B1
+    from proxtv_tpu_torch.runtime import native
     from proxtv_tpu_torch.utils import debug
     from proxtv_tpu_torch.utils.info import RC_OK
     from proxtv_tpu_torch.utils.config import CombinerConfig, DEFAULT_COMBINER
@@ -433,8 +475,21 @@ def main(out_dir):
     noise2 = (0.05 * rng3.randn(M2D, N2D)).astype(np.float32)
     rng4 = np.random.RandomState(SEED + 2)  # the TV-Lp slice's data
     Y5 = rng4.randn(M5, N5).astype(np.float32)           # the bench's Y5
+    rng6 = np.random.RandomState(SEED + 4)  # the direct engines' slice
+
+    def edge_weights(shape):
+        """Seeded per-edge weights: U[0, LAMW] with ZERO_W of them zeroed."""
+        w = rng6.rand(*shape) * LAMW
+        w[rng6.rand(*shape) < ZERO_W] = 0.0
+        return w.astype(np.float32)
+
+    Ww = edge_weights((BW, N1D - 1))                     # the weighted batch
+    ww1 = edge_weights((N1D - 1,)).astype(np.float64)    # tv1w_1d's weights
+    Wr2 = (LAMW2D * (0.5 + rng6.rand(M2D, N2D - 1))).astype(np.float32)
+    Wc2 = (LAMW2D * (0.5 + rng6.rand(M2D - 1, N2D))).astype(np.float32)
+    Ypi = rng6.randn(B_PI, M_PI, M_PI).astype(np.float32)
     errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0,
-            "lp": 0.0}
+            "lp": 0.0, "direct": 0.0}
 
     # -- 2. kernels vs plain versions at main-path shapes -----------------
     d = t((0.01 * rng.randn(B1D, N1D)).astype(np.float32))
@@ -760,9 +815,31 @@ def main(out_dir):
     lp_case(f"tvp_2d {M5}^2 lam {LAM2P} p {P2P}, warm column pass "
             f"{tuple(a5[0].shape)}", tuple(a5), P2P, kw5["max_iters"])
 
+    # D1 and D2 are held against their plain versions on the card at each
+    # of their main-path launches (phase 4, TOL["direct"] of the data's
+    # size): the 10000 x 1000 batch at lam 0.7, the per-edge-weighted
+    # 512 x 1000 batch, tv1w_1d's one signal.
+    Ywt, Wwt = t(Y1[:BW]), t(Ww)
+    direct_plain = {"D1": (D1.tautstring, tv1d_l1.tv1_tautstring_plain),
+                    "D2": (D2.dp, tv1d_l1.tv1_dp_plain)}
+
+    def direct_compare(kid, y, lam):
+        """One D1 / D2 launch against its plain version on the card: max
+        |kernel - plain| over the data's size, the plain version's seconds."""
+        kern_fn, plain_fn = direct_plain[kid]
+        out = kern_fn(y, lam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain_fn(y, lam)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        scale = max(1.0, float(y.abs().max()))
+        return float((out - ref).abs().max()) / scale, sec
+
     # -- 3. main path -------------------------------------------------------
     counters = {"B1": B1.LAUNCHES, "B2": B2.LAUNCHES, "B3": B3.LAUNCHES,
-                "B4": B4.LAUNCHES, "B5": B5.LAUNCHES, "B6": B6.LAUNCHES}
+                "B4": B4.LAUNCHES, "B5": B5.LAUNCHES, "B6": B6.LAUNCHES,
+                "D1": D1.LAUNCHES, "D2": D2.LAUNCHES}
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
@@ -777,12 +854,25 @@ def main(out_dir):
     b3_calls = []
     b4_calls = {}
     b5_calls = {}
+    d_calls = {"D1": {}, "D2": {}}
     tap_path = [None]
     launch_b1 = B1.pn_tv1_fused
     launch_b2 = B2.pcr_spd_solve
     launch_b3 = B3.pdhg_chunk
     launch_b4 = B4.ms_tv2_fused
     launch_b5 = B5.gpfw_fused
+    launch_d = {"D1": D1.tautstring, "D2": D2.dp}
+
+    def tap_direct(kid):
+        def tap(y, lam):
+            if tap_path[0] is not None:
+                kind = ("scalar" if not torch.is_tensor(lam) or lam.ndim == 0
+                        else "per-edge" if lam.shape[-1] == y.shape[-1] - 1
+                        else "per-signal")
+                d_calls[kid].setdefault((*y.shape, kind), []).append(
+                    (tap_path[0], y.clone(), clone(lam)))
+            return launch_d[kid](y, lam)
+        return tap
 
     def clone(v):
         return v.clone() if torch.is_tensor(v) else v
@@ -823,10 +913,11 @@ def main(out_dir):
                  None if w_init is None else w_init.clone(), dict(kw)))
         return launch_b1(y, lam_full, w_init, **kw)
 
-    def run(name, fn, must, main_path=True):
+    def run(name, fn, must, main_path=True, host_route=False):
         for c in counters.values():
             c.reset()
         debug.HOST_SYNCS.reset()
+        debug.HOST_ROUTE.reset()
         tap_path[0] = name if main_path else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -839,11 +930,19 @@ def main(out_dir):
             if main_path and got[k_]:
                 by_path[k_][name] = got[k_]
         main[name] = {"seconds": sec, "launches": got, "main_path": main_path,
-                      "host_syncs": debug.HOST_SYNCS.value}
+                      "host_syncs": debug.HOST_SYNCS.value,
+                      "host_route": debug.HOST_ROUTE.value}
         print(f"[main] {name}: {sec:.3f} s, launches {got}, host syncs "
-              f"{debug.HOST_SYNCS.value}")
+              f"{debug.HOST_SYNCS.value}, native host calls "
+              f"{debug.HOST_ROUTE.value}")
         for k_ in must:
             check(got[k_] > 0, f"{name} did not launch kernel {k_}")
+        if host_route:
+            check(debug.HOST_ROUTE.value == 1 and not any(got.values()),
+                  f"{name} did not take the native host route alone")
+        else:
+            check(debug.HOST_ROUTE.value == 0,
+                  f"{name} gave way to the native host route")
         return res
 
     def obj2d(X, Y, lam):
@@ -857,6 +956,8 @@ def main(out_dir):
     B3.pdhg_chunk = tap_b3
     B4.ms_tv2_fused = tap_b4
     B5.gpfw_fused = tap_b5
+    D1.tautstring = tap_direct("D1")
+    D2.dp = tap_direct("D2")
     x_auto, info_auto = run("api.tv1_2d 1024^2 lam 0.3 auto",
                             lambda: ptv.tv1_2d(Y2, LAM2D, return_info=True),
                             ["B3"])
@@ -919,13 +1020,70 @@ def main(out_dir):
         "no kernel)", lambda: tv1d_lp.tvp_gpfw(t(ylong)[None], LAMLONG, PLONG),
         [])
     check(int(info_lpl.rc[0]) == RC_OK, "long tvp_gpfw did not certify")
+    # The direct engines, the native host route and the weighted entry
+    # points.
+    x_d1 = run(f"tv1_batched {B1D}x{N1D} lam {LAM1D} hybridtautstring strict",
+               lambda: tv1d_l1.tv1_batched(Y1t, LAM1D, method="hybridtautstring",
+                                           strict=True), ["D1"])
+    x_d2 = run(f"tv1_batched {B1D}x{N1D} lam {LAM1D} dp strict",
+               lambda: tv1d_l1.tv1_batched(Y1t, LAM1D, method="dp",
+                                           strict=True), ["D2"])
+    x_d1w = run(f"tv1_batched {BW}x{N1D} per-edge weights tautstring strict",
+                lambda: tv1d_l1.tv1_batched(Ywt, Wwt, method="tautstring",
+                                            strict=True), ["D1"])
+    x_d2w = run(f"tv1_batched {BW}x{N1D} per-edge weights dp strict",
+                lambda: tv1d_l1.tv1_batched(Ywt, Wwt, method="dp",
+                                            strict=True), ["D2"])
+    Ycon = Y1t[:BW]
+    x_con = run(f"tv1_batched {BW}x{N1D} lam {LAM1D} condat strict "
+                "(PyTorch ops, no kernel)",
+                lambda: tv1d_l1.tv1_batched(Ycon, LAM1D, method="condat",
+                                            strict=True), [])
+    x_cls = run(f"tv1_batched {BW}x{N1D} lam {LAM1D} classictautstring strict "
+                "(PyTorch ops, no kernel)",
+                lambda: tv1d_l1.tv1_batched(Ycon, LAM1D,
+                                            method="classictautstring",
+                                            strict=True), [])
+    check(native.available(), "the native host engine is not available on "
+          "the card machine")
+    x_a1 = run(f"api.tv1_1d n={N1D} w 2.0 auto", lambda: ptv.tv1_1d(y1, 2.0),
+               ["B1"])
+    x_aw = run(f"api.tv1w_1d n={N1D} auto", lambda: ptv.tv1w_1d(y1, ww1),
+               ["D1"])
+    x_h1 = run(f"api.tv1_1d n={N1D} w 2.0 backend host (native host)",
+               lambda: ptv.tv1_1d(y1, 2.0, backend="host"), [],
+               host_route=True)
+    x_hw = run(f"api.tv1w_1d n={N1D} backend host (native host)",
+               lambda: ptv.tv1w_1d(y1, ww1, backend="host"), [],
+               host_route=True)
+    x_w1 = {}
+    for m_, kid in (("tautstring", "D1"), ("dp", "D2"), ("pn", "B2")):
+        x_w1[m_] = run(f"api.tv1w_1d n={N1D} {m_} backend cuda",
+                       lambda m_=m_: ptv.tv1w_1d(y1, ww1, method=m_,
+                                                 backend="cuda"), [kid])
+    x_w2, info_w2 = run(
+        f"api.tv1w_2d {M2D}^2 weights {LAMW2D} x U[0.5, 1.5] (dr)",
+        lambda: ptv.tv1w_2d(Y2, Wc2, Wr2, return_info=True), ["B1"])
+    x_pi, info_pi = run(
+        f"tv1_2d_batched {B_PI}x{M_PI}^2 per-image lam {LAM_PI} "
+        "chambolle-pock-acc",
+        lambda: tv2d.tv1_2d_batched(t(Ypi), torch.tensor(LAM_PI, device=dev),
+                                    method="chambolle-pock-acc"), ["B3"])
+    check(bool((info_pi.rc == RC_OK).all()), "per-image cp-acc did not "
+          "certify")
     demo_res = run("demo_filter_image (dr, kolmogorov, chambolle-pock-acc)",
                    demo.main, ["B1", "B3"], main_path=False)
+    demo_s_res = run("demo_filter_signal (B1, D1, B4, B5)", demo_s.main,
+                     ["B1", "D1", "B4", "B5"], main_path=False)
+    demo_w_res = run("demo_filter_image_weighted (dr)", demo_w.main, ["B1"],
+                     main_path=False)
     B1.pn_tv1_fused = launch_b1
     B2.pcr_spd_solve = launch_b2
     B3.pdhg_chunk = launch_b3
     B4.ms_tv2_fused = launch_b4
     B5.gpfw_fused = launch_b5
+    D1.tautstring = launch_d["D1"]
+    D2.dp = launch_d["D2"]
 
     # -- 3b. B1 against its plain version at the main path's own inputs ----
     # Every recorded launch, by shape: the 1024^2 dr fibers and the tvgen
@@ -1011,7 +1169,22 @@ def main(out_dir):
                             (BLP, N1D)) for p in PS),
                          ("tvp_1d", x_tp1, (N1D,)), ("tv p 1.5", x_tvp, (N1D,)),
                          ("tvp_2d p 1.5", x_2p, (M5, N5)),
-                         ("tvp_gpfw long", x_lpl[0].cpu().numpy(), (NLONG,))):
+                         ("tvp_gpfw long", x_lpl[0].cpu().numpy(), (NLONG,)),
+                         ("D1 batch", x_d1.cpu().numpy(), (B1D, N1D)),
+                         ("D2 batch", x_d2.cpu().numpy(), (B1D, N1D)),
+                         ("D1 weighted", x_d1w.cpu().numpy(), (BW, N1D)),
+                         ("D2 weighted", x_d2w.cpu().numpy(), (BW, N1D)),
+                         ("condat", x_con.cpu().numpy(), (BW, N1D)),
+                         ("classic", x_cls.cpu().numpy(), (BW, N1D)),
+                         ("tv1_1d auto", x_a1, (N1D,)),
+                         ("tv1w_1d auto", x_aw, (N1D,)),
+                         ("tv1_1d host", x_h1, (N1D,)),
+                         ("tv1w_1d host", x_hw, (N1D,)),
+                         *((f"tv1w_1d {m_}", v, (N1D,))
+                           for m_, v in x_w1.items()),
+                         ("tv1w_2d", x_w2, (M2D, N2D)),
+                         ("per-image", x_pi.cpu().numpy(),
+                          (B_PI, M_PI, M_PI))):
         check(a.shape == shp and np.isfinite(a).all(),
               f"{name}: bad output {a.shape}")
 
@@ -1075,6 +1248,12 @@ def main(out_dir):
     check(e2 <= TOL["pn"], "tv1_1d disagrees with float64 tv1_pn")
     for m_, (mse0, mse1) in demo_res.items():
         check(mse1 < mse0, f"demo {m_} did not denoise")
+    for m_ in ("tv1", "tv1w", "tv2", "tvp"):
+        check(demo_s_res[m_][1] < demo_s_res[m_][0],
+              f"demo_filter_signal {m_} did not denoise")
+    check(demo_w_res["left"] < demo_w_res["noisy"]
+          and demo_w_res["right"] < demo_w_res["noisy"],
+          "demo_filter_image_weighted did not denoise")
 
     # The volume against an independent float64 solve on the card.  The
     # main path's certificate must hold; the engine run 1000 iterations must
@@ -1226,6 +1405,117 @@ def main(out_dir):
                             "iters": int(info_lpl.iters[0]),
                             "cpu_s": t_l_ref}
 
+    # The direct engines against the same calls in float64 on the CPU
+    # (TOL["pn"], the bar of the 1D TV-L1 outputs); auto on the card and the
+    # host route's float32 result against the float64 projected Newton of
+    # the tv1_1d pn row (tv1_1d) and the float64 taut string (tv1w_1d).
+    t0 = time.perf_counter()
+    Y1_64 = torch.from_numpy(Y1.astype(np.float64))
+    Yw_64, Ww_64 = Y1_64[:BW], torch.from_numpy(Ww.astype(np.float64))
+    direct_ref = {
+        "D1 10000x1000": (x_d1, tv1d_l1.tv1_batched(
+            Y1_64, LAM1D, method="hybridtautstring", strict=True)),
+        "D2 10000x1000": (x_d2, tv1d_l1.tv1_batched(
+            Y1_64, LAM1D, method="dp", strict=True)),
+        "D1 512x1000 per-edge": (x_d1w, tv1d_l1.tv1_batched(
+            Yw_64, Ww_64, method="tautstring", strict=True)),
+        "D2 512x1000 per-edge": (x_d2w, tv1d_l1.tv1_batched(
+            Yw_64, Ww_64, method="dp", strict=True)),
+        "condat 512x1000": (x_con, tv1d_l1.tv1_batched(
+            Yw_64, LAM1D, method="condat", strict=True)),
+        "classictautstring 512x1000": (x_cls, tv1d_l1.tv1_batched(
+            Yw_64, LAM1D, method="classictautstring", strict=True))}
+    t_dref = time.perf_counter() - t0
+    for name, (x_, ref_) in direct_ref.items():
+        e_ = float((x_.double().cpu() - ref_).abs().max())
+        print(f"[check] {name} vs float64 on the CPU: max|diff| = {e_:.3e} "
+              f"(tol {TOL['pn']})")
+        check(e_ <= TOL["pn"], f"{name} disagrees with float64 on the CPU")
+        xc[name + " vs float64 CPU"] = {"max_abs_err": e_}
+    print(f"[check] (the float64 CPU references took {t_dref:.1f} s)")
+    e_h1 = float(np.abs(x_h1 - x1d_ref[0].numpy()).max())
+    w1_ref = {m_: ptv.tv1w_1d(y1, ww1, method=m_, backend="cuda",
+                              device="cpu") for m_ in x_w1}
+    e_hw = float(np.abs(x_hw - w1_ref["tautstring"]).max())
+    e_a1 = float(np.abs(x_a1 - x1d_ref[0].numpy()).max())
+    e_aw = float(np.abs(x_aw - w1_ref["tautstring"]).max())
+    print(f"[check] api.tv1_1d auto (card, B1) vs float64 tv1_pn: "
+          f"{e_a1:.3e}; api.tv1w_1d auto (card, D1) vs float64 tautstring: "
+          f"{e_aw:.3e} (tol {TOL['pn']})")
+    check(e_a1 <= TOL["pn"] and e_aw <= TOL["pn"],
+          "auto on the card disagrees with float64")
+    print(f"[check] api.tv1_1d backend host ({x_h1.dtype}) vs float64 "
+          f"tv1_pn: {e_h1:.3e}; api.tv1w_1d backend host vs float64 "
+          f"tautstring: {e_hw:.3e} (tol {TOL['pn']})")
+    check(x_h1.dtype == np.float32 and x_hw.dtype == np.float32,
+          "the host route did not return the device route's dtype")
+    check(e_h1 <= TOL["pn"] and e_hw <= TOL["pn"],
+          "the host route disagrees with float64")
+    xc["tv1_1d auto card vs float64 pn"] = {"max_abs_err": e_a1}
+    xc["tv1w_1d auto card vs float64 tautstring"] = {"max_abs_err": e_aw}
+    xc["tv1_1d host vs float64 pn"] = {"max_abs_err": e_h1}
+    xc["tv1w_1d host vs float64 tautstring"] = {"max_abs_err": e_hw}
+    for m_, x_ in x_w1.items():
+        e_ = float(np.abs(x_ - w1_ref[m_]).max())
+        print(f"[check] api.tv1w_1d {m_} (card) vs float64 on the CPU: "
+              f"{e_:.3e} (tol {TOL['pn']})")
+        check(e_ <= TOL["pn"], f"tv1w_1d {m_} disagrees with float64")
+        xc[f"tv1w_1d {m_} vs float64 CPU"] = {"max_abs_err": e_}
+
+    # tv1w_2d at 1024^2 against an independent float64 weighted solve on
+    # the card.  dr certifies nothing: its 35 main-path sweeps are printed,
+    # and the engine run to a mean change of 1e-7 must meet the objective
+    # form of the cross-method bar (fbar) above the reference's own gap.
+    # Per-image lam (cp-acc, B3's weighted route): each image's certificate
+    # against a float64 solve of that image at its lam.
+    def obj2dw(X, Y, Wr, Wc):
+        X = X.astype(np.float64)
+        return (0.5 * np.sum((X - Y) ** 2)
+                + np.sum(Wc * np.abs(np.diff(X, axis=0)))
+                + np.sum(Wr * np.abs(np.diff(X, axis=1))))
+
+    t0 = time.perf_counter()
+    Wr2_64, Wc2_64 = Wr2.astype(np.float64), Wc2.astype(np.float64)
+    xw_ref, gapw_ref = reference_2d(t(Y2.astype(np.float64)),
+                                    (t(Wr2_64), t(Wc2_64)), 24000)
+    xw_ref = xw_ref.cpu().numpy()
+    Fw_ref = obj2dw(xw_ref, Y2, Wr2_64, Wc2_64)
+    print(f"[check] float64 weighted reference (24000 Chambolle-Pock "
+          f"iterations, {time.perf_counter() - t0:.1f} s): F* >= F_ref - "
+          f"{gapw_ref:.3e}, F_ref = {Fw_ref:.6f}")
+    dFw = obj2dw(x_w2, Y2, Wr2_64, Wc2_64) - Fw_ref
+    print(f"[check] api.tv1w_2d dr (main path, {int(info_w2.iters[0])} "
+          f"sweeps): F - F_ref = {dFw:.4e} (printed), max|x - x_ref| = "
+          f"{float(np.abs(x_w2 - xw_ref).max()):.3e}")
+    xc["tv1w_2d dr main path"] = {"F_minus_F_ref": dFw,
+                                  "iters": int(info_w2.iters[0])}
+    xwd, iwd = tv2d.tv1w_2d_batched(t(Y2)[None], t(Wc2)[None], t(Wr2)[None],
+                                    max_iters=200,
+                                    cfg=CombinerConfig(stop=1e-7))
+    dFw = obj2dw(xwd[0].cpu().numpy(), Y2, Wr2_64, Wc2_64) - Fw_ref
+    print(f"[check] tv1w_2d dr engine, mean change 1e-7 "
+          f"({int(iwd.iters[0])} sweeps, rc {int(iwd.rc[0])}): F - F_ref = "
+          f"{dFw:.4e} (bar {fbar:.4e} + {gapw_ref:.3e} + "
+          f"{F_ROUND * Fw_ref:.3e})")
+    check(int(iwd.rc[0]) == RC_OK and dFw <= fbar + gapw_ref
+          + F_ROUND * Fw_ref, "weighted dr misses its bar")
+    xc["tv1w_2d dr mean change 1e-7"] = {"F_minus_F_ref": dFw,
+                                         "iters": int(iwd.iters[0])}
+    xpi = x_pi.cpu().numpy()
+    for b_, lam_ in enumerate(LAM_PI):
+        xr_, gr_ = reference_2d(t(Ypi[b_].astype(np.float64)), lam_, 12000)
+        xr_ = xr_.cpu().numpy()
+        Fr_ = obj2d(xr_, Ypi[b_], lam_)
+        dF_ = obj2d(xpi[b_], Ypi[b_], lam_) - Fr_
+        g_ = float(info_pi.gap[b_])
+        print(f"[check] per-image cp-acc image {b_} lam {lam_}: F - F_ref = "
+              f"{dF_:.4e} (bar: gap {g_:.4e} + {gr_:.3e} + "
+              f"{F_ROUND * Fr_:.3e}), iters {int(info_pi.iters[b_])}")
+        check(dF_ <= g_ + gr_ + F_ROUND * Fr_,
+              f"per-image image {b_} misses its certificate")
+        xc[f"per-image cp-acc image {b_}"] = {"F_minus_F_ref": dF_,
+                                              "gap": g_}
+
     # -- 3c. past the TPU's lane limits (ROADMAP C1) -----------------------
     # Each instance on the card against the same call in float64 on the
     # CPU, at the bars the port already uses: 2e-3 on 1D TV-L1 outputs (the
@@ -1291,6 +1581,21 @@ def main(out_dir):
     c1["tv1_batched pn 4x10000"] = (
         float((x_c.double().cpu() - x_r).abs().max()), TOL["pn"], None, None)
     check(B1.LAUNCHES.value == b1, "tv1_batched at n = 10000 launched B1")
+    # Non-strict names past B1's limit run the taut string, D1, as the JAX
+    # package runs its tv1_tautstring there: the same batch, and the card
+    # test's random walk (|y| up to 61), against float64 on the CPU.
+    d1 = D1.LAUNCHES.value
+    x_c = tv1d_l1.tv1_batched(t(Yc1.astype(np.float32)), LAM1D)
+    check(D1.LAUNCHES.value == d1 + 1 and B1.LAUNCHES.value == b1,
+          "non-strict tv1_batched at n = 10000 did not take D1")
+    x_r = tv1d_l1.tv1_batched(torch.from_numpy(Yc1), LAM1D)
+    c1["tv1_batched hybridtautstring 4x10000 (D1)"] = (
+        float((x_c.double().cpu() - x_r).abs().max()), TOL["pn"], None, None)
+    x_c = tv1d_l1.tv1_batched(t(y21[None].astype(np.float32)), 2.0)
+    check(D1.LAUNCHES.value == d1 + 2, "the walk at n = 10000 did not take D1")
+    x_r = tv1d_l1.tv1_batched(torch.from_numpy(y21[None]), 2.0)
+    c1["tv1_batched hybridtautstring walk n=10000 seed 21 (D1)"] = (
+        float((x_c.double().cpu() - x_r).abs().max()), TOL["pn"], None, None)
     Yc2 = rng5.randn(1, 16, 9000)
     x_c, i_c = tv2d.tv1_2d_batched(t(Yc2.astype(np.float32)), LAM2D,
                                    method="dr", max_iters=1)
@@ -1384,6 +1689,40 @@ def main(out_dir):
                                                   / 1e3)
     times["tvp_gpfw_long_ms"] = cuda_ms(
         lambda: tv1d_lp.tvp_gpfw(t(ylong)[None], LAMLONG, PLONG), reps=1)
+    times["tv1_batched_tautstring_ms"] = cuda_ms(
+        lambda: tv1d_l1.tv1_batched(Y1t, LAM1D, method="hybridtautstring",
+                                    strict=True), reps=3)
+    times["tv1_batched_tautstring_signals_s"] = B1D / (
+        times["tv1_batched_tautstring_ms"] / 1e3)
+    times["tv1_batched_dp_ms"] = cuda_ms(
+        lambda: tv1d_l1.tv1_batched(Y1t, LAM1D, method="dp", strict=True),
+        reps=3)
+    times["tv1_batched_dp_signals_s"] = B1D / (times["tv1_batched_dp_ms"]
+                                               / 1e3)
+    # Condat and the classic taut string (PyTorch ops): the one main-path
+    # call each, host clock around a synchronised call.
+    for m_, nm_ in (("condat", "condat"), ("classic", "classictautstring")):
+        times[f"tv1_batched_{m_}_{BW}_ms"] = main[
+            f"tv1_batched {BW}x{N1D} lam {LAM1D} {nm_} strict (PyTorch ops, "
+            "no kernel)"]["seconds"] * 1e3
+    times["tv1_1d_auto_ms"] = cuda_ms(lambda: ptv.tv1_1d(y1, 2.0), reps=20)
+    times["tv1w_1d_auto_ms"] = cuda_ms(lambda: ptv.tv1w_1d(y1, ww1), reps=20)
+    times["tv1_1d_host_ms"] = cuda_ms(
+        lambda: ptv.tv1_1d(y1, 2.0, backend="host"), reps=20)
+    times["tv1w_1d_host_ms"] = cuda_ms(
+        lambda: ptv.tv1w_1d(y1, ww1, backend="host"), reps=20)
+    for m_ in ("tautstring", "dp", "pn"):
+        times[f"tv1w_1d_{m_}_cuda_ms"] = cuda_ms(
+            lambda m_=m_: ptv.tv1w_1d(y1, ww1, method=m_, backend="cuda"),
+            reps=3)
+    times["tv1w_2d_dr_ms"] = cuda_ms(lambda: ptv.tv1w_2d(Y2, Wc2, Wr2),
+                                     reps=1)
+    times["tv1w_2d_dr_mpx_s"] = M2D * N2D / 1e6 / (times["tv1w_2d_dr_ms"]
+                                                   / 1e3)
+    Ypi_t, lpi_t = t(Ypi), torch.tensor(LAM_PI, device=dev)
+    times["per_image_cp_acc_ms"] = cuda_ms(
+        lambda: tv2d.tv1_2d_batched(Ypi_t, lpi_t,
+                                    method="chambolle-pock-acc"), reps=1)
     for k_, v in times.items():
         print(f"[time] {k_} = {v:.4f}  ({card})")
 
@@ -1694,6 +2033,65 @@ def main(out_dir):
     check(sum(k_["launches"] for k_ in kern if k_["name"].startswith("B5 "))
           == sum(by_path["B5"].values()),
           "the B5 tap missed main-path launches")
+    # D1 and D2 at each main-path shape (10000x1000 at lam 0.7, the
+    # per-edge 512x1000 batch, tv1w_1d's one signal): every launch held
+    # against its plain version on the card (TOL["direct"]), then replayed
+    # in order: ms through the wrapper, kernel_ms through the C entry point
+    # with its arguments (and D2's workspace) made once, plain_ms the plain
+    # version's run on the card.  Bytes: y read and x written, plus the
+    # weights read; the operations: TS_OPS_PER_POINT / DP_OPS_PER_POINT a
+    # point, the least work any data needs.
+    for kid, mod_, src_, line_, ops_pp in (
+            ("D1", D1, "tautstring.cu", 334, TS_OPS_PER_POINT),
+            ("D2", D2, "dp.cu", 632, DP_OPS_PER_POINT)):
+        fn_name = "tautstring" if kid == "D1" else "dp"
+        for (Bs, ns, kind), calls in d_calls[kid].items():
+            worst, plain_s, launchers = 0.0, 0.0, []
+            for _, y_, lam_ in calls:
+                err, sec = direct_compare(kid, y_, lam_)
+                worst, plain_s = max(worst, err), plain_s + sec
+                out, launch = mod_.bind(y_, lam_)
+                launch()
+                torch.cuda.synchronize()
+                check(bool(torch.equal(out, getattr(mod_, fn_name)(y_, lam_))),
+                      f"{kid}'s C entry point and its wrapper disagree")
+                launchers.append(launch)
+            check(worst <= TOL["direct"], f"{kid} main path {Bs}x{ns} "
+                  "disagrees with its plain version")
+            errs["direct"] = max(errs["direct"], worst)
+            paths = sorted({c[0] for c in calls})
+
+            def replay(calls=calls, fn=getattr(mod_, fn_name)):
+                for _, y_, lam_ in calls:
+                    fn(y_, lam_)
+
+            def replay_c(launchers=launchers):
+                for launch in launchers:
+                    launch()
+
+            ms = cuda_ms(replay) / len(calls)
+            kernel_ms = cuda_ms(replay_c) / len(calls)
+            lam_bytes = {"scalar": 0, "per-signal": Bs * 4,
+                         "per-edge": Bs * (ns - 1) * 4}[kind]
+            b, f = bound_ms(Bs * ns * 8 + lam_bytes, Bs * ns * ops_pp)
+            kern.append(dict(
+                name=f"{kid} {fn_name}_tv1 ({Bs}x{ns} {kind}, "
+                     f"{', '.join(paths)})",
+                route="cuda", source=f"proxtv_tpu_torch/csrc/{src_}",
+                replaces=f"proxtv_tpu/ops/tv1d_l1.py:{line_} (XLA lock-step "
+                         "scan; no TPU kernel)",
+                launches=len(calls),
+                launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
+                                  for p_ in paths},
+                max_abs_err=worst, ms=ms, plain_ms=plain_s * 1e3 / len(calls),
+                bound_ms=b, bound_by=f, library_ms=None,
+                kernel_ms=kernel_ms))
+            print(f"[{kid} {fn_name}] main path {Bs}x{ns} {kind} "
+                  f"({len(calls)} launches): max|kernel - plain| / scale = "
+                  f"{worst:.3e} (tol {TOL['direct']})")
+        check(sum(k_["launches"] for k_ in kern if k_["name"].startswith(
+            kid + " ")) == sum(by_path[kid].values()),
+            f"the {kid} tap missed main-path launches")
     for k_ in kern:
         extra = "".join(f", {key} {k_[key]:.4f} ms" for key in (
             "kernel_ms", "bound_ms_pcr") if key in k_)
@@ -1728,7 +2126,30 @@ def main(out_dir):
                      ("tvp_batched p 5", lambda: tv1d_lp.tvp_batched(
                          Yp, LAMP, 5.0)),
                      ("tvp_1d p 1.5", lambda: ptv.tvp_1d(y1, 2.0, 1.5)),
-                     ("tv p 1.5", lambda: ptv.tv(y1, LAMP, p=1.5))):
+                     ("tv p 1.5", lambda: ptv.tv(y1, LAMP, p=1.5)),
+                     ("tv1_batched tautstring D1", lambda: tv1d_l1.tv1_batched(
+                         Y1t, LAM1D, method="hybridtautstring", strict=True)),
+                     ("tv1_batched dp D2", lambda: tv1d_l1.tv1_batched(
+                         Y1t, LAM1D, method="dp", strict=True)),
+                     ("tv1_batched 512 per-edge tautstring D1",
+                      lambda: tv1d_l1.tv1_batched(Ywt, Wwt, method="tautstring",
+                                                  strict=True)),
+                     ("tv1_batched 512 per-edge dp D2",
+                      lambda: tv1d_l1.tv1_batched(Ywt, Wwt, method="dp",
+                                                  strict=True)),
+                     ("tv1_1d auto", lambda: ptv.tv1_1d(y1, 2.0)),
+                     ("tv1w_1d auto", lambda: ptv.tv1w_1d(y1, ww1)),
+                     ("tv1_1d host", lambda: ptv.tv1_1d(y1, 2.0,
+                                                        backend="host")),
+                     ("tv1w_1d tautstring cuda", lambda: ptv.tv1w_1d(
+                         y1, ww1, method="tautstring", backend="cuda")),
+                     ("tv1w_1d dp cuda", lambda: ptv.tv1w_1d(
+                         y1, ww1, method="dp", backend="cuda")),
+                     ("tv1w_1d pn cuda", lambda: ptv.tv1w_1d(
+                         y1, ww1, method="pn", backend="cuda")),
+                     ("tv1w_2d dr 1024^2", lambda: ptv.tv1w_2d(Y2, Wc2, Wr2)),
+                     ("per-image cp-acc 4x512^2", lambda: tv2d.tv1_2d_batched(
+                         Ypi_t, lpi_t, method="chambolle-pock-acc"))):
         breakdown[name] = profile_call(fn)
         b_ = breakdown[name]
         top = ", ".join(f"{k_} {v:.3f} ms" for k_, v in b_["top"])
@@ -1745,7 +2166,7 @@ def main(out_dir):
     queue = {}
     for kid in counters:
         dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in breakdown.values())
-        per_shape = kid in ("B1", "B2", "B4", "B5")
+        per_shape = kid in ("B1", "B2", "B4", "B5", "D1", "D2")
         bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
                                     else at_shape.get(kid, 0))
                   for k_ in kern if k_["name"].startswith(kid + " "))

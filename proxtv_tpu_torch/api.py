@@ -1,17 +1,21 @@
 """User-facing API with the reference's function names, signatures and defaults
 (the port's counterpart of ``proxtv_tpu.api``; reference ``prox_tv/__init__.py``).
 
-Ported so far: ``tv1_1d`` (projected Newton), ``tv2_1d``, ``tvp_1d``,
-``tv1_2d``, ``tvp_2d``, ``tvgen``, ``tvgen_nd``, ``tv`` (scalar-lam
-branches) and ``tv_value``.  What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+Ported: ``tv1_1d``, ``tv1w_1d``, ``tv2_1d``, ``tvp_1d``, ``tv1_2d``,
+``tv1w_2d``, ``tvp_2d``, ``tvgen``, ``tvgen_nd``, ``tv`` and ``tv_value``.
+The long-signal route of ``tv1_1d`` / ``tv1w_1d`` past n = 16384 (the JAX
+package's chunked ``tv1_long``) is ROADMAP A12.
 
 Inputs are numpy-like arrays; outputs are numpy arrays.  The entry points run
 on the card (``device="cuda"``, float32, the JAX package's accelerator
 precision) unless the caller passes ``device="cpu"`` (float64, as the tests
-run).  With no card and no ``device="cpu"`` they raise.  For batched,
-device-resident use call :mod:`proxtv_tpu_torch.ops` /
-:mod:`proxtv_tpu_torch.models` directly.
+run).  With no card and no ``device="cpu"`` they raise.  ``tv1_1d`` and
+``tv1w_1d`` run a taut-string solve on the native host engine
+(``runtime.native``) only when the caller asks for the host: with
+``device="cpu"`` (where the JAX package's host policy applies) or with
+``backend="host"``; the result has the dtype the device route would give.
+For batched, device-resident use
+call :mod:`proxtv_tpu_torch.ops` / :mod:`proxtv_tpu_torch.models` directly.
 """
 from __future__ import annotations
 
@@ -19,10 +23,21 @@ import numpy as np
 import torch
 
 from .ops import tv1d_l1
+from .utils import debug
 from .utils.config import TV1Config
+from .utils.info import SolverInfo
 
 _TV1_METHODS = {"classictautstring", "linearizedtautstring", "hybridtautstring",
                 "pn", "condat", "dp", "condattautstring", "kolmogorov"}
+
+# Methods served by the native host taut string with backend="auto" (the
+# JAX package's set): 'condat' and 'classictautstring' name engines of
+# their own, and the host library runs the linearized scan.
+_TAUTSTRING_METHODS = {"linearizedtautstring", "hybridtautstring",
+                       "condattautstring"}
+_BACKENDS = ("auto", "cuda", "host")
+# Longest signal auto sends to the host engine (the JAX package's bound).
+_HOST_MAX_N = 16384
 
 
 def _device(device):
@@ -52,32 +67,146 @@ def _ret(x2d, info, return_info):
     return x
 
 
+def _host_route(backend, device, method, family, return_info, auto, n):
+    """Whether a 1D TV-L1 call runs on the native host engine, and the
+    dtype its result takes (the device route's: float32 unless
+    ``device="cpu"``).
+
+    ``backend="host"`` asks for it: a taut-string method without
+    ``return_info``, and a compiler to build the engine, or this raises.
+    ``backend="auto"`` takes it where the JAX package's policy does, but
+    only for a CPU solve (``device="cpu"``): a taut-string method without
+    ``return_info``, auto only up to n = 16384.  ``backend="cuda"`` never
+    does.  Returns ``(take, dtype)``."""
+    from .runtime import native
+
+    cpu = torch.device("cuda" if device is None else device).type == "cpu"
+    dt = np.float64 if cpu else np.float32
+    if backend == "host":
+        if method not in family or return_info:
+            raise ValueError(
+                f"backend='host' runs the taut string ({sorted(family)}) "
+                f"without return_info; got method={method!r}, "
+                f"return_info={return_info}")
+        if not native.available():
+            raise RuntimeError("backend='host' needs a C++ compiler to build "
+                               "the native host engine and none was found")
+        return True, dt
+    take = (backend == "auto" and cpu and method in family
+            and not return_info and (not auto or n <= _HOST_MAX_N)
+            and native.available())
+    return take, dt
+
+
 def tv1_1d(x, w, method="auto", sigma=0.05, maxbacktracks=None,
-           return_info=False, device=None):
+           return_info=False, backend="auto", device=None):
     """1D TV-L1 prox: min_y 0.5||x-y||^2 + w * sum |y_{i+1} - y_i|.
 
-    Reference: prox_tv/__init__.py:124-216.  Method strings as the reference
-    (auto, classictautstring, linearizedtautstring, hybridtautstring, pn,
-    condat, dp, condattautstring, kolmogorov); this slice runs ``pn`` and
-    ``auto``, and ``auto`` goes to projected Newton (:func:`tv1d_l1.tv1_pn`,
-    whose Newton systems run kernel B2 on the card up to n - 1 = 8192 and
-    the PCR composition past it): the native host engine
-    and the direct scan engines the JAX package's auto picks arrive with
-    ROADMAP A4 / A8.  An explicit direct method raises
-    ``NotImplementedError``.  ``maxbacktracks`` is accepted for
-    compatibility (projected Newton never backtracks a scan).
+    Reference: prox_tv/__init__.py:124-216.  Methods: auto (default),
+    classictautstring, linearizedtautstring, hybridtautstring (the
+    reference's default), pn, condat, dp, condattautstring, kolmogorov.
+
+    **Auto policy** on the card: ``tv1_batched(..., strict=False)``,
+    kernel B1 up to n = 8192 and the taut string past it (kernel D1).  Past
+    n = 16384 auto runs projected Newton (:func:`tv1d_l1.tv1_pn`) until the
+    JAX package's chunked long-signal route is ported (ROADMAP A12).  With
+    ``device="cpu"`` auto follows the JAX package
+    (``proxtv_tpu/api.py:70-141``): the native host taut string for a
+    single signal of n <= 16384 without ``return_info``, the taut string
+    otherwise.  With ``maxbacktracks`` set, auto runs the message-passing
+    DP (worst case O(n), no backtracks), as the reference's hybrid bound
+    intends.
+
+    An **explicit** method runs the named engine on every device: on the
+    card the taut string is kernel D1, the DP kernel D2, ``pn`` projected
+    Newton (its Newton systems on kernel B2), Condat and the classic taut
+    string PyTorch ops.  With ``device="cpu"``, an explicit taut-string
+    method without ``return_info`` runs on the host engine at any size, as
+    in the JAX package.  ``backend="host"`` asks for the host engine on any
+    device (a taut-string method, no ``return_info``); ``backend="cuda"``
+    (the JAX package's ``"tpu"``) forces the device route.  ``return_info``
+    of a direct engine is ``SolverInfo.single(0, 0.0)``.
     """
-    assert method == "auto" or method in _TV1_METHODS, f"unknown method {method}"
+    auto = method == "auto"
+    if auto:
+        method = "hybridtautstring"
+    assert method in _TV1_METHODS, f"unknown method {method}"
     assert w >= 0
-    if method not in ("auto", "pn"):
-        raise NotImplementedError(
-            f"method={method!r}: the direct 1D engines are not ported yet "
-            "(ROADMAP A8); use method='pn' or 'auto'")
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}; got "
+                         f"{backend!r}")
+    if auto and maxbacktracks is not None and method in _TAUTSTRING_METHODS:
+        method = "dp"
+    n = int(np.asarray(x).size)
+    host, host_dt = _host_route(backend, device, method, _TAUTSTRING_METHODS,
+                                return_info, auto, n)
+    if host:
+        from .runtime import native
+
+        debug.HOST_ROUTE.value += 1
+        return np.asarray(native.tv1_host(x, float(w)), dtype=host_dt)
     dev, dt = _device(device)
     y = _tensor(x, dev, dt).reshape(1, -1)
-    cfg = TV1Config(sigma=float(sigma))
-    out, info = tv1d_l1.tv1_pn(y, float(w), cfg=cfg)
+    if method == "pn" or (auto and n > _HOST_MAX_N):
+        cfg = TV1Config(sigma=float(sigma))
+        out, info = tv1d_l1.tv1_pn(y, float(w), cfg=cfg)
+        return _ret(out, info, return_info)
+    out = tv1d_l1.tv1_batched(y, float(w), method=method, strict=not auto)
+    info = (SolverInfo.single(0, 0.0, dtype=out.dtype, device=out.device)
+            if return_info else None)
     return _ret(out, info, return_info)
+
+
+def tv1w_1d(x, w, method="auto", sigma=0.05, return_info=False,
+            backend="auto", device=None):
+    """Weighted 1D TV-L1 prox: min_y 0.5||x-y||^2 + sum_i w_i |y_{i+1} - y_i|.
+
+    Reference: prox_tv/__init__.py:218-254.  Methods: auto (default),
+    tautstring (the reference's default), pn, and dp (message passing).
+    ``w`` holds len(x) - 1 nonnegative weights.
+
+    Auto means the taut string: kernel D1 on the card
+    (:func:`tv1d_l1.tv1_tautstring`; the JAX package's chunked route past
+    n = 16384 is ROADMAP A12).  ``dp`` is kernel D2; ``pn`` is
+    :func:`tv1d_l1.tv1_pn` with per-edge weights (its Newton systems on
+    kernel B2).  The native host engine runs the taut string with
+    ``device="cpu"`` as in the JAX package (auto up to n = 16384, an
+    explicit ``tautstring`` at any size, no ``return_info``), and on any
+    device with ``backend="host"``; ``backend="cuda"`` forces the device
+    route.
+    """
+    auto = method == "auto"
+    if auto:
+        method = "tautstring"
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}; got "
+                         f"{backend!r}")
+    xv = np.asarray(x, dtype=float).ravel()
+    wv = np.asarray(w, dtype=float).ravel()
+    assert wv.size == xv.size - 1, "w must hold len(x) - 1 weights"
+    assert (wv >= 0).all()
+    host, host_dt = _host_route(backend, device, method, {"tautstring"},
+                                return_info, auto, xv.size)
+    if host:
+        from .runtime import native
+
+        debug.HOST_ROUTE.value += 1
+        return np.asarray(native.tv1w_host(xv, wv), dtype=host_dt)
+    dev, dt = _device(device)
+    y = _tensor(xv, dev, dt).reshape(1, -1)
+    lam = _tensor(wv, dev, dt).reshape(1, -1)
+    if method in ("tautstring", "dp"):
+        engine = (tv1d_l1.tv1_tautstring if method == "tautstring"
+                  else tv1d_l1.tv1_dp)
+        out = engine(y, lam)
+        info = (SolverInfo.single(0, 0.0, dtype=out.dtype, device=out.device)
+                if return_info else None)
+        return _ret(out, info, return_info)
+    if method == "pn":
+        cfg = TV1Config(sigma=float(sigma))
+        out, info = tv1d_l1.tv1_pn(y, lam, cfg=cfg)
+        return _ret(out, info, return_info)
+    raise ValueError(f"unknown method {method}")
 
 
 def tv1_2d(x, w, n_threads=1, max_iters=0, method="auto", return_info=False,
@@ -100,6 +229,29 @@ def tv1_2d(x, w, n_threads=1, max_iters=0, method="auto", return_info=False,
                   if y.is_cuda and y.dtype == torch.float32 else "dr")
     out, info = tv2d.tv1_2d_batched(y, float(w), method=method,
                                     max_iters=int(max_iters))
+    return _ret(out, info, return_info)
+
+
+def tv1w_2d(x, w_col, w_row, max_iters=0, n_threads=1, return_info=False,
+            device=None):
+    """Weighted 2D TV-L1 prox via Douglas-Rachford (reference :445-481):
+    ``w_col`` (M-1, N) weights the column edges, ``w_row`` (M, N-1) the row
+    edges.  On the card its fiber passes run kernel B1 with per-edge
+    weights."""
+    from .models import tv2d
+
+    X = np.asarray(x, dtype=float)
+    M, N = X.shape
+    w_col = np.asarray(w_col, dtype=float)
+    w_row = np.asarray(w_row, dtype=float)
+    assert w_col.shape == (M - 1, N)
+    assert w_row.shape == (M, N - 1)
+    assert (w_col >= 0).all() and (w_row >= 0).all()
+    dev, dt = _device(device)
+    out, info = tv2d.tv1w_2d_batched(_tensor(X, dev, dt)[None],
+                                     _tensor(w_col, dev, dt)[None],
+                                     _tensor(w_row, dev, dt)[None],
+                                     max_iters=int(max_iters))
     return _ret(out, info, return_info)
 
 
@@ -194,19 +346,46 @@ def tvgen_nd(x, ws, ds, ps, max_iters=0, method="pd", return_info=False,
 def tv(y, lam, p=1.0, threads=1, max_iters=0, return_info=False,
        device=None):
     """Polymorphic TV prox front end, dispatching on the type of ``lam``
-    (reference ``matlab/TV.m:22-84``).  The scalar-lam branches are ported:
-    a 1D ``y`` with p = 1 goes to :func:`tv1_1d`, p = 2 to :func:`tv2_1d`,
-    any other p to :func:`tvp_1d`; an ND ``y`` goes to :func:`tvgen` with
-    ``lam`` and ``p`` replicated over every dimension (TV.m:79-80).  A pair
-    of weight matrices (weighted 2D, ROADMAP A6w) and a weight vector
-    (weighted 1D, ROADMAP A8) raise ``NotImplementedError``."""
+    (reference ``matlab/TV.m:22-84``):
+
+    *   a pair (list/tuple) of weight matrices: weighted 2D TV via
+        :func:`tv1w_2d` (``lam[0]`` the column edges (M-1, N), ``lam[1]``
+        the row edges (M, N-1)); 2D ``y`` and p = 1 only;
+    *   a weight vector of length len(y) - 1: weighted 1D TV via
+        :func:`tv1w_1d`; 1D ``y`` and p = 1 only;
+    *   a scalar and 1D ``y``: p = 1 → :func:`tv1_1d`, p = 2 →
+        :func:`tv2_1d`, any other p → :func:`tvp_1d`;
+    *   a scalar and ND ``y``: :func:`tvgen` with ``lam`` and ``p``
+        replicated over every dimension (TV.m:79-80).
+    """
     if isinstance(lam, (list, tuple)):
-        raise NotImplementedError("weighted 2D TV (a pair of weight "
-                                  "matrices) is not ported yet: ROADMAP A6w")
+        if np.asarray(y).ndim != len(lam):
+            raise ValueError(
+                "for an N-dimensional signal the weights must be provided "
+                "as a sequence of length N (reference TV.m:33)")
+        if len(lam) != 2:
+            raise ValueError("only 1D and 2D weighted filtering is supported "
+                             "(reference TV.m:37)")
+        if p != 1:
+            raise ValueError("only the L1 norm is accepted for weighted TV "
+                             "(reference TV.m:41)")
+        return tv1w_2d(y, lam[0], lam[1], max_iters=max_iters,
+                       n_threads=threads, return_info=return_info,
+                       device=device)
     lam_arr = np.asarray(lam, dtype=float)
     if lam_arr.size > 1:
-        raise NotImplementedError("vector-weighted 1D TV is not ported yet: "
-                                  "ROADMAP A8")
+        yv = np.asarray(y)
+        if yv.ndim != 1:
+            raise ValueError("only 1-dimensional signals are accepted for "
+                             "vector-weighted TV (reference TV.m:58)")
+        if lam_arr.size != yv.size - 1:
+            raise ValueError(
+                "lam should be a scalar or a weight vector with "
+                "len(lam) == len(y) - 1 (reference TV.m:54)")
+        if p != 1:
+            raise ValueError("only the L1 norm is accepted for weighted TV "
+                             "(reference TV.m:62)")
+        return tv1w_1d(y, lam_arr, return_info=return_info, device=device)
     w = float(lam_arr)
     yv = np.asarray(y)
     if yv.ndim == 1:

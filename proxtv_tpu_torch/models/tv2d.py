@@ -1,6 +1,6 @@
 """Batched 2D anisotropic-TV proximity combiners (port of
-``proxtv_tpu.models.tv2d``: the scalar-lam TV-L1 methods, and TV-Lp for any
-p >= 1 by dr).
+``proxtv_tpu.models.tv2d``: the TV-L1 methods with scalar, per-image or
+per-edge weights, and TV-Lp for any p >= 1 by dr).
 
 Solves, for every image in a batch,
 
@@ -41,10 +41,6 @@ from ..ops.kernels import gating
 from ..utils import debug
 from ..utils.config import DEFAULT_COMBINER, CombinerConfig
 from ..utils.info import RC_ITERS, RC_OK, make_info
-
-_PER_IMAGE_LAM = ("per-image lam needs the weighted 2D solver "
-                  "(tv1w_2d_batched), not ported yet: ROADMAP A6w")
-
 
 def _np_dtype(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
@@ -606,23 +602,29 @@ def _run_pdhg_fused(Y, lam, cap, tol, cfg, variant: str,
 
 def _run_kolmogorov(Y, w_row, w_col, cap, tol, inner_method: str):
     """PDHG with G(x) = 0.5||x-Y||^2 + w_col*colTV (proximable exactly via
-    the batched 1D solver + Moreau scaling) and the row term dualized."""
+    the batched 1D solver + Moreau scaling) and the row term dualized.
+
+    ``w_row``: a scalar or a (B, M, N-1) per-edge field (it enters only the
+    dual clip); ``w_col``: a scalar or a (B, M-1, N) per-edge field
+    (reshaped to per-column-fiber weights for the exact 1D prox)."""
     B, M, N = Y.shape
     sigma0, tau0 = 1.0, 0.9 / (4.0 * 1.0)  # ||D_row||^2 <= 4
     s0 = _prox_state_init(B * N, M, 1.0, Y.dtype, Y.device)
-    w_row_f = float(w_row)
+    wc = (w_col.transpose(1, 2).reshape(B * N, M - 1)
+          if torch.is_tensor(w_col) and w_col.ndim == 3 else w_col)
+    wr = w_row if torch.is_tensor(w_row) else float(w_row)
 
     def prox_G(v, tau, s):
         # prox_{tau G}(v) = prox_{(tau w_col/(1+tau)) colTV}((v + tau Y)/(1+tau))
         t = (v + tau * Y) / (1.0 + tau)
         Vt = t.transpose(1, 2).reshape(B * N, M)
-        out, s = _prox1d_ws(Vt, tau * w_col / (1.0 + tau), 1.0,
+        out, s = _prox1d_ws(Vt, tau * wc / (1.0 + tau), 1.0,
                             inner_method, s)
         return out.reshape(B, N, M).transpose(1, 2), s
 
     def body(state):
         x, xbar, u, s = state
-        u = torch.clamp(u + sigma0 * _drow(xbar), -w_row_f, w_row_f)
+        u = torch.clamp(u + sigma0 * _drow(xbar), -wr, wr)
         x_new, s = prox_G(x - tau0 * _drow_t(u), tau0, s)
         # Fixed steps, theta = 1.
         xbar = 2.0 * x_new - x
@@ -654,6 +656,10 @@ _PDHG_VARIANTS = {"condat": "condat", "chambolle-pock": "cp",
                   "chambolle-pock-acc": "cp-acc"}
 
 
+_PER_IMAGE_METHODS = ("pd", "dr", "yang", "condat", "chambolle-pock",
+                      "chambolle-pock-acc")
+
+
 def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
                    inner_method: str = "pn",
                    cfg: CombinerConfig = DEFAULT_COMBINER):
@@ -662,20 +668,32 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
 
     Methods: dr (default), pd, yang, condat, chambolle-pock,
     chambolle-pock-acc, kolmogorov (reference prox_tv/__init__.py:355-443).
-    ``lam`` is a scalar; a per-image (B,) lam raises ``NotImplementedError``
-    until the weighted solver is ported (ROADMAP A6w).  The device decides
-    the path: CUDA runs the kernels, the CPU the plain compositions.
+    ``lam`` is a scalar, or a (B,) per-image penalty, which runs the
+    weighted solver :func:`tv1w_2d_batched` on uniform weight fields (pd,
+    dr, yang and the primal-dual methods; the latter only on the card, as
+    the JAX package's only on its accelerator).  The device decides the
+    path: CUDA runs the kernels, the CPU the plain compositions.
 
     Returns (X, SolverInfo) with per-image iters / gap / rc.
     """
     B, M, N = Y.shape
-    if np.ndim(lam) != 0 and not (torch.is_tensor(lam) and lam.ndim == 0):
-        raise NotImplementedError(_PER_IMAGE_LAM)
+    method = method.lower()
+    lam_nd = lam.ndim if torch.is_tensor(lam) else np.ndim(lam)
+    if lam_nd == 1:
+        if method not in _PER_IMAGE_METHODS:
+            raise ValueError(
+                f"method {method!r} does not support per-image penalties; "
+                "use a scalar lam or one of pd/dr/yang/condat/chambolle-pock/"
+                "chambolle-pock-acc")
+        lam_t = torch.as_tensor(lam, dtype=Y.dtype, device=Y.device)
+        Wc = torch.broadcast_to(lam_t[:, None, None], (B, M - 1, N))
+        Wr = torch.broadcast_to(lam_t[:, None, None], (B, M, N - 1))
+        return tv1w_2d_batched(Y, Wc, Wr, max_iters=max_iters, method=method,
+                               inner_method=inner_method, cfg=cfg)
     if torch.is_tensor(lam):
         lam = debug.host(lam)
     lam = _scalar(lam, Y.dtype)
     tol = cfg.stop
-    method = method.lower()
     dev = Y.device
 
     if method in ("pd", "dr"):
@@ -703,6 +721,56 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
         cap = max_iters or cfg.max_iters_kolmogorov
         return _run_kolmogorov(Y, lam, lam, cap, tol, inner_method)
     raise ValueError(f"Unknown 2D method: {method!r}")
+
+
+def tv1w_2d_batched(Y, W_col, W_row, max_iters: int = 0, method: str = "dr",
+                    inner_method: str = "pn",
+                    cfg: CombinerConfig = DEFAULT_COMBINER):
+    """Batched weighted 2D TV-L1 prox (reference DR2L1W_TV,
+    src/TV2DWopt.cpp:46), on whatever device ``Y`` lies.
+
+    Args:
+        Y: (B, M, N) images.
+        W_col: (B, M-1, N) per-edge weights along columns.
+        W_row: (B, M, N-1) per-edge weights along rows.
+        method: dr (default), pd, yang, kolmogorov (weighted fiber passes:
+            kernel B1 with per-edge weights on the card), or condat /
+            chambolle-pock / chambolle-pock-acc (kernel B3's weighted route;
+            the card only: elsewhere they raise, as the JAX package's raise
+            off its accelerator).
+    """
+    B, M, N = Y.shape
+    method = method.lower()
+    W_col = torch.as_tensor(W_col, dtype=Y.dtype, device=Y.device)
+    W_row = torch.as_tensor(W_row, dtype=Y.dtype, device=Y.device)
+    if method in _PDHG_VARIANTS:
+        if gating.gate(Y, "pdhg2d"):
+            cap = max_iters or cfg.max_iters_condat
+            return _run_pdhg_fused(Y, 0.0, cap, cfg.stop, cfg,
+                                   _PDHG_VARIANTS[method], W_col=W_col,
+                                   W_row=W_row)
+        raise ValueError("weighted primal-dual requires the fused kernel on "
+                         "the card; use method='dr' or 'pd'")
+    if method == "yang":
+        rho = _scalar(cfg.yang_rho, Y.dtype)
+        pcol, s1 = _make_col_prox(B, M, N, None, 1.0, inner_method,
+                                  W_col / rho, Y.dtype, Y.device)
+        prow, s2 = _make_row_prox(B, M, N, None, 1.0, inner_method,
+                                  W_row / rho, Y.dtype, Y.device)
+        return _run_yang(Y, pcol, s1, prow, s2,
+                         max_iters or cfg.max_iters_yang, cfg.stop,
+                         cfg.yang_rho)
+    if method == "kolmogorov":
+        return _run_kolmogorov(Y, W_row, W_col,
+                               max_iters or cfg.max_iters_kolmogorov,
+                               cfg.stop, inner_method)
+    if method not in ("pd", "dr"):
+        raise ValueError(f"Unknown weighted 2D method: {method!r}")
+    cfgs = (_make_col_prox(B, M, N, None, 1.0, inner_method, W_col, Y.dtype,
+                           Y.device),
+            _make_row_prox(B, M, N, None, 1.0, inner_method, W_row, Y.dtype,
+                           Y.device))
+    return _dispatch(Y, cfgs, method, max_iters, cfg)
 
 
 def tvp_2d_batched(Y, w_col, w_row, p_col: float, p_row: float,

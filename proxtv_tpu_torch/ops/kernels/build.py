@@ -21,8 +21,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "proxtv_tpu_torch")
 SOURCES = ("pcr.cu", "pn_fused.cu", "pdhg_fused.cu", "ms_fused.cu",
-           "pdhg3d_fused.cu", "lp_fused.cu")
-HEADERS = ("block.cuh", "fiber.cuh", "tridiag.cuh")
+           "pdhg3d_fused.cu", "lp_fused.cu", "tautstring.cu", "dp.cu")
+HEADERS = ("block.cuh", "fiber.cuh", "tridiag.cuh", "direct1d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +66,12 @@ _SIGNATURES = {
     # codes (host int[13]), stream
     "gpfw_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                    _I, _PF, _PI, _P),
+    # y, lam (or NULL), lam row stride, lam column stride, lam_scalar, x, B,
+    # n, stream
+    "tautstring_tv1": (_P, _P, _I, _I, _F, _P, _I, _I, _P),
+    # y, lam (or NULL), lam row stride, lam column stride, lam_scalar, x,
+    # plam, pslope, lohi (workspace), B, n, stream
+    "dp_tv1": (_P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,0 +1,37 @@
+"""Argument helpers shared by the direct 1D kernels D1 (taut string) and D2
+(message-passing DP), the Python side of ``csrc/direct1d.cuh``."""
+from __future__ import annotations
+
+import torch
+
+from .. import tv1d_l1
+from . import gating
+
+
+def lam_args(lam, B, n, device):
+    """A weight argument as the C entry points of D1 and D2 take it:
+    ``(field or None, row stride, column stride, scalar)``.  A scalar rides
+    as the scalar; anything else is broadcast to (B, n-1) as
+    ``tv1d_l1._edge_weights`` does and passed with its element strides (0
+    along a broadcast axis)."""
+    lam_t = torch.as_tensor(lam)
+    if lam_t.ndim == 0:
+        return None, 0, 0, float(lam_t)
+    lamv = tv1d_l1._edge_weights(lam_t.to(device=device,
+                                          dtype=torch.float32),
+                                 B, n, torch.float32, device)
+    rs, cs = lamv.stride()
+    return lamv, rs, cs, 0.0
+
+
+def check_batch(y, kind):
+    """The checks D1's and D2's binds make: a CUDA (B, n) batch with n >= 2
+    that the gate of ``kind`` lets through.  Returns it contiguous."""
+    if not y.is_cuda:
+        raise ValueError("bind takes a CUDA batch: the kernel has no CPU "
+                         "mode")
+    if y.ndim != 2 or y.shape[1] < 2:
+        raise ValueError(f"the {kind} kernel takes a (B, n) batch with "
+                         f"n >= 2; got {tuple(y.shape)}")
+    gating.gate(y, kind)  # raises on what the kernel cannot take
+    return y.contiguous()

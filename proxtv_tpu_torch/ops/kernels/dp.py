@@ -1,0 +1,61 @@
+"""Kernel D2: the batched message-passing DP (TV-L1 prox), one thread per
+signal.
+
+No TPU kernel: it replaces the JAX package's XLA lock-step deque machine
+``proxtv_tpu/ops/tv1d_l1.py:tv1_dp``; the CUDA source is
+``proxtv_tpu_torch/csrc/dp.cu``, which runs the same deque operations one
+after another per signal, its deque arena and clip bounds in a workspace
+that the wrapper allocates once per call (3 x 2n x B words).
+
+:func:`dp` launches the kernel for a CUDA tensor and runs
+:func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_dp_plain` for a CPU tensor;
+:func:`bind` makes its C call once, for tools that time the kernel alone.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...utils.debug import Counter
+from .. import tv1d_l1
+from . import build
+from .direct1d import check_batch, lam_args
+
+LAUNCHES = Counter()
+
+
+def bind(y, lam):
+    """The C entry point's call for a CUDA batch, its arguments and its
+    workspace made once.  Returns ``(out, launch)`` as
+    :func:`.tautstring.bind`; ``launch`` does not count in
+    :data:`LAUNCHES`."""
+    y = check_batch(y, "dp")
+    B, n = y.shape
+    lamv, rs, cs, lam_s = lam_args(lam, B, n, y.device)
+    out = torch.empty_like(y)
+    plam = torch.empty((2 * n, B), dtype=torch.float32, device=y.device)
+    pslope = torch.empty((2 * n, B), dtype=torch.int32, device=y.device)
+    lohi = torch.empty((2 * n, B), dtype=torch.float32, device=y.device)
+    args = (build.ptr(y), build.ptr(lamv), rs, cs, lam_s, build.ptr(out),
+            build.ptr(plam), build.ptr(pslope), build.ptr(lohi), B, n,
+            build.stream_ptr(y.device))
+
+    # keep: every tensor the pointers name, the output and workspace too.
+    def launch(keep=(y, lamv, out, plam, pslope, lohi)):
+        build.check(build.lib().dp_tv1(*args), "dp_tv1")
+
+    return out, launch
+
+
+def dp(y, lam):
+    """Message-passing TV-L1 prox of a (B, n) batch.  A CUDA tensor must be
+    float32 (the kernel launches or this raises); a CPU tensor runs the
+    plain version."""
+    if not y.is_cuda:
+        return tv1d_l1.tv1_dp_plain(y, lam)
+    if y.shape[-1] == 1:
+        return y
+    out, launch = bind(y, lam)
+    if y.shape[0] > 0:
+        launch()
+        LAUNCHES.value += 1
+    return out

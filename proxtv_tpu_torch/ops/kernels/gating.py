@@ -56,6 +56,10 @@ _KIND_LANE_LIMITS = {
     "pcr": (2, 8192, True),       # PCR tridiagonal solve (csrc/pcr.cu)
     "pdhg2d": (1, 2 ** 31 - 1, False),  # 2D PDHG chunk (csrc/pdhg_fused.cu)
     "pdhg3d": (1, 2048, False),   # 3D PDHG chunk (csrc/pdhg3d_fused.cu)
+    # The direct 1D engines: one thread runs a whole signal, any length
+    # (csrc/tautstring.cu, csrc/dp.cu).
+    "tautstring": (2, 2 ** 31 - 1, False),
+    "dp": (2, 2 ** 31 - 1, False),
 }
 
 

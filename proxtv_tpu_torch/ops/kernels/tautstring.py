@@ -1,0 +1,60 @@
+"""Kernel D1: the batched weighted taut string (TV-L1 prox), one thread per
+signal.
+
+No TPU kernel: it replaces the JAX package's XLA lock-step scan
+``proxtv_tpu/ops/tv1d_l1.py:tv1_tautstring``; the CUDA source is
+``proxtv_tpu_torch/csrc/tautstring.cu``, which runs the same events as a
+plain sequential loop per signal and writes each closed segment straight to
+the output.
+
+:func:`tautstring` launches the kernel for a CUDA tensor and runs
+:func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_tautstring_plain` — the JAX scan's
+arithmetic on tensors — for a CPU tensor; :func:`bind` makes its C call
+once, for tools that time the kernel alone.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...utils.debug import Counter
+from .. import tv1d_l1
+from . import build
+from .direct1d import check_batch, lam_args
+
+LAUNCHES = Counter()
+
+
+def bind(y, lam):
+    """The C entry point's call for a CUDA batch, its arguments made once.
+
+    Checks the arguments as :func:`tautstring` does and allocates the
+    output.  Returns ``(out, launch)``: each ``launch()`` runs the kernel
+    into ``out`` and raises on a refused launch.  ``launch`` does not count
+    in :data:`LAUNCHES`."""
+    y = check_batch(y, "tautstring")
+    B, n = y.shape
+    lamv, rs, cs, lam_s = lam_args(lam, B, n, y.device)
+    out = torch.empty_like(y)
+    args = (build.ptr(y), build.ptr(lamv), rs, cs, lam_s, build.ptr(out), B,
+            n, build.stream_ptr(y.device))
+
+    # keep: every tensor the pointers name, the output too.
+    def launch(keep=(y, lamv, out)):
+        build.check(build.lib().tautstring_tv1(*args), "tautstring_tv1")
+
+    return out, launch
+
+
+def tautstring(y, lam):
+    """Taut-string TV-L1 prox of a (B, n) batch.  A CUDA tensor must be
+    float32 (the kernel launches or this raises); a CPU tensor runs the
+    plain version."""
+    if not y.is_cuda:
+        return tv1d_l1.tv1_tautstring_plain(y, lam)
+    if y.shape[-1] == 1:
+        return y
+    out, launch = bind(y, lam)
+    if y.shape[0] > 0:
+        launch()
+        LAUNCHES.value += 1
+    return out

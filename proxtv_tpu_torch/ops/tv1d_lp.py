@@ -375,15 +375,14 @@ def tvp_batched(y, lam, p: float, method: str = "gpfw",
     """Method dispatch mirroring the reference (prox_tv/__init__.py:311-352),
     with the p-degenerate regimes routed to the specialized engines.
 
-    p <= 1.002 (the reference's L1 clamp): the JAX package runs its taut
-    string, which is not ported yet (ROADMAP A8); the port runs projected
-    Newton (``tv1_batched(..., strict=False)``, kernel B1 on the card), the
-    same fixed point, and returns the JAX package's zero ``SolverInfo``."""
+    p <= 1.002 (the reference's L1 clamp): the taut string
+    (``tv1d_l1.tv1_tautstring``, kernel D1 on the card), as in the JAX
+    package, with its zero ``SolverInfo``."""
     p = float(p)
     if p <= P_SMALL:
         from . import tv1d_l1
 
-        x = tv1d_l1.tv1_batched(y, lam, strict=False)
+        x = tv1d_l1.tv1_tautstring(y, lam)
         B = x.shape[0]
         zi = torch.zeros((B,), dtype=torch.int32, device=x.device)
         return x, make_info(zi, torch.zeros((B,), dtype=x.dtype,

@@ -11,7 +11,9 @@ DEBUG / TIMING, src/general.h:36-46), the port's counterpart of
 :data:`HOST_SYNCS` counts the device-to-host reads the solver loops make (one
 per combiner sweep, per PDHG chunk and per projected-Newton iteration): every
 such read waits for the card, so the count says how often a solve stalls the
-launch queue.
+launch queue.  :data:`HOST_ROUTE` counts the API calls served by the native
+host engine (``api.tv1_1d`` / ``tv1w_1d`` with ``device="cpu"`` or
+``backend="host"``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ class Counter:
 
 
 HOST_SYNCS = Counter()
+# Calls that the API served from the native host engine (runtime.native).
+HOST_ROUTE = Counter()
 
 
 def host(t):

@@ -38,6 +38,17 @@ class SolverInfo:
     gap: torch.Tensor
     rc: torch.Tensor
 
+    @staticmethod
+    def single(iters=0, gap=0.0, rc=RC_OK, dtype=torch.float32,
+               device=None) -> "SolverInfo":
+        """(1,)-shaped info of one solve, as the batched engines report it
+        (the direct engines use this: exact, no iteration count)."""
+        return SolverInfo(
+            iters=torch.tensor([iters], dtype=torch.int32, device=device),
+            gap=torch.tensor([gap], dtype=dtype, device=device),
+            rc=torch.tensor([rc], dtype=torch.int32, device=device),
+        )
+
 
 def make_info(iters, gap, rc) -> SolverInfo:
     return SolverInfo(

@@ -17,6 +17,7 @@ from proxtv_tpu_torch.ops.kernels import pcr as PK
 from proxtv_tpu_torch.ops.kernels import pdhg3d_fused as P3K
 from proxtv_tpu_torch.ops.kernels import pdhg_fused as PPK
 from proxtv_tpu_torch.ops.kernels import pn_fused as PPF
+from proxtv_tpu_torch.ops.kernels import tautstring as TSK
 
 pytestmark = pytest.mark.cuda
 
@@ -379,11 +380,12 @@ def _obj2d(X, Y, lam):
 def test_past_the_tpu_lane_limits_matches_cpu_float64(case, dev, monkeypatch):
     """Lengths past the TPU's 8192 lanes take the JAX package's route on the
     card instead of raising: tv1_pn's tridiagonal solves run the PCR
-    composition past B2's limit, fibers past B1's run tv1_pn, and B3 takes
-    any width.  Each call is held against the same call in float64 on the
-    CPU: 2e-3 on 1D TV-L1 outputs; tv1_2d auto by the certified-gap rule of
+    composition past B2's limit, fibers past B1's run tv1_pn (method "pn")
+    or the taut string, kernel D1 (tv1_1d auto, which returns info and so
+    takes the device route), and B3 takes any width.  Each call is held
+    against the same call in float64 on the CPU: 2e-3 on 1D TV-L1 outputs; tv1_2d auto by the certified-gap rule of
     chip_smoke.py against float64 chambolle-pock-acc, and its first chunk
-    against B3's plain version (1e-4).  tv1_1d at n = 10000 misses 2e-3
+    against B3's plain version (1e-4).  tv1_1d pn at n = 10000 misses 2e-3
     against float64 by the reference's own float32 stop floor (ROADMAP C:
     2 eps 0.5||y||^2 = 0.57 here; the JAX package's float32 tv1_pn parts
     from float64 by the same 1.097e-2): it is held by the certified-gap
@@ -396,9 +398,20 @@ def test_past_the_tpu_lane_limits_matches_cpu_float64(case, dev, monkeypatch):
 
     rng = np.random.RandomState(21)
     b1, b2 = PPF.LAUNCHES.value, PK.LAUNCHES.value
-    if case.startswith("tv1_1d"):
+    if case == "tv1_1d_auto":
+        # auto with return_info takes the device route: past B1's lane
+        # limit the taut string, kernel D1 (exact; held against float64).
         y = np.cumsum(rng.randn(10000)) * 0.3 + rng.randn(10000)
-        method = case.split("_")[-1]
+        ts = TSK.LAUNCHES.value
+        x, info = api.tv1_1d(y, 2.0, return_info=True)
+        ref = api.tv1_1d(y, 2.0, backend="cuda", device="cpu")
+        assert TSK.LAUNCHES.value == ts + 1 and PPF.LAUNCHES.value == b1
+        assert int(info.rc[0]) == 0
+        np.testing.assert_allclose(x, ref, atol=2e-3)
+        return
+    if case == "tv1_1d_pn":
+        y = np.cumsum(rng.randn(10000)) * 0.3 + rng.randn(10000)
+        method = "pn"
         x, info = api.tv1_1d(y, 2.0, method=method, return_info=True)
         ref, info_ref = api.tv1_1d(y, 2.0, method=method, return_info=True,
                                    device="cpu")
@@ -893,3 +906,166 @@ def test_lp_call_sites_raise_on_the_card(case, dev):
             tv1d_lp.tvp_gpfw(y64, 0.5, 1.5)
         else:
             tv1d_lp.tvp_batched(y64, 0.5, 1.5, method="fw")
+
+
+# -- D1 (taut string) and D2 (message-passing DP): the direct 1D engines ----
+
+def _direct_lam(kind, rng, B, n):
+    """The weights of the direct-kernel card tests: scalar, per signal,
+    per edge (uniform in [0, 1.4], 5% zeroed), all zero, huge."""
+    if kind == "scalar":
+        return 0.7
+    if kind == "row":
+        return torch.from_numpy((rng.rand(B) * 1.4).astype(np.float32))
+    if kind == "edge":
+        w = rng.rand(B, n - 1) * 1.4
+        w[rng.rand(B, n - 1) < 0.05] = 0.0
+        return torch.from_numpy(w.astype(np.float32))
+    if kind == "zero":
+        return torch.zeros((B, n - 1), dtype=torch.float32)
+    return 1e7  # huge: the mean
+
+
+@pytest.mark.parametrize("kernel", ["tautstring", "dp"])
+@pytest.mark.parametrize("B,n,kind", [
+    (1, 2, "scalar"), (1, 2, "edge"), (37, 2, "row"), (1, 1000, "scalar"),
+    (37, 1000, "row"), (37, 1000, "edge"), (33, 257, "zero"),
+    (33, 257, "huge"), (70, 300, "edge"), (1, 8193, "edge"),
+    (1, 10000, "scalar")])
+def test_direct_kernels_match_plain(kernel, B, n, kind, dev):
+    """D1 and D2 against their plain versions in float32 (the same events
+    in the same float32 roundings: 1e-5 of the data's size, the degenerate
+    guards' means summed in another order) and in float64 (2e-3, the bar of
+    the 1D TV-L1 outputs on the card), at B = 1, B not a multiple of 32,
+    n = 2, past B1's lane limit, per-signal, per-edge, zero and huge
+    weights; each call launches its kernel once."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+    from proxtv_tpu_torch.ops.kernels import tautstring as TSK
+
+    mod, plain = {"tautstring": (TSK, tv1d_l1.tv1_tautstring_plain),
+                  "dp": (DPK, tv1d_l1.tv1_dp_plain)}[kernel]
+    rng = np.random.RandomState(n + B)
+    y = rng.randn(B, n) + np.cumsum(rng.randn(B, n), axis=1) * 0.1
+    yt = torch.from_numpy(y.astype(np.float32))
+    lam = _direct_lam(kind, rng, B, n)
+    before = mod.LAUNCHES.value
+    out = getattr(mod, kernel)(yt.to(dev), lam.to(dev) if torch.is_tensor(lam)
+                               else lam)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES.value == before + 1
+    ref = plain(yt, lam)
+    scale = max(1.0, float(np.abs(y).max()))
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(),
+                               atol=1e-5 * scale)
+    ref64 = plain(torch.from_numpy(y), lam.double() if torch.is_tensor(lam)
+                  else lam)
+    np.testing.assert_allclose(out.cpu().double().numpy(), ref64.numpy(),
+                               atol=2e-3)
+    if kind == "zero":
+        np.testing.assert_array_equal(out.cpu().numpy(), yt.numpy())
+
+
+@pytest.mark.parametrize("kernel", ["tautstring", "dp"])
+def test_direct_bind_launches_what_the_wrapper_does(kernel, dev):
+    """bind's launch gives the wrapper's output bit for bit, does not count
+    in LAUNCHES, and keeps its outputs (and D2's workspace) alive after the
+    caller drops them."""
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+    from proxtv_tpu_torch.ops.kernels import tautstring as TSK
+
+    mod = {"tautstring": TSK, "dp": DPK}[kernel]
+    rng = np.random.RandomState(10)
+    y = torch.from_numpy(rng.randn(40, 500).astype(np.float32)).to(dev)
+    lam = torch.from_numpy(rng.rand(40, 499).astype(np.float32)).to(dev)
+    ref = getattr(mod, kernel)(y, lam)
+    before = mod.LAUNCHES.value
+    out, launch = mod.bind(y, lam)
+    launch()
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES.value == before and torch.equal(out, ref)
+    held = out.data_ptr()
+    del out
+    fresh = [torch.empty_like(y) for _ in range(8)]
+    fresh += [torch.empty((1000, 40), device=dev) for _ in range(8)]
+    assert held not in {t.data_ptr() for t in fresh}
+    launch()
+    torch.cuda.synchronize()
+
+
+def test_direct_kernels_raise_on_unsupported_cuda_input(dev):
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import gating
+
+    y64 = torch.zeros((4, 16), dtype=torch.float64, device=dev)
+    for fn in (tv1d_l1.tv1_tautstring, tv1d_l1.tv1_dp):
+        with pytest.raises(ValueError):
+            fn(y64, 0.5)
+        with gating.fused_ctx(False), pytest.raises(RuntimeError):
+            fn(y64.float(), 0.5)
+    with pytest.raises(ValueError):
+        tv1d_l1.tv1_batched(y64, 0.5, method="tautstring", strict=True)
+
+
+@pytest.mark.parametrize("method", ["hybridtautstring", "dp", "condat",
+                                    "classictautstring"])
+def test_tv1_batched_routes_on_the_card(method, dev):
+    """Non-strict names run B1 up to its lane limit and the named engine
+    past it (D1, D2, or PyTorch ops for Condat and the classic taut
+    string), as the JAX package's table; strict names run the named
+    engine at any length.  Each held against float64 on the CPU (2e-3)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+    from proxtv_tpu_torch.ops.kernels import tautstring as TSK
+
+    rng = np.random.RandomState(11)
+    named = {"hybridtautstring": TSK.LAUNCHES, "dp": DPK.LAUNCHES}.get(method)
+    # Condat and the classic taut string run as PyTorch ops, a few launches
+    # per event: past the lane limit they take one signal just past it.
+    past = (9000, 3) if named is not None else (8193, 1)
+    for n, strict in ((500, False), (500, True), (past[0], False)):
+        Y = rng.randn(3 if n <= 8192 else past[1], n)
+        counts = (PPF.LAUNCHES.value, TSK.LAUNCHES.value, DPK.LAUNCHES.value)
+        x = tv1d_l1.tv1_batched(torch.from_numpy(Y).float().to(dev), 0.7,
+                                method=method, strict=strict)
+        torch.cuda.synchronize()
+        b1 = PPF.LAUNCHES.value - counts[0]
+        direct = (TSK.LAUNCHES.value - counts[1]
+                  + DPK.LAUNCHES.value - counts[2])
+        if n <= 8192 and not strict:
+            assert b1 == 1 and direct == 0
+        else:
+            assert b1 == 0
+            assert direct == (1 if named is not None else 0)
+        ref = tv1d_l1.tv1_batched(torch.from_numpy(Y), 0.7, method=method,
+                                  strict=True)
+        np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
+                                   atol=2e-3)
+
+
+def test_native_host_engine_on_the_card_machine(dev):
+    """The machine with the card has a C++ compiler (nvcc's host compiler),
+    so the host route is available; the build is atomic (a temporary file
+    renamed into place, never native/libproxtv_host.so).  The API's auto
+    keeps a short signal on the card (B1), and backend='host' takes the
+    host engine, float32 as the card route."""
+    from proxtv_tpu_torch import api
+    from proxtv_tpu_torch.runtime import native
+    from proxtv_tpu_torch.utils import debug
+
+    assert native.available()
+    path = native.build()
+    assert os.path.dirname(path) == native.BUILD_DIR
+    assert not any(".tmp" in f for f in os.listdir(native.BUILD_DIR)
+                   if f.startswith("libproxtv_host"))
+    y = np.cumsum(np.random.RandomState(12).randn(1000)) * 0.3
+    before = debug.HOST_ROUTE.value
+    b1 = PPF.LAUNCHES.value
+    xd = api.tv1_1d(y, 2.0)
+    assert debug.HOST_ROUTE.value == before and PPF.LAUNCHES.value == b1 + 1
+    x = api.tv1_1d(y, 2.0, backend="host")
+    assert debug.HOST_ROUTE.value == before + 1 and x.dtype == np.float32
+    ref = api.tv1_1d(y, 2.0, backend="cuda", method="hybridtautstring",
+                     device="cpu")
+    np.testing.assert_allclose(x, ref, atol=1e-5)
+    np.testing.assert_allclose(xd, ref, atol=2e-3)

@@ -180,14 +180,24 @@ def test_pn_fused_plain_degenerate():
 
 
 def test_tv1_batched_routing():
+    """On the CPU every non-strict name runs its own engine, as in the JAX
+    package's table (B1's gate is closed there): the taut string, the DP,
+    Condat, the classic taut string, projected Newton; the same engines,
+    all exact, agree to solver tolerance; strict names run the same engine;
+    per-edge weights with an unweighted name raise when strict."""
     rng = np.random.RandomState(7)
     Y = torch.from_numpy(rng.randn(4, 20))
     xpn, _ = PL.tv1_pn(Y, 0.5)
-    for m in ("pn", "hybridtautstring", "condat", "dp", "classictautstring"):
-        np.testing.assert_array_equal(PL.tv1_batched(Y, 0.5, method=m).numpy(),
-                                      xpn.numpy())
-    with pytest.raises(NotImplementedError, match="A8"):
-        PL.tv1_batched(Y, 0.5, method="tautstring", strict=True)
+    engines = {"pn": lambda: xpn, "hybridtautstring": lambda: PL.tv1_tautstring(
+        Y, 0.5), "condat": lambda: PL.tv1_condat(Y, 0.5),
+        "dp": lambda: PL.tv1_dp(Y, 0.5),
+        "classictautstring": lambda: PL.tv1_classic_ts(Y, 0.5)}
+    for m, engine in engines.items():
+        x = PL.tv1_batched(Y, 0.5, method=m)
+        np.testing.assert_array_equal(x.numpy(), engine().numpy())
+        np.testing.assert_array_equal(
+            PL.tv1_batched(Y, 0.5, method=m, strict=True).numpy(), x.numpy())
+        np.testing.assert_allclose(x.numpy(), xpn.numpy(), atol=1e-6)
     with pytest.raises(ValueError):
         PL.tv1_batched(Y, torch.rand(4, 19), method="condat", strict=True)
     with pytest.raises(ValueError):

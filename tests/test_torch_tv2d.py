@@ -43,9 +43,19 @@ def test_prox_rows_cols_match_jax():
 
 
 def test_per_image_lam_raises_until_weighted_solver():
-    Y = torch.zeros((2, 8, 8), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        P2.tv1_2d_batched(Y, torch.tensor([0.1, 0.2]), method="dr")
+    """The weighted solver is ported: a per-image lam runs it (dr against
+    the JAX package), and a method without per-image support raises the
+    JAX package's ValueError."""
+    rng = np.random.RandomState(3)
+    Y = rng.randn(2, 8, 8)
+    lam = np.array([0.1, 0.2])
+    xj, _ = J2.tv1_2d_batched(jnp.asarray(Y), jnp.asarray(lam), method="dr")
+    xp, _ = P2.tv1_2d_batched(torch.from_numpy(Y), torch.from_numpy(lam),
+                              method="dr")
+    np.testing.assert_allclose(xp.numpy(), np.asarray(xj), atol=1e-8)
+    with pytest.raises(ValueError, match="per-image"):
+        P2.tv1_2d_batched(torch.from_numpy(Y), torch.from_numpy(lam),
+                          method="kolmogorov")
 
 
 def test_freeze_tree_contract():

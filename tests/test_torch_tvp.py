@@ -98,10 +98,10 @@ def test_single_sample_identity_and_max_iters():
 
 @pytest.mark.parametrize("p", [1.0, 1.001])
 def test_p_near_one_runs_projected_newton(p):
-    """p <= 1.002: the JAX package runs its taut string (ROADMAP A8, not
-    ported); the port runs projected Newton, the same fixed point: within
-    1e-6 of the JAX taut string (PN stops on a relative duality gap of
-    1e-6), equal to the port's tv1_batched, with the zero SolverInfo."""
+    """p <= 1.002: both packages run their taut string (on the card the
+    port's is kernel D1): the JAX taut string's result, equal to the
+    port's tv1_batched (whose default name runs the taut string on the
+    CPU), with the zero SolverInfo."""
     Y = np.random.RandomState(2).randn(4, 12) * 2
     xj, _ = JLP.tvp_batched(jnp.asarray(Y), 0.7, p)
     xp, ip = PLP.tvp_batched(_t(Y), 0.7, p)

@@ -31,14 +31,17 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    string at 512 x 1000 (PyTorch ops, no kernel), ``api.tv1_1d`` and
    ``api.tv1w_1d`` auto on one signal of 1000 (on the card: B1, D1; no
    call gives way to the host) and with ``backend="host"`` (the native host
-   engine), ``api.tv1w_1d`` with ``backend="cuda"`` (D1, D2, B2),
-   ``api.tv1w_2d`` dr
+   engine), ``api.tv1w_1d`` with ``backend="cuda"`` (D1, D2, B2), the
+   long-signal route of ``api.tv1_1d`` auto past n = 16384 on the bench's
+   n = 10^6 signal at lam 0.7 and on ROADMAP C2's n = 20000 walk at lam 2.0
+   (its windows in one B1 launch; no ``tv1_pn``), ``api.tv1w_2d`` dr
    at 1024^2 with seeded weight fields (B1 on weighted fibers), per-image
    lam on 4 x 512^2 with cp-acc (B3's weighted route), and the demos;
    then hold the outputs against float64 references: independent float64
    primal-dual solves on the card for 1024^2 (weighted too), the 512^2
    images and the volume, the same calls in float64 on the CPU for the 1D,
-   TV-L2 and TV-Lp calls, the
+   TV-L2 and TV-Lp calls, the native host taut string in float64 for the
+   10^6-long TV-L1 row, the
    KKT certificate of tests/test_tv1d_lp.py for the long TV-Lp signal;
    3b. hold B1 and B3 against their plain versions on every launch of the
    main path, with the inputs the path gave them (a tap on each wrapper
@@ -161,6 +164,7 @@ PLONG = 1.5                 # the bench's long TV-Lp row (bench.py:591-595)
 BW, LAMW = 512, 1.4         # the per-edge-weighted batch: weights U[0, 1.4]
 ZERO_W = 0.05               # ... with 5% of them zeroed
 LAMW2D = 0.3                # tv1w_2d: weight fields 0.3 x U[0.5, 1.5]
+NC2, LAMC2 = 20000, 2.0     # ROADMAP C2's walk (seed 21), past n = 16384
 B_PI, M_PI = 4, 512         # per-image lam: 4 x 512^2 images
 LAM_PI = (0.1, 0.2, 0.3, 0.5)
 SEED = 0
@@ -247,8 +251,7 @@ def profile_call(fn):
 # The __global__ functions of each kernel, as the profiler names them.
 KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
               "B4": "::ms_kernel", "B5": "::gpfw_kernel",
-              "B6": "::pdhg3d_march", "D1": "::tautstring_kernel",
-              "D2": "::dp_kernel"}
+              "B6": "::pdhg3d_march", "D1": "::tautstring_", "D2": "::dp_"}
 
 
 def reference_2d(Y, lam, iters):
@@ -470,7 +473,8 @@ def main(out_dir):
     rng3 = np.random.RandomState(SEED + 1)  # this slice's data
     V = rng3.randn(L3, M3, N3).astype(np.float32)        # the bench volume
     ylong = (np.cumsum(rng3.randn(NLONG)) * 0.05
-             + rng3.randn(NLONG)).astype(np.float32)     # the long TV-L2 row
+             + rng3.randn(NLONG)).astype(np.float32)     # the long TV-L2 and
+    # TV-L1 rows (bench.py:35-37, 302-304)
     noise1 = (0.05 * rng3.randn(B1D, N1D)).astype(np.float32)
     noise2 = (0.05 * rng3.randn(M2D, N2D)).astype(np.float32)
     rng4 = np.random.RandomState(SEED + 2)  # the TV-Lp slice's data
@@ -483,6 +487,8 @@ def main(out_dir):
         w[rng6.rand(*shape) < ZERO_W] = 0.0
         return w.astype(np.float32)
 
+    rng21 = np.random.RandomState(21)  # ROADMAP C2's instance
+    yc2 = np.cumsum(rng21.randn(NC2)) * 0.3 + rng21.randn(NC2)
     Ww = edge_weights((BW, N1D - 1))                     # the weighted batch
     ww1 = edge_weights((N1D - 1,)).astype(np.float64)    # tv1w_1d's weights
     Wr2 = (LAMW2D * (0.5 + rng6.rand(M2D, N2D - 1))).astype(np.float32)
@@ -1020,6 +1026,30 @@ def main(out_dir):
         "no kernel)", lambda: tv1d_lp.tvp_gpfw(t(ylong)[None], LAMLONG, PLONG),
         [])
     check(int(info_lpl.rc[0]) == RC_OK, "long tvp_gpfw did not certify")
+    # The long-signal route (tv1d_long.tv1_long): tv1_1d auto past 16384 on
+    # the bench's 10^6 signal and on C2's walk.  Its windows run in one B1
+    # launch; the glue certifies (one host sync), so tv1_pn never runs.
+    pn_runs = [0]
+    tv1_pn = tv1d_l1.tv1_pn
+
+    def count_pn(*a, **kw):
+        pn_runs[0] += 1
+        return tv1_pn(*a, **kw)
+
+    tv1d_l1.tv1_pn = count_pn
+    try:
+        x_l1, info_l1 = run(
+            f"api.tv1_1d n=1e6 w {LAM1D} auto (long route)",
+            lambda: ptv.tv1_1d(ylong, LAM1D, return_info=True), ["B1"])
+        x_c2, info_c2 = run(
+            f"api.tv1_1d n={NC2} w {LAMC2} auto (C2 walk, long route)",
+            lambda: ptv.tv1_1d(yc2, LAMC2, return_info=True), ["B1"])
+    finally:
+        tv1d_l1.tv1_pn = tv1_pn
+    check(pn_runs[0] == 0, "the long route ran tv1_pn")
+    for name_, info_ in (("n=1e6", info_l1), ("C2", info_c2)):
+        check(int(info_.rc[0]) == RC_OK, f"the long route ({name_}) did not "
+              "certify")
     # The direct engines, the native host route and the weighted entry
     # points.
     x_d1 = run(f"tv1_batched {B1D}x{N1D} lam {LAM1D} hybridtautstring strict",
@@ -1183,6 +1213,8 @@ def main(out_dir):
                          *((f"tv1w_1d {m_}", v, (N1D,))
                            for m_, v in x_w1.items()),
                          ("tv1w_2d", x_w2, (M2D, N2D)),
+                         ("tv1_1d long", x_l1, (NLONG,)),
+                         ("tv1_1d C2", x_c2, (NC2,)),
                          ("per-image", x_pi.cpu().numpy(),
                           (B_PI, M_PI, M_PI))):
         check(a.shape == shp and np.isfinite(a).all(),
@@ -1461,6 +1493,29 @@ def main(out_dir):
               f"{e_:.3e} (tol {TOL['pn']})")
         check(e_ <= TOL["pn"], f"tv1w_1d {m_} disagrees with float64")
         xc[f"tv1w_1d {m_} vs float64 CPU"] = {"max_abs_err": e_}
+    # The long route: the 10^6 row against the native host taut string in
+    # float64, the C2 walk against the same call in float64 on the CPU
+    # (tv1_long there too), both at TOL["pn"] with rc 0.
+    t0 = time.perf_counter()
+    xl1_ref = native.tv1_host(ylong.astype(np.float64), LAM1D)
+    t_host = time.perf_counter() - t0
+    x_c2_ref, info_c2_ref = ptv.tv1_1d(yc2, LAMC2, return_info=True,
+                                       device="cpu")
+    for name_, x_, ref_, info_ in (
+            ("tv1_1d n=1e6 long route vs float64 host taut string", x_l1,
+             xl1_ref, info_l1),
+            ("tv1_1d C2 walk n=20000 long route vs float64 CPU", x_c2,
+             x_c2_ref, info_c2)):
+        e_ = float(np.abs(x_.astype(np.float64) - ref_).max())
+        print(f"[long] {name_}: max|diff| = {e_:.3e} (tol {TOL['pn']}), "
+              f"iters {int(info_.iters[0])}, gap {float(info_.gap[0]):.4e}, "
+              f"rc {int(info_.rc[0])}")
+        check(e_ <= TOL["pn"], f"{name_} disagrees")
+        xc[name_] = {"max_abs_err": e_, "iters": int(info_.iters[0]),
+                     "gap": float(info_.gap[0]), "rc": int(info_.rc[0])}
+    print(f"[long] (the float64 host taut string at n = 10^6 took "
+          f"{t_host * 1e3:.1f} ms; C2 float64 CPU rc "
+          f"{int(info_c2_ref.rc[0])})")
 
     # tv1w_2d at 1024^2 against an independent float64 weighted solve on
     # the card.  dr certifies nothing: its 35 main-path sweeps are printed,
@@ -1689,6 +1744,11 @@ def main(out_dir):
                                                   / 1e3)
     times["tvp_gpfw_long_ms"] = cuda_ms(
         lambda: tv1d_lp.tvp_gpfw(t(ylong)[None], LAMLONG, PLONG), reps=1)
+    times["tv1_1d_long_ms"] = cuda_ms(lambda: ptv.tv1_1d(ylong, LAM1D),
+                                      reps=3)
+    times["tv1_1d_long_msamples_s"] = NLONG / 1e6 / (times["tv1_1d_long_ms"]
+                                                     / 1e3)
+    times["tv1_1d_c2_ms"] = cuda_ms(lambda: ptv.tv1_1d(yc2, LAMC2), reps=3)
     times["tv1_batched_tautstring_ms"] = cuda_ms(
         lambda: tv1d_l1.tv1_batched(Y1t, LAM1D, method="hybridtautstring",
                                     strict=True), reps=3)
@@ -1796,8 +1856,9 @@ def main(out_dir):
             bound_ms_pcr=b_pcr, bound_by_pcr=f_pcr))
     # B1 at each main-path shape: the path's own launches replayed in order
     # (ms per launch); the bound from the iterations they ran.  Bytes: y and
-    # x, plus w_init and w where the path passes a warm start (lam is a
-    # scalar on every main path).
+    # x, plus w_init where the path passes a warm start, w where it asks for
+    # the dual, and lam_full where the weights are a field (the long route's
+    # windows, tv1w_2d's fibers).
     for shp, s in b1_shapes.items():
         calls = b1_calls[shp]
 
@@ -1809,7 +1870,9 @@ def main(out_dir):
         plain_ms = cuda_ms(lambda: replay(B1.pn_tv1_fused_plain),
                            reps=1) / len(calls)
         Bs, ns = shp
-        per_el = 16 if s["warm"] else 8
+        per_el = sum(8 + 4 * (w0_ is not None) + 4 * (lf_ is not None)
+                     + 4 * bool(kw_.get("return_dual", True))
+                     for _, _, lf_, w0_, kw_ in calls) / len(calls)
         b, f = bound_ms(Bs * ns * per_el,
                         ns * (sum(s["iters"]) / len(calls) * PN_OPS_PER_ITER
                               + Bs * (PN_OPS_INIT_WARM if s["warm"]
@@ -2138,6 +2201,10 @@ def main(out_dir):
                       lambda: tv1d_l1.tv1_batched(Ywt, Wwt, method="dp",
                                                   strict=True)),
                      ("tv1_1d auto", lambda: ptv.tv1_1d(y1, 2.0)),
+                     ("tv1_1d auto n=1e6 long route",
+                      lambda: ptv.tv1_1d(ylong, LAM1D)),
+                     ("tv1_1d auto C2 n=20000 long route",
+                      lambda: ptv.tv1_1d(yc2, LAMC2)),
                      ("tv1w_1d auto", lambda: ptv.tv1w_1d(y1, ww1)),
                      ("tv1_1d host", lambda: ptv.tv1_1d(y1, 2.0,
                                                         backend="host")),
@@ -2156,6 +2223,21 @@ def main(out_dir):
         print(f"[profile] {name}: wall {b_['wall_ms']:.3f} ms, device busy "
               f"{b_['busy_ms']:.3f} ms, idle share {b_['idle_share']}; "
               f"{b_['kernels']} kernel launches; top: {top}  ({card})")
+
+    for name_, run_, t_ in (
+            ("tv1_1d auto n=1e6 long route",
+             f"api.tv1_1d n=1e6 w {LAM1D} auto (long route)",
+             "tv1_1d_long_ms"),
+            ("tv1_1d auto C2 n=20000 long route",
+             f"api.tv1_1d n={NC2} w {LAMC2} auto (C2 walk, long route)",
+             "tv1_1d_c2_ms")):
+        b_, m_ = breakdown[name_], main[run_]
+        print(f"[long] {name_}: wall (CUDA events) {times[t_]:.4f} ms, "
+              f"profiled wall {b_['wall_ms']:.3f} ms, device busy "
+              f"{b_['busy_ms']:.3f} ms, idle share {b_['idle_share']}, B1 "
+              f"launches {m_['launches']['B1']} (device "
+              f"{b_['ours'].get('B1', 0.0):.3f} ms), host syncs "
+              f"{m_['host_syncs']}  ({card})")
 
     # The redesign queue: each kernel's device time over one pass of every
     # main-path call that launches it (the profiled calls above), less the

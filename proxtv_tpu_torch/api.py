@@ -3,8 +3,9 @@
 
 Ported: ``tv1_1d``, ``tv1w_1d``, ``tv2_1d``, ``tvp_1d``, ``tv1_2d``,
 ``tv1w_2d``, ``tvp_2d``, ``tvgen``, ``tvgen_nd``, ``tv`` and ``tv_value``.
-The long-signal route of ``tv1_1d`` / ``tv1w_1d`` past n = 16384 (the JAX
-package's chunked ``tv1_long``) is ROADMAP A12.
+``tv1_1d`` / ``tv1w_1d`` auto past n = 16384 run the long-signal route
+(:func:`proxtv_tpu_torch.ops.tv1d_long.tv1_long`: overlapped windows on
+kernel B1, dual glue, certificate), as the JAX package does.
 
 Inputs are numpy-like arrays; outputs are numpy arrays.  The entry points run
 on the card (``device="cuda"``, float32, the JAX package's accelerator
@@ -108,14 +109,17 @@ def tv1_1d(x, w, method="auto", sigma=0.05, maxbacktracks=None,
 
     **Auto policy** on the card: ``tv1_batched(..., strict=False)``,
     kernel B1 up to n = 8192 and the taut string past it (kernel D1).  Past
-    n = 16384 auto runs projected Newton (:func:`tv1d_l1.tv1_pn`) until the
-    JAX package's chunked long-signal route is ported (ROADMAP A12).  With
+    n = 16384 auto runs the long-signal route on both devices
+    (:func:`tv1d_long.tv1_long`: its windows in one launch of kernel B1 on
+    the card, then the dual glue and its certificate, whose
+    :class:`SolverInfo` is returned; ``proxtv_tpu/api.py:124-131``).  With
     ``device="cpu"`` auto follows the JAX package
     (``proxtv_tpu/api.py:70-141``): the native host taut string for a
     single signal of n <= 16384 without ``return_info``, the taut string
-    otherwise.  With ``maxbacktracks`` set, auto runs the message-passing
-    DP (worst case O(n), no backtracks), as the reference's hybrid bound
-    intends.
+    otherwise, the long-signal route past 16384.  With ``maxbacktracks``
+    set, auto up to n = 16384 runs the message-passing DP (worst case O(n),
+    no backtracks), as the reference's hybrid bound intends; past it auto
+    runs the long-signal route all the same, as in the JAX package.
 
     An **explicit** method runs the named engine on every device: on the
     card the taut string is kernel D1, the DP kernel D2, ``pn`` projected
@@ -147,7 +151,12 @@ def tv1_1d(x, w, method="auto", sigma=0.05, maxbacktracks=None,
         return np.asarray(native.tv1_host(x, float(w)), dtype=host_dt)
     dev, dt = _device(device)
     y = _tensor(x, dev, dt).reshape(1, -1)
-    if method == "pn" or (auto and n > _HOST_MAX_N):
+    if auto and n > _HOST_MAX_N:  # auto is 'hybridtautstring' or 'dp' here
+        from .ops import tv1d_long
+
+        out, info = tv1d_long.tv1_long(y[0], float(w))
+        return _ret(out[None], info, return_info)
+    if method == "pn":
         cfg = TV1Config(sigma=float(sigma))
         out, info = tv1d_l1.tv1_pn(y, float(w), cfg=cfg)
         return _ret(out, info, return_info)
@@ -166,8 +175,10 @@ def tv1w_1d(x, w, method="auto", sigma=0.05, return_info=False,
     ``w`` holds len(x) - 1 nonnegative weights.
 
     Auto means the taut string: kernel D1 on the card
-    (:func:`tv1d_l1.tv1_tautstring`; the JAX package's chunked route past
-    n = 16384 is ROADMAP A12).  ``dp`` is kernel D2; ``pn`` is
+    (:func:`tv1d_l1.tv1_tautstring`) up to n = 16384, and past it the
+    long-signal route with the weight vector (:func:`tv1d_long.tv1_long`,
+    kernel B1 on the card; ``proxtv_tpu/api.py:175-181``), whose
+    :class:`SolverInfo` is returned.  ``dp`` is kernel D2; ``pn`` is
     :func:`tv1d_l1.tv1_pn` with per-edge weights (its Newton systems on
     kernel B2).  The native host engine runs the taut string with
     ``device="cpu"`` as in the JAX package (auto up to n = 16384, an
@@ -195,6 +206,11 @@ def tv1w_1d(x, w, method="auto", sigma=0.05, return_info=False,
     dev, dt = _device(device)
     y = _tensor(xv, dev, dt).reshape(1, -1)
     lam = _tensor(wv, dev, dt).reshape(1, -1)
+    if auto and xv.size > _HOST_MAX_N:
+        from .ops import tv1d_long
+
+        out, info = tv1d_long.tv1_long(y[0], lam[0])
+        return _ret(out[None], info, return_info)
     if method in ("tautstring", "dp"):
         engine = (tv1d_l1.tv1_tautstring if method == "tautstring"
                   else tv1d_l1.tv1_dp)

@@ -19,15 +19,24 @@
 // What bounds it on this card: the function reads y (and the weights) once
 // and writes x once, ~8 bytes an element, as D1; the deque and the clip
 // bounds are the algorithm's workspace.  The operations form a dependent
-// chain per signal, so a launch is latency: the slowest signal's chain.
+// chain per signal, so a signal is latency: its chain at the latency of
+// the memory that holds its deque.
 //
-// Design: one thread per signal.  The deque arena (2n slots of breakpoint
-// and slope) and the clip bounds (lo, hi: n each) live in a global
-// workspace that the wrapper allocates once per call, interleaved by
-// signal ([slot * B + b]): threads of a warp step through i together, so
-// their bound writes and the backward pass's reads are coalesced, and
-// their deque ends, which start at the same slots and drift slowly, share
-// lines.
+// Design, two layouts by size (direct1d.cuh):
+// * n <= kWarpMaxN and a batch of at most kMaxWarpWaves waves of resident
+//   warps: one warp a signal, its deque arena (2n slots of
+//   breakpoint and slope) and clip bounds (lo, hi: n each) in shared
+//   memory, 24n bytes.  All 32 lanes run the deque operations redundantly
+//   (broadcast reads, the same value written to the same slot, uniform
+//   branches); y and the weights stream through registers 32 samples at a
+//   time (lane k holds sample c + k of this chunk and the next), read by
+//   shuffles.  The backward pass runs on every lane out of shared memory,
+//   lane k keeping sample c + k, and each 32 samples go out in one store.
+// * longer signals or larger batches: one thread a signal, the arena and
+//   the bounds in a global workspace that the wrapper allocates, interleaved
+//   by signal
+//   ([slot * B + b]), so a warp's bound writes and backward-pass reads are
+//   coalesced.
 #include <cuda_runtime.h>
 
 #include "direct1d.cuh"
@@ -35,6 +44,145 @@
 namespace {
 
 using direct1d::Lam;
+
+// The longest signal of the warp layout: its arena and bounds take 24n
+// bytes of shared memory, 192 KB at 8192 (a block takes at most 227 KB).
+constexpr int kWarpMaxN = 8192;
+// Shared memory caps the warp layout's signals in flight (9 an SM at
+// n = 1000), so a large batch runs in waves of one chain each; the thread
+// layout runs every signal at once, each chain slower from global memory
+// and parted by divergence.  Past this many waves the thread layout is the
+// faster (H100, n = 1000, tools/time_direct.py: warp 1.549 ms at 4 waves
+// against thread 1.735, 1.935 at 5 against 1.808; PERF.md).
+constexpr int kMaxWarpWaves = 4;
+
+template <bool kEdge>
+__global__ void __launch_bounds__(32 * direct1d::kMaxWarps)
+dp_warp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
+               int B, int n) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // the whole warp
+  float* pl = smem + (size_t)warp * 6 * n;       // breakpoints, 2n
+  int* ps = reinterpret_cast<int*>(pl + 2 * n);  // slopes, 2n
+  float* lo = pl + 4 * n;                        // clip bounds, n each
+  float* hi = pl + 5 * n;
+  const float* __restrict__ yb = y + (size_t)b * n;
+  float* __restrict__ xb = x + (size_t)b * n;
+  const float lc = kEdge ? 0.f : lam(b, 0);  // one weight a signal
+  auto W = [&](int i) { return kEdge ? lam(b, i) : lc; };
+  if (direct1d::warp_degenerate([&](int i) { return __ldg(yb + i); }, W, n,
+                                xb, lane))
+    return;
+  auto y_chunk = [&](int c) {
+    const int k = c + lane;
+    return k < n ? __ldg(yb + k) : 0.f;
+  };
+  auto w_chunk = [&](int c) {
+    const int k = c + lane;
+    return kEdge && k < n - 1 ? lam(b, k) : 0.f;
+  };
+
+  // The message at node 0 (reference :152-156).
+  int L = n - 1, R = n;
+  const float w0 = W(0), y0 = __ldg(yb);
+  const float lo0 = -w0 + y0, hi0 = w0 + y0;
+  ps[L - 1] = -1;
+  pl[L] = lo0;
+  ps[L] = 0;
+  pl[R] = hi0;
+  ps[R] = -1;
+  lo[0] = lo0;
+  hi[0] = hi0;
+  int A = 1;
+  float last_val, w_prev = w0;
+  float y_cur = y_chunk(0), w_cur = w_chunk(0);
+  float y_next = y_chunk(32), w_next = w_chunk(32);
+  for (int i = 1;; ++i) {
+    if ((i & 31) == 0) {
+      y_cur = y_next;
+      w_cur = w_next;
+      y_next = y_chunk(i + 32);
+      w_next = w_chunk(i + 32);
+    }
+    // INIT
+    A += 1;
+    const float wp = w_prev;
+    const float wi = kEdge ? __shfl_sync(direct1d::kFull, w_cur, i & 31) : lc;
+    const float w = i < n - 1 ? wi : 0.f;
+    w_prev = w;
+    const float bi = __shfl_sync(direct1d::kFull, y_cur, i & 31);
+    float mmin = -wp + pl[L] - bi;
+    float mmax = wp + pl[R] - bi;
+    int slope = 1;
+    // LOWER: pop from the front while the message is below -w.
+    while (mmin < -w) {
+      slope = ps[L] + A;
+      L += 1;
+      if (L > R) break;
+      mmin = __fadd_rn(mmin, __fmul_rn(pl[L] - pl[L - 1], (float)slope));
+    }
+    // LOWER_EXIT
+    if (i == n - 1) {
+      last_val = pl[L > R ? L - 1 : L] - mmin / (float)slope;
+      break;
+    }
+    L -= 1;
+    ps[L - 1] = -A;
+    if (L == R) {  // the ends meet: both bounds from one breakpoint
+      const float p = pl[L];
+      const float hm = p - (mmax - w), lm = p - (mmax + w);
+      R += 1;
+      ps[R] = -A;
+      pl[R] = hm;
+      pl[L] = lm;
+      hi[i] = hm;
+      lo[i] = lm;
+      continue;
+    }
+    const float lon = pl[L + 1] - (w + mmin) / (float)slope;
+    pl[L] = lon;
+    lo[i] = lon;
+    slope = 1;
+    // UPPER: pop from the back while the message is above w.
+    while (mmax > w) {
+      R -= 1;
+      slope = ps[R] + A;
+      mmax = __fsub_rn(mmax, __fmul_rn(pl[R + 1] - pl[R], (float)slope));
+      if (R == L) break;
+    }
+    // UPPER_EXIT
+    R += 1;
+    const float hu = pl[R - 1] + (w - mmax) / (float)slope;
+    ps[R] = -A;
+    pl[R] = hu;
+    hi[i] = hu;
+  }
+  // Backward clamping pass (reference :216-221), 32 samples a round from
+  // the top; lane k keeps sample c + k and the round stores them at once.
+  float xv = last_val, mine = 0.f;
+  for (int c = (n - 1) & ~31; c >= 0; c -= 32) {
+    for (int j = min(c + 31, n - 1); j >= c; --j) {
+      if (j < n - 1) xv = fminf(fmaxf(xv, lo[j]), hi[j]);
+      if (lane == j - c) mine = xv;
+    }
+    if (c + lane < n) xb[c + lane] = mine;
+  }
+}
+
+// 1 when a (B, n) batch runs on the warp layout (planned into p), 0 when
+// it runs on the thread layout, a negative CUDA error.
+int warp_layout(int B, int n, bool edge, direct1d::WarpPlan* p) {
+  if (n > kWarpMaxN) return 0;
+  const size_t per_warp = 24 * (size_t)n;
+  const cudaError_t e =
+      edge ? direct1d::warp_plan(dp_warp_kernel<true>, per_warp, B, p)
+           : direct1d::warp_plan(dp_warp_kernel<false>, per_warp, B, p);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return p->waves <= kMaxWarpWaves;
+}
 
 __global__ void __launch_bounds__(64)
 dp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
@@ -131,18 +279,41 @@ dp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
 
 }  // namespace
 
-// y, x: (B, n) float32, row-major; lam as tautstring_tv1.  Workspace,
-// interleaved by signal: plam (2n x B float32), pslope (2n x B int32),
-// lohi (2n x B float32: lo in rows 0..n-1, hi in rows n..2n-1).  n >= 2
-// (checked by the Python wrapper).
+// y, x: (B, n) float32, row-major; lam as tautstring_tv1.  Workspace of
+// the thread layout (dp_warp_layout 0; NULL otherwise), interleaved by
+// signal: plam (2n x B float32), pslope (2n x B int32), lohi (2n x B
+// float32: lo in rows 0..n-1, hi in rows n..2n-1).  n >= 2 (checked by the
+// Python wrapper).
 extern "C" int dp_tv1(const float* y, const float* lam, int lam_rs,
                       int lam_cs, float lam_s, float* x, float* plam,
                       int* pslope, float* lohi, int B, int n,
                       cudaStream_t stream) {
   if (B <= 0) return 0;
   const Lam l{lam, (size_t)lam_rs, (size_t)lam_cs, lam_s};
+  direct1d::WarpPlan p;
+  const int warp = warp_layout(B, n, l.per_edge(), &p);
+  if (warp < 0) return -warp;
+  if (warp) {
+    if (l.per_edge())
+      dp_warp_kernel<true><<<p.blocks, 32 * p.warps, p.smem, stream>>>(
+          y, l, x, B, n);
+    else
+      dp_warp_kernel<false><<<p.blocks, 32 * p.warps, p.smem, stream>>>(
+          y, l, x, B, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!plam || !pslope || !lohi)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 64;
   dp_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
       y, l, x, plam, pslope, lohi, B, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 1 when dp_tv1 runs a (B, n) batch (per_edge: one weight an edge) on the
+// warp layout and needs no workspace, 0 on the thread layout, a negative
+// CUDA error.
+extern "C" int dp_warp_layout(int B, int n, int per_edge) {
+  direct1d::WarpPlan p;
+  return warp_layout(B, n, per_edge != 0, &p);
 }

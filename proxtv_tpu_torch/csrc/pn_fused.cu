@@ -433,7 +433,7 @@ __device__ __forceinline__ void pn_solve(
     float lam_scalar, const float* __restrict__ W0, float* __restrict__ X,
     float* __restrict__ WO, int* __restrict__ ITERS, int fiber, int n,
     int max_iters, int max_armijo, float sigma, float stop_rel,
-    int head_steps) {
+    float tol_eps, int head_steps) {
   constexpr int E = G::E;
   const int j0 = g.rank() * E;
   const size_t base = static_cast<size_t>(fiber) * n;
@@ -538,7 +538,7 @@ __device__ __forceinline__ void pn_solve(
     lsum = r[4];
     dymax = r[5];
   }
-  const float tol = fmaxf(stop_rel, (10.f * FLT_EPSILON) * scale);
+  const float tol = fmaxf(stop_rel, (tol_eps * FLT_EPSILON) * scale);
   const float eps_f = fmaxf(kEps, (10.f * FLT_EPSILON) * scale);
   const float eps_gap = fmaxf(kEps, (50.f * FLT_EPSILON) * scale);
 
@@ -695,12 +695,13 @@ pn_warp_kernel(const float* __restrict__ Y, const float* __restrict__ LAM,
                float lam_scalar, const float* __restrict__ W0,
                float* __restrict__ X, float* __restrict__ WO,
                int* __restrict__ ITERS, int B, int n, int max_iters,
-               int max_armijo, float sigma, float stop_rel, int head_steps) {
+               int max_armijo, float sigma, float stop_rel, float tol_eps,
+               int head_steps) {
   const int fiber = blockIdx.x * FPB + (threadIdx.x >> 5);
   if (fiber >= B) return;  // a whole warp, before its first shuffle
   WarpGroup<E> g{static_cast<int>(threadIdx.x & 31)};
   pn_solve(g, Y, LAM, lam_scalar, W0, X, WO, ITERS, fiber, n, max_iters,
-           max_armijo, sigma, stop_rel, head_steps);
+           max_armijo, sigma, stop_rel, tol_eps, head_steps);
 }
 
 // n > 256: one block per fiber.
@@ -710,7 +711,7 @@ pn_block_kernel(const float* __restrict__ Y, const float* __restrict__ LAM,
                 float lam_scalar, const float* __restrict__ W0,
                 float* __restrict__ X, float* __restrict__ WO,
                 int* __restrict__ ITERS, int n, int max_iters, int max_armijo,
-                float sigma, float stop_rel, int head_steps) {
+                float sigma, float stop_rel, float tol_eps, int head_steps) {
   extern __shared__ float sm[];
   BlockGroup<E, MAXT> g;
   g.lane = threadIdx.x & 31;
@@ -720,7 +721,7 @@ pn_block_kernel(const float* __restrict__ Y, const float* __restrict__ LAM,
   g.slots = sm;
   g.pcr = sm + 2 * kSlot;
   pn_solve(g, Y, LAM, lam_scalar, W0, X, WO, ITERS, blockIdx.x, n, max_iters,
-           max_armijo, sigma, stop_rel, head_steps);
+           max_armijo, sigma, stop_rel, tol_eps, head_steps);
 }
 
 struct Args {
@@ -730,7 +731,7 @@ struct Args {
   float *x, *w;
   int* iters;
   int B, n, max_iters, max_armijo;
-  float sigma, stop_rel;
+  float sigma, stop_rel, tol_eps;
   int head_steps;
   cudaStream_t stream;
 };
@@ -740,7 +741,8 @@ int launch_warp(const Args& a) {
   constexpr int FPB = 4;
   pn_warp_kernel<E, FPB><<<(a.B + FPB - 1) / FPB, 32 * FPB, 0, a.stream>>>(
       a.y, a.lam, a.lam_scalar, a.w0, a.x, a.w, a.iters, a.B, a.n,
-      a.max_iters, a.max_armijo, a.sigma, a.stop_rel, a.head_steps);
+      a.max_iters, a.max_armijo, a.sigma, a.stop_rel, a.tol_eps,
+      a.head_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -755,22 +757,25 @@ int launch_block(const Args& a) {
   if (e != cudaSuccess) return static_cast<int>(e);
   pn_block_kernel<E, MAXT><<<a.B, threads, smem, a.stream>>>(
       a.y, a.lam, a.lam_scalar, a.w0, a.x, a.w, a.iters, a.n, a.max_iters,
-      a.max_armijo, a.sigma, a.stop_rel, a.head_steps);
+      a.max_armijo, a.sigma, a.stop_rel, a.tol_eps,
+      a.head_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // y, x: (B, n) float32; lam: (B, n) with a zero last column, or NULL for
-// lam_scalar; w0, w: (B, n) or NULL; iters: (B,) int32 or NULL.
-// 2 <= n <= 8192 (checked by the Python wrapper).
+// lam_scalar; w0, w: (B, n) or NULL; iters: (B,) int32 or NULL.  The gap
+// stop is max(stop_rel, tol_eps FLT_EPSILON 0.5||y - mean||^2) (tol_eps 10
+// is the TPU kernel's rule).  2 <= n <= 8192 (checked by the Python
+// wrapper).
 extern "C" int pn_tv1_fused(const float* y, const float* lam, float lam_scalar,
                             const float* w0, float* x, float* w, int* iters,
                             int B, int n, int max_iters, int max_armijo,
-                            float sigma, float stop_rel, int head_steps,
-                            cudaStream_t stream) {
+                            float sigma, float stop_rel, float tol_eps,
+                            int head_steps, cudaStream_t stream) {
   const Args a{y, lam, lam_scalar, w0, x, w, iters, B, n, max_iters,
-               max_armijo, sigma, stop_rel, head_steps, stream};
+               max_armijo, sigma, stop_rel, tol_eps, head_steps, stream};
   if (n <= 32) return launch_warp<1>(a);
   if (n <= 64) return launch_warp<2>(a);
   if (n <= 128) return launch_warp<4>(a);

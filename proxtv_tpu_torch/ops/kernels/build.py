@@ -40,10 +40,10 @@ _SIGNATURES = {
     # rhs, mask (u8 or NULL), shift (or NULL), out, B, n, stream
     "pcr_spd_solve": (_P, _P, _P, _P, _I, _I, _P),
     # y, lam_field (or NULL), lam_scalar, w0 (or NULL), x, w (or NULL), iters
-    # (or NULL), B, n, max_iters, max_armijo, sigma, stop_rel, head_steps,
-    # stream
-    "pn_tv1_fused": (_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                     _P),
+    # (or NULL), B, n, max_iters, max_armijo, sigma, stop_rel, tol_eps,
+    # head_steps, stream
+    "pn_tv1_fused": (_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                     _I, _P),
     # sched, x, xb, u1, u2, y, wr, wc, xo, xbo, u1o, u2o, gap, obj, Mp, Np,
     # k_steps, n_valid, m_valid, stride, count, pad_top, grad_step, stream
     "pdhg_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -72,6 +72,10 @@ _SIGNATURES = {
     # y, lam (or NULL), lam row stride, lam column stride, lam_scalar, x,
     # plam, pslope, lohi (workspace), B, n, stream
     "dp_tv1": (_P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _I, _P),
+    # the longest n of D1's warp layout (one warp a signal)
+    "tautstring_warp_max_n": (),
+    # B, n, per_edge -> 1 on D2's warp layout, 0 on its thread layout
+    "dp_warp_layout": (_I, _I, _I),
 }
 
 

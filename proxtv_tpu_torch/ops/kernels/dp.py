@@ -1,11 +1,14 @@
-"""Kernel D2: the batched message-passing DP (TV-L1 prox), one thread per
-signal.
+"""Kernel D2: the batched message-passing DP (TV-L1 prox).
 
 No TPU kernel: it replaces the JAX package's XLA lock-step deque machine
 ``proxtv_tpu/ops/tv1d_l1.py:tv1_dp``; the CUDA source is
 ``proxtv_tpu_torch/csrc/dp.cu``, which runs the same deque operations one
-after another per signal, its deque arena and clip bounds in a workspace
-that the wrapper allocates once per call (3 x 2n x B words).
+after another per signal.  Up to n = 8192, and for a batch that runs in at
+most four waves of the warps shared memory lets reside, a warp runs a
+signal, its deque arena and clip bounds in shared memory; otherwise one
+thread runs a signal, its arena and bounds in a workspace that the wrapper
+allocates once per call (3 x 2n x B words).  :func:`warp_layout` says
+which.
 
 :func:`dp` launches the kernel for a CUDA tensor and runs
 :func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_dp_plain` for a CPU tensor;
@@ -23,18 +26,30 @@ from .direct1d import check_batch, lam_args
 LAUNCHES = Counter()
 
 
+def warp_layout(B, n, per_edge):
+    """Whether the kernel runs a (B, n) batch (``per_edge``: one weight an
+    edge) on its warp layout, which needs no workspace (``csrc/dp.cu``
+    ``warp_layout``)."""
+    r = build.lib().dp_warp_layout(B, n, int(per_edge))
+    if r < 0:
+        build.check(-r, "dp_warp_layout")
+    return bool(r)
+
+
 def bind(y, lam):
     """The C entry point's call for a CUDA batch, its arguments and its
-    workspace made once.  Returns ``(out, launch)`` as
-    :func:`.tautstring.bind`; ``launch`` does not count in
-    :data:`LAUNCHES`."""
+    workspace (the thread layout's, see :func:`warp_layout`) made once.
+    Returns ``(out, launch)`` as :func:`.tautstring.bind`; ``launch`` does
+    not count in :data:`LAUNCHES`."""
     y = check_batch(y, "dp")
     B, n = y.shape
     lamv, rs, cs, lam_s = lam_args(lam, B, n, y.device)
     out = torch.empty_like(y)
-    plam = torch.empty((2 * n, B), dtype=torch.float32, device=y.device)
-    pslope = torch.empty((2 * n, B), dtype=torch.int32, device=y.device)
-    lohi = torch.empty((2 * n, B), dtype=torch.float32, device=y.device)
+    plam = pslope = lohi = None
+    if not warp_layout(B, n, lamv is not None and cs != 0):
+        plam = torch.empty((2 * n, B), dtype=torch.float32, device=y.device)
+        pslope = torch.empty((2 * n, B), dtype=torch.int32, device=y.device)
+        lohi = torch.empty((2 * n, B), dtype=torch.float32, device=y.device)
     args = (build.ptr(y), build.ptr(lamv), rs, cs, lam_s, build.ptr(out),
             build.ptr(plam), build.ptr(pslope), build.ptr(lohi), B, n,
             build.stream_ptr(y.device))

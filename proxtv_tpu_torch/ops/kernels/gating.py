@@ -51,13 +51,15 @@ def fused_ctx(on: bool):
 # B2, the spectral secular iteration past B4, the GPFW composition past B5).
 _KIND_LANE_LIMITS = {
     "pn": (2, 8192, True),        # projected Newton (csrc/pn_fused.cu)
+    # the long-signal windows (ops/tv1d_long.py) on the same kernel
+    "pn_window": (2, 8192, True),
     "ms": (2, 8192, True),        # More-Sorensen TV-L2 (csrc/ms_fused.cu)
     "lp": (2, 8192, True),        # GPFW TV-Lp dual loop (csrc/lp_fused.cu)
     "pcr": (2, 8192, True),       # PCR tridiagonal solve (csrc/pcr.cu)
     "pdhg2d": (1, 2 ** 31 - 1, False),  # 2D PDHG chunk (csrc/pdhg_fused.cu)
     "pdhg3d": (1, 2048, False),   # 3D PDHG chunk (csrc/pdhg3d_fused.cu)
-    # The direct 1D engines: one thread runs a whole signal, any length
-    # (csrc/tautstring.cu, csrc/dp.cu).
+    # The direct 1D engines (csrc/tautstring.cu, csrc/dp.cu): one warp, or
+    # past their warp layouts one thread, runs a whole signal of any length.
     "tautstring": (2, 2 ** 31 - 1, False),
     "dp": (2, 2 ** 31 - 1, False),
 }

@@ -115,9 +115,10 @@ def pn_tv1_fused_plain(y, lam_full=None, w_init=None, max_iters: int = 100,
                        max_armijo: int = 12, sigma: float = 0.05,
                        stop_rel: float = 1e-6, tb: int = 1,
                        head_steps: int = 4, lam_scalar=None,
-                       return_dual: bool = True):
+                       return_dual: bool = True, tol_eps: float = 10.0):
     """The TPU kernel's arithmetic (``pn_fused.py:137-319``) on tensors, with
-    its tile-wide decisions taken per tile of ``tb`` rows.
+    its tile-wide decisions taken per tile of ``tb`` rows.  ``tol_eps`` as
+    in :func:`pn_tv1_fused`.
 
     Returns (x, w, iters): w is None without ``return_dual``; iters is the
     (B,) int32 count of Newton iterations each fiber ran."""
@@ -149,7 +150,7 @@ def pn_tv1_fused_plain(y, lam_full=None, w_init=None, max_iters: int = 100,
     g = grad(x)
     fval = _rowsum(x * x) * 0.5
     scale = torch.clamp(_rowsum(yc * yc) * 0.5, min=1.0)
-    tol = torch.clamp((10.0 * feps) * scale, min=stop_rel)
+    tol = torch.clamp((tol_eps * feps) * scale, min=stop_rel)
     eps_f = torch.clamp((10.0 * feps) * scale, min=_EPS)
     eps_gap = torch.clamp((50.0 * feps) * scale, min=_EPS)
 
@@ -250,7 +251,7 @@ def pn_tv1_fused(y, lam_full=None, w_init=None, max_iters: int = 100,
                  max_armijo: int = 12, sigma: float = 0.05,
                  stop_rel: float = 1e-6, head_steps: int = 4,
                  lam_scalar=None, return_dual: bool = True,
-                 return_iters: bool = False):
+                 return_iters: bool = False, tol_eps: float = 10.0):
     """Fused batched TV-L1 projected-Newton prox.
 
     Args:
@@ -262,6 +263,11 @@ def pn_tv1_fused(y, lam_full=None, w_init=None, max_iters: int = 100,
             ``lam_full`` (no (B, n) penalty field is read).
         return_dual: with False the dual is not written.
         return_iters: also return the (B,) int32 Newton iteration counts.
+        tol_eps: the gap stop is ``max(stop_rel, tol_eps * eps * 0.5 ||y -
+            mean(y)||^2)`` per fiber, eps the dtype's; 10 is the TPU
+            kernel's floor.  The long-signal windows pass 0: a stop that
+            the gap reaches or the stall test ends (at 10 float32 windows
+            of a walk stop early: ``ops/tv1d_long._solve_windows``).
 
     Returns:
         (x, w) or (x, w, iters); ``w`` is None without ``return_dual``.
@@ -272,7 +278,7 @@ def pn_tv1_fused(y, lam_full=None, w_init=None, max_iters: int = 100,
         x, w, iters = pn_tv1_fused_plain(
             y, lam_full, w_init, max_iters, max_armijo, sigma, stop_rel,
             tb=1, head_steps=head_steps, lam_scalar=lam_scalar,
-            return_dual=return_dual)
+            return_dual=return_dual, tol_eps=tol_eps)
         return (x, w, iters) if return_iters else (x, w)
     B, n = y.shape
     lo, hi = lane_limits("pn")
@@ -303,7 +309,8 @@ def pn_tv1_fused(y, lam_full=None, w_init=None, max_iters: int = 100,
             float(lam_scalar) if lam_scalar is not None else 0.0,
             build.ptr(w0), build.ptr(x), build.ptr(w), build.ptr(iters),
             B, n, int(max_iters), int(max_armijo), float(sigma),
-            float(stop_rel), int(head_steps), build.stream_ptr(y.device))
+            float(stop_rel), float(tol_eps), int(head_steps),
+            build.stream_ptr(y.device))
         build.check(err, "pn_tv1_fused")
         LAUNCHES.value += 1
     return (x, w, iters) if return_iters else (x, w)

@@ -1,11 +1,11 @@
-"""Kernel D1: the batched weighted taut string (TV-L1 prox), one thread per
-signal.
+"""Kernel D1: the batched weighted taut string (TV-L1 prox).
 
 No TPU kernel: it replaces the JAX package's XLA lock-step scan
 ``proxtv_tpu/ops/tv1d_l1.py:tv1_tautstring``; the CUDA source is
 ``proxtv_tpu_torch/csrc/tautstring.cu``, which runs the same events as a
 plain sequential loop per signal and writes each closed segment straight to
-the output.
+the output: up to n = :func:`warp_max_n` (16384) on one warp a signal, out
+of shared memory, past it on one thread a signal.
 
 :func:`tautstring` launches the kernel for a CUDA tensor and runs
 :func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_tautstring_plain` — the JAX scan's
@@ -22,6 +22,12 @@ from . import build
 from .direct1d import check_batch, lam_args
 
 LAUNCHES = Counter()
+
+
+def warp_max_n():
+    """The longest signal of the warp layout (``csrc/tautstring.cu``
+    kWarpMaxN)."""
+    return build.lib().tautstring_warp_max_n()
 
 
 def bind(y, lam):

@@ -14,8 +14,8 @@ with scalar, per-signal or per-edge weights.
     run kernel B2 (float32 only).
 *   :func:`tv1_tautstring` — the weighted linearized taut string (reference
     ``src/TVL1Wopt.cpp:364``).  On a CUDA batch kernel D1
-    (:mod:`.kernels.tautstring`, one thread per signal); on the CPU
-    :func:`tv1_tautstring_plain`, the JAX package's lock-step scan.
+    (:mod:`.kernels.tautstring`, one warp a signal up to n = 16384); on
+    the CPU :func:`tv1_tautstring_plain`, the JAX package's lock-step scan.
 *   :func:`tv1_dp` — the Kolmogorov/Pock/Rolinek message-passing DP
     (reference ``src/TVL1opt_kolmogorov.cpp:38``), weighted-capable.  On a
     CUDA batch kernel D2 (:mod:`.kernels.dp`); on the CPU

@@ -966,6 +966,205 @@ def test_direct_kernels_match_plain(kernel, B, n, kind, dev):
         np.testing.assert_array_equal(out.cpu().numpy(), yt.numpy())
 
 
+def _layout_case(rng, B, n, kind):
+    """Signals and weights of a layout case: walks plus noise, a constant
+    row (degenerate: its mean) and, with a per-signal or per-edge field, a
+    zero-weight row (the identity) and a huge-weight row (the mean).
+    Returns (y, lam, the degenerate rows)."""
+    y = (rng.randn(B, n)
+         + np.cumsum(rng.randn(B, n), axis=1) * 0.1).astype(np.float32)
+    deg = []
+    if B > 2:
+        y[1] = y[1, 0]
+        deg.append(1)
+    if kind == "scalar":
+        return y, 0.7, deg
+    if kind == "vector":
+        return y, torch.from_numpy((rng.rand(n - 1) * 1.4).astype(
+            np.float32)), deg
+    w = rng.rand(B) * 1.4 if kind == "row" else rng.rand(B, n - 1) * 1.4
+    if kind == "edge":
+        w[rng.rand(B, n - 1) < 0.05] = 0.0
+    if B > 2:
+        w[0], w[2] = 0.0, 1e7
+        deg += [0, 2]
+    return y, torch.from_numpy(w.astype(np.float32)), deg
+
+
+def test_direct_layout_thresholds(dev):
+    """The warp layouts end where the layout cases below cross them: D1 at
+    n = 16384, D2 at n = 8192 and, at n = 1000, past a batch of four waves
+    of its resident warps."""
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+
+    assert TSK.warp_max_n() == 16384
+    for per_edge in (False, True):
+        assert DPK.warp_layout(1, 8192, per_edge)
+        assert not DPK.warp_layout(1, 8193, per_edge)
+        assert DPK.warp_layout(512, 1000, per_edge)
+        assert not DPK.warp_layout(10000, 1000, per_edge)
+
+
+@pytest.mark.parametrize("side", ["warp", "thread"])
+def test_dp_batch_layouts_match_plain_bit_for_bit(side, dev):
+    """D2 on either side of its batch rule at n = 1000 (the largest batch
+    of the warp layout and one more signal), bit for bit with its plain
+    version on 40 spread rows (the rows are independent)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+
+    n, lo, hi = 1000, 1, 20000
+    while hi - lo > 1:  # the largest B of the warp layout
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if DPK.warp_layout(mid, n, False) else (lo, mid)
+    B = lo if side == "warp" else lo + 1
+    assert DPK.warp_layout(B, n, False) == (side == "warp")
+    rng = np.random.RandomState(B)
+    y, lam, _ = _layout_case(rng, B, n, "scalar")
+    out = DPK.dp(torch.from_numpy(y).to(dev), lam)
+    torch.cuda.synchronize()
+    rows = np.unique(np.linspace(3, B - 1, 40).astype(int))
+    ref = tv1d_l1.tv1_dp_plain(torch.from_numpy(y[rows]), lam).numpy()
+    np.testing.assert_array_equal(out.cpu().numpy()[rows], ref)
+
+
+@pytest.mark.parametrize("kernel,B,n,kind", [
+    *((k, B, 300, kind) for k in ("tautstring", "dp")
+      for B, kind in ((1, "scalar"), (31, "vector"), (32, "row"),
+                      (33, "edge"), (133, "scalar"), (133, "vector"),
+                      (133, "row"), (133, "edge"))),
+    ("tautstring", 10000, 64, "scalar"), ("dp", 10000, 64, "row"),
+    ("tautstring", 1, 16384, "vector"), ("tautstring", 1, 16385, "scalar"),
+    ("dp", 1, 8192, "vector")])
+def test_direct_layouts_match_plain_bit_for_bit(kernel, B, n, kind, dev):
+    """D1 and D2 at the edges of their layouts (one warp a signal up to
+    warp_max_n, one thread a signal past it; B = 1, 31, 32, 33, 133 and
+    10000): bit for bit with their plain versions on every row that is
+    not degenerate, and within 1e-5 of the data's size on the degenerate
+    rows, whose mean the kernels sum in another order.  The other side of
+    D2's threshold in n (8193, 10000) is test_direct_kernels_match_plain's,
+    in B test_dp_batch_layouts_match_plain_bit_for_bit's."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+
+    mod, plain = {"tautstring": (TSK, tv1d_l1.tv1_tautstring_plain),
+                  "dp": (DPK, tv1d_l1.tv1_dp_plain)}[kernel]
+    rng = np.random.RandomState(7 * n + B)
+    y, lam, deg = _layout_case(rng, B, n, kind)
+    yt = torch.from_numpy(y)
+    before = mod.LAUNCHES.value
+    out = getattr(mod, kernel)(yt.to(dev), lam.to(dev)
+                               if torch.is_tensor(lam) else lam)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES.value == before + 1
+    out = out.cpu().numpy()
+    ref = plain(yt, lam).numpy()
+    rest = np.setdiff1d(np.arange(B), deg)
+    np.testing.assert_array_equal(out[rest], ref[rest])
+    if deg:
+        np.testing.assert_allclose(out[deg], ref[deg],
+                                   atol=1e-5 * max(1.0, float(
+                                       np.abs(y).max())))
+        if kind in ("row", "edge"):
+            np.testing.assert_array_equal(out[0], y[0])  # zero weights
+
+
+def test_pn_kernel_on_long_signal_windows(dev):
+    """B1 on the long-signal route's windows: (3, 6400) of C2's walk, per
+    edge (the first window's left margin and the last window's tail cut off
+    by zero weights), cold and warm from the cold dual in the (K, win)
+    layout, with the route's tol_eps = 0; against its plain version (x
+    within 2e-3, Newton counts at most 2 apart: the bars of
+    test_pn_kernel_matches_plain)."""
+    from proxtv_tpu_torch.ops import tv1d_long as TL
+
+    rng = np.random.RandomState(21)
+    n, chunk, overlap = 14000, 5120, 640
+    y = np.cumsum(rng.randn(n)) * 0.3 + rng.randn(n)
+    K, win = -(-n // chunk), chunk + 2 * overlap
+    Yw = TL._windows(torch.from_numpy(y).float()[None], K, chunk,
+                     overlap).reshape(K, win)
+    lam = torch.from_numpy((2.0 * (0.5 + rng.rand(1, n - 1))).astype(
+        np.float32))
+    lam_w = TL._window_weights(lam, True, 1, K, chunk, overlap, win, 0, n - 1,
+                               torch.float32, torch.device("cpu"))
+    lam_full = torch.cat([lam_w, torch.zeros((K, 1))], dim=1)
+    assert bool((lam_full[0, :overlap] == 0).all())
+    assert bool((lam_full[-1, n - 1 - (K - 1) * chunk + overlap:] == 0).all())
+    w_init = None
+    for _ in range(2):
+        ref, wref, it_ref = PPF.pn_tv1_fused_plain(Yw, lam_full, w_init,
+                                                   tb=1, tol_eps=0.0)
+        before = PPF.LAUNCHES.value
+        x, w, it = PPF.pn_tv1_fused(
+            Yw.to(dev), lam_full.to(dev),
+            None if w_init is None else w_init.to(dev), return_iters=True,
+            tol_eps=0.0)
+        torch.cuda.synchronize()
+        assert PPF.LAUNCHES.value == before + 1
+        np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), atol=2e-3)
+        assert int((it.cpu() - it_ref).abs().max()) <= 2
+        w_init = w.cpu()
+
+
+@pytest.mark.parametrize("case", ["f64", "switch_off"])
+def test_long_route_raises_instead_of_running_plain_on_the_card(case, dev):
+    """tv1_long's windows launch B1 or raise: float64 on the card and the
+    switch off raise at the window call site, as every kernel call site
+    does (the JAX package's respect_flag=False guards a jit cache the port
+    does not have)."""
+    from proxtv_tpu_torch.ops import tv1d_long as TL
+    from proxtv_tpu_torch.ops.kernels import gating
+
+    y = torch.randn(3000, dtype=torch.float64, device=dev)
+    b1 = PPF.LAUNCHES.value
+    if case == "f64":
+        with pytest.raises(ValueError):
+            TL.tv1_long(y, 0.7, chunk=512, overlap=64)
+    else:
+        with gating.fused_ctx(False), pytest.raises(RuntimeError):
+            TL.tv1_long(y.float(), 0.7, chunk=512, overlap=64)
+    assert PPF.LAUNCHES.value == b1
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_long_route_on_the_card(weighted, dev):
+    """tv1_1d and tv1w_1d auto past n = 16384 on the card (ROADMAP C2's
+    instance, n = 20000, lam 2.0; weights 2 x U[0.5, 1.5]): the long-signal
+    route, its windows on kernel B1 (not D1), with rc 0.  tv1_1d lands
+    within 2e-3 of the same call in float64 on the CPU.  tv1w_1d is held by
+    the certified-gap rule against float64 (F - F_ref <= gap + gap_ref +
+    1e-6 F_ref): on this walk the float32 certificate (2 eps 0.5||y -
+    mean||^2 = 1.5) admits a solution 8.2e-2 from float64 on 15 of 20000
+    samples, in the JAX package's float32 tv1_long too (ROADMAP C)."""
+    from proxtv_tpu_torch import api
+
+    rng = np.random.RandomState(21)
+    n = 20000
+    y = np.cumsum(rng.randn(n)) * 0.3 + rng.randn(n)
+    w = 2.0 * (0.5 + rng.rand(n - 1))
+    b1, ts = PPF.LAUNCHES.value, TSK.LAUNCHES.value
+    if weighted:
+        x, info = api.tv1w_1d(y, w, return_info=True)
+        ref, info_ref = api.tv1w_1d(y, w, return_info=True, device="cpu")
+    else:
+        x, info = api.tv1_1d(y, 2.0, return_info=True)
+        ref, info_ref = api.tv1_1d(y, 2.0, return_info=True, device="cpu")
+    assert PPF.LAUNCHES.value > b1 and TSK.LAUNCHES.value == ts
+    assert x.dtype == np.float32 and int(info.rc[0]) == 0
+    assert int(info_ref.rc[0]) == 0
+    if not weighted:
+        np.testing.assert_allclose(x, ref, atol=2e-3)
+        return
+
+    def F(v):
+        v = v.astype(np.float64)
+        return 0.5 * np.sum((v - y) ** 2) + np.sum(w * np.abs(np.diff(v)))
+
+    assert F(x) - F(ref) <= (float(info.gap[0]) + float(info_ref.gap[0])
+                             + 1e-6 * F(ref))
+
+
 @pytest.mark.parametrize("kernel", ["tautstring", "dp"])
 def test_direct_bind_launches_what_the_wrapper_does(kernel, dev):
     """bind's launch gives the wrapper's output bit for bit, does not count

@@ -3,15 +3,21 @@
 passing DP, ``csrc/dp.cu``) per launch on one CUDA card, across batch sizes.
 
     python3 tools/time_direct.py [--rows 1,32,132,1024,10000] [--n 1000]
+                                 [--repo DIR]
 
-For each batch of B signals of length n (randn, seeded, lam 0.7) and for a
-batch of 32 copies of one signal (every thread of the warp takes the same
-path: the divergence-free case), each kernel is first held against its
-plain version (max |kernel - plain| within 1e-5 of the data's size, the
-bar of ``chip_smoke.py`` ``TOL["direct"]``), then timed by CUDA events:
-20 launches of its C entry point, arguments made once by ``bind``, after
-one untimed.  Prints one JSON line with the card's name and power limit
-and each case's ms per launch.  Imports nothing of JAX.
+For each batch of B signals of length n (randn, seeded, lam 0.7), for a
+batch of 32 copies of one signal (every signal takes the same path), and
+for the per-edge-weighted batches of ``chip_smoke.py``'s main path (512
+and 1 signals, weights U[0, 1.4] with 5% zeroed), each kernel is first held
+against its plain version on the CPU on three of its rows, the first, the
+middle and the last (max |kernel - plain| within 1e-5 of the data's size,
+the bar of ``chip_smoke.py`` ``TOL["direct"]``), then timed by CUDA
+events: 20 launches of its C entry point, arguments made once by ``bind``,
+after one untimed.  ``--repo`` times the package of another checkout (an
+unpacked parent commit, say) with the same cases, so that two versions are
+compared in one call on one card.  Prints one JSON line with the card's
+name and power limit and each case's ms per launch.  Imports nothing of
+JAX.
 """
 import argparse
 import json
@@ -21,11 +27,10 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
 REPS = 20
 TOL = 1e-5
 LAM = 0.7
+LAMW, ZERO_W = 1.4, 0.05
 
 
 def time_ms(fn):
@@ -42,7 +47,24 @@ def time_ms(fn):
     return start.elapsed_time(end) / REPS
 
 
-def main(rows, n):
+def cases(rows, n):
+    """(name, y, lam) of every case, from seeded numpy draws."""
+    rng = np.random.RandomState(0)
+    out = [(f"{B}x{n}", rng.randn(B, n).astype(np.float32), LAM)
+           for B in rows]
+    one = rng.randn(1, n).astype(np.float32)
+    out.append((f"32x{n} copies of one signal", np.repeat(one, 32, axis=0),
+                LAM))
+    for B in (512, 1):
+        y = rng.randn(B, n).astype(np.float32)
+        w = rng.rand(B, n - 1) * LAMW
+        w[rng.rand(B, n - 1) < ZERO_W] = 0.0
+        out.append((f"{B}x{n} per-edge", y, w.astype(np.float32)))
+    return out
+
+
+def main(rows, n, repo):
+    sys.path.insert(0, repo)
     import torch
 
     from proxtv_tpu_torch.ops import tv1d_l1
@@ -55,20 +77,24 @@ def main(rows, n):
                           text=True, timeout=60).stdout.strip()
     kernels = {"D1": (tautstring, tv1d_l1.tv1_tautstring_plain),
                "D2": (dp, tv1d_l1.tv1_dp_plain)}
-    rng = np.random.RandomState(0)
-    cases = [(f"{B}x{n}", rng.randn(B, n).astype(np.float32)) for B in rows]
-    one = rng.randn(1, n).astype(np.float32)
-    cases.append((f"32x{n} copies of one signal", np.repeat(one, 32, axis=0)))
-    out = {"card": card, "n": n, "lam": LAM, "cases": []}
-    for name, y in cases:
+    out = {"card": card, "repo": os.path.abspath(repo), "n": n, "lam": LAM,
+           "cases": []}
+    for name, y, lam in cases(rows, n):
         yt = torch.from_numpy(y).cuda()
+        lt = torch.from_numpy(lam).cuda() if isinstance(lam, np.ndarray) \
+            else lam
         rec = {"case": name}
+        rows_ = sorted({0, len(y) // 2, len(y) - 1})
+        y_c = torch.from_numpy(y[rows_])
+        lam_c = torch.from_numpy(lam[rows_]) if isinstance(lam, np.ndarray) \
+            else lam
         for kid, (mod, plain) in kernels.items():
-            res, launch = mod.bind(yt, LAM)
+            res, launch = mod.bind(yt, lt)
             launch()
-            ref = plain(yt, LAM)
+            ref = plain(y_c, lam_c)
             torch.cuda.synchronize()
-            err = float((res - ref).abs().max()) / max(1.0, float(yt.abs().max()))
+            err = float((res[rows_].cpu() - ref).abs().max()) / max(
+                1.0, float(np.abs(y).max()))
             if err > TOL:
                 sys.exit(f"{kid} {name}: max|kernel - plain| / scale {err} > "
                          f"{TOL}")
@@ -76,7 +102,7 @@ def main(rows, n):
             rec[kid + "_err"] = err
         out["cases"].append(rec)
         print(f"[{name}] D1 {rec['D1_ms']:.4f} ms, D2 {rec['D2_ms']:.4f} ms "
-              f"({card})", flush=True)
+              f"({card}; {out['repo']})", flush=True)
     print(json.dumps(out))
 
 
@@ -84,5 +110,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", default="1,32,132,1024,10000")
     ap.add_argument("--n", type=int, default=1000)
+    ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout whose package is timed")
     a = ap.parse_args()
-    main([int(r) for r in a.rows.split(",")], a.n)
+    main([int(r) for r in a.rows.split(",")], a.n, a.repo)

@@ -54,13 +54,27 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    its taut string there), ``api.tv1_2d`` auto on 64 x 9000
    (B3 at any width), each held against the same call in float64 on the
    CPU, and printed as one ``[C1]`` line each;
+   3d. train, the differentiable path (``ops.diffprox``, ``models.layers``)
+   at the bench's widths, counted and tapped with the main path: T1,
+   ``TVDenoise1D`` pn on 10000 x 1000, 5 Adam steps on its penalty (B1 a
+   forward); T2, ``TVDenoise2D`` dr on 1024^2, 3 gradient steps on the
+   input (B1 on the dr fibers), and one chambolle-pock-acc VJP (B3).  It
+   fails if a step leaves the card or its forward misses its kernel, if the
+   loss does not fall, or if the backward on the card parts from the same
+   backward in float64 on the CPU (on the card's forward output) by more
+   than ``TOL["backward"]``; and prints, as a finding, the share of edges
+   the float32 forward classifies differently from the float64 one at a
+   reduced size (``[train]`` lines);
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1, B2,
    B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
    shape's launches (B2's, B4's, B5's, D1's and D2's first held against
    their plain versions on each of them), through the wrapper and, for B2
    to B6, D1 and D2, through the C entry point;
-5. profile the main-path calls: device time by kernel and the idle share.
+5. profile the main-path calls: device time by kernel and the idle share;
+6. run the training cells again, untapped: each step's forward and
+   backward by CUDA events, its launches, host syncs and label trips, and
+   one profiled step a cell.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 card line and the ``kernels`` line come before it.  Details (the report and
@@ -133,6 +147,12 @@ TOL = {
     # guards, whose means are summed in another order.  Against float64 on
     # the CPU they are held at TOL["pn"], the bar of the 1D TV-L1 outputs.
     "direct": 1e-5,
+    # The differentiable path's backward on the card (float32) against the
+    # same backward in float64 on the CPU, both on the card's forward
+    # output: the same flat edges, so only the sums' rounding parts them
+    # (float32 cumsum differences in 1D, index_add_ atomics in any order in
+    # 2D).  Relative to max |gy| of the float64 run, and to |glam|.
+    "backward": 1e-5,
 }
 
 # The cross-method bar of tests/test_tv2d.py:64-77: the solution within
@@ -168,6 +188,18 @@ NC2, LAMC2 = 20000, 2.0     # ROADMAP C2's walk (seed 21), past n = 16384
 B_PI, M_PI = 4, 512         # per-image lam: 4 x 512^2 images
 LAM_PI = (0.1, 0.2, 0.3, 0.5)
 SEED = 0
+# The training cells (phase 3d).  T1: TVDenoise1D on the bench's batched 1D
+# row, the data of test_flax_layer_learns_lambda at 10000 x 1000 (20 blocks
+# of 50 per row, noise 0.3), 5 Adam steps (lr 0.05) on raw_lam from lam
+# 0.01.  T2: TVDenoise2D dr on the bench's 1024^2 image, a piecewise-
+# constant truth of 64 x 64 blocks plus noise 0.3, 3 plain gradient steps
+# on the input, Y -= (M N / 4) grad of the mean squared error, which is
+# Y -= P (X - truth) / 2 with P the flat-component average; and one VJP
+# with chambolle-pock-acc (B3) on the same image.
+T1B, T1N, T1SEG, T1LAM, T1STEPS, T1LR = 10000, 1000, 50, 0.01, 5, 0.05
+T2M, T2BLOCK, T2LAM, T2STEPS = 1024, 64, 0.3, 3
+TNOISE = 0.3
+T1SMALL, T2SMALL = 512, 256  # the flat-edge finding's reduced sizes
 
 
 class Fail(Exception):
@@ -252,6 +284,143 @@ def profile_call(fn):
 KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
               "B4": "::ms_kernel", "B5": "::gpfw_kernel",
               "B6": "::pdhg3d_march", "D1": "::tautstring_", "D2": "::dp_"}
+
+
+def train_cells(ny1, tgt1, ny2, tgt2):
+    """The training cells on the card, on the seeded data of phase 3d:
+    {name: (description, run, make)}.
+
+    ``make()`` builds a cell's model and data state and returns
+    ``(one, final)``: ``one()`` takes one step and returns its record and
+    the step's forward output; ``final()`` (None for the one-VJP cell) runs
+    a forward after the last step.  A record holds the loss (before the
+    step's update), the forward and backward ms by CUDA events, and per
+    half the B1 and B3 launches (the wrappers' counters), the host syncs
+    and the label-propagation trips.  ``run()`` takes a cell's steps and
+    returns the records, the loss after the last step, the card's last
+    forward output ``x`` and the cotangent ``g`` of the loss there.  Every
+    step fails the run if its tensors leave the card or its forward misses
+    its kernel."""
+    import torch
+
+    from proxtv_tpu_torch.models.layers import TVDenoise1D, TVDenoise2D
+    from proxtv_tpu_torch.ops import diffprox
+    from proxtv_tpu_torch.ops.kernels import pdhg_fused as B3
+    from proxtv_tpu_torch.ops.kernels import pn_fused as B1
+    from proxtv_tpu_torch.utils import debug
+
+    def mse(x, tgt):
+        return torch.mean((x - tgt) ** 2)
+
+    def on_card(*ts):
+        check(all(v.is_cuda for v in ts), "a training step left the card")
+
+    def counts():
+        return {"B1": B1.LAUNCHES.value, "B3": B3.LAUNCHES.value,
+                "host_syncs": debug.HOST_SYNCS.value,
+                "label_trips": diffprox.LABEL_TRIPS.value}
+
+    def step(fwd, bwd, kid):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        c0 = counts()
+        ev[0].record()
+        x, loss = fwd()
+        ev[1].record()
+        c1 = counts()
+        bwd(loss)
+        ev[2].record()
+        torch.cuda.synchronize()
+        c2 = counts()
+        rec = {"loss": float(loss.detach()),
+               "fwd_ms": ev[0].elapsed_time(ev[1]),
+               "bwd_ms": ev[1].elapsed_time(ev[2]),
+               "fwd": {k: c1[k] - c0[k] for k in c0},
+               "bwd": {k: c2[k] - c1[k] for k in c0}}
+        on_card(x, loss)
+        check(rec["fwd"][kid] >= 1, f"a training forward did not launch "
+              f"{kid}")
+        return rec, x.detach()
+
+    def t1_make():
+        layer = TVDenoise1D(init_lam=T1LAM, method="pn")
+        opt = torch.optim.Adam(layer.parameters(), lr=T1LR)
+
+        def fwd():
+            x = layer(ny1)
+            return x, mse(x, tgt1)
+
+        def bwd(loss):
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            st = opt.state[layer.raw_lam]
+            on_card(layer.raw_lam, layer.raw_lam.grad, st["exp_avg"],
+                    st["exp_avg_sq"])
+
+        def one():
+            rec, x = step(fwd, bwd, "B1")
+            raw = layer.raw_lam.detach()
+            rec["lam_after"] = float(torch.logaddexp(raw, torch.zeros_like(
+                raw)))
+            return rec, x
+
+        def final():
+            with torch.no_grad():
+                return fwd()
+
+        return one, final
+
+    def t2_make(method):
+        def make():
+            layer = TVDenoise2D(init_lam=T2LAM, method=method)
+            Y = ny2.clone().requires_grad_(True)
+            lr = Y.numel() / 4
+
+            def fwd():
+                x = layer(Y)
+                return x, mse(x, tgt2)
+
+            def bwd(loss):
+                (gY,) = torch.autograd.grad(loss, Y)
+                on_card(gY)
+                if method == "dr":
+                    with torch.no_grad():
+                        Y.sub_(lr * gY)
+
+            def one():
+                return step(fwd, bwd, "B1" if method == "dr" else "B3")
+
+            def final():
+                with torch.no_grad():
+                    return fwd()
+
+            return one, final if method == "dr" else None
+        return make
+
+    def runner(make, n, tgt):
+        def run_cell():
+            one, final = make()
+            steps, x = [], None
+            for _ in range(n):
+                rec, x = one()
+                steps.append(rec)
+            loss = None
+            if final is not None:
+                x, loss = final()
+                x, loss = x.detach(), float(loss)
+            return {"steps": steps, "final_loss": loss, "x": x,
+                    "g": 2 * (x - tgt) / x.numel()}
+        return run_cell
+
+    return {
+        "T1": (f"TVDenoise1D pn {T1B}x{T1N}, {T1STEPS} Adam steps",
+               runner(t1_make, T1STEPS, tgt1), t1_make),
+        "T2": (f"TVDenoise2D dr {T2M}^2, {T2STEPS} gradient steps on the "
+               "input", runner(t2_make("dr"), T2STEPS, tgt2), t2_make("dr")),
+        "T2 cp-acc": (f"TVDenoise2D chambolle-pock-acc {T2M}^2, one VJP",
+                      runner(t2_make("chambolle-pock-acc"), 1, tgt2),
+                      t2_make("chambolle-pock-acc")),
+    }
 
 
 def reference_2d(Y, lam, iters):
@@ -430,7 +599,7 @@ def main(out_dir):
     from proxtv_tpu_torch.demos import demo_filter_image_weighted as demo_w
     from proxtv_tpu_torch.demos import demo_filter_signal as demo_s
     from proxtv_tpu_torch.models import tv2d, tvnd
-    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_lp
+    from proxtv_tpu_torch.ops import diffprox, tv1d_l1, tv1d_l2, tv1d_lp
     from proxtv_tpu_torch.ops.kernels import build, gating
     from proxtv_tpu_torch.ops.kernels import dp as D2
     from proxtv_tpu_torch.ops.kernels import tautstring as D1
@@ -494,6 +663,13 @@ def main(out_dir):
     Wr2 = (LAMW2D * (0.5 + rng6.rand(M2D, N2D - 1))).astype(np.float32)
     Wc2 = (LAMW2D * (0.5 + rng6.rand(M2D - 1, N2D))).astype(np.float32)
     Ypi = rng6.randn(B_PI, M_PI, M_PI).astype(np.float32)
+    rng7 = np.random.RandomState(SEED + 5)  # the training cells' data
+    truth_t1 = np.repeat(rng7.randn(T1B, T1N // T1SEG), T1SEG, axis=1)
+    noisy_t1 = (truth_t1 + TNOISE * rng7.randn(T1B, T1N)).astype(np.float32)
+    truth_t2 = np.kron(rng7.randn(1, T2M // T2BLOCK, T2M // T2BLOCK),
+                       np.ones((T2BLOCK, T2BLOCK)))
+    noisy_t2 = (truth_t2 + TNOISE * rng7.randn(1, T2M, T2M)).astype(
+        np.float32)
     errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0,
             "lp": 0.0, "direct": 0.0}
 
@@ -546,9 +722,10 @@ def main(out_dir):
           f"{worst['plain']:.3e}, masked {worst['masked']:.3e} (tol "
           f"{TOL['pcr_path']})")
 
-    def gap_over_tol(x, w, y, lam_full, lam_scalar, stop_rel):
-        """Each row's duality gap over its stop tolerance (pn_solve's rule),
-        in float64 from the outputs."""
+    def gap_over_tol(x, w, y, lam_full, lam_scalar, stop_rel, tol_eps):
+        """Each row's duality gap over its stop tolerance (pn_solve's rule,
+        with the launch's float32 floor tol_eps), in float64 from the
+        outputs."""
         x, w, y = x.double(), w.double(), y.double()
         g = x[:, :-1] - x[:, 1:]
         lam = lam_full[:, :-1].double() if lam_full is not None else lam_scalar
@@ -556,7 +733,7 @@ def main(out_dir):
         yc = y - y.mean(1, keepdim=True)
         scale = (0.5 * (yc * yc).sum(1)).clamp(min=1.0)
         eps = float(np.finfo(np.float32).eps)
-        return gap / (10.0 * eps * scale).clamp(min=stop_rel)
+        return gap / (tol_eps * eps * scale).clamp(min=stop_rel)
 
     def pn_compare(y, lam_full=None, w_init=None, **kw):
         """One B1 launch against its plain version (tb = 1), both with the
@@ -580,7 +757,8 @@ def main(out_dir):
         j = int(fib.argmax())
         row = slice(j, j + 1)
         lf = None if lam_full is None else lam_full[row]
-        args = (y[row], lf, kw.get("lam_scalar"), kw.get("stop_rel", 1e-6))
+        args = (y[row], lf, kw.get("lam_scalar"), kw.get("stop_rel", 1e-6),
+                kw.get("tol_eps", 10.0))
         where = {
             "err_counts_agree": float(torch.where(part, 0.0, fib).max()),
             "err_counts_part": float(torch.where(part, fib, 0.0).max()),
@@ -1101,6 +1279,22 @@ def main(out_dir):
                                     method="chambolle-pock-acc"), ["B3"])
     check(bool((info_pi.rc == RC_OK).all()), "per-image cp-acc did not "
           "certify")
+    # -- 3d. train: the differentiable path on the card ------------------
+    # Each cell runs once here, counted and tapped like every main-path call
+    # (phase 3b holds its B1 and B3 launches against their plain versions,
+    # phase 4 adds them to the kernels line); phase 6 times it untapped.
+    t_train = time.perf_counter()
+    tgt_t1, ny_t1 = t(truth_t1.astype(np.float32)), t(noisy_t1)
+    tgt_t2, ny_t2 = t(truth_t2.astype(np.float32)), t(noisy_t2)
+    tcells = train_cells(ny_t1, tgt_t1, ny_t2, tgt_t2)
+    train_main = {}
+    for name_, must_ in (("T1", ["B1"]), ("T2", ["B1"]), ("T2 cp-acc", ["B3"])):
+        label = f"train {name_}: {tcells[name_][0]}"
+        diffprox.LABEL_TRIPS.reset()
+        train_main[name_] = run(label, tcells[name_][1], must_)
+        train_main[name_]["path"] = label
+        train_main[name_]["label_trips"] = diffprox.LABEL_TRIPS.value
+    t_train = time.perf_counter() - t_train
     demo_res = run("demo_filter_image (dr, kolmogorov, chambolle-pock-acc)",
                    demo.main, ["B1", "B3"], main_path=False)
     demo_s_res = run("demo_filter_signal (B1, D1, B4, B5)", demo_s.main,
@@ -1167,15 +1361,25 @@ def main(out_dir):
     check(len(b3_calls) == sum(by_path["B3"].values()),
           "the B3 tap missed main-path launches")
     b3_err = b3_rel = 0.0
-    for _, a_, kw_ in b3_calls:
+    b3_worst = None  # the launch of the largest certificate difference
+    for i_, (path_, a_, kw_) in enumerate(b3_calls):
         ref = B3.pdhg_chunk_plain(*a_, **kw_)
         out = B3.pdhg_chunk(*a_, **kw_)
         torch.cuda.synchronize()
-        b3_err = max([b3_err] + [float((o - r_).abs().max())
-                                 for o, r_ in zip(out[:4], ref[:4])])
-        for o, r_ in zip(out[4:], ref[4:]):
+        e_ = max(float((o - r_).abs().max())
+                 for o, r_ in zip(out[:4], ref[:4]))
+        b3_err = max(b3_err, e_)
+        for which, o, r_ in zip(("gap", "objective"), out[4:], ref[4:]):
             ra, rb = float(o.sum()), float(r_.sum())
-            b3_rel = max(b3_rel, abs(ra - rb) / max(1.0, abs(rb)))
+            rel_ = abs(ra - rb) / max(1.0, abs(rb))
+            if rel_ > b3_rel:
+                b3_worst = (path_, i_, which, ra, rb, e_)
+            b3_rel = max(b3_rel, rel_)
+    if b3_worst is not None:
+        print(f"[B3 pdhg] main path: the largest certificate difference is "
+              f"the {b3_worst[2]} sum of launch {b3_worst[1]} ({b3_worst[0]}"
+              f"): kernel {b3_worst[3]:.6e}, plain {b3_worst[4]:.6e}; that "
+              f"launch's fields differ by {b3_worst[5]:.3e}")
     print(f"[B3 pdhg] main path ({len(b3_calls)} launches, "
           f"{', '.join(sorted({c[0] for c in b3_calls}))}): max|kernel - "
           f"plain| = {b3_err:.3e} (tol {TOL['pdhg']}), certificate sums rel "
@@ -1185,6 +1389,101 @@ def main(out_dir):
     check(b3_err <= TOL["pdhg"] and b3_rel <= TOL["pdhg_cert"],
           "PDHG main path disagrees with its plain version")
     errs["pdhg"] = max(errs["pdhg"], b3_err)
+
+    # -- 3d. the training cells' checks (their B1 and B3 launches were held
+    # above with the main path's) -----------------------------------------
+    t0 = time.perf_counter()
+    train_checks = {}
+    for name_, r_ in train_main.items():
+        check(bool(torch.isfinite(r_["x"]).all())
+              and all(math.isfinite(s_["loss"]) for s_ in r_["steps"]),
+              f"train {name_}: non-finite output or loss")
+    for name_ in ("T1", "T2"):  # the loss falls
+        losses = ([s_["loss"] for s_ in train_main[name_]["steps"]]
+                  + [train_main[name_]["final_loss"]])
+        print(f"[train] {name_}: loss before each step and after the last "
+              f"{', '.join(f'{v:.6e}' for v in losses)}")
+        check(losses[-1] < losses[0], f"train {name_}: the loss did not fall")
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+    def edges(x, dim):
+        """The flat-edge classification of a forward output, on the CPU."""
+        if dim == 1:
+            return diffprox._boundaries(x)[1].cpu().reshape(-1)
+        return torch.cat([e_.cpu().reshape(-1)
+                          for e_ in diffprox._flat_edges(x)])
+
+    # The backward alone: the card's float32 backward against the port's
+    # float64 backward on the CPU, both on the card's forward output.
+    for name_, dim in (("T1", 1), ("T2", 2), ("T2 cp-acc", 2)):
+        x_, g_ = train_main[name_]["x"], train_main[name_]["g"]
+        x64, g64 = x_.double().cpu(), g_.double().cpu()
+        t1_ = time.perf_counter()
+        if dim == 1:
+            out, ref = diffprox._bwd(x_, g_, 0), diffprox._bwd(x64, g64, 0)
+        else:
+            out, ref = (diffprox._bwd2(x_, g_),), (diffprox._bwd2(x64, g64),)
+        cpu_s = time.perf_counter() - t1_
+        n_diff = int((edges(x_, dim) != edges(x64, dim)).sum())
+        c_ = {"gy_rel": rel(out[0], ref[0]), "edges_differ": n_diff,
+              "cpu_float64_s": cpu_s}
+        if dim == 1:
+            c_["glam_rel"] = rel(out[1], ref[1])
+        train_checks[name_] = c_
+        print(f"[train] {name_} backward on the card vs float64 on the CPU "
+              f"(the card's forward output): gy rel {c_['gy_rel']:.3e}"
+              + (f", glam rel {c_['glam_rel']:.3e} (card "
+                 f"{float(out[1]):.6e}, float64 {float(ref[1]):.6e})"
+                 if dim == 1 else "")
+              + f" (tol {TOL['backward']}); edges classified differently "
+              f"{n_diff}; the CPU backward {cpu_s:.2f} s")
+        check(c_["gy_rel"] <= TOL["backward"]
+              and c_.get("glam_rel", 0.0) <= TOL["backward"],
+              f"train {name_}: the backward on the card disagrees with "
+              "float64")
+    # The flat-edge finding (printed, not held): at a reduced size the
+    # card's float32 forward against the port's float64 forward on the
+    # CPU; the share of edges classified differently, and how far gy and
+    # glam (both in float64 on the CPU, one cotangent) part.
+    lam_t1 = train_main["T1"]["steps"][-1]["lam_after"]
+    ys1 = ny_t1[:T1SMALL]
+    ys2 = ny_t2[:, :T2SMALL, :T2SMALL]
+    for name_, dim, y_, tgt_, fwd_ in (
+            (f"T1 {T1SMALL}x{T1N} lam {lam_t1:.6f}", 1, ys1,
+             tgt_t1[:T1SMALL],
+             lambda y: diffprox.tv1_prox(y, lam_t1)),
+            (f"T2 {T2SMALL}^2 dr lam {T2LAM}", 2, ys2,
+             tgt_t2[:, :T2SMALL, :T2SMALL],
+             lambda y: diffprox.tv2d_prox(y, T2LAM, "dr"))):
+        x32 = fwd_(y_)
+        x64 = fwd_(y_.double().cpu())
+        g64 = 2 * (x64 - tgt_.double().cpu()) / x64.numel()
+        e32, e64 = edges(x32, dim), edges(x64, dim)
+        share = float((e32 != e64).double().mean())
+        if dim == 1:
+            a_ = diffprox._bwd(x32.double().cpu(), g64, 0)
+            b_ = diffprox._bwd(x64, g64, 0)
+        else:
+            a_ = (diffprox._bwd2(x32.double().cpu(), g64),)
+            b_ = (diffprox._bwd2(x64, g64),)
+        f_ = {"edges_differ_share": share, "edges": int(e64.numel()),
+              "flat_edges_float64": int((~e64 if dim == 1 else e64).sum()),
+              "max_abs_x": float((x32.double().cpu() - x64).abs().max()),
+              "gy_rel": rel(a_[0], b_[0])}
+        if dim == 1:
+            f_["glam_rel"] = rel(a_[1], b_[1])
+        train_checks[name_] = f_
+        print(f"[train] flat edges, {name_}: float32 on the card vs float64 "
+              f"on the CPU: {share:.4e} of {f_['edges']} edges classified "
+              f"differently ({f_['flat_edges_float64']} flat in float64); "
+              f"max|x32 - x64| {f_['max_abs_x']:.3e}; gy rel gap "
+              f"{f_['gy_rel']:.3e}"
+              + (f", glam rel gap {f_['glam_rel']:.3e}" if dim == 1 else "")
+              + " (a finding, not a gate)")
+    t_train += time.perf_counter() - t0
 
     # Outputs: finite and shaped.
     for name, a, shp in (("auto", x_auto, (M2D, N2D)), ("dr", x_dr, (M2D, N2D)),
@@ -2259,6 +2558,46 @@ def main(out_dir):
         print(f"[queue] {kid}: {q['device_ms']:.4f} ms of device time over "
               f"{q['launches']} main-path launches, bounds {q['bound_ms']:.4f}"
               f" ms: {q['gap_ms']:.4f} ms over  ({card})")
+
+    # -- 6. train: each cell again, untapped, step by step; one profiled
+    # step a cell ---------------------------------------------------------
+    t0 = time.perf_counter()
+    train_times = {}
+    for name_, (desc_, run_cell, make_) in tcells.items():
+        r_ = run_cell()
+        m_ = main[train_main[name_]["path"]]
+        one, _ = make_()
+        prof = profile_call(lambda: one())
+        train_times[name_] = {"steps": r_["steps"],
+                              "final_loss": r_["final_loss"],
+                              "profile": prof}
+        for i_, s_ in enumerate(r_["steps"]):
+            print(f"[train] {name_} step {i_}: forward {s_['fwd_ms']:.3f} "
+                  f"ms, backward {s_['bwd_ms']:.3f} ms (CUDA events), loss "
+                  f"{s_['loss']:.6e}; forward B1 {s_['fwd']['B1']} B3 "
+                  f"{s_['fwd']['B3']} launches, host syncs forward "
+                  f"{s_['fwd']['host_syncs']} backward "
+                  f"{s_['bwd']['host_syncs']}, label trips "
+                  f"{s_['bwd']['label_trips']}  ({card})")
+        top = ", ".join(f"{k_} {v:.3f} ms" for k_, v in prof["top"])
+        print(f"[train] {name_} ({desc_}): the counted run launched "
+              f"{m_['launches']['B1']} B1 and {m_['launches']['B3']} B3, "
+              f"{m_['host_syncs']} host syncs, "
+              f"{train_main[name_]['label_trips']} label trips; one profiled "
+              f"step: wall {prof['wall_ms']:.3f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']}; "
+              f"{prof['kernels']} kernel launches; top: {top}  ({card})")
+    t_train += time.perf_counter() - t0
+    print(f"[train] phase: {t_train:.1f} s (the counted run, its checks, "
+          f"the timing run and the profiles; its launches' holds in phase 3b"
+          f" and replays in phase 4 not included)")
+    report["train"] = {
+        "main": {k_: {"steps": v["steps"], "final_loss": v["final_loss"],
+                      "label_trips": v["label_trips"],
+                      "launches": main[v["path"]]["launches"],
+                      "host_syncs": main[v["path"]]["host_syncs"]}
+                 for k_, v in train_main.items()},
+        "checks": train_checks, "times": train_times, "seconds": t_train}
 
     report.update(errors=errs, main_path=main, times=times, kernels=kern,
                   queue=queue,

@@ -37,7 +37,11 @@
 // small shared buffers, so a step needs two barriers and no index
 // arithmetic (every loop bound and stride is a compile-time constant).  The
 // Chambolle-Pock resolvent multiplies by 1/(1 + tau_k), one division per
-// step per thread (the divide per cell cost 28%).  With `GAP` set, each
+// step per thread (the divide per cell cost 28%); the plain version
+// multiplies by the same reciprocal.  No product is contracted into an FMA
+// (mul / add below): the four fields come out bit for bit as the plain
+// version's, and the certificate partials differ from its sums only in the
+// order of their (nonnegative) terms.  With `GAP` set, each
 // block reduces its core cells' duality-gap and objective contributions
 // into one partial each; the wrapper sums them.  64 registers a thread,
 // one block per SM; the weighted instances spill 180 B.  Timed on the
@@ -58,6 +62,16 @@ constexpr int kW = 32 * kWarpsX;
 constexpr int kWH = kRuns * kRows;
 constexpr int kThreads = kW * kRuns;
 constexpr int kMaxSteps = 16;  // largest K (the core stays >= 30 cells)
+
+// Every product and every sum that the compiler could fuse with a product
+// is rounded on its own, as the plain version's PyTorch ops round it, so
+// the K steps and each cell's certificate terms match it bit for bit.
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kThreads <= 1024 && kRows <= 32, "block or mask bits too big");
 static_assert(2 * (kMaxSteps + 1) < kW && 2 * (kMaxSteps + 1) < kWH,
@@ -182,8 +196,8 @@ pdhg_kernel(const float* __restrict__ sched, const float* __restrict__ X,
     for (int i = 0; i < kRows; ++i) {
       const float xr = right_of(xb, i), xd = below_of(xb, i);
       const float l1 = lr_of(i), l2 = lc_of(i);
-      u1[i] = fminf(fmaxf(u1[i] + sigma * (xb[i] - xr), -l1), l1);
-      u2[i] = fminf(fmaxf(u2[i] + sigma * (xb[i] - xd), -l2), l2);
+      u1[i] = fminf(fmaxf(add(u1[i], mul(sigma, xb[i] - xr)), -l1), l1);
+      u2[i] = fminf(fmaxf(add(u2[i], mul(sigma, xb[i] - xd)), -l2), l2);
     }
     if (lane == 31) {
 #pragma unroll
@@ -198,10 +212,10 @@ pdhg_kernel(const float* __restrict__ sched, const float* __restrict__ X,
       const float dv = div_of(i);
       float xn;
       if constexpr (GRAD)
-        xn = x[i] - tau * ((x[i] - y[i]) + dv);
+        xn = x[i] - mul(tau, (x[i] - y[i]) + dv);
       else
-        xn = (x[i] - tau * dv + tau * y[i]) * inv;
-      xb[i] = xn + theta * (xn - x[i]);
+        xn = mul(add(x[i] - mul(tau, dv), mul(tau, y[i])), inv);
+      xb[i] = add(xn, mul(theta, xn - x[i]));
       x[i] = xn;
     }
     publish(xb);
@@ -238,10 +252,11 @@ pdhg_kernel(const float* __restrict__ sched, const float* __restrict__ X,
       const float gr = (xh[i] - xr) * ((vrb >> i) & 1u ? 1.f : 0.f);
       const float gc = (xh[i] - xd) * ((vcb >> i) & 1u ? 1.f : 0.f);
       const float l1 = lr_of(i), l2 = lc_of(i);
-      e_gap += l1 * fabsf(gr) - u1[i] * gr + l2 * fabsf(gc) - u2[i] * gc;
+      const float ar = mul(l1, fabsf(gr)), ac = mul(l2, fabsf(gc));
+      e_gap += ((ar - mul(u1[i], gr)) + ac) - mul(u2[i], gc);
       const float dyv = xh[i] - y[i];
-      e_obj += 0.5f * dyv * dyv * ((inb >> i) & 1u ? 1.f : 0.f) +
-               l1 * fabsf(gr) + l2 * fabsf(gc);
+      e_obj += add(add(mul(mul(mul(0.5f, dyv), dyv),
+                           (inb >> i) & 1u ? 1.f : 0.f), ar), ac);
     }
   }
   e_gap = warp_reduce<kSum>(e_gap);

@@ -108,10 +108,11 @@ def _prox_state_init(K, n, p: float, dtype, device):
             torch.ones((K,), dtype=dtype, device=device))
 
 
-def _prox1d_ws(Y2, lam, p: float, method: str, state):
+def _prox1d_ws(Y2, lam, p: float, method: str, state, tol_eps=10.0):
     """Stateful variant: returns (x, state), warm-starting projected Newton
     from its dual, TV-L2 More-Sorensen from its alpha and TV-Lp GPFW from its
-    dual and KKT multiplier; direct engines pass the state through."""
+    dual and KKT multiplier; direct engines pass the state through.
+    ``tol_eps``: kernel B1's float32 stop floor (``pn_tv1_fused``)."""
     if p == 1.0 and method == "pn":
         if gating.gate(Y2, "pn"):
             from ..ops.kernels import pn_fused
@@ -119,10 +120,11 @@ def _prox1d_ws(Y2, lam, p: float, method: str, state):
             w0p = torch.cat([state, state.new_zeros((K, 1))], dim=-1)
             if _is_scalar(lam):
                 x, w = pn_fused.pn_tv1_fused(Y2, lam_scalar=float(lam),
-                                             w_init=w0p)
+                                             w_init=w0p, tol_eps=tol_eps)
                 return x, w[:, :-1]
             lam_full = _lam_padded(lam, K, n, Y2.dtype, Y2.device)
-            x, w = pn_fused.pn_tv1_fused(Y2, lam_full, w_init=w0p)
+            x, w = pn_fused.pn_tv1_fused(Y2, lam_full, w_init=w0p,
+                                         tol_eps=tol_eps)
             return x, w[:, :-1]
         x, _, w = tv1d_l1.tv1_pn(Y2, lam, w_init=state, return_dual=True)
         return x, w
@@ -157,25 +159,28 @@ def prox_cols(X, lam, p: float = 1.0, method: str = "pn", w_edges=None):
     return out.reshape(B, N, M).transpose(1, 2)
 
 
-def _make_row_prox(B, M, N, lam, p, method, w_edges, dtype, device):
+def _make_row_prox(B, M, N, lam, p, method, w_edges, dtype, device,
+                   tol_eps=10.0):
     """Stateful row-pass closure: (V, state) -> (X, state)."""
     lam2 = w_edges.reshape(B * M, N - 1) if w_edges is not None else lam
 
     def prox(V, s):
-        out, s2 = _prox1d_ws(V.reshape(B * M, N), lam2, p, method, s)
+        out, s2 = _prox1d_ws(V.reshape(B * M, N), lam2, p, method, s,
+                             tol_eps)
         return out.reshape(B, M, N), s2
 
     return prox, _prox_state_init(B * M, N, p, dtype, device)
 
 
-def _make_col_prox(B, M, N, lam, p, method, w_edges, dtype, device):
+def _make_col_prox(B, M, N, lam, p, method, w_edges, dtype, device,
+                   tol_eps=10.0):
     """Stateful column-pass closure: (V, state) -> (X, state)."""
     lam2 = (w_edges.transpose(1, 2).reshape(B * N, M - 1)
             if w_edges is not None else lam)
 
     def prox(V, s):
         Vt = V.transpose(1, 2).reshape(B * N, M)
-        out, s2 = _prox1d_ws(Vt, lam2, p, method, s)
+        out, s2 = _prox1d_ws(Vt, lam2, p, method, s, tol_eps)
         return out.reshape(B, N, M).transpose(1, 2), s2
 
     return prox, _prox_state_init(B * N, M, p, dtype, device)
@@ -600,7 +605,8 @@ def _run_pdhg_fused(Y, lam, cap, tol, cfg, variant: str,
 # -- Column-exact primal-dual (reference Kolmogorov2_TV) --------------------
 
 
-def _run_kolmogorov(Y, w_row, w_col, cap, tol, inner_method: str):
+def _run_kolmogorov(Y, w_row, w_col, cap, tol, inner_method: str,
+                    tol_eps=10.0):
     """PDHG with G(x) = 0.5||x-Y||^2 + w_col*colTV (proximable exactly via
     the batched 1D solver + Moreau scaling) and the row term dualized.
 
@@ -619,7 +625,7 @@ def _run_kolmogorov(Y, w_row, w_col, cap, tol, inner_method: str):
         t = (v + tau * Y) / (1.0 + tau)
         Vt = t.transpose(1, 2).reshape(B * N, M)
         out, s = _prox1d_ws(Vt, tau * wc / (1.0 + tau), 1.0,
-                            inner_method, s)
+                            inner_method, s, tol_eps)
         return out.reshape(B, N, M).transpose(1, 2), s
 
     def body(state):
@@ -662,7 +668,8 @@ _PER_IMAGE_METHODS = ("pd", "dr", "yang", "condat", "chambolle-pock",
 
 def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
                    inner_method: str = "pn",
-                   cfg: CombinerConfig = DEFAULT_COMBINER):
+                   cfg: CombinerConfig = DEFAULT_COMBINER,
+                   tol_eps: float = 10.0):
     """Batched 2D anisotropic TV-L1 prox on a (B, M, N) image tensor, on
     whatever device ``Y`` lies.
 
@@ -673,6 +680,8 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
     dr, yang and the primal-dual methods; the latter only on the card, as
     the JAX package's only on its accelerator).  The device decides the
     path: CUDA runs the kernels, the CPU the plain compositions.
+    ``tol_eps`` is kernel B1's float32 stop floor in the fiber passes (10,
+    the TPU kernel's, by default; ``diffprox.tv2d_prox`` passes 0).
 
     Returns (X, SolverInfo) with per-image iters / gap / rc.
     """
@@ -689,7 +698,8 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
         Wc = torch.broadcast_to(lam_t[:, None, None], (B, M - 1, N))
         Wr = torch.broadcast_to(lam_t[:, None, None], (B, M, N - 1))
         return tv1w_2d_batched(Y, Wc, Wr, max_iters=max_iters, method=method,
-                               inner_method=inner_method, cfg=cfg)
+                               inner_method=inner_method, cfg=cfg,
+                               tol_eps=tol_eps)
     if torch.is_tensor(lam):
         lam = debug.host(lam)
     lam = _scalar(lam, Y.dtype)
@@ -698,17 +708,17 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
 
     if method in ("pd", "dr"):
         cfgs = (_make_col_prox(B, M, N, lam, 1.0, inner_method, None, Y.dtype,
-                               dev),
+                               dev, tol_eps),
                 _make_row_prox(B, M, N, lam, 1.0, inner_method, None, Y.dtype,
-                               dev))
+                               dev, tol_eps))
         return _dispatch(Y, cfgs, method, max_iters, cfg)
     if method == "yang":
         rho = cfg.yang_rho
         lr = lam / _scalar(rho, Y.dtype)
         pcol, s1 = _make_col_prox(B, M, N, lr, 1.0, inner_method, None,
-                                  Y.dtype, dev)
+                                  Y.dtype, dev, tol_eps)
         prow, s2 = _make_row_prox(B, M, N, lr, 1.0, inner_method, None,
-                                  Y.dtype, dev)
+                                  Y.dtype, dev, tol_eps)
         return _run_yang(Y, pcol, s1, prow, s2,
                          max_iters or cfg.max_iters_yang, tol, rho)
     if method in _PDHG_VARIANTS:
@@ -719,13 +729,14 @@ def tv1_2d_batched(Y, lam, method: str = "dr", max_iters: int = 0,
         return _run_pdhg(Y, lam, lam, cap, tol, cfg, variant)
     if method == "kolmogorov":
         cap = max_iters or cfg.max_iters_kolmogorov
-        return _run_kolmogorov(Y, lam, lam, cap, tol, inner_method)
+        return _run_kolmogorov(Y, lam, lam, cap, tol, inner_method, tol_eps)
     raise ValueError(f"Unknown 2D method: {method!r}")
 
 
 def tv1w_2d_batched(Y, W_col, W_row, max_iters: int = 0, method: str = "dr",
                     inner_method: str = "pn",
-                    cfg: CombinerConfig = DEFAULT_COMBINER):
+                    cfg: CombinerConfig = DEFAULT_COMBINER,
+                    tol_eps: float = 10.0):
     """Batched weighted 2D TV-L1 prox (reference DR2L1W_TV,
     src/TV2DWopt.cpp:46), on whatever device ``Y`` lies.
 
@@ -738,6 +749,7 @@ def tv1w_2d_batched(Y, W_col, W_row, max_iters: int = 0, method: str = "dr",
             chambolle-pock / chambolle-pock-acc (kernel B3's weighted route;
             the card only: elsewhere they raise, as the JAX package's raise
             off its accelerator).
+        tol_eps: kernel B1's float32 stop floor in the fiber passes.
     """
     B, M, N = Y.shape
     method = method.lower()
@@ -754,22 +766,22 @@ def tv1w_2d_batched(Y, W_col, W_row, max_iters: int = 0, method: str = "dr",
     if method == "yang":
         rho = _scalar(cfg.yang_rho, Y.dtype)
         pcol, s1 = _make_col_prox(B, M, N, None, 1.0, inner_method,
-                                  W_col / rho, Y.dtype, Y.device)
+                                  W_col / rho, Y.dtype, Y.device, tol_eps)
         prow, s2 = _make_row_prox(B, M, N, None, 1.0, inner_method,
-                                  W_row / rho, Y.dtype, Y.device)
+                                  W_row / rho, Y.dtype, Y.device, tol_eps)
         return _run_yang(Y, pcol, s1, prow, s2,
                          max_iters or cfg.max_iters_yang, cfg.stop,
                          cfg.yang_rho)
     if method == "kolmogorov":
         return _run_kolmogorov(Y, W_row, W_col,
                                max_iters or cfg.max_iters_kolmogorov,
-                               cfg.stop, inner_method)
+                               cfg.stop, inner_method, tol_eps)
     if method not in ("pd", "dr"):
         raise ValueError(f"Unknown weighted 2D method: {method!r}")
     cfgs = (_make_col_prox(B, M, N, None, 1.0, inner_method, W_col, Y.dtype,
-                           Y.device),
+                           Y.device, tol_eps),
             _make_row_prox(B, M, N, None, 1.0, inner_method, W_row, Y.dtype,
-                           Y.device))
+                           Y.device, tol_eps))
     return _dispatch(Y, cfgs, method, max_iters, cfg)
 
 

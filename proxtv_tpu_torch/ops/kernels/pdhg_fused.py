@@ -150,7 +150,8 @@ def pdhg_chunk_plain(sched, x, xb, u1, u2, y, k_steps: int, tm: int,
         if grad_step:  # Condat: explicit gradient step on the smooth term
             xn = x - tau * ((x - y) + div)
         else:          # CP: resolvent step
-            xn = (x - tau * div + tau * y) / (1.0 + tau)
+            # times the reciprocal, as the kernel (the TPU kernel divides)
+            xn = (x - tau * div + tau * y) * (1.0 / (1.0 + tau))
         xb = xn + theta * (xn - x)
         x = xn
     if not cert:

@@ -897,7 +897,8 @@ def _per_edge(lam, B, n):
 
 
 def tv1_batched(y, lam, method: str = "hybridtautstring",
-                cfg: TV1Config = DEFAULT_TV1, strict: bool = False):
+                cfg: TV1Config = DEFAULT_TV1, strict: bool = False,
+                tol_eps: float = 10.0):
     """Batched 1D TV-L1 prox with reference-compatible method names, routed
     by the JAX package's table (``tv1d_l1.py:1141-1191``).
 
@@ -917,6 +918,8 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
     so and :func:`tv1_pn` elsewhere, strict or not.
     The unweighted engines (``condat``, ``classictautstring``) raise on
     per-edge weights when strict and take the taut string otherwise.
+    ``tol_eps`` is B1's float32 stop floor (``pn_fused.pn_tv1_fused``; 10,
+    the TPU kernel's, by default; ``diffprox.tv1_prox`` passes 0).
     """
     from .kernels import gating
 
@@ -947,11 +950,12 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
             # Uniform penalty rides to the kernel as a scalar argument — no
             # (B, n) penalty field is read.
             x, _ = pn_fused.pn_tv1_fused(y, lam_scalar=float(lam),
-                                         return_dual=False)
+                                         return_dual=False, tol_eps=tol_eps)
             return x
         lamv = _edge_weights(lam, B, n, y.dtype, y.device)
         lam_full = torch.cat([lamv, y.new_zeros((B, 1))], dim=-1)
-        x, _ = pn_fused.pn_tv1_fused(y, lam_full, return_dual=False)
+        x, _ = pn_fused.pn_tv1_fused(y, lam_full, return_dual=False,
+                                     tol_eps=tol_eps)
         return x
     x, _ = tv1_pn(y, lam, cfg=cfg)  # CPU, or past B1's lane limit
     return x

@@ -30,9 +30,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCE = os.path.join(_REPO, "native", "tv1d_host.cpp")
 BUILD_DIR = os.path.join(_REPO, "build", "proxtv_tpu_torch")
 # native/Makefile's CXXFLAGS and link step, less -fopenmp and -march=native:
-# the two entry points bound here use no OpenMP (only the batch entry point
-# does), and a toolchain without the OpenMP runtime refuses the flag; and the
-# library's name does not record the machine -march=native would tune it for.
+# a toolchain without the OpenMP runtime refuses the flag (the source guards
+# its OpenMP lines with _OPENMP, so the batch entry point runs its loop on one
+# thread), and the library's name does not record the machine -march=native
+# would tune it for.
 CXXFLAGS = ("-O3", "-fPIC", "-Wall", "-shared")
 
 _lock = threading.Lock()
@@ -93,14 +94,65 @@ def lib():
                                             ctypes.c_double, _PD]
             handle.ptv_tv1w_host.restype = None
             handle.ptv_tv1w_host.argtypes = [_PD, ctypes.c_int, _PD, _PD]
+            handle.ptv_tv1_batch_host.restype = None
+            handle.ptv_tv1_batch_host.argtypes = [_PD, ctypes.c_int,
+                                                  ctypes.c_int,
+                                                  ctypes.c_double, _PD,
+                                                  ctypes.c_int]
+            handle.ptv_ws_new.restype = ctypes.c_void_p
+            handle.ptv_ws_new.argtypes = [ctypes.c_int]
+            handle.ptv_ws_free.restype = None
+            handle.ptv_ws_free.argtypes = [ctypes.c_void_p]
+            handle.ptv_ws_double.restype = _PD
+            handle.ptv_ws_double.argtypes = [ctypes.c_void_p, ctypes.c_int]
             _lib = handle
     return _lib
 
 
-def tv1_host(y, lam: float):
-    """Scalar-weight 1D TV-L1 prox of one signal on the host, in float64."""
+class HostWorkspace:
+    """Reusable host-side buffer pool — the reference ``Workspace`` analog
+    (src/utils.h:20-34): a caller issuing many latency-tail solves reuses
+    pool-owned output memory instead of allocating a fresh array per call.
+
+    Use as a context manager or call :meth:`close`; the returned arrays are
+    VIEWS into pool memory, valid until the next pool call / close."""
+
+    def __init__(self, capacity: int = 0):
+        self._lib = lib()
+        self._ptr = self._lib.ptv_ws_new(int(capacity))
+
+    def out_buffer(self, size: int):
+        """A float64 view of ``size`` elements of the pool's memory."""
+        if self._ptr is None:
+            raise ValueError("the workspace is closed")
+        ptr = self._lib.ptv_ws_double(self._ptr, int(size))
+        return np.ctypeslib.as_array(ptr, shape=(int(size),))
+
+    def close(self):
+        if self._ptr is not None:
+            self._lib.ptv_ws_free(self._ptr)
+            self._ptr = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+def tv1_host(y, lam: float, ws: HostWorkspace = None):
+    """Scalar-weight 1D TV-L1 prox of one signal on the host, in float64.
+
+    ``ws``: optional :class:`HostWorkspace` — the result is written into
+    pool-owned memory (a view is returned) instead of a fresh array."""
     y = np.ascontiguousarray(y, dtype=np.float64).ravel()
-    x = np.empty_like(y)
+    x = ws.out_buffer(y.size) if ws is not None else np.empty_like(y)
     lib().ptv_tv1_host(y.ctypes.data_as(_PD), y.size, float(lam),
                        x.ctypes.data_as(_PD))
     return x
@@ -118,3 +170,16 @@ def tv1w_host(y, lam):
     lib().ptv_tv1w_host(y.ctypes.data_as(_PD), y.size, lam.ctypes.data_as(_PD),
                         x.ctypes.data_as(_PD))
     return x
+
+
+def tv1_batch_host(Y, lam: float, n_threads: int = 0):
+    """Scalar-weight 1D TV-L1 prox of each row of ``Y`` (B, n) on the host,
+    in float64.  The library is built without OpenMP (:data:`CXXFLAGS`), so
+    the rows run one after another on one thread: ``n_threads`` is accepted
+    for the JAX package's signature and unused."""
+    Y = np.ascontiguousarray(Y, dtype=np.float64)
+    B, n = Y.shape
+    X = np.empty_like(Y)
+    lib().ptv_tv1_batch_host(Y.ctypes.data_as(_PD), B, n, float(lam),
+                             X.ctypes.data_as(_PD), int(n_threads))
+    return X

@@ -1,10 +1,11 @@
 """Solver state across packages: numpy arrays / dicts <-> the port's tensors.
 
-The system has no learned weights; what crosses between the JAX package and
-the port is solver state — projected-Newton dual warm starts ``(K, n-1)``,
-PDHG dual pairs ``u0 = (u_row (B, M, N-1), u_col (B, M-1, N))``, TV-Lp
-``(w, mu)`` pairs, the ``SolverInfo`` fields and the config dataclasses.  Both sides speak numpy at
-the boundary, so each helper takes or returns numpy arrays / plain dicts.
+What crosses between the JAX package and the port is solver state —
+projected-Newton dual warm starts ``(K, n-1)``, PDHG dual pairs
+``u0 = (u_row (B, M, N-1), u_col (B, M-1, N))``, TV-Lp ``(w, mu)`` pairs,
+the ``SolverInfo`` fields and the config dataclasses — and the one weight of
+the TV layers, ``raw_lam``.  Both sides speak numpy at the boundary, so each
+helper takes or returns numpy arrays / plain dicts.
 """
 from __future__ import annotations
 
@@ -91,3 +92,17 @@ def config_from(cls, d):
 
 def config_to_dict(cfg) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def layer_state(flax_params, device="cpu", dtype=None) -> dict:
+    """A flax TV layer's variables (``{"params": {"raw_lam": array}}``, or
+    the inner ``{"raw_lam": array}``) as the ``state_dict`` of the port's
+    ``models.layers.TVDenoise1D`` / ``TVDenoise2D``."""
+    params = flax_params.get("params", flax_params)
+    return {"raw_lam": tensor(params["raw_lam"], device, dtype)}
+
+
+def layer_params(module) -> dict:
+    """The port's TV layer's weight as flax variables:
+    ``{"params": {"raw_lam": numpy array}}``."""
+    return {"params": {"raw_lam": numpy(module.raw_lam)}}

@@ -224,16 +224,20 @@ def test_port_imports_neither_jax_nor_reference_package():
         "import proxtv_tpu_torch, proxtv_tpu_torch.api\n"
         "from proxtv_tpu_torch.models import tv2d, tvnd\n"
         "from proxtv_tpu_torch.ops import lp, tv1d_l2, tv1d_lp\n"
-        "from proxtv_tpu_torch.ops import tv1d_l1\n"
+        "from proxtv_tpu_torch.ops import tv1d_l1, tv1d_long, diffprox\n"
+        "from proxtv_tpu_torch.models import layers\n"
+        "import proxtv_tpu_torch.__main__\n"
         "from proxtv_tpu_torch.ops.kernels import build, pcr, pn_fused, "
         "pdhg_fused, ms_fused, pdhg3d_fused, lp_fused, tautstring, dp, "
         "direct1d\n"
         "from proxtv_tpu_torch.runtime import native\n"
-        "from proxtv_tpu_torch.utils import interop, debug, lpnorms\n"
+        "from proxtv_tpu_torch.utils import interop, debug, lpnorms, "
+        "checkpoint\n"
         "from proxtv_tpu_torch.demos import demo_filter_image, "
-        "demo_filter_signal, demo_filter_image_weighted\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'proxtv_tpu' or m.startswith('proxtv_tpu.')]\n"
+        "demo_filter_signal, demo_filter_image_weighted, "
+        "demo_filter_image_batched, demo_filter_image_color\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
+        "'optax', 'orbax', 'proxtv_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -211,7 +211,7 @@ def _chunk_on_fields(sched, x, xb, u1, u2, y, lamr, lamc, vr, vc, in_img,
         if grad_step:
             xn = x - tau * ((x - y) + div)
         else:
-            xn = (x - tau * div + tau * y) / (1.0 + tau)
+            xn = (x - tau * div + tau * y) * (1.0 / (1.0 + tau))
         xb = xn + theta * (xn - x)
         x = xn
     xhat = y - (PPK._drow_t(u1) + PPK._dcol_t(u2))

@@ -65,6 +65,18 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    than ``TOL["backward"]``; and prints, as a finding, the share of edges
    the float32 forward classifies differently from the float64 one at a
    reduced size (``[train]`` lines);
+   3e. dist, the parallel path (``proxtv_tpu_torch.parallel``) at the
+   bench's widths: at world 1 on NCCL in this process, counted and tapped
+   with the main path, ``tv1_2d_banded`` and ``tv1w_2d_banded`` 1024^2
+   (B3), ``tv1_3d_banded`` 32 x 256 x 256 (B6), ``tv1_1d_banded`` on the
+   10^6 signal (B1), ``tv1_2d_sharded_fused`` 4 x 512^2 (B3) and
+   ``tv1_1d_sharded`` 10000 x 1000 (B1), held against the float64
+   references of phase 3 (certified-gap rule; the host taut string) and
+   bit for bit against the single-card calls; then the first five at
+   world 2 on gloo, two subprocesses sharing the card, each holding its
+   own first B1/B3/B6 launch against the plain version, held against
+   world 1.  One ``[dist]`` line a call (wall, device busy, exchanges,
+   all-reduces, gathers, bytes, staging copies, host syncs, launches);
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1, B2,
    B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
@@ -284,6 +296,208 @@ def profile_call(fn):
 KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
               "B4": "::ms_kernel", "B5": "::gpfw_kernel",
               "B6": "::pdhg3d_march", "D1": "::tautstring_", "D2": "::dp_"}
+
+
+# The dist phase (3e): the parallel path on a torch.distributed mesh, at
+# world 1 on NCCL in this process and at world DIST_WORLD on gloo, in
+# subprocesses that share the one card (both ranks on cuda:0).
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 600
+COMM = ("EXCHANGES", "ALL_REDUCES", "GATHERS", "BYTES_MOVED",
+        "STAGING_COPIES")
+
+
+def dist_calls(P, mesh, d, world):
+    """The parallel path's calls at the bench's widths, on the global
+    arrays ``d`` (every rank passes the same): (name, fn, kernel it must
+    launch).  tv1_1d_sharded only at world 1."""
+    calls = [
+        (f"tv1_2d_banded {M2D}^2 lam {LAM2D} cp-acc",
+         lambda: P.tv1_2d_banded(d["Y2"], LAM2D, mesh), "B3"),
+        (f"tv1w_2d_banded {M2D}^2 weights {LAMW2D} x U[0.5, 1.5] cp-acc",
+         lambda: P.tv1w_2d_banded(d["Y2"], d["Wc2"], d["Wr2"], mesh), "B3"),
+        (f"tv1_3d_banded {L3}x{M3}x{N3} lam {LAM3} cp-acc",
+         lambda: P.tv1_3d_banded(d["V"], LAM3, mesh), "B6"),
+        (f"tv1_1d_banded n=1e6 lam {LAM1D} chunk 5120 overlap 640",
+         lambda: P.tv1_1d_banded(d["ylong"], LAM1D, mesh), "B1"),
+        (f"tv1_2d_sharded_fused {B_PI}x{M_PI}^2 lam {LAM2D} cp-acc",
+         lambda: P.tv1_2d_sharded_fused(d["Ypi"], LAM2D, mesh), "B3"),
+    ]
+    if world == 1:
+        calls.append((f"tv1_1d_sharded {B1D}x{N1D} lam {LAM1D}",
+                      lambda: P.tv1_1d_sharded(d["Y1"], LAM1D, mesh), "B1"))
+    return calls
+
+
+def comm_counts(debug, reset=False):
+    """The parallel path's traffic counters (and reset them)."""
+    got = {k.lower(): getattr(debug, k).value for k in COMM}
+    if reset:
+        for k in COMM:
+            getattr(debug, k).reset()
+    return got
+
+
+def _clone(v):
+    return v.clone() if hasattr(v, "clone") else v
+
+
+class FirstLaunch:
+    """Keeps the first launch of B1, B3 and B6 under each ``label`` (the
+    wrapper's arguments, cloned) and calls through; a launch made with no
+    label is not kept."""
+
+    def __init__(self, B1, B3, B6):
+        self.targets = {"B1": (B1, "pn_tv1_fused"), "B3": (B3, "pdhg_chunk"),
+                        "B6": (B6, "pdhg3d_chunk")}
+        self.label, self.seen, self.saved = None, {}, {}
+
+    def __enter__(self):
+        for kid, (mod, attr) in self.targets.items():
+            self.saved[kid] = orig = getattr(mod, attr)
+
+            def tap(*a, _kid=kid, _orig=orig, **kw):
+                key = (self.label, _kid)
+                if self.label is not None and key not in self.seen:
+                    self.seen[key] = ([_clone(v) for v in a],
+                                      {k: _clone(v) for k, v in kw.items()})
+                return _orig(*a, **kw)
+
+            setattr(mod, attr, tap)
+        return self
+
+    def __exit__(self, *exc):
+        for kid, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.saved[kid])
+
+
+def hold_first(kid, a, kw, B1, B3, B6):
+    """One recorded launch of B1, B3 or B6 against its plain version on the
+    card, at TOL (B1: x and w within TOL["pn"], Newton counts within
+    TOL["pn_iters"]; B3, B6: the fields on the canvas less its 2K halo rows
+    or layers at each end, as phase 2 holds B3).  A band's canvas may end
+    inside the image: the kernel's windows carry the cells past it as zeros
+    that evolve, the plain version holds them at zero, and the two part
+    within the halo, which the driver refreshes before the next chunk.
+    Returns the largest difference; fails the run past the bar."""
+    import torch
+
+    if kid == "B1":
+        kw = {k: v for k, v in kw.items()
+              if k not in ("return_dual", "return_iters")}
+        xr, wr, itr = B1.pn_tv1_fused_plain(*a, tb=1, **kw)
+        x, w, it = B1.pn_tv1_fused(*a, return_iters=True, **kw)
+        torch.cuda.synchronize()
+        err = max(float((x - xr).abs().max()), float((w - wr).abs().max()))
+        di = int((it - itr).abs().max())
+        check(err <= TOL["pn"] and di <= TOL["pn_iters"],
+              f"B1's first banded launch disagrees ({err}, {di})")
+        return err
+    if kid == "B3":
+        ref = B3.pdhg_chunk_plain(*a, **kw)
+        out = B3.pdhg_chunk(*a, **kw)
+        tol = TOL["pdhg"]
+    else:
+        ref = B6.pdhg3d_chunk_plain(*a, **{k: v for k, v in kw.items()
+                                           if k != "tile"})
+        out = B6.pdhg3d_chunk(*a, **kw)
+        tol = TOL["pdhg3d"]
+    torch.cuda.synchronize()
+    h = 2 * kw["k_steps"]
+    err = max(float((o[h:o.shape[0] - h] - r[h:r.shape[0] - h]).abs().max())
+              for o, r in zip(out[:5], ref[:5]))
+    check(err <= tol, f"{kid}'s first banded launch disagrees ({err})")
+    return err
+
+
+def dist_line(world, backend, name, wall_ms, prof, comm, host_syncs,
+              launches, card):
+    return (f"[dist] world {world} {backend} {name}: wall {wall_ms:.3f} ms "
+            f"(CUDA events), device busy {prof['busy_ms']:.3f} ms, idle "
+            f"share {prof['idle_share']}; exchanges {comm['exchanges']}, "
+            f"all-reduces {comm['all_reduces']}, gathers {comm['gathers']}, "
+            f"bytes moved {comm['bytes_moved']}, staging copies "
+            f"{comm['staging_copies']}, host syncs {host_syncs}, launches "
+            f"{launches}  ({card})")
+
+
+def dist_rank(rank, ddir, card):
+    """One rank of the gloo world of DIST_WORLD ranks on cuda:0: the
+    parallel path's calls on the inputs in ``ddir/inputs.npz``, each run
+    counted (its first B1, B3 and B6 launch kept and held against the plain
+    version), timed by CUDA events and profiled.  Rank 0 prints the
+    ``[dist]`` lines and writes the outputs to ``ddir/world.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        raise Fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, REPO)
+    from proxtv_tpu_torch import parallel as P
+    from proxtv_tpu_torch.ops.kernels import pdhg3d_fused as B6
+    from proxtv_tpu_torch.ops.kernels import pdhg_fused as B3
+    from proxtv_tpu_torch.ops.kernels import pn_fused as B1
+    from proxtv_tpu_torch.utils import debug
+
+    dist.init_process_group("gloo", init_method=f"file://{ddir}/store",
+                            rank=rank, world_size=DIST_WORLD)
+    try:
+        mesh = P.make_mesh()
+        with np.load(os.path.join(ddir, "inputs.npz")) as f:
+            d = {k: f[k] for k in f.files}
+        counters = {"B1": B1.LAUNCHES, "B3": B3.LAUNCHES, "B6": B6.LAUNCHES}
+        first = FirstLaunch(B1, B3, B6)
+        out, lines = {}, []
+        for i, (name, fn, must) in enumerate(dist_calls(P, mesh, d,
+                                                        DIST_WORLD)):
+            for c in counters.values():
+                c.reset()
+            debug.HOST_SYNCS.reset()
+            comm_counts(debug, reset=True)
+            with first:
+                first.label = name
+                res = fn()
+                torch.cuda.synchronize()
+                first.label = None
+            comm = comm_counts(debug)
+            syncs = debug.HOST_SYNCS.value
+            got = {k: c.value for k, c in counters.items()}
+            check(got[must] > 0, f"rank {rank}: {name} did not launch {must}")
+            x, info = res
+            out[f"x{i}"] = x.cpu().numpy()
+            for f_ in ("iters", "gap", "rc"):
+                out[f"{f_}{i}"] = getattr(info, f_).cpu().numpy()
+            check(x.device == mesh.device and info.gap.device == mesh.device,
+                  f"rank {rank}: {name} left the card")
+            wall = cuda_ms(fn, reps=1)
+            if rank == 0:
+                prof = profile_call(fn)
+            else:  # the same calls, for the collectives, unprofiled
+                fn()
+                fn()
+                torch.cuda.synchronize()
+            if rank:
+                continue
+            lines.append(dist_line(DIST_WORLD, "gloo", name, wall, prof, comm,
+                                   syncs, got, card))
+            out[f"wall{i}"] = np.array(wall)
+            out[f"busy{i}"] = np.array(prof["busy_ms"])
+            out[f"comm{i}"] = np.array([comm[k.lower()] for k in COMM])
+            out[f"syncs{i}"] = np.array(syncs)
+        holds = {}
+        for (name, kid), (a, kw) in first.seen.items():
+            holds[f"{name}: {kid}"] = err = hold_first(kid, a, kw, B1, B3,
+                                                       B6)
+            lines.append(f"[dist] world {DIST_WORLD} rank {rank} {name}: "
+                         f"first {kid} launch vs plain {err:.3e}")
+        with open(os.path.join(ddir, f"holds{rank}.json"), "w") as f:
+            json.dump(holds, f)
+        if rank == 0:
+            np.savez(os.path.join(ddir, "world.npz"), **out)
+        print("\n".join(lines))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def train_cells(ny1, tgt1, ny2, tgt2):
@@ -1279,6 +1493,33 @@ def main(out_dir):
                                     method="chambolle-pock-acc"), ["B3"])
     check(bool((info_pi.rc == RC_OK).all()), "per-image cp-acc did not "
           "certify")
+    # -- 3e. dist, world 1: the parallel path on a one-rank NCCL mesh ------
+    # Counted and tapped with the main path (phase 3b holds its B1 and B3
+    # launches, phase 4 replays them); the first B1, B3 and B6 launch of
+    # each call is kept apart and held below, where the references exist.
+    import tempfile
+
+    import torch.distributed as dist
+    from proxtv_tpu_torch import parallel
+
+    t_dist = time.perf_counter()
+    ddir = tempfile.mkdtemp(prefix="proxtv_dist_")
+    dist.init_process_group("nccl", init_method=f"file://{ddir}/store1",
+                            rank=0, world_size=1)
+    mesh1 = parallel.make_mesh()
+    d_in = {"Y2": Y2, "Wc2": Wc2, "Wr2": Wr2, "V": V, "ylong": ylong,
+            "Ypi": Ypi, "Y1": Y1}
+    first1 = FirstLaunch(B1, B3, B6)
+    dist1 = {}
+    with first1:
+        for name_, fn_, must_ in dist_calls(parallel, mesh1, d_in, 1):
+            comm_counts(debug, reset=True)
+            first1.label = name_
+            res_ = run(f"dist world 1 {name_}", fn_, [must_])
+            first1.label = None
+            dist1[name_] = {"res": res_, "comm": comm_counts(debug),
+                            "fn": fn_}
+    t_dist = time.perf_counter() - t_dist
     # -- 3d. train: the differentiable path on the card ------------------
     # Each cell runs once here, counted and tapped like every main-path call
     # (phase 3b holds its B1 and B3 launches against their plain versions,
@@ -1869,6 +2110,156 @@ def main(out_dir):
               f"per-image image {b_} misses its certificate")
         xc[f"per-image cp-acc image {b_}"] = {"F_minus_F_ref": dF_,
                                               "gap": g_}
+
+    # -- 3e. dist: world 1 held against the references, timed; then the
+    # gloo world of DIST_WORLD ranks on this card, held against world 1 ----
+    # 2D and 3D by the certified-gap rule against the float64 references;
+    # the 10^6 walk against the float64 host taut string at TOL["pn"];
+    # the batch-split calls bit for bit against the single-card calls that
+    # make the same launches.  The first B1, B3 and B6 launch of each call
+    # against its plain version (hold_first).
+    t0 = time.perf_counter()
+    report["dist"] = {"world1": {}, "world2": {}}
+    Wr64, Wc64 = Wr2.astype(np.float64), Wc2.astype(np.float64)
+    per_img = tv2d.tv1_2d_batched(t(Ypi), LAM2D,
+                                  method="chambolle-pock-acc")[0]
+    single = {"fused": per_img.cpu().numpy(),
+              "tv1": tv1d_l1.tv1_batched(Y1t, LAM1D).cpu().numpy()}
+
+    def dist_objective(i_, X):
+        """(objective, float64 reference objective, reference gap) of call
+        i_ of dist_calls, per image for the batch call."""
+        if i_ == 0:
+            return obj2d(X, Y2, LAM2D), F_ref, gap_ref
+        if i_ == 1:
+            return obj2dw(X, Y2, Wr64, Wc64), Fw_ref, gapw_ref
+        if i_ == 2:
+            return obj3d(X, V, LAM3), F3_ref, gap_ref3
+        return np.array([obj2d(X[b_], Ypi[b_], LAM2D)
+                         for b_ in range(B_PI)]), None, None
+
+    w1_out, dist_prof = [], {}
+    for i_, (name_, e_) in enumerate(dist1.items()):
+        res_ = e_["res"]
+        x_, info_ = res_ if isinstance(res_, tuple) else (res_, None)
+        X = x_.cpu().numpy()
+        w1_out.append((X, info_))
+        rec = {"launches": main[f"dist world 1 {name_}"]["launches"],
+               "host_syncs": main[f"dist world 1 {name_}"]["host_syncs"],
+               **e_["comm"]}
+        if i_ < 3:
+            F_, Fr_, gr_ = dist_objective(i_, X)
+            g_ = float(info_.gap[0])
+            print(f"[dist] world 1 nccl {name_}: F - F_ref = {F_ - Fr_:.4e} "
+                  f"(bar: gap {g_:.4e} + {gr_:.3e} + {F_ROUND * Fr_:.3e}), "
+                  f"iters {int(info_.iters[0])}, rc {int(info_.rc[0])}")
+            check(int(info_.rc[0]) == RC_OK and F_ - Fr_ <= g_ + gr_
+                  + F_ROUND * Fr_, f"dist world 1 {name_} misses its "
+                  "certificate")
+            rec.update(F_minus_F_ref=F_ - Fr_, gap=g_,
+                       iters=int(info_.iters[0]))
+        elif i_ == 3:
+            e_l = float(np.abs(X.astype(np.float64) - xl1_ref).max())
+            print(f"[dist] world 1 nccl {name_}: max|x - x_host64| = "
+                  f"{e_l:.3e} (tol {TOL['pn']}), rc {int(info_.rc[0])}, gap "
+                  f"{float(info_.gap[0]):.4e}")
+            check(int(info_.rc[0]) == RC_OK and e_l <= TOL["pn"],
+                  f"dist world 1 {name_} disagrees")
+            rec.update(max_abs_err=e_l)
+        else:
+            ref_ = single["fused" if i_ == 4 else "tv1"]
+            same = bool(np.array_equal(X, ref_))
+            print(f"[dist] world 1 nccl {name_}: bit for bit with the "
+                  f"single-card call: {same}")
+            check(same, f"dist world 1 {name_} parts from the single-card "
+                  "call")
+        wall_ = cuda_ms(e_["fn"], reps=3)
+        prof_ = dist_prof[name_] = profile_call(e_["fn"])
+        print(dist_line(1, "nccl", name_, wall_, prof_, e_["comm"],
+                        rec["host_syncs"], rec["launches"], card))
+        rec.update(wall_ms=wall_, busy_ms=prof_["busy_ms"],
+                   idle_share=prof_["idle_share"])
+        report["dist"]["world1"][name_] = rec
+    report["dist"]["world1_first_launch_vs_plain"] = {}
+    for (name_, kid), (a_, kw_) in first1.seen.items():
+        err_ = hold_first(kid, a_, kw_, B1, B3, B6)
+        report["dist"]["world1_first_launch_vs_plain"][f"{name_}: {kid}"] = (
+            err_)
+        print(f"[dist] world 1 {name_}: first {kid} launch vs plain "
+              f"{err_:.3e}")
+    dist.destroy_process_group()
+
+    import shutil
+
+    np.savez(os.path.join(ddir, "inputs.npz"), Y2=Y2, Wc2=Wc2, Wr2=Wr2, V=V,
+             ylong=ylong, Ypi=Ypi)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r_),
+         "--dist-dir", ddir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r_ in range(DIST_WORLD)]
+    logs = []
+    try:
+        for p_ in procs:
+            logs.append(p_.communicate(timeout=DIST_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        raise Fail(f"the gloo world of {DIST_WORLD} did not end within "
+                   f"{DIST_TIMEOUT_S} s")
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    for r_, (p_, log_) in enumerate(zip(procs, logs)):
+        print(log_.rstrip())
+        check(p_.returncode == 0, f"dist rank {r_} failed ({p_.returncode})")
+    with np.load(os.path.join(ddir, "world.npz")) as f_:
+        w2 = {k_: f_[k_] for k_ in f_.files}
+    for r_ in range(DIST_WORLD):
+        with open(os.path.join(ddir, f"holds{r_}.json")) as f_:
+            report["dist"][f"world2_rank{r_}_first_launch_vs_plain"] = (
+                json.load(f_))
+    shutil.rmtree(ddir)
+    ymax = float(np.abs(ylong).max())
+    for i_, name_ in enumerate(list(dist1)[:5]):
+        X1, info1 = w1_out[i_]
+        X2, g2, rc2 = w2[f"x{i_}"], w2[f"gap{i_}"], w2[f"rc{i_}"]
+        g1 = info1.gap.cpu().numpy()
+        rec = {"wall_ms": float(w2[f"wall{i_}"]),
+               "busy_ms": float(w2[f"busy{i_}"]),
+               "comm": dict(zip((k_.lower() for k_ in COMM),
+                                w2[f"comm{i_}"].tolist())),
+               "host_syncs": int(w2[f"syncs{i_}"]), "rc": rc2.tolist()}
+        if i_ == 3:
+            e_ = float(np.abs(X2.astype(np.float64) - X1).max())
+            print(f"[dist] world {DIST_WORLD} {name_}: max|x - x_world1| = "
+                  f"{e_:.3e} (bar 1e-5 x {ymax:.3e}), rc {int(rc2[0])}")
+            check(e_ <= 1e-5 * ymax and int(rc2[0]) == RC_OK,
+                  f"dist world {DIST_WORLD} {name_} parts from world 1")
+            rec.update(max_abs_err=e_)
+        else:
+            F1, Fr_, gr_ = dist_objective(i_, X1)
+            F2, _, _ = dist_objective(i_, X2)
+            F1, F2 = np.atleast_1d(F1), np.atleast_1d(F2)
+            rnd = F_ROUND * np.abs(F1)
+            ok = (np.all(F2 - F1 <= g2 + rnd) and np.all(F1 - F2 <= g1 + rnd)
+                  and np.all(rc2 == RC_OK))
+            msg = (f"[dist] world {DIST_WORLD} {name_}: F - F_world1 = "
+                   f"{', '.join(f'{v:.4e}' for v in F2 - F1)} (bars: gaps "
+                   f"{', '.join(f'{v:.4e}' for v in g2)} / world 1 "
+                   f"{', '.join(f'{v:.4e}' for v in g1)})")
+            if Fr_ is not None:
+                ok = ok and F2[0] - Fr_ <= g2[0] + gr_ + F_ROUND * Fr_
+                msg += f"; F - F_ref = {F2[0] - Fr_:.4e}"
+            print(msg)
+            check(ok, f"dist world {DIST_WORLD} {name_} misses the "
+                  "certified-gap rule")
+            rec.update(F_minus_F_world1=(F2 - F1).tolist())
+        report["dist"]["world2"][name_] = rec
+    t_dist += time.perf_counter() - t0
+    report["dist"]["seconds"] = t_dist
+    print(f"[dist] phase: {t_dist:.1f} s (world 1 counted in phase 3, its "
+          f"checks, timing and profiles, and the gloo world of "
+          f"{DIST_WORLD} on this card)")
 
     # -- 3c. past the TPU's lane limits (ROADMAP C1) -----------------------
     # Each instance on the card against the same call in float64 on the
@@ -2539,14 +2930,16 @@ def main(out_dir):
               f"{m_['host_syncs']}  ({card})")
 
     # The redesign queue: each kernel's device time over one pass of every
-    # main-path call that launches it (the profiled calls above), less the
+    # main-path call that launches it (the profiled calls above and the
+    # dist phase's world-1 calls, profiled in phase 3e), less the
     # bounds of those launches where phase 4 timed the kernel at the path's
     # own shape (B1, B2, B4 and B5 at each of their shapes, B3, B6).
     at_shape = {"B3": sum(by_path["B3"].values()),
                 "B6": sum(by_path["B6"].values())}
     queue = {}
     for kid in counters:
-        dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in breakdown.values())
+        dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in (
+            *breakdown.values(), *dist_prof.values()))
         per_shape = kid in ("B1", "B2", "B4", "B5", "D1", "D2")
         bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
                                     else at_shape.get(kid, 0))
@@ -2625,9 +3018,17 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chip_smoke_out",
                     help="directory for the detailed report")
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help="run one rank of the dist phase's gloo world "
+                         "(started by the dist phase itself)")
+    ap.add_argument("--dist-dir", default=None,
+                    help="the dist phase's working directory")
     args = ap.parse_args()
     try:
-        main(args.out)
+        if args.dist_rank is not None:
+            dist_rank(args.dist_rank, args.dist_dir, card_line())
+        else:
+            main(args.out)
     except Fail as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)

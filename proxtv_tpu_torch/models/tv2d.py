@@ -245,11 +245,13 @@ def _freeze_tree(new, old, running, B):
     return torch.where(m.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
-def _loop(body, init_state, x_of, cap, tol):
+def _loop(body, init_state, x_of, cap, tol, mean_change=_mean_abs_change):
     """Generic combiner loop: runs until mean |x - x_last| < tol for every
     image or ``cap`` sweeps.  Converged images are frozen (their whole state,
     fiber warm-start duals included, stops updating), so their inner solves
-    converge at once; ``iters`` counts each image's own sweeps."""
+    converge at once; ``iters`` counts each image's own sweeps.
+    ``mean_change`` computes the per-image statistic (the column-split
+    solve of ``parallel.sharded`` all-reduces it)."""
     x_last = x_of(init_state)
     B = x_last.shape[0]
     dev = x_last.device
@@ -261,7 +263,7 @@ def _loop(body, init_state, x_of, cap, tol):
     while iters < cap and debug.host(torch.any(running)):
         state = _freeze_tree(body(state), state, running, B)
         x = x_of(state)
-        delta = torch.where(running, _mean_abs_change(x, x_last), delta)
+        delta = torch.where(running, mean_change(x, x_last), delta)
         iters_img = iters_img + running.to(torch.int32)
         running = running & (delta > tol)
         iters += 1
@@ -274,7 +276,8 @@ def _loop(body, init_state, x_of, cap, tol):
 # -- Proximal Dykstra (reference PD2_TV) ------------------------------------
 
 
-def _run_pd(Y, prox1, s1_0, prox2, s2_0, cap, tol):
+def _run_pd(Y, prox1, s1_0, prox2, s2_0, cap, tol,
+            mean_change=_mean_abs_change):
     def body(state):
         x, p, q, s1, s2 = state
         xp, s1 = prox1(x + p, s1)
@@ -284,13 +287,15 @@ def _run_pd(Y, prox1, s1_0, prox2, s2_0, cap, tol):
         return x, p, q, s1, s2
 
     z = torch.zeros_like(Y)
-    return _loop(body, (Y, z, z, s1_0, s2_0), lambda s: s[0], cap, tol)
+    return _loop(body, (Y, z, z, s1_0, s2_0), lambda s: s[0], cap, tol,
+                 mean_change)
 
 
 # -- Davis-Yin three-operator splitting (reference DR2_TV role) -------------
 
 
-def _run_dr(Y, prox1, s1_0, prox2, s2_0, cap, tol, gamma=1.0):
+def _run_dr(Y, prox1, s1_0, prox2, s2_0, cap, tol, gamma=1.0,
+            mean_change=_mean_abs_change):
     """Fixed point: x* = prox of (f1 + f2 + 0.5||.-Y||^2); the smooth term
     enters by its gradient (x - Y), the proxes of f1/f2 scaled by gamma."""
 
@@ -302,13 +307,15 @@ def _run_dr(Y, prox1, s1_0, prox2, s2_0, cap, tol, gamma=1.0):
         z = z + xa - xb
         return z, xb, s1, s2
 
-    return _loop(body, (Y, Y, s1_0, s2_0), lambda s: s[1], cap, tol)
+    return _loop(body, (Y, Y, s1_0, s2_0), lambda s: s[1], cap, tol,
+                 mean_change)
 
 
 # -- Consensus ADMM (reference Yang2_TV) ------------------------------------
 
 
-def _run_yang(Y, prox1, s1_0, prox2, s2_0, cap, tol, rho):
+def _run_yang(Y, prox1, s1_0, prox2, s2_0, cap, tol, rho,
+              mean_change=_mean_abs_change):
     def body(state):
         x, z1, z2, u1, u2, s1, s2 = state
         # Rotated ADMM sweep (z, u first) so the first iterate moves.
@@ -321,7 +328,7 @@ def _run_yang(Y, prox1, s1_0, prox2, s2_0, cap, tol, rho):
 
     zero = torch.zeros_like(Y)
     return _loop(body, (Y, Y, Y, zero, zero, s1_0, s2_0), lambda s: s[0],
-                 cap, tol)
+                 cap, tol, mean_change)
 
 
 # -- Primal-dual (reference CondatChambollePock2_TV) ------------------------
@@ -600,6 +607,167 @@ def _run_pdhg_fused(Y, lam, cap, tol, cfg, variant: str,
         u2_img = u2[halo:halo + B * S].reshape(B, S, Np)[:, :M - 1, :N]
         return out, info, (u1_img, u2_img)
     return out, info
+
+
+def _run_pdhg_fused_banded(Yl, lam, Wr=None, Wc=None, *, cap, cfg,
+                           variant: str, mesh, M: int, N: int, k_steps: int,
+                           tm: int, gap_tol=None):
+    """Chunked PDHG solve of ONE image row-banded over a mesh (port of the
+    JAX package's ``_run_pdhg_fused_banded``, ``tv2d.py:751``).
+
+    Runs on every rank of ``mesh``: ``Yl`` is this rank's
+    (local_rows, Np) slab of the row-padded image (image rows [0, M) valid,
+    the padding after row M).  The rank keeps a canvas of its band and a
+    2K-row halo on each side; before every K-step chunk of kernel B3 the
+    four fields' halos are refreshed from the neighbours' core rows
+    (``comm.halo_exchange``), which keeps the core rows exact for K steps,
+    as B3's own windows do on one card.  Edge ranks receive zeros, which
+    the kernel's masks pin (``pad_top = 2K - rank * local_rows``, negative
+    past the first band).  The certificate is summed over this rank's core
+    rows in PyTorch ops and all-reduced, so every rank reads the same gap
+    and takes the same stop and restart branch (one host sync each).
+
+    ``Wr``/``Wc``: (local_rows, Np) slabs of the per-edge weight canvases,
+    exchanged once.  Returns this rank's (local_rows, Np) rows of the
+    solution and the image's (1,)-shaped ``SolverInfo``.
+    """
+    from ..ops.kernels import pdhg_fused as PK
+    from ..parallel import comm
+
+    weighted = Wr is not None
+    local_rows, Np = Yl.shape
+    halo = 2 * k_steps
+    dt, dev = Yl.dtype, Yl.device
+    npd = _np_dtype(dt)
+    d = mesh.rank
+    roff = halo - d * local_rows
+    rows = 2 * halo + local_rows
+
+    def canvas(A):
+        """(local_rows, Np) slab -> canvas with the neighbours' halo rows."""
+        C = F.pad(A, (0, 0, halo, halo)).contiguous()
+        return comm.halo_exchange(mesh, [C], halo, local_rows)[0]
+
+    # The data canvas needs the neighbours' rows in its halo: the kernel's
+    # in-chunk primal updates at halo rows read Y there, and zeros would
+    # shift the boundary rows' fixed point.
+    Ypad = canvas(Yl)
+    r = torch.arange(rows, device=dev)[:, None] - halo + d * local_rows
+    col = torch.arange(Np, device=dev)[None, :]
+    in_img = (r >= 0) & (r < M)
+    vr = ((col < N - 1) & in_img).to(dt)
+    vc = ((col < N) & in_img & (r < M - 1)).to(dt)
+    core = ((r >= d * local_rows) & (r < (d + 1) * local_rows)).to(dt)
+    if weighted:
+        Wrpad, Wcpad = canvas(Wr), canvas(Wc)
+        lamr, lamc = Wrpad * vr, Wcpad * vc
+        lam_f = np.float32(1.0)  # schedule lam column unused
+    else:
+        Wrpad = Wcpad = None
+        lam_s = float(npd(lam))
+        lamr, lamc = lam_s * vr, lam_s * vc
+        lam_f = np.float32(lam)
+
+    if variant == "cp-acc":
+        # The schedule from global statistics, all-reduced so that every
+        # rank runs the same one.
+        dY = Yl[:, 1:N] - Yl[:, :N - 1]
+        gr = torch.arange(local_rows, device=dev) + d * local_rows
+        vrow = (gr < M).to(dt)[:, None]
+        parts = [torch.sum(dY * dY * vrow),
+                 torch.sum(torch.broadcast_to(vrow, dY.shape))]
+        if weighted:
+            parts.append(torch.sum(Wr[:, :N - 1] * vrow))
+        sums = [npd(v) for v in comm.reduce_host(mesh, torch.stack(parts))]
+        ssum, cnt = sums[0], sums[1]
+        noise = np.sqrt(max(ssum / max(cnt, npd(1.0)) * npd(0.5),
+                            npd(1e-12)))
+        lam_eff = sums[2] / max(cnt, npd(1.0)) if weighted else npd(lam)
+        lam_rel = npd(lam_eff / noise)
+        sigma0 = npd(0.5) * max(npd(1.0), lam_rel)
+        cap_mult = npd(max(npd(1.0), (lam_rel / npd(0.3)) ** npd(1.5))
+                       / sigma0)
+    else:
+        sigma0, cap_mult = npd(cfg.cp_sigma), 2.0
+    tau0 = npd(0.9) / (npd(8.0) * sigma0)
+
+    def dr_(X):
+        return X - torch.cat([X[:, 1:], torch.zeros_like(X[:, :1])], dim=1)
+
+    def drT_(U):
+        return U - torch.cat([torch.zeros_like(U[:, :1]), U[:, :-1]], dim=1)
+
+    def dc_(X):
+        return X - torch.cat([X[1:, :], torch.zeros_like(X[:1, :])], dim=0)
+
+    def dcT_(U):
+        return U - torch.cat([torch.zeros_like(U[:1, :]), U[:-1, :]], dim=0)
+
+    def gap_and_primal(u1, u2):
+        """The image's gap and objective, summed over this rank's core rows
+        with fresh halos and all-reduced (one host sync)."""
+        zero = torch.zeros((), dtype=dt, device=dev)
+        u1 = torch.where(vr > 0, u1, zero)
+        u2 = torch.where(vc > 0, u2, zero)
+        xhat = Ypad - (drT_(u1) + dcT_(u2))
+        g_r = dr_(xhat) * vr
+        g_c = dc_(xhat) * vc
+        e = lamr * torch.abs(g_r) - u1 * g_r + lamc * torch.abs(g_c) - u2 * g_c
+        obj = (0.5 * (xhat - Ypad) ** 2 * in_img
+               + lamr * torch.abs(g_r) + lamc * torch.abs(g_c))
+        gap, ob = comm.reduce_host(mesh, torch.stack(
+            [torch.sum(e * core), torch.sum(obj * core)]))
+        return npd(gap), npd(ob), xhat
+
+    feps = npd(np.finfo(npd).eps)
+    gtol = (max(npd(cfg.pdhg_gap_tol), npd(64.0) * feps) if gap_tol is None
+            else npd(gap_tol))
+
+    cpc = max(1, 24 // k_steps)
+    cap_pad = -(-cap // (cpc * k_steps)) * (cpc * k_steps)
+    sig0f, tau0f = np.float32(sigma0), np.float32(tau0)
+    # The gap-stall restart of the single-card driver, at the certificate
+    # cadence: the stall window spans LOOK checks.
+    restart = variant == "cp-acc"
+    LOOK, DECAY, GROW = 3, np.float32(0.7), np.float32(4.0)
+
+    x, xb = Ypad.clone(), Ypad.clone()
+    u1, u2 = torch.zeros_like(Ypad), torch.zeros_like(Ypad)
+    sc = (sig0f, tau0f)
+    cap_mult_d = np.float32(cap_mult)
+    hist = [np.float32(np.inf)] * LOOK
+    t, iters, gap_b, running = 0, 0, npd(np.inf), True
+    while t < cap_pad and running:
+        for _ in range(cpc):
+            comm.halo_exchange(mesh, [x, xb, u1, u2], halo, local_rows)
+            sd, sc = PK.sched_chunk(sc, k_steps, lam_f, sig0f, cap_mult_d,
+                                    variant)
+            x, xb, u1, u2 = PK.pdhg_chunk(
+                torch.from_numpy(sd).to(dev), x, xb, u1, u2, Ypad,
+                k_steps=k_steps, tm=tm, n_valid=N, m_valid=M, stride=M,
+                count=1, pad_top=roff, grad_step=(variant == "condat"),
+                wr=Wrpad, wc=Wcpad)
+            t += k_steps
+        iters += cpc * k_steps
+        comm.halo_exchange(mesh, [u1, u2], halo, local_rows)
+        gap_new, obj, _ = gap_and_primal(u1, u2)
+        if restart:
+            if np.float32(gap_new) > DECAY * hist[0]:
+                sc = (sig0f, tau0f)
+                with np.errstate(over="ignore"):  # float32 inf, as in JAX
+                    cap_mult_d = np.float32(cap_mult_d * GROW)
+            hist = hist[1:] + [np.float32(gap_new)]
+        gap_b = gap_new
+        running = bool(gap_b > gtol * max(npd(1.0), obj))
+        debug.dprint("banded PDHG iter {t}: gap {g}", t=t, g=float(gap_b))
+
+    comm.halo_exchange(mesh, [u1, u2], halo, local_rows)
+    gap_b, obj, xhat = gap_and_primal(u1, u2)
+    rc = RC_ITERS if gap_b > gtol * max(npd(1.0), obj) else RC_OK
+    info = make_info(torch.tensor([iters], device=dev),
+                     torch.tensor([gap_b], dtype=dt, device=dev),
+                     torch.tensor([rc], device=dev))
+    return xhat[halo:halo + local_rows], info
 
 
 # -- Column-exact primal-dual (reference Kolmogorov2_TV) --------------------

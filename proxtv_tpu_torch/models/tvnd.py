@@ -38,6 +38,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.kernels import gating
 from ..utils import debug
@@ -289,6 +290,127 @@ def _run_pdhg3d_fused(Y, lams_by_dim, cap, cfg, variant: str, gap_tol=None,
                      & (obj_t > torch.from_numpy(obj_tgt.copy()).to(dev)),
                      RC_ITERS, RC_OK)
     return out, make_info(torch.from_numpy(iters_img).to(dev), gap_t, rc)
+
+
+def _run_pdhg3d_fused_banded(Yl, lam, *, cap, cfg, variant: str, mesh,
+                             L: int, M: int, N: int, k_steps: int, tile,
+                             gap_tol=None):
+    """Chunked 3D PDHG solve of ONE volume layer-banded over a mesh (port
+    of the JAX package's ``_run_pdhg3d_fused_banded``, ``tvnd.py:342``;
+    the exactness argument is the 2D one, ``tv2d._run_pdhg_fused_banded``).
+
+    Runs on every rank of ``mesh``: ``Yl`` is this rank's
+    (local_layers, M, N) slab of the volume, padded after layer L.  Before
+    every K-step chunk of kernel B6 the five fields' 2K-layer halos are
+    refreshed from the neighbours' core layers (``pad_top = 2K - rank *
+    local_layers``); the certificate is summed over the core layers and
+    all-reduced every ~24 iterations (one host sync).  The schedule is the
+    JAX driver's precomputed one, without the gap-stall restart.  ``tile``
+    is B6's block on the card.  Returns this rank's (local_layers, M, N)
+    layers of the solution and the volume's (1,)-shaped ``SolverInfo``.
+    """
+    from ..ops.kernels import pdhg3d_fused as PK3
+    from ..parallel import comm
+
+    local, _, _ = Yl.shape
+    hl = 2 * k_steps
+    dt, dev = Yl.dtype, Yl.device
+    npd = tv2d._np_dtype(dt)
+    d = mesh.rank
+    loff = hl - d * local
+    lam = npd(lam)
+
+    if variant == "cp-acc":
+        # The schedule from global statistics, all-reduced (the single-card
+        # driver's rule, as the JAX driver inlines it).
+        gl = torch.arange(local, device=dev) + d * local
+        vlay = (gl < L).to(dt)[:, None, None]
+        dY = Yl[:, :, 1:N] - Yl[:, :, :N - 1]
+        ssum, cnt = [npd(v) for v in comm.reduce_host(mesh, torch.stack([
+            torch.sum(dY * dY * vlay),
+            torch.sum(torch.broadcast_to(vlay, dY.shape))]))]
+        noise = np.sqrt(max(ssum / max(cnt, npd(1.0)) * npd(0.5),
+                            npd(1e-12)))
+        lam_rel = npd(lam / noise)
+        sigma0 = npd(0.5) * max(npd(1.0), lam_rel)
+        cap_mult = npd(max(npd(1.0), (lam_rel / npd(0.3)) ** npd(1.5))
+                       / sigma0)
+    else:
+        sigma0, cap_mult = npd(cfg.cp_sigma), 2.0
+    tau0 = npd(0.9) / (npd(12.0) * sigma0)
+
+    cpc = max(1, 24 // k_steps)
+    cap_pad = -(-cap // (cpc * k_steps)) * (cpc * k_steps)
+    sched = PK3.make_schedule3(cap_pad, (lam, lam, lam), sigma0, tau0,
+                               variant, cap_mult=cap_mult)
+
+    # The data canvas with the neighbours' layers in its L halo (a zero
+    # halo would shift the boundary layers' fixed point).
+    Ypad = comm.halo_exchange(
+        mesh, [F.pad(Yl, (0, 0, 0, 0, hl, hl)).contiguous()], hl, local)[0]
+    gl = (torch.arange(2 * hl + local, device=dev)[:, None, None] - hl
+          + d * local)
+    rm = torch.arange(M, device=dev)[None, :, None]
+    col = torch.arange(N, device=dev)[None, None, :]
+    in_vol = (gl >= 0) & (gl < L)
+    v1 = in_vol & (col < N - 1)
+    v2 = in_vol & (rm < M - 1)
+    v3 = in_vol & (gl < L - 1)
+    lam1, lam2, lam3 = (float(lam) * v.to(dt) for v in (v1, v2, v3))
+    core = ((gl >= d * local) & (gl < (d + 1) * local)).to(dt)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def dT(U, dim):
+        return U - PK3._prev(U, dim)
+
+    def d_(X, dim):
+        return X - PK3._next(X, dim)
+
+    def gap_and_primal(u1, u2, u3):
+        u1 = torch.where(v1, u1, zero)
+        u2 = torch.where(v2, u2, zero)
+        u3 = torch.where(v3, u3, zero)
+        xhat = Ypad - (dT(u1, 2) + dT(u2, 1) + dT(u3, 0))
+        g1 = d_(xhat, 2) * v1
+        g2 = d_(xhat, 1) * v2
+        g3 = d_(xhat, 0) * v3
+        e = (lam1 * torch.abs(g1) - u1 * g1 + lam2 * torch.abs(g2) - u2 * g2
+             + lam3 * torch.abs(g3) - u3 * g3)
+        obj = (0.5 * (xhat - Ypad) ** 2 * in_vol + lam1 * torch.abs(g1)
+               + lam2 * torch.abs(g2) + lam3 * torch.abs(g3))
+        gap, ob = comm.reduce_host(mesh, torch.stack(
+            [torch.sum(e * core), torch.sum(obj * core)]))
+        return npd(gap), npd(ob), xhat
+
+    feps = npd(np.finfo(npd).eps)
+    gtol = (max(npd(cfg.pdhg_gap_tol), npd(64.0) * feps) if gap_tol is None
+            else npd(gap_tol))
+    geo = dict(k_steps=k_steps, n_valid=N, m_valid=M, l_valid=L, stride=L,
+               count=1, pad_top=loff, pad_m=0,
+               grad_step=variant == "condat", tile=tile)
+    x, xb = Ypad.clone(), Ypad.clone()
+    u1, u2, u3 = (torch.zeros_like(Ypad) for _ in range(3))
+    t, iters, gap_b, running = 0, 0, npd(np.inf), True
+    while t < cap_pad and running:
+        for _ in range(cpc):
+            comm.halo_exchange(mesh, [x, xb, u1, u2, u3], hl, local)
+            sd = torch.from_numpy(sched[t:t + k_steps]).to(dev)
+            x, xb, u1, u2, u3 = PK3.pdhg3d_chunk(sd, x, xb, u1, u2, u3, Ypad,
+                                                 **geo)
+            t += k_steps
+        iters += cpc * k_steps
+        comm.halo_exchange(mesh, [u1, u2, u3], hl, local)
+        gap_b, obj, _ = gap_and_primal(u1, u2, u3)
+        running = bool(gap_b > gtol * max(npd(1.0), obj))
+        debug.dprint("banded 3D PDHG iter {t}: gap {g}", t=t, g=float(gap_b))
+
+    comm.halo_exchange(mesh, [u1, u2, u3], hl, local)
+    gap_b, obj, xhat = gap_and_primal(u1, u2, u3)
+    rc = RC_ITERS if gap_b > gtol * max(npd(1.0), obj) else RC_OK
+    info = make_info(torch.tensor([iters], device=dev),
+                     torch.tensor([gap_b], dtype=dt, device=dev),
+                     torch.tensor([rc], device=dev))
+    return xhat[hl:hl + local], info
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,13 @@ such read waits for the card, so the count says how often a solve stalls the
 launch queue.  :data:`HOST_ROUTE` counts the API calls served by the native
 host engine (``api.tv1_1d`` / ``tv1w_1d`` with ``device="cpu"`` or
 ``backend="host"``).
+
+The parallel path (:mod:`proxtv_tpu_torch.parallel`) counts its traffic:
+:data:`EXCHANGES` (point-to-point neighbour exchanges, one per batch of
+sends and receives), :data:`ALL_REDUCES`, :data:`GATHERS` (all-gathers
+and all-to-alls), :data:`BYTES_MOVED` (bytes this rank sent in all of
+them) and :data:`STAGING_COPIES` (the explicit copies between the card and
+host buffers that a gloo group needs, each way counted once).
 """
 from __future__ import annotations
 
@@ -34,6 +41,12 @@ class Counter:
 HOST_SYNCS = Counter()
 # Calls that the API served from the native host engine (runtime.native).
 HOST_ROUTE = Counter()
+# The parallel path's collectives (parallel/comm.py).
+EXCHANGES = Counter()
+ALL_REDUCES = Counter()
+GATHERS = Counter()
+BYTES_MOVED = Counter()
+STAGING_COPIES = Counter()
 
 
 def host(t):

@@ -225,6 +225,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "from proxtv_tpu_torch.models import tv2d, tvnd\n"
         "from proxtv_tpu_torch.ops import lp, tv1d_l2, tv1d_lp\n"
         "from proxtv_tpu_torch.ops import tv1d_l1, tv1d_long, diffprox\n"
+        "from proxtv_tpu_torch.ops import tv1d_long_banded\n"
+        "import proxtv_tpu_torch.parallel\n"
+        "from proxtv_tpu_torch.parallel import comm, segscan, sharded\n"
         "from proxtv_tpu_torch.models import layers\n"
         "import proxtv_tpu_torch.__main__\n"
         "from proxtv_tpu_torch.ops.kernels import build, pcr, pn_fused, "

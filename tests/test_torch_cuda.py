@@ -1355,3 +1355,102 @@ def test_layer_step_stays_on_the_card(dev):
     (state,) = opt.state.values()  # Adam keeps its step count on the host
     assert state["exp_avg"].is_cuda and state["exp_avg_sq"].is_cuda
     assert float(layer.raw_lam.detach()) != before
+
+
+def test_banded_2d_world1_nccl_matches_the_single_card_solve(dev, tmp_path):
+    """tv1_2d_banded on a one-rank NCCL mesh: B3 on the rank's band, the
+    result on the card, rc 0, and the single-card cp-acc solve's objective
+    by the certified-gap rule (F - F' <= gap + 1e-6 F' both ways); its
+    first chunk against B3's plain version."""
+    import torch.distributed as dist
+
+    from proxtv_tpu_torch import parallel
+    from proxtv_tpu_torch.models import tv2d
+
+    rng = np.random.RandomState(5)
+    Y = rng.randn(300, 260).astype(np.float32)
+    seen = []
+    launch = PPK.pdhg_chunk
+
+    def tap(*a, **kw):
+        if not seen:
+            seen.append(([v.clone() if torch.is_tensor(v) else v for v in a],
+                         dict(kw)))
+        return launch(*a, **kw)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        PPK.pdhg_chunk = tap
+        try:
+            b3 = PPK.LAUNCHES.value
+            x, info = parallel.tv1_2d_banded(Y, 0.3, mesh)
+            assert PPK.LAUNCHES.value > b3
+        finally:
+            PPK.pdhg_chunk = launch
+    finally:
+        dist.destroy_process_group()
+    assert x.is_cuda and int(info.rc[0]) == 0
+    xs, info_s = tv2d.tv1_2d_batched(torch.from_numpy(Y).to(dev)[None], 0.3,
+                                     method="chambolle-pock-acc")
+
+    def F(v):
+        v = v.double().cpu().numpy()
+        return (0.5 * np.sum((v - Y) ** 2)
+                + 0.3 * (np.abs(np.diff(v, axis=0)).sum()
+                         + np.abs(np.diff(v, axis=1)).sum()))
+
+    Fb, Fs = F(x), F(xs[0])
+    gb, gs = float(info.gap[0]), float(info_s.gap[0])
+    assert Fb - Fs <= gb + 1e-6 * Fs and Fs - Fb <= gs + 1e-6 * Fs
+    (a, kw), = seen
+    out, ref = PPK.pdhg_chunk(*a, **kw), PPK.pdhg_chunk_plain(*a, **kw)
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    assert err <= 1e-4, err
+
+
+def test_banded_world2_gloo_shares_the_card(dev, tmp_path):
+    """Two gloo ranks on one card run the banded 2D, 3D and long-1D solves:
+    every rank gets the same whole result on the card, the kernels launch
+    on each rank, halos travel through counted host copies, and each
+    result meets the single-card solve (the certified-gap rule in 2D and
+    3D, 1e-5 of the data's scale for the long signal)."""
+    import torch_dist_worker as W
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import tv1d_long
+
+    rng = np.random.RandomState(6)
+    inp = dict(Y=rng.randn(300, 260).astype(np.float32),
+               V=rng.randn(16, 40, 48).astype(np.float32),
+               y=(np.cumsum(rng.randn(20000)) * 0.05
+                  + rng.randn(20000)).astype(np.float32))
+    res = W.run("card", 2, str(tmp_path), timeout=600, **inp)
+    out = res[0]
+    for key in out:
+        if not key.endswith("_counts"):
+            np.testing.assert_array_equal(res[1][key], out[key], key)
+    for r in res:
+        for name in ("b2d", "b3d", "b1d"):
+            launches, exchanges, staged = r[name + "_counts"]
+            assert launches > 0 and exchanges > 0 and staged > 0, name
+            assert int(r[name + "_rc"][0]) == 0, name
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xs, info_s = tv2d.tv1_2d_batched(t(inp["Y"])[None], 0.3,
+                                     method="chambolle-pock-acc")
+    vs, info_v = tvnd.tv_nd_batched(t(inp["V"])[None], (0.3,) * 3, (1, 2, 3),
+                                    (1.0,) * 3, method="chambolle-pock-acc")
+    for name, Y, ref, g_ref in (("b2d", inp["Y"], xs[0], info_s.gap[0]),
+                                ("b3d", inp["V"], vs[0], info_v.gap[0])):
+        def F(v, Y=Y):
+            v = np.asarray(v, np.float64)
+            return (0.5 * np.sum((v - Y) ** 2)
+                    + 0.3 * sum(np.abs(np.diff(v, axis=a)).sum()
+                                for a in range(Y.ndim)))
+
+        Fb, Fs = F(out[name]), F(ref.cpu().numpy())
+        assert Fb - Fs <= float(out[name + "_gap"][0]) + 1e-6 * Fs, name
+        assert Fs - Fb <= float(g_ref) + 1e-6 * Fs, name
+    xl, _ = tv1d_long.tv1_long(t(inp["y"]), 0.7, chunk=1024, overlap=128)
+    err = float(np.abs(out["b1d"] - xl.cpu().numpy()).max())
+    assert err <= 1e-5 * float(np.abs(inp["y"]).max()), err

@@ -5,13 +5,13 @@
 
 Phases (each failure ends the run with a non-zero exit and no result line):
 
-1. build the eight hand-written kernels from ``proxtv_tpu_torch/csrc`` (B1-B6
-   for the TPU's Pallas kernels, D1 and D2 for the JAX package's XLA
-   taut-string and DP scans) and print the card (``nvidia-smi`` name and
-   power limit) and the build time;
+1. build the ten hand-written kernels from ``proxtv_tpu_torch/csrc`` (B1-B6
+   for the TPU's Pallas kernels, D1-D4 for the JAX package's XLA
+   taut-string, DP, Condat and classic taut-string scans) and print the
+   card (``nvidia-smi`` name and power limit) and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with the tolerances in ``TOL`` (D1 and
-   D2 in phase 4, at each of their main-path launches);
+   shapes the main path gives it, with the tolerances in ``TOL`` (D1-D4 in
+   phase 4, at each of their main-path launches);
 3. drive the main path through the public entry points, counting kernel
    launches and host syncs per call: ``api.tv1_2d`` at 1024^2, lam 0.3 (auto
    -> PDHG, kernel B3; and ``dr`` -> projected Newton, B1),
@@ -28,7 +28,9 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    composition and the PCR composition, no kernel), the direct 1D engines
    through ``tv1_batched`` strict on 10000 x 1000 (taut string D1, DP D2)
    and on a per-edge-weighted 512 x 1000 batch, Condat and the classic taut
-   string at 512 x 1000 (PyTorch ops, no kernel), ``api.tv1_1d`` and
+   string at 512 x 1000 (D3, D4) and through ``api.tv1_1d`` with
+   ``method="condat"`` / ``"classictautstring"`` on one signal of 1000
+   (D3, D4), ``api.tv1_1d`` and
    ``api.tv1w_1d`` auto on one signal of 1000 (on the card: B1, D1; no
    call gives way to the host) and with ``backend="host"`` (the native host
    engine), ``api.tv1w_1d`` with ``backend="cuda"`` (D1, D2, B2), the
@@ -80,9 +82,9 @@ Phases (each failure ends the run with a non-zero exit and no result line):
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1, B2,
    B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
-   shape's launches (B2's, B4's, B5's, D1's and D2's first held against
+   shape's launches (B2's, B4's, B5's and D1-D4's first held against
    their plain versions on each of them), through the wrapper and, for B2
-   to B6, D1 and D2, through the C entry point;
+   to B6 and D1-D4, through the C entry point;
 5. profile the main-path calls: device time by kernel and the idle share;
 6. run the training cells again, untapped: each step's forward and
    backward by CUDA events, its launches, host syncs and label trips, and
@@ -153,7 +155,7 @@ TOL = {
     # the "lp" bars above; the 2D call's objective within 1e-4 relative of
     # the float64 run of the same 35 sweeps (max |dx| printed).
     "tvp_2d_obj": 1e-4,
-    # D1 / D2 (the direct engines): relative to the data's size.  The kernel
+    # D1-D4 (the direct engines): relative to the data's size.  The kernel
     # runs the plain version's events in the same float32 roundings (no FMA
     # contraction), so the two agree bit for bit away from the degenerate
     # guards, whose means are summed in another order.  Against float64 on
@@ -295,7 +297,8 @@ def profile_call(fn):
 # The __global__ functions of each kernel, as the profiler names them.
 KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
               "B4": "::ms_kernel", "B5": "::gpfw_kernel",
-              "B6": "::pdhg3d_march", "D1": "::tautstring_", "D2": "::dp_"}
+              "B6": "::pdhg3d_march", "D1": "::tautstring_", "D2": "::dp_",
+              "D3": "::condat_", "D4": "::classic_ts_"}
 
 
 # The dist phase (3e): the parallel path on a torch.distributed mesh, at
@@ -745,13 +748,19 @@ MS_OPS_PER_FIBER = 10     # mean 1, center 1, dy 1, x 2, g 1, g'g 2, w'g 2
 PDHG3D_OPS_PER_STEP = 30  # three dual updates 15, divergence 6, primal 6,
                           # xbar 3
 LP_NEWTON_ITERS, LP_FW_CYCLES = 8, 10  # the TV-Lp defaults B5 runs with
-# D1 / D2: the guards' pass (sum, difference, max, weight min: 5) plus one
+# D1-D4: the guards' pass (sum, difference, max, weight min: 5) plus one
 # advance of every point, the least work any data needs (D1: two height
 # updates, two wall tests, two tightening tests, one divide and add: 10;
 # D2: the message's two sums, the two exits' clip bounds with a divide,
-# the push, the backward clamp: 14).  Backtracks and pops add to it.
+# the push, the backward clamp: 14; D3: the two excursions' sums (4), the
+# two jump tests and the two touch tests: 8; D4: the majorant's and the
+# minorant's merge tests (divide, multiply, compare: 6), the crossing test
+# (two divides, a compare: 3), the tube's end: 1, 10).  Backtracks, jumps,
+# pops and knots add to it.
 TS_OPS_PER_POINT = 15
 DP_OPS_PER_POINT = 19
+CONDAT_OPS_PER_POINT = 13
+CLASSIC_OPS_PER_POINT = 15
 
 
 def lp_pow_ops(e):
@@ -815,6 +824,8 @@ def main(out_dir):
     from proxtv_tpu_torch.models import tv2d, tvnd
     from proxtv_tpu_torch.ops import diffprox, tv1d_l1, tv1d_l2, tv1d_lp
     from proxtv_tpu_torch.ops.kernels import build, gating
+    from proxtv_tpu_torch.ops.kernels import classic_ts as D4
+    from proxtv_tpu_torch.ops.kernels import condat as D3
     from proxtv_tpu_torch.ops.kernels import dp as D2
     from proxtv_tpu_torch.ops.kernels import tautstring as D1
     from proxtv_tpu_torch.ops.kernels import lp_fused as B5
@@ -1213,16 +1224,19 @@ def main(out_dir):
     lp_case(f"tvp_2d {M5}^2 lam {LAM2P} p {P2P}, warm column pass "
             f"{tuple(a5[0].shape)}", tuple(a5), P2P, kw5["max_iters"])
 
-    # D1 and D2 are held against their plain versions on the card at each
-    # of their main-path launches (phase 4, TOL["direct"] of the data's
-    # size): the 10000 x 1000 batch at lam 0.7, the per-edge-weighted
-    # 512 x 1000 batch, tv1w_1d's one signal.
+    # D1-D4 are held against their plain versions on the card at each of
+    # their main-path launches (phase 4, TOL["direct"] of the data's size):
+    # the 10000 x 1000 batch at lam 0.7 (D1, D2), the per-edge-weighted
+    # 512 x 1000 batch (D1, D2), its signals at lam 0.7 (D3, D4), and
+    # tv1_1d's / tv1w_1d's one signal.
     Ywt, Wwt = t(Y1[:BW]), t(Ww)
     direct_plain = {"D1": (D1.tautstring, tv1d_l1.tv1_tautstring_plain),
-                    "D2": (D2.dp, tv1d_l1.tv1_dp_plain)}
+                    "D2": (D2.dp, tv1d_l1.tv1_dp_plain),
+                    "D3": (D3.condat, tv1d_l1.tv1_condat_plain),
+                    "D4": (D4.classic_ts, tv1d_l1.tv1_classic_ts_plain)}
 
     def direct_compare(kid, y, lam):
-        """One D1 / D2 launch against its plain version on the card: max
+        """One D1-D4 launch against its plain version on the card: max
         |kernel - plain| over the data's size, the plain version's seconds."""
         kern_fn, plain_fn = direct_plain[kid]
         out = kern_fn(y, lam)
@@ -1237,7 +1251,8 @@ def main(out_dir):
     # -- 3. main path -------------------------------------------------------
     counters = {"B1": B1.LAUNCHES, "B2": B2.LAUNCHES, "B3": B3.LAUNCHES,
                 "B4": B4.LAUNCHES, "B5": B5.LAUNCHES, "B6": B6.LAUNCHES,
-                "D1": D1.LAUNCHES, "D2": D2.LAUNCHES}
+                "D1": D1.LAUNCHES, "D2": D2.LAUNCHES, "D3": D3.LAUNCHES,
+                "D4": D4.LAUNCHES}
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
@@ -1252,14 +1267,15 @@ def main(out_dir):
     b3_calls = []
     b4_calls = {}
     b5_calls = {}
-    d_calls = {"D1": {}, "D2": {}}
+    d_calls = {"D1": {}, "D2": {}, "D3": {}, "D4": {}}
     tap_path = [None]
     launch_b1 = B1.pn_tv1_fused
     launch_b2 = B2.pcr_spd_solve
     launch_b3 = B3.pdhg_chunk
     launch_b4 = B4.ms_tv2_fused
     launch_b5 = B5.gpfw_fused
-    launch_d = {"D1": D1.tautstring, "D2": D2.dp}
+    launch_d = {"D1": D1.tautstring, "D2": D2.dp, "D3": D3.condat,
+                "D4": D4.classic_ts}
 
     def tap_direct(kid):
         def tap(y, lam):
@@ -1356,6 +1372,8 @@ def main(out_dir):
     B5.gpfw_fused = tap_b5
     D1.tautstring = tap_direct("D1")
     D2.dp = tap_direct("D2")
+    D3.condat = tap_direct("D3")
+    D4.classic_ts = tap_direct("D4")
     x_auto, info_auto = run("api.tv1_2d 1024^2 lam 0.3 auto",
                             lambda: ptv.tv1_2d(Y2, LAM2D, return_info=True),
                             ["B3"])
@@ -1457,15 +1475,25 @@ def main(out_dir):
                 lambda: tv1d_l1.tv1_batched(Ywt, Wwt, method="dp",
                                             strict=True), ["D2"])
     Ycon = Y1t[:BW]
-    x_con = run(f"tv1_batched {BW}x{N1D} lam {LAM1D} condat strict "
-                "(PyTorch ops, no kernel)",
+    x_con = run(f"tv1_batched {BW}x{N1D} lam {LAM1D} condat strict",
                 lambda: tv1d_l1.tv1_batched(Ycon, LAM1D, method="condat",
-                                            strict=True), [])
-    x_cls = run(f"tv1_batched {BW}x{N1D} lam {LAM1D} classictautstring strict "
-                "(PyTorch ops, no kernel)",
+                                            strict=True), ["D3"])
+    x_cls = run(f"tv1_batched {BW}x{N1D} lam {LAM1D} classictautstring strict",
                 lambda: tv1d_l1.tv1_batched(Ycon, LAM1D,
                                             method="classictautstring",
-                                            strict=True), [])
+                                            strict=True), ["D4"])
+    for name_, kid in ((f"tv1_batched {BW}x{N1D} lam {LAM1D} condat strict",
+                        "D3"),
+                       (f"tv1_batched {BW}x{N1D} lam {LAM1D} "
+                        "classictautstring strict", "D4")):
+        check(main[name_]["launches"][kid] == 1
+              and sum(main[name_]["launches"].values()) == 1,
+              f"{name_} did not run in one {kid} launch")
+    x_ac = run(f"api.tv1_1d n={N1D} w 2.0 condat",
+               lambda: ptv.tv1_1d(y1, 2.0, method="condat"), ["D3"])
+    x_at = run(f"api.tv1_1d n={N1D} w 2.0 classictautstring",
+               lambda: ptv.tv1_1d(y1, 2.0, method="classictautstring"),
+               ["D4"])
     check(native.available(), "the native host engine is not available on "
           "the card machine")
     x_a1 = run(f"api.tv1_1d n={N1D} w 2.0 auto", lambda: ptv.tv1_1d(y1, 2.0),
@@ -1549,6 +1577,8 @@ def main(out_dir):
     B5.gpfw_fused = launch_b5
     D1.tautstring = launch_d["D1"]
     D2.dp = launch_d["D2"]
+    D3.condat = launch_d["D3"]
+    D4.classic_ts = launch_d["D4"]
 
     # -- 3b. B1 against its plain version at the main path's own inputs ----
     # Every recorded launch, by shape: the 1024^2 dr fibers and the tvgen
@@ -1747,6 +1777,8 @@ def main(out_dir):
                          ("condat", x_con.cpu().numpy(), (BW, N1D)),
                          ("classic", x_cls.cpu().numpy(), (BW, N1D)),
                          ("tv1_1d auto", x_a1, (N1D,)),
+                         ("tv1_1d condat", x_ac, (N1D,)),
+                         ("tv1_1d classictautstring", x_at, (N1D,)),
                          ("tv1w_1d auto", x_aw, (N1D,)),
                          ("tv1_1d host", x_h1, (N1D,)),
                          ("tv1w_1d host", x_hw, (N1D,)),
@@ -2011,6 +2043,12 @@ def main(out_dir):
     e_hw = float(np.abs(x_hw - w1_ref["tautstring"]).max())
     e_a1 = float(np.abs(x_a1 - x1d_ref[0].numpy()).max())
     e_aw = float(np.abs(x_aw - w1_ref["tautstring"]).max())
+    for m_, x_ in (("condat", x_ac), ("classictautstring", x_at)):
+        e_ = float(np.abs(x_ - x1d_ref[0].numpy()).max())
+        print(f"[check] api.tv1_1d {m_} (card) vs float64 tv1_pn: {e_:.3e} "
+              f"(tol {TOL['pn']})")
+        check(e_ <= TOL["pn"], f"api.tv1_1d {m_} disagrees with float64")
+        xc[f"tv1_1d {m_} card vs float64 pn"] = {"max_abs_err": e_}
     print(f"[check] api.tv1_1d auto (card, B1) vs float64 tv1_pn: "
           f"{e_a1:.3e}; api.tv1w_1d auto (card, D1) vs float64 tautstring: "
           f"{e_aw:.3e} (tol {TOL['pn']})")
@@ -2449,12 +2487,17 @@ def main(out_dir):
         reps=3)
     times["tv1_batched_dp_signals_s"] = B1D / (times["tv1_batched_dp_ms"]
                                                / 1e3)
-    # Condat and the classic taut string (PyTorch ops): the one main-path
-    # call each, host clock around a synchronised call.
+    # Condat (D3) and the classic taut string (D4): the 512 x 1000 batch
+    # and one signal through the API, CUDA events around the whole call
+    # (the C entry point's times are phase 4's D3 / D4 rows).
     for m_, nm_ in (("condat", "condat"), ("classic", "classictautstring")):
-        times[f"tv1_batched_{m_}_{BW}_ms"] = main[
-            f"tv1_batched {BW}x{N1D} lam {LAM1D} {nm_} strict (PyTorch ops, "
-            "no kernel)"]["seconds"] * 1e3
+        times[f"tv1_batched_{m_}_{BW}_ms"] = cuda_ms(
+            lambda nm_=nm_: tv1d_l1.tv1_batched(Ycon, LAM1D, method=nm_,
+                                                strict=True), reps=20)
+        times[f"tv1_batched_{m_}_{BW}_signals_s"] = BW / (
+            times[f"tv1_batched_{m_}_{BW}_ms"] / 1e3)
+        times[f"tv1_1d_{m_}_ms"] = cuda_ms(
+            lambda nm_=nm_: ptv.tv1_1d(y1, 2.0, method=nm_), reps=20)
     times["tv1_1d_auto_ms"] = cuda_ms(lambda: ptv.tv1_1d(y1, 2.0), reps=20)
     times["tv1w_1d_auto_ms"] = cuda_ms(lambda: ptv.tv1w_1d(y1, ww1), reps=20)
     times["tv1_1d_host_ms"] = cuda_ms(
@@ -2786,18 +2829,20 @@ def main(out_dir):
     check(sum(k_["launches"] for k_ in kern if k_["name"].startswith("B5 "))
           == sum(by_path["B5"].values()),
           "the B5 tap missed main-path launches")
-    # D1 and D2 at each main-path shape (10000x1000 at lam 0.7, the
-    # per-edge 512x1000 batch, tv1w_1d's one signal): every launch held
-    # against its plain version on the card (TOL["direct"]), then replayed
-    # in order: ms through the wrapper, kernel_ms through the C entry point
-    # with its arguments (and D2's workspace) made once, plain_ms the plain
-    # version's run on the card.  Bytes: y read and x written, plus the
-    # weights read; the operations: TS_OPS_PER_POINT / DP_OPS_PER_POINT a
-    # point, the least work any data needs.
-    for kid, mod_, src_, line_, ops_pp in (
-            ("D1", D1, "tautstring.cu", 334, TS_OPS_PER_POINT),
-            ("D2", D2, "dp.cu", 632, DP_OPS_PER_POINT)):
-        fn_name = "tautstring" if kid == "D1" else "dp"
+    # D1-D4 at each main-path shape (10000x1000 at lam 0.7, the per-edge
+    # 512x1000 batch, its signals at lam 0.7, tv1_1d's and tv1w_1d's one
+    # signal): every launch held against its plain version on the card
+    # (TOL["direct"]), then replayed in order: ms through the wrapper,
+    # kernel_ms through the C entry point with its arguments (and D2's
+    # workspace) made once, plain_ms the plain version's run on the card.
+    # Bytes: y read and x written, plus the weights read; the operations:
+    # *_OPS_PER_POINT a point, the least work any data needs.
+    for kid, mod_, src_, line_, ops_pp, fn_name in (
+            ("D1", D1, "tautstring.cu", 334, TS_OPS_PER_POINT, "tautstring"),
+            ("D2", D2, "dp.cu", 632, DP_OPS_PER_POINT, "dp"),
+            ("D3", D3, "condat.cu", 468, CONDAT_OPS_PER_POINT, "condat"),
+            ("D4", D4, "classic_ts.cu", 854, CLASSIC_OPS_PER_POINT,
+             "classic_ts")):
         for (Bs, ns, kind), calls in d_calls[kid].items():
             worst, plain_s, launchers = 0.0, 0.0, []
             for _, y_, lam_ in calls:
@@ -2890,6 +2935,17 @@ def main(out_dir):
                      ("tv1_batched 512 per-edge dp D2",
                       lambda: tv1d_l1.tv1_batched(Ywt, Wwt, method="dp",
                                                   strict=True)),
+                     ("tv1_batched 512 condat D3",
+                      lambda: tv1d_l1.tv1_batched(Ycon, LAM1D, method="condat",
+                                                  strict=True)),
+                     ("tv1_batched 512 classictautstring D4",
+                      lambda: tv1d_l1.tv1_batched(
+                          Ycon, LAM1D, method="classictautstring",
+                          strict=True)),
+                     ("tv1_1d condat D3", lambda: ptv.tv1_1d(
+                         y1, 2.0, method="condat")),
+                     ("tv1_1d classictautstring D4", lambda: ptv.tv1_1d(
+                         y1, 2.0, method="classictautstring")),
                      ("tv1_1d auto", lambda: ptv.tv1_1d(y1, 2.0)),
                      ("tv1_1d auto n=1e6 long route",
                       lambda: ptv.tv1_1d(ylong, LAM1D)),
@@ -2940,7 +2996,7 @@ def main(out_dir):
     for kid in counters:
         dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in (
             *breakdown.values(), *dist_prof.values()))
-        per_shape = kid in ("B1", "B2", "B4", "B5", "D1", "D2")
+        per_shape = kid in ("B1", "B2", "B4", "B5", "D1", "D2", "D3", "D4")
         bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
                                     else at_shape.get(kid, 0))
                   for k_ in kern if k_["name"].startswith(kid + " "))

@@ -123,8 +123,8 @@ def tv1_1d(x, w, method="auto", sigma=0.05, maxbacktracks=None,
 
     An **explicit** method runs the named engine on every device: on the
     card the taut string is kernel D1, the DP kernel D2, ``pn`` projected
-    Newton (its Newton systems on kernel B2), Condat and the classic taut
-    string PyTorch ops.  With ``device="cpu"``, an explicit taut-string
+    Newton (its Newton systems on kernel B2), Condat kernel D3 and the
+    classic taut string kernel D4.  With ``device="cpu"``, an explicit taut-string
     method without ``return_info`` runs on the host engine at any size, as
     in the JAX package.  ``backend="host"`` asks for the host engine on any
     device (a taut-string method, no ``return_info``); ``backend="cuda"``

@@ -21,7 +21,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "proxtv_tpu_torch")
 SOURCES = ("pcr.cu", "pn_fused.cu", "pdhg_fused.cu", "ms_fused.cu",
-           "pdhg3d_fused.cu", "lp_fused.cu", "tautstring.cu", "dp.cu")
+           "pdhg3d_fused.cu", "lp_fused.cu", "tautstring.cu", "dp.cu",
+           "condat.cu", "classic_ts.cu")
 HEADERS = ("block.cuh", "fiber.cuh", "tridiag.cuh", "direct1d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -76,6 +77,15 @@ _SIGNATURES = {
     "tautstring_warp_max_n": (),
     # B, n, per_edge -> 1 on D2's warp layout, 0 on its thread layout
     "dp_warp_layout": (_I, _I, _I),
+    # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, B, n,
+    # stream
+    "condat_tv1": (_P, _P, _I, _F, _P, _I, _I, _P),
+    # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, ws
+    # (the thread layout's workspace, or NULL), B, n, stream
+    "classic_ts_tv1": (_P, _P, _I, _F, _P, _P, _I, _I, _P),
+    # the longest n of D3's and D4's warp layouts
+    "condat_warp_max_n": (),
+    "classic_ts_warp_max_n": (),
 }
 
 

@@ -1,0 +1,80 @@
+"""Kernel D4: the batched classic taut-string TV-L1 prox (one lambda a
+signal).
+
+No TPU kernel: it replaces the JAX package's XLA lock-step deque machine
+``proxtv_tpu/ops/tv1d_l1.py:tv1_classic_ts``; the CUDA source is
+``proxtv_tpu_torch/csrc/classic_ts.cu``, which runs the same hull events as
+a plain sequential loop per signal and writes each run when it is emitted.
+Up to n = :func:`warp_max_n` (11620) a warp runs a signal, its two deques
+and y in shared memory; past it one thread runs a signal, its deques in a
+workspace that the wrapper allocates once per call (2 x (n + 2) x B slots
+of 8 bytes, interleaved by signal).
+
+:func:`classic_ts` launches the kernel for a CUDA tensor and runs
+:func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_classic_ts_plain` for a CPU
+tensor; :func:`bind` makes its C call once, for tools that time the kernel
+alone.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...utils.debug import Counter
+from .. import tv1d_l1
+from . import build
+from .direct1d import check_batch, signal_lam_args
+
+LAUNCHES = Counter()
+REF = "reference classicTautString_TV1, src/TVL1opt_tautstring.cpp:256,"
+
+
+def warp_max_n():
+    """The longest signal of the warp layout, which needs no workspace
+    (``csrc/classic_ts.cu`` kWarpMaxN)."""
+    return build.lib().classic_ts_warp_max_n()
+
+
+def bind(y, lam):
+    """The C entry point's call for a CUDA batch, its arguments and its
+    workspace (the thread layout's, past :func:`warp_max_n`) made once.
+    Returns ``(out, launch)`` as :func:`.tautstring.bind`; ``launch`` does
+    not count in :data:`LAUNCHES`.  Raises when the workspace does not fit
+    on the card."""
+    y = check_batch(y, "classic")
+    B, n = y.shape
+    lamv, rs, lam_s = signal_lam_args(lam, B, n, y.device, "classic_ts", REF)
+    out = torch.empty_like(y)
+    ws = None
+    if n > warp_max_n():
+        try:  # two deques of (n + 2) x B (int32 ix, float32 iy) slots
+            ws = torch.empty((2, n + 2, B), dtype=torch.int64,
+                             device=y.device)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError(
+                f"the classic taut-string kernel needs a workspace of "
+                f"{16 * (n + 2) * B} bytes for a ({B}, {n}) batch past its "
+                f"warp layout (n > {warp_max_n()}); it does not fit on the "
+                "card: split the batch") from e
+    args = (build.ptr(y), build.ptr(lamv), rs, lam_s, build.ptr(out),
+            build.ptr(ws), B, n, build.stream_ptr(y.device))
+
+    # keep: every tensor the pointers name, the output and workspace too.
+    def launch(keep=(y, lamv, out, ws)):
+        build.check(build.lib().classic_ts_tv1(*args), "classic_ts_tv1")
+
+    return out, launch
+
+
+def classic_ts(y, lam):
+    """Classic taut-string TV-L1 prox of a (B, n) batch.  A CUDA tensor must
+    be float32 (the kernel launches or this raises); a CPU tensor runs the
+    plain version."""
+    if not y.is_cuda:
+        return tv1d_l1.tv1_classic_ts_plain(y, lam)
+    if y.shape[-1] == 1:
+        return y
+    out, launch = bind(y, lam)
+    if y.shape[0] > 0:
+        launch()
+        LAUNCHES.value += 1
+    return out

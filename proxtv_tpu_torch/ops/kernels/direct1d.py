@@ -1,5 +1,6 @@
-"""Argument helpers shared by the direct 1D kernels D1 (taut string) and D2
-(message-passing DP), the Python side of ``csrc/direct1d.cuh``."""
+"""Argument helpers shared by the direct 1D kernels D1 (taut string), D2
+(message-passing DP), D3 (Condat) and D4 (classic taut string), the Python
+side of ``csrc/direct1d.cuh``."""
 from __future__ import annotations
 
 import torch
@@ -24,8 +25,23 @@ def lam_args(lam, B, n, device):
     return lamv, rs, cs, 0.0
 
 
+def signal_lam_args(lam, B, n, device, name, ref):
+    """One weight a signal as the C entry points of D3 and D4 take it:
+    ``(vector or None, row stride, scalar)``.  Refuses a per-edge field and
+    clamps negative weights to 0 as the plain versions do
+    (``tv1d_l1._unweighted_lam``); a scalar rides as the scalar, a (B,)
+    vector through :func:`lam_args` (column stride 0)."""
+    lam_t = torch.as_tensor(lam)
+    if lam_t.ndim == 0:
+        return None, 0, max(float(lam_t.to(torch.float32)), 0.0)
+    lamv = tv1d_l1._unweighted_lam(lam_t, B, n, torch.float32, device, name,
+                                   ref)
+    field, rs, _, _ = lam_args(lamv, B, n, device)
+    return field, rs, 0.0
+
+
 def check_batch(y, kind):
-    """The checks D1's and D2's binds make: a CUDA (B, n) batch with n >= 2
+    """The checks the direct kernels' binds make: a CUDA (B, n) batch with n >= 2
     that the gate of ``kind`` lets through.  Returns it contiguous."""
     if not y.is_cuda:
         raise ValueError("bind takes a CUDA batch: the kernel has no CPU "

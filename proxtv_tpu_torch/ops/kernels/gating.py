@@ -58,10 +58,13 @@ _KIND_LANE_LIMITS = {
     "pcr": (2, 8192, True),       # PCR tridiagonal solve (csrc/pcr.cu)
     "pdhg2d": (1, 2 ** 31 - 1, False),  # 2D PDHG chunk (csrc/pdhg_fused.cu)
     "pdhg3d": (1, 2048, False),   # 3D PDHG chunk (csrc/pdhg3d_fused.cu)
-    # The direct 1D engines (csrc/tautstring.cu, csrc/dp.cu): one warp, or
-    # past their warp layouts one thread, runs a whole signal of any length.
+    # The direct 1D engines (csrc/tautstring.cu, csrc/dp.cu, csrc/condat.cu,
+    # csrc/classic_ts.cu): one warp, or past their warp layouts one thread,
+    # runs a whole signal of any length.
     "tautstring": (2, 2 ** 31 - 1, False),
     "dp": (2, 2 ** 31 - 1, False),
+    "condat": (2, 2 ** 31 - 1, False),
+    "classic": (2, 2 ** 31 - 1, False),
 }
 
 

@@ -232,7 +232,7 @@ def test_port_imports_neither_jax_nor_reference_package():
         "import proxtv_tpu_torch.__main__\n"
         "from proxtv_tpu_torch.ops.kernels import build, pcr, pn_fused, "
         "pdhg_fused, ms_fused, pdhg3d_fused, lp_fused, tautstring, dp, "
-        "direct1d\n"
+        "direct1d, condat, classic_ts\n"
         "from proxtv_tpu_torch.runtime import native\n"
         "from proxtv_tpu_torch.utils import interop, debug, lpnorms, "
         "checkpoint\n"

@@ -1165,18 +1165,25 @@ def test_long_route_on_the_card(weighted, dev):
                              + 1e-6 * F(ref))
 
 
-@pytest.mark.parametrize("kernel", ["tautstring", "dp"])
+@pytest.mark.parametrize("kernel", ["tautstring", "dp", "condat",
+                                    "classic_ts"])
 def test_direct_bind_launches_what_the_wrapper_does(kernel, dev):
     """bind's launch gives the wrapper's output bit for bit, does not count
     in LAUNCHES, and keeps its outputs (and D2's workspace) alive after the
-    caller drops them."""
+    caller drops them (per-edge weights for D1 and D2, one a signal for the
+    unweighted D3 and D4)."""
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
     from proxtv_tpu_torch.ops.kernels import dp as DPK
     from proxtv_tpu_torch.ops.kernels import tautstring as TSK
 
-    mod = {"tautstring": TSK, "dp": DPK}[kernel]
+    mod = {"tautstring": TSK, "dp": DPK, "condat": CDK,
+           "classic_ts": CTK}[kernel]
     rng = np.random.RandomState(10)
     y = torch.from_numpy(rng.randn(40, 500).astype(np.float32)).to(dev)
     lam = torch.from_numpy(rng.rand(40, 499).astype(np.float32)).to(dev)
+    if kernel in ("condat", "classic_ts"):
+        lam = lam[:, 0].contiguous()
     ref = getattr(mod, kernel)(y, lam)
     before = mod.LAUNCHES.value
     out, launch = mod.bind(y, lam)
@@ -1197,49 +1204,178 @@ def test_direct_kernels_raise_on_unsupported_cuda_input(dev):
     from proxtv_tpu_torch.ops.kernels import gating
 
     y64 = torch.zeros((4, 16), dtype=torch.float64, device=dev)
-    for fn in (tv1d_l1.tv1_tautstring, tv1d_l1.tv1_dp):
+    for fn in (tv1d_l1.tv1_tautstring, tv1d_l1.tv1_dp, tv1d_l1.tv1_condat,
+               tv1d_l1.tv1_classic_ts):
         with pytest.raises(ValueError):
             fn(y64, 0.5)
         with gating.fused_ctx(False), pytest.raises(RuntimeError):
             fn(y64.float(), 0.5)
-    with pytest.raises(ValueError):
-        tv1d_l1.tv1_batched(y64, 0.5, method="tautstring", strict=True)
+    for fn in (tv1d_l1.tv1_condat, tv1d_l1.tv1_classic_ts):
+        with pytest.raises(ValueError, match="unweighted"):
+            fn(y64.float(), torch.ones((4, 15), device=dev))
+    for m in ("tautstring", "condat", "classictautstring"):
+        with pytest.raises(ValueError):
+            tv1d_l1.tv1_batched(y64, 0.5, method=m, strict=True)
 
 
 @pytest.mark.parametrize("method", ["hybridtautstring", "dp", "condat",
                                     "classictautstring"])
 def test_tv1_batched_routes_on_the_card(method, dev):
     """Non-strict names run B1 up to its lane limit and the named engine
-    past it (D1, D2, or PyTorch ops for Condat and the classic taut
-    string), as the JAX package's table; strict names run the named
-    engine at any length.  Each held against float64 on the CPU (2e-3)."""
+    past it (D1, D2, D3 for Condat, D4 for the classic taut string), as the
+    JAX package's table; strict names run the named engine at any length,
+    one launch of its kernel.  Each held against float64 on the CPU
+    (2e-3)."""
     from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
     from proxtv_tpu_torch.ops.kernels import dp as DPK
     from proxtv_tpu_torch.ops.kernels import tautstring as TSK
 
     rng = np.random.RandomState(11)
-    named = {"hybridtautstring": TSK.LAUNCHES, "dp": DPK.LAUNCHES}.get(method)
-    # Condat and the classic taut string run as PyTorch ops, a few launches
-    # per event: past the lane limit they take one signal just past it.
-    past = (9000, 3) if named is not None else (8193, 1)
-    for n, strict in ((500, False), (500, True), (past[0], False)):
-        Y = rng.randn(3 if n <= 8192 else past[1], n)
-        counts = (PPF.LAUNCHES.value, TSK.LAUNCHES.value, DPK.LAUNCHES.value)
+    direct_counters = (TSK.LAUNCHES, DPK.LAUNCHES, CDK.LAUNCHES,
+                       CTK.LAUNCHES)
+    named = {"hybridtautstring": TSK.LAUNCHES, "dp": DPK.LAUNCHES,
+             "condat": CDK.LAUNCHES,
+             "classictautstring": CTK.LAUNCHES}[method]
+    for n, strict in ((500, False), (500, True), (9000, False)):
+        Y = rng.randn(3, n)
+        counts = [c.value for c in (PPF.LAUNCHES, named, *direct_counters)]
         x = tv1d_l1.tv1_batched(torch.from_numpy(Y).float().to(dev), 0.7,
                                 method=method, strict=strict)
         torch.cuda.synchronize()
         b1 = PPF.LAUNCHES.value - counts[0]
-        direct = (TSK.LAUNCHES.value - counts[1]
-                  + DPK.LAUNCHES.value - counts[2])
+        own = named.value - counts[1]
+        direct = sum(c.value - c0 for c, c0 in zip(direct_counters,
+                                                    counts[2:]))
         if n <= 8192 and not strict:
             assert b1 == 1 and direct == 0
         else:
-            assert b1 == 0
-            assert direct == (1 if named is not None else 0)
+            assert b1 == 0 and own == 1 and direct == 1
         ref = tv1d_l1.tv1_batched(torch.from_numpy(Y), 0.7, method=method,
                                   strict=True)
         np.testing.assert_allclose(x.cpu().double().numpy(), ref.numpy(),
                                    atol=2e-3)
+
+
+# -- D3 (Condat) and D4 (classic taut string): one lambda a signal ------
+
+UNWEIGHTED = ["512x1000", "row", "one", "copies", "adversarial", "tie",
+              "guards"]
+
+
+def _unweighted_case(case, rng):
+    """Signals (float32) and the lams of an unweighted card case: the main
+    path's 512 x 1000 batch at 0.7, per-signal lams, one signal of 1000,
+    32 copies of one signal, the adversarial rows of the CPU tests (ties,
+    plateaus, alternation, staircases, a jump of 2 lam), the float32 tie
+    row at lam 0 and 1e-7, and the guards (lam 0: the identity; huge: the
+    mean)."""
+    walk = lambda B, n: (rng.randn(B, n) + np.cumsum(  # noqa: E731
+        rng.randn(B, n), axis=1) * 0.1)
+    if case == "512x1000":
+        y, lams = walk(512, 1000), [0.7]
+    elif case == "row":
+        y = walk(37, 1000)
+        lams = [torch.from_numpy((rng.rand(37) * 1.4).astype(np.float32))]
+    elif case == "one":
+        y, lams = walk(1, 1000), [2.0]
+    elif case == "copies":
+        y, lams = np.repeat(walk(1, 1000), 32, axis=0), [0.7]
+    elif case == "adversarial":
+        n, lam = 120, 0.5
+        y = np.stack([
+            np.zeros(n), np.repeat(rng.randn(n // 8), 8),
+            np.tile([1.0, -1.0], n // 2), np.arange(n, dtype=float),
+            np.concatenate([np.full(n // 2, 1.0), np.full(n - n // 2, -1.0)]),
+            np.cumsum(np.tile([2 * lam, -2 * lam], n // 2))[:n]])
+        lams = [lam, 0.25, 1.0]
+    elif case == "tie":
+        t = np.random.RandomState(5)
+        truth = np.repeat(t.randn(6), 30)
+        y = (truth + 0.3 * t.randn(truth.size))[None]
+        lams = [0.0, 1e-7, 0.5]
+    else:
+        y, lams = walk(33, 257), [0.0, 1e7]
+    return y.astype(np.float32), lams
+
+
+def _degenerate_rows(y, lam):
+    """The rows the guards take (the identity or the mean), as float32
+    tests them."""
+    lv = np.broadcast_to(np.asarray(lam.numpy() if torch.is_tensor(lam)
+                                    else lam, np.float32), (len(y),))
+    n = y.shape[1]
+    dy = np.abs(np.diff(y, axis=1)).max(axis=1)
+    return (lv <= 0) | (lv >= np.float32(n * n) * dy)
+
+
+@pytest.mark.parametrize("kernel", ["condat", "classic_ts"])
+@pytest.mark.parametrize("case", UNWEIGHTED)
+def test_unweighted_kernels_match_plain(kernel, case, dev):
+    """D3 and D4 against their plain versions in float32: bit for bit on
+    every row the guards do not take (the same events in the same float32
+    roundings), within 1e-5 of the data's size on the rows they take (the
+    mean summed in another order); one launch a call; the identity at
+    lam 0."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
+
+    mod, plain = {"condat": (CDK, tv1d_l1.tv1_condat_plain),
+                  "classic_ts": (CTK, tv1d_l1.tv1_classic_ts_plain)}[kernel]
+    y, lams = _unweighted_case(case, np.random.RandomState(14))
+    yt = torch.from_numpy(y)
+    scale = max(1.0, float(np.abs(y).max()))
+    for lam in lams:
+        before = mod.LAUNCHES.value
+        out = getattr(mod, kernel)(yt.to(dev), lam.to(dev)
+                                   if torch.is_tensor(lam) else lam)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES.value == before + 1
+        out = out.cpu().numpy()
+        ref = plain(yt, lam).numpy()
+        deg = _degenerate_rows(y, lam)
+        np.testing.assert_array_equal(out[~deg], ref[~deg], err_msg=str(lam))
+        np.testing.assert_allclose(out, ref, atol=1e-5 * scale, rtol=0)
+        if not torch.is_tensor(lam) and lam == 0.0:
+            np.testing.assert_array_equal(out, y)
+
+
+@pytest.mark.parametrize("kernel", ["condat", "classic_ts"])
+def test_unweighted_thread_layout_matches_float64(kernel, dev):
+    """D3 and D4 one signal past their warp layouts (n = warp_max_n() + 1:
+    one thread a signal, D4's deques in the wrapper's workspace): bit for
+    bit with their float32 plain versions on the CPU, and against the
+    float64 prox (the native host taut string) within 2e-3, the bar of the
+    1D TV-L1 outputs on the card; for the classic taut string within 2e-3
+    plus 4 ulp of its largest float32 prefix sum, of which it builds the
+    tube (8.97e-3 here, 2.3 of those ulp, in the plain version as in the
+    kernel; ROADMAP C)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
+    from proxtv_tpu_torch.runtime import native
+
+    mod, plain = {"condat": (CDK, tv1d_l1.tv1_condat_plain),
+                  "classic_ts": (CTK, tv1d_l1.tv1_classic_ts_plain)}[kernel]
+    assert (CDK.warp_max_n(), CTK.warp_max_n()) == (16384, 11620)
+    n = mod.warp_max_n() + 1
+    rng = np.random.RandomState(15)
+    y = np.cumsum(rng.randn(n)) * 0.3 + rng.randn(n)
+    y32 = torch.from_numpy(y[None].astype(np.float32))
+    before = mod.LAUNCHES.value
+    out = getattr(mod, kernel)(y32.to(dev), 1.3)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES.value == before + 1
+    out = out.cpu()
+    assert torch.equal(out, plain(y32, 1.3))
+    assert native.available()
+    ref = native.tv1_host(y, 1.3)
+    bar = 2e-3
+    if kernel == "classic_ts":
+        bar += 4 * float(np.spacing(np.abs(np.cumsum(y32[0].numpy())).max()))
+    np.testing.assert_allclose(out.double().numpy()[0], ref, atol=bar)
 
 
 def test_native_host_engine_on_the_card_machine(dev):

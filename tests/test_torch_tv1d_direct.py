@@ -134,6 +134,62 @@ def test_classic_tautstring_float32_tie_no_hang():
                                   noisy[None])
 
 
+PLAIN = {"condat": (J.tv1_condat, P.tv1_condat_plain),
+         "classic_ts": (J.tv1_classic_ts, P.tv1_classic_ts_plain)}
+
+
+@pytest.mark.parametrize("engine", list(PLAIN))
+def test_plain_versions_match_jax(engine):
+    """Kernels D3 and D4's plain versions (the lock-step scans the card
+    holds the kernels against) equal the JAX engines, scalar and per-signal
+    lam, and a negative lam clamped to 0 (the identity)."""
+    fj, fp = PLAIN[engine]
+    for n, kind in ((2, "scalar"), (64, "row")):
+        rng, Y = _signals(n + 11, 4, n)
+        lam = _lam(kind, rng, 4, n)
+        lp = lam if np.ndim(lam) == 0 else torch.from_numpy(lam)
+        lj = lam if np.ndim(lam) == 0 else jnp.asarray(lam)
+        np.testing.assert_allclose(fp(torch.from_numpy(Y), lp).numpy(),
+                                   np.asarray(fj(jnp.asarray(Y), lj)),
+                                   atol=BAR, rtol=0)
+    np.testing.assert_array_equal(fp(torch.from_numpy(Y), -0.5).numpy(), Y)
+
+
+@pytest.mark.parametrize("kernel", ["condat", "classic_ts"])
+def test_unweighted_kernel_wrappers_on_the_cpu(kernel):
+    """The D3 / D4 wrappers on a CPU tensor return the plain version bit
+    for bit (float32 and float64, scalar and per-signal lam); their bind
+    refuses a CPU tensor (the kernels have no CPU mode); the C entry's
+    weight arguments refuse a per-edge field and clamp a negative lam to 0
+    as the plain versions do."""
+    import importlib
+
+    from proxtv_tpu_torch.ops.kernels import direct1d
+
+    mod = importlib.import_module(f"proxtv_tpu_torch.ops.kernels.{kernel}")
+    wrap, plain = getattr(mod, kernel), PLAIN[kernel][1]
+    rng, Y = _signals(12, 5, 12)
+    for yt in (torch.from_numpy(Y), torch.from_numpy(Y).float()):
+        for lam in (0.8, torch.from_numpy(rng.rand(5)).to(yt.dtype)):
+            ref = plain(yt, lam)
+            assert torch.equal(wrap(yt, lam), ref)
+            assert torch.equal(getattr(P, "tv1_" + kernel)(yt, lam), ref)
+    with pytest.raises(ValueError, match="CUDA"):
+        mod.bind(torch.from_numpy(Y).float(), 0.8)
+    with pytest.raises(ValueError, match="unweighted"):
+        wrap(torch.from_numpy(Y), torch.ones(5, 11, dtype=torch.float64))
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="unweighted"):
+        direct1d.signal_lam_args(torch.ones(5, 39), 5, 40, cpu, kernel,
+                                 mod.REF)
+    assert direct1d.signal_lam_args(-0.5, 5, 40, cpu, kernel,
+                                    mod.REF) == (None, 0, 0.0)
+    field, rs, s = direct1d.signal_lam_args(
+        torch.tensor([0.5, -1.0, 2.0, 0.0, 3.0]), 5, 40, cpu, kernel, mod.REF)
+    assert s == 0.0 and field.shape == (5, 39) and field.stride() == (rs, 0)
+    assert field[:, 0].tolist() == [0.5, 0.0, 2.0, 0.0, 3.0]
+
+
 @pytest.mark.parametrize("method", ["condat", "classictautstring"])
 def test_unweighted_methods_per_edge_policy(method):
     """Per-edge weights: strict raises (the named algorithm is unweighted);

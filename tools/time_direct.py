@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Time kernels D1 (taut string, ``csrc/tautstring.cu``) and D2 (message-
-passing DP, ``csrc/dp.cu``) per launch on one CUDA card, across batch sizes.
+"""Time kernels D1 (taut string, ``csrc/tautstring.cu``), D2 (message-
+passing DP, ``csrc/dp.cu``), D3 (Condat, ``csrc/condat.cu``) and D4 (classic
+taut string, ``csrc/classic_ts.cu``) per launch on one CUDA card, across
+batch sizes.
 
     python3 tools/time_direct.py [--rows 1,32,132,1024,10000] [--n 1000]
                                  [--repo DIR]
@@ -13,9 +15,11 @@ against its plain version on the CPU on three of its rows, the first, the
 middle and the last (max |kernel - plain| within 1e-5 of the data's size,
 the bar of ``chip_smoke.py`` ``TOL["direct"]``), then timed by CUDA
 events: 20 launches of its C entry point, arguments made once by ``bind``,
-after one untimed.  ``--repo`` times the package of another checkout (an
+after one untimed.  D3 and D4 take one lambda a signal and skip the
+per-edge cases.  ``--repo`` times the package of another checkout (an
 unpacked parent commit, say) with the same cases, so that two versions are
-compared in one call on one card.  Prints one JSON line with the card's
+compared in one call on one card; a kernel that checkout lacks is left
+out.  Prints one JSON line with the card's
 name and power limit and each case's ms per launch.  Imports nothing of
 JAX.
 """
@@ -67,16 +71,26 @@ def main(rows, n, repo):
     sys.path.insert(0, repo)
     import torch
 
+    import importlib
+
     from proxtv_tpu_torch.ops import tv1d_l1
-    from proxtv_tpu_torch.ops.kernels import dp, tautstring
 
     if not torch.cuda.is_available():
         sys.exit("time_direct.py needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    kernels = {"D1": (tautstring, tv1d_l1.tv1_tautstring_plain),
-               "D2": (dp, tv1d_l1.tv1_dp_plain)}
+    kernels = {}
+    for kid, name, plain in (("D1", "tautstring", "tv1_tautstring_plain"),
+                             ("D2", "dp", "tv1_dp_plain"),
+                             ("D3", "condat", "tv1_condat_plain"),
+                             ("D4", "classic_ts", "tv1_classic_ts_plain")):
+        try:
+            mod = importlib.import_module(
+                f"proxtv_tpu_torch.ops.kernels.{name}")
+        except ImportError:
+            continue  # a checkout before this kernel
+        kernels[kid] = (mod, getattr(tv1d_l1, plain))
     out = {"card": card, "repo": os.path.abspath(repo), "n": n, "lam": LAM,
            "cases": []}
     for name, y, lam in cases(rows, n):
@@ -89,6 +103,8 @@ def main(rows, n, repo):
         lam_c = torch.from_numpy(lam[rows_]) if isinstance(lam, np.ndarray) \
             else lam
         for kid, (mod, plain) in kernels.items():
+            if kid in ("D3", "D4") and isinstance(lam, np.ndarray):
+                continue  # one lambda a signal: no per-edge case
             res, launch = mod.bind(yt, lt)
             launch()
             ref = plain(y_c, lam_c)
@@ -101,8 +117,9 @@ def main(rows, n, repo):
             rec[kid + "_ms"] = time_ms(launch)
             rec[kid + "_err"] = err
         out["cases"].append(rec)
-        print(f"[{name}] D1 {rec['D1_ms']:.4f} ms, D2 {rec['D2_ms']:.4f} ms "
-              f"({card}; {out['repo']})", flush=True)
+        times = ", ".join(f"{k[:2]} {v:.4f} ms" for k, v in rec.items()
+                          if k.endswith("_ms"))
+        print(f"[{name}] {times} ({card}; {out['repo']})", flush=True)
     print(json.dumps(out))
 
 

@@ -5,13 +5,14 @@
 
 Phases (each failure ends the run with a non-zero exit and no result line):
 
-1. build the ten hand-written kernels from ``proxtv_tpu_torch/csrc`` (B1-B6
-   for the TPU's Pallas kernels, D1-D4 for the JAX package's XLA
-   taut-string, DP, Condat and classic taut-string scans) and print the
-   card (``nvidia-smi`` name and power limit) and the build time;
+1. build the eleven hand-written kernels from ``proxtv_tpu_torch/csrc``
+   (B1-B6 for the TPU's Pallas kernels, D1-D4 for the JAX package's XLA
+   taut-string, DP, Condat and classic taut-string scans, L1 for its XLA
+   while_loop that labels the flat components in the 2D backward) and
+   print the card (``nvidia-smi`` name and power limit) and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with the tolerances in ``TOL`` (D1-D4 in
-   phase 4, at each of their main-path launches);
+   shapes the main path gives it, with the tolerances in ``TOL`` (D1-D4 and
+   L1 in phase 4, at each of their main-path launches; L1 bit for bit);
 3. drive the main path through the public entry points, counting kernel
    launches and host syncs per call: ``api.tv1_2d`` at 1024^2, lam 0.3 (auto
    -> PDHG, kernel B3; and ``dr`` -> projected Newton, B1),
@@ -60,13 +61,15 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    at the bench's widths, counted and tapped with the main path: T1,
    ``TVDenoise1D`` pn on 10000 x 1000, 5 Adam steps on its penalty (B1 a
    forward); T2, ``TVDenoise2D`` dr on 1024^2, 3 gradient steps on the
-   input (B1 on the dr fibers), and one chambolle-pock-acc VJP (B3).  It
-   fails if a step leaves the card or its forward misses its kernel, if the
-   loss does not fall, or if the backward on the card parts from the same
-   backward in float64 on the CPU (on the card's forward output) by more
-   than ``TOL["backward"]``; and prints, as a finding, the share of edges
-   the float32 forward classifies differently from the float64 one at a
-   reduced size (``[train]`` lines);
+   input (B1 on the dr fibers), and one chambolle-pock-acc VJP (B3); each
+   T2 backward labels the flat components with one L1 launch.  It
+   fails if a step leaves the card or its forward misses its kernel, if a
+   T2 backward does not launch L1 once or takes a label trip or a host
+   sync, if the loss does not fall, or if the backward on the card parts
+   from the same backward in float64 on the CPU (on the card's forward
+   output) by more than ``TOL["backward"]``; and prints, as a finding, the
+   share of edges the float32 forward classifies differently from the
+   float64 one at a reduced size (``[train]`` lines);
    3e. dist, the parallel path (``proxtv_tpu_torch.parallel``) at the
    bench's widths: at world 1 on NCCL in this process, counted and tapped
    with the main path, ``tv1_2d_banded`` and ``tv1w_2d_banded`` 1024^2
@@ -82,13 +85,15 @@ Phases (each failure ends the run with a non-zero exit and no result line):
 4. time each kernel (CUDA events, many launches after warm-up), its plain
    version, and the main-path calls, and print the ``kernels`` line; B1, B2,
    B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
-   shape's launches (B2's, B4's, B5's and D1-D4's first held against
+   shape's launches (B2's, B4's, B5's, D1-D4's and L1's first held against
    their plain versions on each of them), through the wrapper and, for B2
-   to B6 and D1-D4, through the C entry point;
+   to B6, D1-D4 and L1, through the C entry point; and L1 on a flat and a
+   serpentine 1024^2 image, held against their known labels;
 5. profile the main-path calls: device time by kernel and the idle share;
 6. run the training cells again, untapped: each step's forward and
-   backward by CUDA events, its launches, host syncs and label trips, and
-   one profiled step a cell.
+   backward by CUDA events, its launches (B1, B3, L1), host syncs and label
+   trips, and one profiled step a cell; then the redesign queue (each
+   kernel's device time over its main-path launches, less their bounds).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 card line and the ``kernels`` line come before it.  Details (the report and
@@ -298,7 +303,7 @@ def profile_call(fn):
 KERNEL_FNS = {"B1": "::pn_", "B2": "::pcr_kernel", "B3": "::pdhg_kernel",
               "B4": "::ms_kernel", "B5": "::gpfw_kernel",
               "B6": "::pdhg3d_march", "D1": "::tautstring_", "D2": "::dp_",
-              "D3": "::condat_", "D4": "::classic_ts_"}
+              "D3": "::condat_", "D4": "::classic_ts_", "L1": "::labels_"}
 
 
 # The dist phase (3e): the parallel path on a torch.distributed mesh, at
@@ -512,8 +517,9 @@ def train_cells(ny1, tgt1, ny2, tgt2):
     the step's forward output; ``final()`` (None for the one-VJP cell) runs
     a forward after the last step.  A record holds the loss (before the
     step's update), the forward and backward ms by CUDA events, and per
-    half the B1 and B3 launches (the wrappers' counters), the host syncs
-    and the label-propagation trips.  ``run()`` takes a cell's steps and
+    half the B1, B3 and L1 launches (the wrappers' counters), the host syncs
+    and the label-propagation trips; a 2D step fails the run unless its
+    backward launched L1 once, with no label trip and no host sync.  ``run()`` takes a cell's steps and
     returns the records, the loss after the last step, the card's last
     forward output ``x`` and the cotangent ``g`` of the loss there.  Every
     step fails the run if its tensors leave the card or its forward misses
@@ -522,6 +528,7 @@ def train_cells(ny1, tgt1, ny2, tgt2):
 
     from proxtv_tpu_torch.models.layers import TVDenoise1D, TVDenoise2D
     from proxtv_tpu_torch.ops import diffprox
+    from proxtv_tpu_torch.ops.kernels import labels as L1
     from proxtv_tpu_torch.ops.kernels import pdhg_fused as B3
     from proxtv_tpu_torch.ops.kernels import pn_fused as B1
     from proxtv_tpu_torch.utils import debug
@@ -534,10 +541,10 @@ def train_cells(ny1, tgt1, ny2, tgt2):
 
     def counts():
         return {"B1": B1.LAUNCHES.value, "B3": B3.LAUNCHES.value,
-                "host_syncs": debug.HOST_SYNCS.value,
+                "L1": L1.LAUNCHES.value, "host_syncs": debug.HOST_SYNCS.value,
                 "label_trips": diffprox.LABEL_TRIPS.value}
 
-    def step(fwd, bwd, kid):
+    def step(fwd, bwd, kid, labels=False):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         c0 = counts()
         ev[0].record()
@@ -556,6 +563,13 @@ def train_cells(ny1, tgt1, ny2, tgt2):
         on_card(x, loss)
         check(rec["fwd"][kid] >= 1, f"a training forward did not launch "
               f"{kid}")
+        if labels:  # the 2D backward: one L1 launch, nothing on the host
+            b_ = rec["bwd"]
+            check(b_["L1"] == 1 and b_["label_trips"] == 0
+                  and b_["host_syncs"] == 0,
+                  f"a 2D backward on the card launched L1 {b_['L1']} times "
+                  f"with {b_['label_trips']} label trips and "
+                  f"{b_['host_syncs']} host syncs (want 1, 0, 0)")
         return rec, x.detach()
 
     def t1_make():
@@ -605,7 +619,8 @@ def train_cells(ny1, tgt1, ny2, tgt2):
                         Y.sub_(lr * gY)
 
             def one():
-                return step(fwd, bwd, "B1" if method == "dr" else "B3")
+                return step(fwd, bwd, "B1" if method == "dr" else "B3",
+                            labels=True)
 
             def final():
                 with torch.no_grad():
@@ -761,6 +776,26 @@ TS_OPS_PER_POINT = 15
 DP_OPS_PER_POINT = 19
 CONDAT_OPS_PER_POINT = 13
 CLASSIC_OPS_PER_POINT = 15
+# L1: a pixel's right and down edges, a subtract, an abs and a compare
+# each; the unions and the pointer chase add to it.
+LABEL_OPS_PER_PIXEL = 6
+
+
+def serpentine(M, N):
+    """A float32 (M, N) image with one serpentine flat component: corridors
+    of 0 on the even rows joined at alternate ends through walls of 1 on
+    the odd rows (tests/torch_label_fields.py); and its labels: 0 on the
+    path, each wall's first pixel's index on the wall."""
+    X = np.zeros((M, N), np.float32)
+    lab = np.zeros((M, N), np.int32)
+    for r in range(1, M, 2):
+        door = N - 1 if (r // 2) % 2 == 0 else 0
+        X[r] = 1.0
+        X[r, door] = 0.0
+        if N > 1:
+            lab[r] = r * N + (1 if door == 0 else 0)
+            lab[r, door] = 0
+    return X, lab
 
 
 def lp_pow_ops(e):
@@ -828,6 +863,7 @@ def main(out_dir):
     from proxtv_tpu_torch.ops.kernels import condat as D3
     from proxtv_tpu_torch.ops.kernels import dp as D2
     from proxtv_tpu_torch.ops.kernels import tautstring as D1
+    from proxtv_tpu_torch.ops.kernels import labels as L1
     from proxtv_tpu_torch.ops.kernels import lp_fused as B5
     from proxtv_tpu_torch.ops.kernels import ms_fused as B4
     from proxtv_tpu_torch.ops.kernels import pcr as B2
@@ -1252,7 +1288,7 @@ def main(out_dir):
     counters = {"B1": B1.LAUNCHES, "B2": B2.LAUNCHES, "B3": B3.LAUNCHES,
                 "B4": B4.LAUNCHES, "B5": B5.LAUNCHES, "B6": B6.LAUNCHES,
                 "D1": D1.LAUNCHES, "D2": D2.LAUNCHES, "D3": D3.LAUNCHES,
-                "D4": D4.LAUNCHES}
+                "D4": D4.LAUNCHES, "L1": L1.LAUNCHES}
     # Per main path: the kernels it launched (the demo is listed apart).
     by_path = {k_: {} for k_ in counters}
     main = {}
@@ -1268,6 +1304,7 @@ def main(out_dir):
     b4_calls = {}
     b5_calls = {}
     d_calls = {"D1": {}, "D2": {}, "D3": {}, "D4": {}}
+    l1_calls = []  # L1's main-path launches: (path, X, tol)
     tap_path = [None]
     launch_b1 = B1.pn_tv1_fused
     launch_b2 = B2.pcr_spd_solve
@@ -1276,6 +1313,12 @@ def main(out_dir):
     launch_b5 = B5.gpfw_fused
     launch_d = {"D1": D1.tautstring, "D2": D2.dp, "D3": D3.condat,
                 "D4": D4.classic_ts}
+    launch_l1 = L1.component_labels
+
+    def tap_l1(X, tol):
+        if tap_path[0] is not None:
+            l1_calls.append((tap_path[0], X.clone(), tol.clone()))
+        return launch_l1(X, tol)
 
     def tap_direct(kid):
         def tap(y, lam):
@@ -1374,6 +1417,7 @@ def main(out_dir):
     D2.dp = tap_direct("D2")
     D3.condat = tap_direct("D3")
     D4.classic_ts = tap_direct("D4")
+    L1.component_labels = tap_l1
     x_auto, info_auto = run("api.tv1_2d 1024^2 lam 0.3 auto",
                             lambda: ptv.tv1_2d(Y2, LAM2D, return_info=True),
                             ["B3"])
@@ -1557,7 +1601,8 @@ def main(out_dir):
     tgt_t2, ny_t2 = t(truth_t2.astype(np.float32)), t(noisy_t2)
     tcells = train_cells(ny_t1, tgt_t1, ny_t2, tgt_t2)
     train_main = {}
-    for name_, must_ in (("T1", ["B1"]), ("T2", ["B1"]), ("T2 cp-acc", ["B3"])):
+    for name_, must_ in (("T1", ["B1"]), ("T2", ["B1", "L1"]),
+                         ("T2 cp-acc", ["B3", "L1"])):
         label = f"train {name_}: {tcells[name_][0]}"
         diffprox.LABEL_TRIPS.reset()
         train_main[name_] = run(label, tcells[name_][1], must_)
@@ -1579,6 +1624,7 @@ def main(out_dir):
     D2.dp = launch_d["D2"]
     D3.condat = launch_d["D3"]
     D4.classic_ts = launch_d["D4"]
+    L1.component_labels = launch_l1
 
     # -- 3b. B1 against its plain version at the main path's own inputs ----
     # Every recorded launch, by shape: the 1024^2 dr fibers and the tvgen
@@ -2890,6 +2936,106 @@ def main(out_dir):
         check(sum(k_["launches"] for k_ in kern if k_["name"].startswith(
             kid + " ")) == sum(by_path[kid].values()),
             f"the {kid} tap missed main-path launches")
+    # L1 (the 2D backward's flat-component labelling) at its main-path
+    # launches (the T2 cells' backwards, 1 x 1024 x 1024): every launch held
+    # against its plain version on the card, bit for bit on the int32
+    # labels, then replayed in order: ms through the wrapper, kernel_ms
+    # through the C entry point (bind), plain_ms the plain version's run on
+    # the card (its trips, one host read each).  Bound: X read and the
+    # labels written, 8 bytes a pixel.
+    check(len(l1_calls) == sum(by_path["L1"].values()),
+          "the L1 tap missed main-path launches")
+    l1_shapes = {}
+    for c_ in l1_calls:
+        l1_shapes.setdefault(tuple(c_[1].shape), []).append(c_)
+    for (Bs, Ms, Ns), calls in l1_shapes.items():
+        launchers, plain_s, trips, worst = [], 0.0, 0, 0
+        for _, X_, tol_ in calls:
+            out = L1.component_labels(X_, tol_)
+            torch.cuda.synchronize()
+            L1.LABEL_TRIPS.reset()
+            t0 = time.perf_counter()
+            ref = L1.component_labels_plain(X_, tol_)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            trips += L1.LABEL_TRIPS.value
+            worst = max(worst, int((out.long() - ref.long()).abs().max()))
+            lab_, launch = L1.bind(X_, tol_)
+            launch()
+            torch.cuda.synchronize()
+            check(bool(torch.equal(lab_, out)),
+                  "L1's C entry point and its wrapper disagree")
+            launchers.append(launch)
+        check(worst == 0, f"L1 main path {Bs}x{Ms}x{Ns}: labels part from "
+              f"the plain version's by up to {worst}")
+        paths = sorted({c_[0] for c_ in calls})
+
+        def replay(calls=calls):
+            for _, X_, tol_ in calls:
+                L1.component_labels(X_, tol_)
+
+        def replay_c(launchers=launchers):
+            for launch in launchers:
+                launch()
+
+        ms = cuda_ms(replay) / len(calls)
+        kernel_ms = cuda_ms(replay_c) / len(calls)
+        px = Bs * Ms * Ns
+        b, f = bound_ms(8 * px, LABEL_OPS_PER_PIXEL * px)
+        kern.append(dict(
+            name=f"L1 component_labels ({Bs}x{Ms}x{Ns}, {', '.join(paths)})",
+            route="cuda", source="proxtv_tpu_torch/csrc/labels.cu",
+            replaces="proxtv_tpu/ops/diffprox.py:105 (XLA while_loop; no "
+                     "TPU kernel)",
+            launches=len(calls),
+            launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
+                              for p_ in paths},
+            max_abs_err=float(worst), ms=ms,
+            plain_ms=plain_s * 1e3 / len(calls), bound_ms=b, bound_by=f,
+            library_ms=None, kernel_ms=kernel_ms,
+            plain_trips_per_launch=trips / len(calls)))
+        print(f"[L1 labels] main path {Bs}x{Ms}x{Ns} ({len(calls)} launches)"
+              f": labels equal to the plain version's (max |difference| "
+              f"{worst}); the plain version took {trips / len(calls):.1f} "
+              f"trips a launch")
+    # L1's stress images at 1024^2, off the main path: a flat image (one
+    # component of 2^20 pixels) and a serpentine one (one path through half
+    # the image), each held against its known labels; the flat one also
+    # against the plain version (~1000 trips), the serpentine's plain run
+    # (2^18 trips) is not measured.
+    l1_stress = {}
+    for name_, (X_np, lab_np) in (
+            (f"flat {M2D}^2", (np.zeros((M2D, N2D), np.float32),
+                               np.zeros((M2D, N2D), np.int32))),
+            (f"serpentine {M2D}^2", serpentine(M2D, N2D))):
+        X_ = t(X_np[None])
+        tol_ = diffprox._seg_tol(X_)
+        out = L1.component_labels(X_, tol_)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out.cpu(), torch.from_numpy(lab_np[None]))),
+              f"L1 on the {name_} image: wrong labels")
+        plain_ms = None
+        if name_.startswith("flat"):
+            L1.LABEL_TRIPS.reset()
+            t0 = time.perf_counter()
+            ref = L1.component_labels_plain(X_, tol_)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            check(bool(torch.equal(out, ref)), f"L1 on the {name_} image "
+                  "parts from the plain version")
+        _, launch = L1.bind(X_, tol_)
+        b, f = bound_ms(8 * M2D * N2D, LABEL_OPS_PER_PIXEL * M2D * N2D)
+        l1_stress[name_] = {
+            "ms": cuda_ms(lambda: L1.component_labels(X_, tol_)),
+            "kernel_ms": cuda_ms(launch), "plain_ms": plain_ms,
+            "plain_trips": L1.LABEL_TRIPS.value if plain_ms else None,
+            "bound_ms": b, "bound_by": f}
+        r_ = l1_stress[name_]
+        print(f"[L1 labels] {name_} (off the main path): {r_['ms']:.4f} ms "
+              f"(C entry {r_['kernel_ms']:.4f} ms, bound {b:.4f} ms by {f}, "
+              f"plain " + (f"{plain_ms:.4f} ms, {r_['plain_trips']} trips"
+                           if plain_ms else "not measured") + f")  ({card})")
+    report["l1_stress"] = l1_stress
     for k_ in kern:
         extra = "".join(f", {key} {k_[key]:.4f} ms" for key in (
             "kernel_ms", "bound_ms_pcr") if key in k_)
@@ -2985,29 +3131,6 @@ def main(out_dir):
               f"{b_['ours'].get('B1', 0.0):.3f} ms), host syncs "
               f"{m_['host_syncs']}  ({card})")
 
-    # The redesign queue: each kernel's device time over one pass of every
-    # main-path call that launches it (the profiled calls above and the
-    # dist phase's world-1 calls, profiled in phase 3e), less the
-    # bounds of those launches where phase 4 timed the kernel at the path's
-    # own shape (B1, B2, B4 and B5 at each of their shapes, B3, B6).
-    at_shape = {"B3": sum(by_path["B3"].values()),
-                "B6": sum(by_path["B6"].values())}
-    queue = {}
-    for kid in counters:
-        dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in (
-            *breakdown.values(), *dist_prof.values()))
-        per_shape = kid in ("B1", "B2", "B4", "B5", "D1", "D2", "D3", "D4")
-        bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
-                                    else at_shape.get(kid, 0))
-                  for k_ in kern if k_["name"].startswith(kid + " "))
-        queue[kid] = {"device_ms": dev_ms, "bound_ms": bnd,
-                      "gap_ms": dev_ms - bnd,
-                      "launches": sum(by_path[kid].values())}
-    for kid, q in sorted(queue.items(), key=lambda kv: -kv[1]["gap_ms"]):
-        print(f"[queue] {kid}: {q['device_ms']:.4f} ms of device time over "
-              f"{q['launches']} main-path launches, bounds {q['bound_ms']:.4f}"
-              f" ms: {q['gap_ms']:.4f} ms over  ({card})")
-
     # -- 6. train: each cell again, untapped, step by step; one profiled
     # step a cell ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -3024,14 +3147,15 @@ def main(out_dir):
             print(f"[train] {name_} step {i_}: forward {s_['fwd_ms']:.3f} "
                   f"ms, backward {s_['bwd_ms']:.3f} ms (CUDA events), loss "
                   f"{s_['loss']:.6e}; forward B1 {s_['fwd']['B1']} B3 "
-                  f"{s_['fwd']['B3']} launches, host syncs forward "
+                  f"{s_['fwd']['B3']} launches, backward L1 "
+                  f"{s_['bwd']['L1']} launches, host syncs forward "
                   f"{s_['fwd']['host_syncs']} backward "
                   f"{s_['bwd']['host_syncs']}, label trips "
                   f"{s_['bwd']['label_trips']}  ({card})")
         top = ", ".join(f"{k_} {v:.3f} ms" for k_, v in prof["top"])
         print(f"[train] {name_} ({desc_}): the counted run launched "
-              f"{m_['launches']['B1']} B1 and {m_['launches']['B3']} B3, "
-              f"{m_['host_syncs']} host syncs, "
+              f"{m_['launches']['B1']} B1, {m_['launches']['B3']} B3 and "
+              f"{m_['launches']['L1']} L1, {m_['host_syncs']} host syncs, "
               f"{train_main[name_]['label_trips']} label trips; one profiled "
               f"step: wall {prof['wall_ms']:.3f} ms, device busy "
               f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']}; "
@@ -3047,6 +3171,37 @@ def main(out_dir):
                       "host_syncs": main[v["path"]]["host_syncs"]}
                  for k_, v in train_main.items()},
         "checks": train_checks, "times": train_times, "seconds": t_train}
+
+    # The redesign queue: each kernel's device time over one pass of every
+    # main-path call that launches it (the profiled calls of phase 5 and the
+    # dist phase's world-1 calls, profiled in phase 3e), less the
+    # bounds of those launches where phase 4 timed the kernel at the path's
+    # own shape (B1, B2, B4, B5, D1-D4 and L1 at each of their shapes, B3,
+    # B6).  L1 runs only in the training cells' backwards: its device time
+    # is the profiled step's (one launch, phase 6) times the cell's
+    # main-path launches.
+    at_shape = {"B3": sum(by_path["B3"].values()),
+                "B6": sum(by_path["B6"].values())}
+    queue = {}
+    for kid in counters:
+        dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in (
+            *breakdown.values(), *dist_prof.values()))
+        if kid == "L1":
+            dev_ms = sum(v["profile"]["ours"].get("L1", 0.0)
+                         * by_path["L1"].get(train_main[c_]["path"], 0)
+                         for c_, v in train_times.items())
+        per_shape = kid in ("B1", "B2", "B4", "B5", "D1", "D2", "D3", "D4",
+                            "L1")
+        bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
+                                    else at_shape.get(kid, 0))
+                  for k_ in kern if k_["name"].startswith(kid + " "))
+        queue[kid] = {"device_ms": dev_ms, "bound_ms": bnd,
+                      "gap_ms": dev_ms - bnd,
+                      "launches": sum(by_path[kid].values())}
+    for kid, q in sorted(queue.items(), key=lambda kv: -kv[1]["gap_ms"]):
+        print(f"[queue] {kid}: {q['device_ms']:.4f} ms of device time over "
+              f"{q['launches']} main-path launches, bounds {q['bound_ms']:.4f}"
+              f" ms: {q['gap_ms']:.4f} ms over  ({card})")
 
     report.update(errors=errs, main_path=main, times=times, kernels=kern,
                   queue=queue,

@@ -17,10 +17,12 @@ ends) — the standard taut-string sensitivity.  Both derivatives are exact a.e.
 (the solution map is piecewise affine in (y, lam)).
 
 The backward passes are PyTorch ops on the tensor's device (the JAX package
-computes them outside any Pallas kernel too).  The 2D backward labels the
-flat components by min-label propagation, one host read a trip
-(:data:`proxtv_tpu_torch.utils.debug.HOST_SYNCS`); :data:`LABEL_TRIPS` counts
-the trips.
+computes them outside any Pallas kernel too), except the 2D backward's
+labelling of the flat components: on the card one call of kernel L1
+(:func:`.kernels.labels.component_labels`, no host read); on the CPU its
+plain version, min-label propagation with one host read a trip
+(:data:`proxtv_tpu_torch.utils.debug.HOST_SYNCS`), the trips counted in
+:data:`LABEL_TRIPS`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from ..utils import debug
 from . import tv1d_l1
+from .kernels import labels as label_kernel
 
 _SEG_TOL = 1e-6       # 1D: engines are exact to solver tolerance
 _SEG_TOL_2D = 1e-4    # 2D: combiners stop at mean-change 1e-6, leaving
@@ -45,8 +48,8 @@ _SEG_TOL_2D = 1e-4    # 2D: combiners stop at mean-change 1e-6, leaving
 _TOL_EPS_1D = 0.0
 _TOL_EPS_2D = 1.0
 
-# Trips of the 2D backward's label propagation (two hops each).
-LABEL_TRIPS = debug.Counter()
+# Trips of the 2D backward's label propagation on the CPU (two hops each).
+LABEL_TRIPS = label_kernel.LABEL_TRIPS
 
 
 def _segment_mean(v, seg_start):
@@ -159,41 +162,8 @@ def tv1_prox(y, lam, method: str = "pn"):
 # ---------------------------------------------------------------------------
 
 
-def _component_labels(flat_r, flat_c, shape):
-    """Min-label propagation over 4-connected flat edges.
-
-    flat_r (B, M, N-1) / flat_c (B, M-1, N): True where the solution is flat
-    across the edge.  Returns (B, M, N) int32 component labels (minimum linear
-    index in each component).  Two hops a trip; the loop stops when a trip
-    changes nothing, read on the host once a trip."""
-    B, M, N = shape
-    dev = flat_r.device
-    lab = (torch.arange(M * N, device=dev, dtype=torch.int32)
-           .reshape(1, M, N).expand(B, M, N).contiguous())
-    big = torch.tensor(M * N, dtype=torch.int32, device=dev)
-
-    def nbr_min(lab):
-        out = lab.clone()
-        # right and left neighbours across flat row edges
-        r = torch.where(flat_r, lab[:, :, 1:], big)
-        out[:, :, :-1] = torch.minimum(out[:, :, :-1], r)
-        lft = torch.where(flat_r, lab[:, :, :-1], big)
-        out[:, :, 1:] = torch.minimum(out[:, :, 1:], lft)
-        # down and up neighbours across flat column edges
-        d = torch.where(flat_c, lab[:, 1:, :], big)
-        out[:, :-1, :] = torch.minimum(out[:, :-1, :], d)
-        u = torch.where(flat_c, lab[:, :-1, :], big)
-        out[:, 1:, :] = torch.minimum(out[:, 1:, :], u)
-        return out
-
-    while True:
-        # Two hops per trip: O(diameter / 2) trips, one host read each.
-        lab2 = nbr_min(nbr_min(lab))
-        LABEL_TRIPS.value += 1
-        changed = debug.host(torch.any(lab2 != lab))
-        lab = lab2
-        if not changed:
-            return lab
+# The plain version's propagation, kept under its name.
+_component_labels = label_kernel._component_labels
 
 
 def _component_mean(g, labels):
@@ -209,22 +179,24 @@ def _component_mean(g, labels):
     return (sums[ids] / cnts[ids]).reshape(B, M, N)
 
 
+def _seg_tol(X):
+    """The flat-edge tolerance of each image of ``X`` (B, M, N): (B,),
+    _SEG_TOL_2D of the image's scale."""
+    scale = torch.clamp(X.reshape(X.shape[0], -1).abs().amax(dim=1), min=1.0)
+    return _SEG_TOL_2D * scale
+
+
 def _flat_edges(X):
     """The edges of the 2D solution ``X`` (B, M, N) that count as flat
     (within _SEG_TOL_2D of the image's scale): (flat_r (B, M, N-1),
     flat_c (B, M-1, N))."""
-    B = X.shape[0]
-    scale = torch.clamp(X.reshape(B, -1).abs().amax(dim=1), min=1.0)
-    tol = (_SEG_TOL_2D * scale)[:, None, None]
-    return ((X[:, :, 1:] - X[:, :, :-1]).abs() <= tol,
-            (X[:, 1:, :] - X[:, :-1, :]).abs() <= tol)
+    return label_kernel.flat_edges(X, _seg_tol(X))
 
 
 def _bwd2(X, g):
     """VJP of the 2D prox at its solution ``X`` (B, M, N) for the input."""
-    flat_r, flat_c = _flat_edges(X)
-    labels = _component_labels(flat_r, flat_c, X.shape)
-    return _component_mean(g, labels)
+    return _component_mean(g, label_kernel.component_labels(X.contiguous(),
+                                                            _seg_tol(X)))
 
 
 class _TV2DProx(torch.autograd.Function):

@@ -22,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "proxtv_tpu_torch")
 SOURCES = ("pcr.cu", "pn_fused.cu", "pdhg_fused.cu", "ms_fused.cu",
            "pdhg3d_fused.cu", "lp_fused.cu", "tautstring.cu", "dp.cu",
-           "condat.cu", "classic_ts.cu")
+           "condat.cu", "classic_ts.cu", "labels.cu")
 HEADERS = ("block.cuh", "fiber.cuh", "tridiag.cuh", "direct1d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -86,6 +86,8 @@ _SIGNATURES = {
     # the longest n of D3's and D4's warp layouts
     "condat_warp_max_n": (),
     "classic_ts_warp_max_n": (),
+    # X, tol, labels (the output and the parent array), B, M, N, stream
+    "component_labels": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from proxtv_tpu_torch.ops.kernels import labels as LBK
 from proxtv_tpu_torch.ops.kernels import ms_fused as MSK
 from proxtv_tpu_torch.ops.kernels import pcr as PK
 from proxtv_tpu_torch.ops.kernels import pdhg3d_fused as P3K
 from proxtv_tpu_torch.ops.kernels import pdhg_fused as PPK
 from proxtv_tpu_torch.ops.kernels import pn_fused as PPF
 from proxtv_tpu_torch.ops.kernels import tautstring as TSK
+
+import torch_label_fields as LF
 
 pytestmark = pytest.mark.cuda
 
@@ -589,7 +592,7 @@ def test_bind_launch_keeps_its_outputs_alive(dev):
     """A launch made by bind writes into the outputs bind allocated, so it
     keeps them alive after the caller drops them: the caching allocator
     must not hand their memory to a new tensor while the launch can still
-    write it (B2, B4 and B5; the timing replays drop the outputs)."""
+    write it (B2, B4, B5 and L1; the timing replays drop the outputs)."""
     from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
 
     rng = np.random.RandomState(9)
@@ -597,6 +600,7 @@ def test_bind_launch_keeps_its_outputs_alive(dev):
     ones = torch.ones(8, device=dev)
     for make in (lambda: PK.bind(y),
                  lambda: MSK.bind(y, lam=1.0),
+                 lambda: LBK.bind(y[None], ones[:1]),
                  lambda: LPK.bind(y, torch.zeros_like(y), ones, ones, ones,
                                   1.5, 100)):
         outs, launch = make()
@@ -1469,6 +1473,85 @@ def test_diffprox_backward_on_the_card_matches_float64(dim, dev):
         assert out.is_cuda
         err = float((out.double().cpu() - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+def _label_cases(case, dev):
+    """The fields of test_label_kernel_matches_plain: a list of (X, tol)
+    on the card, float32, tol as the backward computes it."""
+    from proxtv_tpu_torch.ops import diffprox
+
+    tiles = [(31, 33), (32, 32), (33, 31), (63, 65), (65, 64), (97, 1),
+             (1, 97)]
+    if case in ("p0.5", "p0.8", "serpentine"):
+        kinds = (["serpentine", "serpentine_t"] if case == "serpentine"
+                 else [case] * 2)
+        xs = [LF.batch(kinds, M, N, seed=M + N) for M, N in tiles]
+    elif case == "B = 3 mixed":
+        xs = [LF.batch(["p0.5", "p0.8", "flat"], 70, 50, seed=7),
+              LF.batch(["none", "p0.5", "serpentine"], 33, 65, seed=8)]
+    elif case == "1024x1000 p0.5":
+        xs = [LF.batch(["p0.5"], 1024, 1000, seed=9)]
+    elif case == "flat 1024^2":
+        xs = [LF.batch(["flat"], 1024, 1024)]
+    else:  # a dr solve of the blocky image of _diff_cells
+        _, _, y2, _ = _diff_cells(dev)
+        xs = [diffprox.tv2d_prox(y2, 0.3, "dr").contiguous()]
+    out = []
+    for X in xs:
+        X = (X if torch.is_tensor(X)
+             else torch.from_numpy(X.astype(np.float32)).to(dev))
+        out.append((X, diffprox._seg_tol(X)))
+    return out
+
+
+@pytest.mark.parametrize("case", ["p0.5", "p0.8", "serpentine", "B = 3 mixed",
+                                  "1024x1000 p0.5", "flat 1024^2", "T2 dr"])
+def test_label_kernel_matches_plain(case, dev):
+    """Kernel L1 against its plain version on the card, bit for bit on the
+    int32 labels: fields near and above the percolation threshold, a
+    serpentine (one path through half the image) and its transpose at tile
+    (32) +-1 sizes and on single rows and columns, a batch of mixed
+    densities, 1024 x 1000, a flat 1024^2 image (one component of 2^20
+    pixels) and a dr solution; one launch a call, no label trip."""
+    for X, tol in _label_cases(case, dev):
+        ref = LBK.component_labels_plain(X, tol)
+        before, trips = LBK.LAUNCHES.value, LBK.LABEL_TRIPS.value
+        out = LBK.component_labels(X, tol)
+        torch.cuda.synchronize()
+        assert LBK.LAUNCHES.value == before + 1
+        assert LBK.LABEL_TRIPS.value == trips
+        assert out.dtype == torch.int32 and out.is_cuda
+        assert torch.equal(out, ref), (
+            f"{tuple(X.shape)}: {int((out != ref).sum())} labels differ")
+
+
+def test_tv2d_backward_on_the_card_runs_l1_without_host_sync(dev):
+    """tv2d_prox's backward on the card: one L1 launch, no label trip and
+    no host sync; L1's wrapper (and so the backward) raises for float64 on
+    the card and for a non-contiguous X."""
+    from proxtv_tpu_torch.ops import diffprox
+    from proxtv_tpu_torch.utils import debug
+
+    _, _, y2, t2 = _diff_cells(dev)
+    y = y2.clone().requires_grad_(True)
+    x = diffprox.tv2d_prox(y, 0.3, "dr")
+    loss = torch.mean((x - t2) ** 2)
+    torch.cuda.synchronize()
+    c0 = (LBK.LAUNCHES.value, LBK.LABEL_TRIPS.value, debug.HOST_SYNCS.value)
+    (gy,) = torch.autograd.grad(loss, y)
+    torch.cuda.synchronize()
+    c1 = (LBK.LAUNCHES.value, LBK.LABEL_TRIPS.value, debug.HOST_SYNCS.value)
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (1, 0, 0)
+    assert gy.is_cuda and bool(torch.isfinite(gy).all())
+    X = x.detach().contiguous()
+    tol = diffprox._seg_tol(X)
+    with pytest.raises(TypeError):
+        LBK.component_labels(X.double(), tol.double())
+    with pytest.raises(TypeError):
+        diffprox._bwd2(X.double(), X.double())
+    with pytest.raises(ValueError):
+        LBK.component_labels(X.transpose(1, 2), tol)
+    assert LBK.LAUNCHES.value == c1[0]
 
 
 def test_layer_step_stays_on_the_card(dev):

@@ -12,7 +12,10 @@ import jax.numpy as jnp
 from proxtv_tpu.ops import diffprox as jdp
 from proxtv_tpu_torch.models import layers
 from proxtv_tpu_torch.ops import diffprox
+from proxtv_tpu_torch.ops.kernels import labels
 from proxtv_tpu_torch.utils import interop
+
+import torch_label_fields as LF
 
 F64 = torch.float64
 
@@ -123,6 +126,49 @@ def test_tv2d_prox_vjp_matches_jax(method, iters):
         num = (f(_t(Y) + eps * d) - f(_t(Y) - eps * d)) / (2 * eps)
         np.testing.assert_allclose(num, float((y_t.grad * d).sum()),
                                    atol=5e-4)
+
+
+# The flat-component labelling's cases: (B, M, N) float64 fields of
+# tests/torch_label_fields.py (one case may hold several shapes).
+LABEL_CASES = {
+    "p0.5": [LF.batch(["p0.5"] * 3, 17, 23, seed=1)],
+    "p0.8": [LF.batch(["p0.8"] * 3, 17, 23, seed=2)],
+    "serpentine": [LF.batch(["serpentine", "serpentine_t"], 21, 23)],
+    "flat and none flat": [LF.batch(["flat", "none"], 17, 23)],
+    "rows and columns": [LF.batch(["p0.5", "p0.8"], 1, 40, seed=3),
+                         LF.batch(["p0.5", "p0.8"], 40, 1, seed=4)],
+}
+
+
+@pytest.mark.parametrize("case", list(LABEL_CASES))
+def test_component_labels_plain_matches_jax(case):
+    """Kernel L1's plain version (labels.component_labels_plain, which the
+    CPU runs) against the JAX package's _component_labels, integer for
+    integer, on the same flat edges; and _bwd2 (through
+    labels.component_labels) against the JAX package's _bwd2 to 1e-12."""
+    rng = np.random.RandomState(5)
+    for X in LABEL_CASES[case]:
+        B, M, N = X.shape
+        Xj = jnp.asarray(X)
+        scale = jnp.maximum(1.0, jnp.max(jnp.abs(Xj.reshape(B, -1)), axis=1))
+        tj = (jdp._SEG_TOL_2D * scale)[:, None, None]
+        fr = jnp.abs(Xj[:, :, 1:] - Xj[:, :, :-1]) <= tj
+        fc = jnp.abs(Xj[:, 1:, :] - Xj[:, :-1, :]) <= tj
+        ref = np.asarray(jdp._component_labels(fr, fc, X.shape))
+        Xt = _t(X)
+        tol = diffprox._seg_tol(Xt)
+        for a, b in zip(labels.flat_edges(Xt, tol), (fr, fc)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        trips, launches = labels.LABEL_TRIPS.value, labels.LAUNCHES.value
+        got = labels.component_labels_plain(Xt, tol)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert labels.LABEL_TRIPS.value > trips
+        g = rng.randn(B, M, N)
+        gj = jdp._bwd2("dr", 0, (Xj, jnp.asarray(0.5)), jnp.asarray(g))[0]
+        np.testing.assert_allclose(diffprox._bwd2(Xt, _t(g)).numpy(),
+                                   np.asarray(gj), atol=1e-12)
+        assert labels.LAUNCHES.value == launches  # the CPU runs no kernel
 
 
 def test_gradcheck_tv1_prox():

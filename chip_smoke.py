@@ -12,7 +12,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    print the card (``nvidia-smi`` name and power limit) and the build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with the tolerances in ``TOL`` (D1-D4 and
-   L1 in phase 4, at each of their main-path launches; L1 bit for bit);
+   L1 in phase 4, at each of their main-path launches; D3, D4 and L1 bit
+   for bit);
 3. drive the main path through the public entry points, counting kernel
    launches and host syncs per call: ``api.tv1_2d`` at 1024^2, lam 0.3 (auto
    -> PDHG, kernel B3; and ``dr`` -> projected Newton, B1),
@@ -86,8 +87,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    version, and the main-path calls, and print the ``kernels`` line; B1, B2,
    B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
    shape's launches (B2's, B4's, B5's, D1-D4's and L1's first held against
-   their plain versions on each of them), through the wrapper and, for B2
-   to B6, D1-D4 and L1, through the C entry point; and L1 on a flat and a
+   their plain versions on each of them), through the wrapper and, for
+   B1-B6, D1-D4 and L1, through the C entry point; and L1 on a flat and a
    serpentine 1024^2 image, held against their known labels;
 5. profile the main-path calls: device time by kernel and the idle share;
 6. run the training cells again, untapped: each step's forward and
@@ -2634,10 +2635,12 @@ def main(out_dir):
             bound_by=f, library_ms=None, kernel_ms=kernel_ms,
             bound_ms_pcr=b_pcr, bound_by_pcr=f_pcr))
     # B1 at each main-path shape: the path's own launches replayed in order
-    # (ms per launch); the bound from the iterations they ran.  Bytes: y and
-    # x, plus w_init where the path passes a warm start, w where it asks for
-    # the dual, and lam_full where the weights are a field (the long route's
-    # windows, tv1w_2d's fibers).
+    # (ms per launch through the wrapper; kernel_ms through the C entry
+    # point with each launch's arguments made once, pn_fused.bind); the
+    # bound from the iterations they ran.  Bytes: y and x, plus w_init
+    # where the path passes a warm start, w where it asks for the dual, and
+    # lam_full where the weights are a field (the long route's windows,
+    # tv1w_2d's fibers).
     for shp, s in b1_shapes.items():
         calls = b1_calls[shp]
 
@@ -2646,6 +2649,10 @@ def main(out_dir):
                 fn(y_, lf_, w0_, **kw_)
 
         ms = cuda_ms(lambda: replay(B1.pn_tv1_fused)) / len(calls)
+        launchers = [B1.bind(y_, lf_, w0_, **kw_)[1]
+                     for _, y_, lf_, w0_, kw_ in calls]
+        kernel_ms = cuda_ms(lambda: [f() for f in launchers]) / len(calls)
+        del launchers
         plain_ms = cuda_ms(lambda: replay(B1.pn_tv1_fused_plain),
                            reps=1) / len(calls)
         Bs, ns = shp
@@ -2665,7 +2672,7 @@ def main(out_dir):
             launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
                               for p_ in s["paths"]},
             max_abs_err=s["max_abs_err"], ms=ms, plain_ms=plain_ms,
-            bound_ms=b, bound_by=f, library_ms=None,
+            bound_ms=b, bound_by=f, library_ms=None, kernel_ms=kernel_ms,
             newton_iters_mean=sum(s["iters"]) / (len(calls) * Bs),
             iters_apart=s["iters_apart"]))
     # B3, one cert chunk of the 1024^2 auto path (the shape of all its
@@ -2902,6 +2909,11 @@ def main(out_dir):
                 launchers.append(launch)
             check(worst <= TOL["direct"], f"{kid} main path {Bs}x{ns} "
                   "disagrees with its plain version")
+            # D3 and D4 run the plain versions' events in the same float32
+            # roundings: bit for bit (no main-path row is degenerate).
+            check(kid not in ("D3", "D4") or worst == 0.0,
+                  f"{kid} main path {Bs}x{ns} is not bit for bit with its "
+                  "plain version")
             errs["direct"] = max(errs["direct"], worst)
             paths = sorted({c[0] for c in calls})
 

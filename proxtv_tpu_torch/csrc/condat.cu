@@ -11,7 +11,8 @@
 // (k0..kplus) at vmin (vmax) and restarts right after it, re-reading y
 // behind the cursor; otherwise the touched bounds tighten vmin/vmax.  At
 // k = n - 1 the boundary events jump the same way or close the last run.
-// Each run x[k0 .. next k0 - 1] is written when it closes.  Every
+// Each closed run is recorded at its start, and x is written from the
+// records after the chain (the plain version's forward fill).  Every
 // operation is the plain version's (tv1_condat_plain) in the same order and
 // float32 rounding, with IEEE division; none can contract into an FMA
 // (y + 2 lam is exact whether contracted or not), so the two agree bit for
@@ -19,17 +20,39 @@
 //
 // What bounds it on this card: the function reads y once and writes x
 // once, 8 bytes an element: 512 x 1000 is 4 MB, 1.2 us at 3.35 TB/s.  The
-// events form a dependent chain per signal (n and more: a jump restarts
-// behind the cursor), so a signal is latency: its chain at the latency of
-// the memory its events read.
+// events form one dependent chain a signal (n and more: a jump restarts
+// behind the cursor; 1473 a row on average on randn rows of 1000 at lam
+// 0.7, 2970 on a walk of 1000 at lam 2), so a signal is latency: its chain,
+// event after event.  One warp alone on a scheduler waits out each
+// dependent latency, and every data-dependent branch of the chain costs
+// more than the arithmetic: the compiler cannot tell that the 32 lanes
+// agree, so it wraps each such branch in a reconvergence barrier
+// (tools/probe_latency.py times the latencies and the scan's cycles an
+// event on the card).  The design keeps the common event, an advance, free
+// of them:
+// * the advances run in an inner loop of one straight run of code whose
+//   only branch leaves it: the excursions advance by the next sample (the
+//   next two samples wait in registers, and the advance reads the one after
+//   them for later), the two bounds' divides by k - k0 + 1 run side by
+//   side with no branch (direct1d.cuh div_fast: the IEEE division's own
+//   fast path, the reciprocal taken before the numerators are known), and
+//   selects keep what the advance changes;
+// * a jump, a boundary event or an advance whose divide needs the IEEE
+//   path leaves that loop, is done out of it, and re-enters it;
+// * a closed run is two shared-memory stores: its start marked and its
+//   value recorded there.  The warp writes x after the chain by the forward
+//   fill (direct1d.cuh warp_forward_fill), which is also the plain
+//   version's rule for a jump that lands behind the run it closes.
 //
-// Design, two layouts by n, as D1 (direct1d.cuh):
-// * n <= kWarpMaxN, one warp a signal: the warp stages y into shared
-//   memory with 16-byte loads (a jump's re-reads hit shared memory), takes
-//   the guards by warp reductions, and its 32 lanes run the event chain
-//   redundantly, uniform branches and broadcast reads; a closed run goes
-//   out 32 elements a store.
-// * n > kWarpMaxN, one thread a signal, y read from global memory.
+// Two layouts by n, as D1 (direct1d.cuh):
+// * n <= kWarpMaxN, one warp a signal: y (with two slots past it), the
+//   runs' values and their marks in shared memory (8n + 8 bytes rounded to
+//   16, plus n + 3 rounded to 32; 148 KB at 16384); the warp stages y with
+//   16-byte loads and takes the guards by warp reductions, and its 32
+//   lanes run the event chain redundantly, uniform branches and broadcast
+//   reads.
+// * n > kWarpMaxN, one thread a signal, y read from global memory, each run
+//   written as it closes (with the pin below).
 #include <cuda_runtime.h>
 
 #include "direct1d.cuh"
@@ -38,113 +61,151 @@ namespace {
 
 using direct1d::Lam;
 
-// The longest signal of the warp layout: y takes 4n bytes of shared
-// memory, 64 KB at 16384 (D1's threshold; a block takes at most 227 KB).
+// The longest signal of the warp layout (D1's threshold).
 constexpr int kWarpMaxN = 16384;
 
+// A warp's shared memory: y (and two slots past it, which the scan may read
+// ahead but never uses), then the runs' values, then the marks.
+__host__ __device__ constexpr size_t warp_smem(int n) {
+  return ((8 * (size_t)n + 8 + 15) & ~(size_t)15) + direct1d::mark_bytes(n);
+}
+
 // One signal's events (tv1_condat_plain's body, one event an iteration),
-// lam >= 0 and n >= 2.  yv(i) reads sample i; put(a, e, v) writes
-// x[a, e) = v.  The chain ends at the terminal boundary event.
+// lam >= 0 and n >= 2.  yv(i) reads sample i; emit(k0, j, v) records the
+// run that starts at k0 and closes at value v, the scan restarting at j
+// (j = n for the last run).  The chain ends at the terminal boundary event.
 //
-// A jump closes the run that starts at k0 and restarts at j = kminus + 1 or
-// kplus + 1, so the run is x[k0, j).  A boundary jump leaves the other of
-// kminus / kplus as it was, and in a float32 tie (vmin above vmax by an
-// ulp) a later jump from that stale index lands at j <= k0: the scan goes
-// back behind the run it closes.  The plain version, which marks each run's
-// start and fills forward, then keeps that run from k0 up to the next
-// start above it; so does run(): the run goes to the end, and later runs
-// stop at its start (pin) until a run starts at or past it.
-template <class YF, class PF>
-__device__ __forceinline__ void condat_scan(YF yv, float lam, int n, PF put) {
+// A boundary jump leaves the other of kminus / kplus as it was, and in a
+// float32 tie (vmin above vmax by an ulp) a later jump from that stale
+// index lands at j <= k0: the scan goes back behind the run it closes.
+// The plain version, which marks each run's start and fills forward, then
+// keeps that run from k0 up to the next start above it.
+template <class YF, class EF>
+__device__ __forceinline__ void condat_scan(YF yv, float lam, int n,
+                                            EF emit) {
   const float twolam = 2.f * lam;
+  const int last = n - 1;
   int k = 0, k0 = 0, kminus = 0, kplus = 0;
-  float vmin = __fsub_rn(yv(0), lam), vmax = __fadd_rn(yv(0), lam);
+  const float y0 = yv(0);
+  float vmin = __fsub_rn(y0, lam), vmax = __fadd_rn(y0, lam);
   float umin = lam, umax = -lam;
-  int pin = n;
-  auto run = [&](int j, float v) {
-    if (k0 >= pin) pin = n;
-    put(k0, min(j > k0 ? j : n, pin), v);
-    if (j <= k0) pin = k0;
-  };
+  float y1 = yv(1), y2 = yv(2);  // samples k + 1 and k + 2
   for (;;) {
-    if (k == n - 1) {
+    // The advances, one straight run each: the excursions advance by the
+    // next sample, the touched bounds tighten by a divide by k - k0 + 1,
+    // selects keep what an advance changes, and the loop's one branch
+    // leaves it for every other event.
+    float umin1, umax1;
+    for (;;) {
+      umin1 = __fsub_rn(__fadd_rn(umin, y1), vmin);
+      umax1 = __fsub_rn(__fadd_rn(umax, y1), vmax);
+      const float a = __fsub_rn(umin1, lam), c = __fadd_rn(umax1, lam);
+      const bool lo = umin1 >= lam, hi = umax1 <= -lam;
+      const direct1d::Recip rd = direct1d::recip((float)(k - k0 + 2));
+      const float dmin = direct1d::div_fast(a, rd);
+      const float dmax = direct1d::div_fast(c, rd);
+      if ((k == last) | (umin1 < -lam) | (umax1 > lam) |
+          (lo & !direct1d::div_fast_ok(a)) | (hi & !direct1d::div_fast_ok(c)))
+        break;
+      const float y3 = yv(k + 3);
+      ++k;
+      vmin = lo ? __fadd_rn(vmin, dmin) : vmin;
+      umin = lo ? lam : umin1;
+      kminus = lo ? k : kminus;
+      vmax = hi ? __fadd_rn(vmax, dmax) : vmax;
+      umax = hi ? -lam : umax1;
+      kplus = hi ? k : kplus;
+      y1 = y2;
+      y2 = y3;
+    }
+    if (k == last) {
       // The boundary events (the plain version's b_neg, b_pos, b_term).
       if (umin < 0.f) {
         const int j = kminus + 1;
-        const float yj = yv(min(j, n - 1));
-        run(j, vmin);
+        emit(k0, j, vmin);
+        const float yj = yv(j);
         k = k0 = kminus = j;
         vmin = yj;
         umin = lam;
         umax = __fsub_rn(__fadd_rn(yj, lam), vmax);
       } else if (umax > 0.f) {
         const int j = kplus + 1;
-        const float yj = yv(min(j, n - 1));
-        run(j, vmax);
+        emit(k0, j, vmax);
+        const float yj = yv(j);
         k = k0 = kplus = j;
         umin = __fsub_rn(__fsub_rn(yj, lam), vmin);
         vmax = yj;
         umax = -lam;
       } else {
-        run(n, __fadd_rn(vmin, umin / (float)(k - k0 + 1)));
-        return;
+        break;
       }
-      continue;
-    }
-    // The main-loop events (neg, pos, or no jump).
-    const float ynext = yv(k + 1);
-    const float umin1 = __fsub_rn(__fadd_rn(umin, ynext), vmin);
-    const float umax1 = __fsub_rn(__fadd_rn(umax, ynext), vmax);
-    if (umin1 < -lam || umax1 > lam) {
+    } else if (umin1 < -lam || umax1 > lam) {
+      // A jump down (neg) or up (pos) closes the run at k0 and restarts
+      // right after kminus or kplus.
       const bool neg = umin1 < -lam;
       const int j = (neg ? kminus : kplus) + 1;
-      const float yj = yv(min(j, n - 1));
-      run(j, neg ? vmin : vmax);
+      emit(k0, j, neg ? vmin : vmax);
+      const float yj = yv(j);
       k = k0 = kminus = kplus = j;
       vmin = neg ? yj : __fsub_rn(yj, twolam);
       vmax = neg ? __fadd_rn(yj, twolam) : yj;
       umin = lam;
       umax = -lam;
-      continue;
-    }
-    ++k;
-    const float denom = (float)(k - k0 + 1);
-    if (umin1 >= lam) {
-      vmin = __fadd_rn(vmin, __fsub_rn(umin1, lam) / denom);
-      umin = lam;
-      kminus = k;
     } else {
-      umin = umin1;
+      // An advance whose touched bound's divide takes the IEEE path.
+      const float den = (float)(k - k0 + 2);
+      const float a = __fsub_rn(umin1, lam), c = __fadd_rn(umax1, lam);
+      ++k;
+      if (umin1 >= lam) {
+        vmin = __fadd_rn(vmin, a / den);
+        umin = lam;
+        kminus = k;
+      } else {
+        umin = umin1;
+      }
+      if (umax1 <= -lam) {
+        vmax = __fadd_rn(vmax, c / den);
+        umax = -lam;
+        kplus = k;
+      } else {
+        umax = umax1;
+      }
     }
-    if (umax1 <= -lam) {
-      vmax = __fadd_rn(vmax, __fadd_rn(umax1, lam) / denom);
-      umax = -lam;
-      kplus = k;
-    } else {
-      umax = umax1;
-    }
+    y1 = yv(k + 1);
+    y2 = yv(k + 2);
   }
+  emit(k0, n, __fadd_rn(vmin, umin / (float)(k - k0 + 1)));
 }
 
 __global__ void __launch_bounds__(32 * direct1d::kMaxWarps)
 condat_warp_kernel(const float* __restrict__ y, Lam lam,
                    float* __restrict__ x, int B, int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // the whole warp
-  float* ys = smem + (size_t)warp * n;
+  unsigned char* base = smem + (size_t)warp * warp_smem(n);
+  float* ys = reinterpret_cast<float*>(base);
+  float* vs = ys + n + 2;
+  unsigned char* mk = base + warp_smem(n) - direct1d::mark_bytes(n);
   float* __restrict__ xb = x + (size_t)b * n;
   direct1d::stage_row(y + (size_t)b * n, n, ys, lane);
+  direct1d::zero_bytes(mk, direct1d::mark_bytes(n), lane);
   __syncwarp();
   const float l = lam(b, 0);
   auto yv = [&](int i) { return ys[i]; };
   if (direct1d::warp_degenerate(yv, [&](int) { return l; }, n, xb, lane))
     return;
-  condat_scan(yv, l, n, [&](int a, int e, float v) {
-    direct1d::fill(xb, a, e, v, lane, 32);
+  const int head = direct1d::mark_head(xb);
+  condat_scan(yv, l, n, [&](int k0, int, float v) {
+    if (k0 < n) {
+      vs[k0] = v;
+      mk[head + k0] = 1;
+    }
   });
+  __syncwarp();
+  direct1d::warp_forward_fill(mk, [&](int i) { return vs[i]; }, n, xb, lane);
 }
 
 __global__ void __launch_bounds__(64)
@@ -155,8 +216,18 @@ condat_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
   const float* __restrict__ yb = y + (size_t)b * n;
   float* __restrict__ xb = x + (size_t)b * n;
   if (direct1d::degenerate(yb, lam, b, n, xb)) return;
-  condat_scan([&](int i) { return __ldg(yb + i); }, lam(b, 0), n,
-              [&](int a, int e, float v) { direct1d::fill(xb, a, e, v, 0, 1); });
+  // Each run written as it closes: to its end, or to the row's end when
+  // the scan goes back behind it (j <= k0); later runs then stop at its
+  // start (pin) until one starts at or past it, so that x ends as the
+  // forward fill's.
+  int pin = n;
+  condat_scan([&](int i) { return __ldg(yb + (i < n ? i : n - 1)); },
+              lam(b, 0), n,
+              [&](int k0, int j, float v) {
+                if (k0 >= pin) pin = n;
+                direct1d::fill(xb, k0, min(j > k0 ? j : n, pin), v, 0, 1);
+                if (j <= k0) pin = k0;
+              });
 }
 
 }  // namespace
@@ -172,8 +243,7 @@ extern "C" int condat_tv1(const float* y, const float* lam, int lam_rs,
   if (n <= kWarpMaxN) {
     direct1d::WarpPlan p;
     const cudaError_t e =
-        direct1d::warp_plan(condat_warp_kernel, sizeof(float) * (size_t)n, B,
-                            &p);
+        direct1d::warp_plan(condat_warp_kernel, warp_smem(n), B, &p);
     if (e != cudaSuccess) return static_cast<int>(e);
     condat_warp_kernel<<<p.blocks, 32 * p.warps, p.smem, stream>>>(y, l, x, B,
                                                                    n);

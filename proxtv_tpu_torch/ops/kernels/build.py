@@ -83,6 +83,9 @@ _SIGNATURES = {
     # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, ws
     # (the thread layout's workspace, or NULL), B, n, stream
     "classic_ts_tv1": (_P, _P, _I, _F, _P, _P, _I, _I, _P),
+    # the same with the most events a signal runs (a test of D4's cap)
+    "classic_ts_tv1_capped": (_P, _P, _I, _F, _P, _P, _I, _I,
+                              ctypes.c_longlong, _P),
     # the longest n of D3's and D4's warp layouts
     "condat_warp_max_n": (),
     "classic_ts_warp_max_n": (),

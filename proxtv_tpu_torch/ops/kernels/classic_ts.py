@@ -4,11 +4,12 @@ signal).
 No TPU kernel: it replaces the JAX package's XLA lock-step deque machine
 ``proxtv_tpu/ops/tv1d_l1.py:tv1_classic_ts``; the CUDA source is
 ``proxtv_tpu_torch/csrc/classic_ts.cu``, which runs the same hull events as
-a plain sequential loop per signal and writes each run when it is emitted.
-Up to n = :func:`warp_max_n` (11620) a warp runs a signal, its two deques
-and y in shared memory; past it one thread runs a signal, its deques in a
-workspace that the wrapper allocates once per call (2 x (n + 2) x B slots
-of 8 bytes, interleaved by signal).
+one sequential pass a sample per signal.  Up to n = :func:`warp_max_n`
+(6280) a warp runs a signal, its two deques, y and the runs' marks in
+shared memory, and writes x after the chain by the plain version's forward
+fill; past it one thread runs a signal, its deques in a workspace that the
+wrapper allocates once per call (2 x (n + 2) x B slots of 16 bytes,
+interleaved by signal).
 
 :func:`classic_ts` launches the kernel for a CUDA tensor and runs
 :func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_classic_ts_plain` for a CPU
@@ -34,33 +35,41 @@ def warp_max_n():
     return build.lib().classic_ts_warp_max_n()
 
 
-def bind(y, lam):
+def bind(y, lam, cap=None):
     """The C entry point's call for a CUDA batch, its arguments and its
     workspace (the thread layout's, past :func:`warp_max_n`) made once.
     Returns ``(out, launch)`` as :func:`.tautstring.bind`; ``launch`` does
     not count in :data:`LAUNCHES`.  Raises when the workspace does not fit
-    on the card."""
+    on the card.  ``cap``: the most events a signal runs, for a test of
+    the cap's output rule (None: the plain version's 8n + 64, which no
+    signal reaches)."""
     y = check_batch(y, "classic")
     B, n = y.shape
     lamv, rs, lam_s = signal_lam_args(lam, B, n, y.device, "classic_ts", REF)
     out = torch.empty_like(y)
     ws = None
     if n > warp_max_n():
-        try:  # two deques of (n + 2) x B (int32 ix, float32 iy) slots
-            ws = torch.empty((2, n + 2, B), dtype=torch.int64,
+        try:  # two deques of (n + 2) x B slots (ix, iy, slope, ix float)
+            ws = torch.empty((2, n + 2, B, 4), dtype=torch.float32,
                              device=y.device)
         except torch.cuda.OutOfMemoryError as e:
             raise RuntimeError(
                 f"the classic taut-string kernel needs a workspace of "
-                f"{16 * (n + 2) * B} bytes for a ({B}, {n}) batch past its "
+                f"{32 * (n + 2) * B} bytes for a ({B}, {n}) batch past its "
                 f"warp layout (n > {warp_max_n()}); it does not fit on the "
                 "card: split the batch") from e
     args = (build.ptr(y), build.ptr(lamv), rs, lam_s, build.ptr(out),
-            build.ptr(ws), B, n, build.stream_ptr(y.device))
+            build.ptr(ws), B, n)
+    stream = build.stream_ptr(y.device)
 
     # keep: every tensor the pointers name, the output and workspace too.
     def launch(keep=(y, lamv, out, ws)):
-        build.check(build.lib().classic_ts_tv1(*args), "classic_ts_tv1")
+        if cap is None:
+            build.check(build.lib().classic_ts_tv1(*args, stream),
+                        "classic_ts_tv1")
+        else:
+            build.check(build.lib().classic_ts_tv1_capped(
+                *args, int(cap), stream), "classic_ts_tv1_capped")
 
     return out, launch
 

@@ -3,9 +3,10 @@
 No TPU kernel: it replaces the JAX package's XLA lock-step scan
 ``proxtv_tpu/ops/tv1d_l1.py:tv1_condat``; the CUDA source is
 ``proxtv_tpu_torch/csrc/condat.cu``, which runs the same events as a plain
-sequential loop per signal and writes each run when it closes: up to
-n = :func:`warp_max_n` (16384) on one warp a signal, out of shared memory,
-past it on one thread a signal.
+sequential loop per signal: up to n = :func:`warp_max_n` (16384) on one
+warp a signal, out of shared memory, recording each closed run at its start
+and writing x after the chain by the plain version's forward fill; past it
+on one thread a signal, writing each run as it closes.
 
 :func:`condat` launches the kernel for a CUDA tensor and runs
 :func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_condat_plain` for a CPU tensor;

@@ -17,6 +17,7 @@ TPU kernel's arithmetic on tensors and takes its ``tb``: the TPU kernel makes
 the PCR-tail, line-search and deep-search decisions once per tile of ``tb``
 fibers; the plain version makes them per tile too, so ``tb=1`` is the CUDA
 kernel's per-fiber semantics and the TPU's ``tb`` is the TPU kernel's.
+:func:`bind` makes the C call once, for tools that time the kernel alone.
 """
 from __future__ import annotations
 
@@ -280,6 +281,31 @@ def pn_tv1_fused(y, lam_full=None, w_init=None, max_iters: int = 100,
             tb=1, head_steps=head_steps, lam_scalar=lam_scalar,
             return_dual=return_dual, tol_eps=tol_eps)
         return (x, w, iters) if return_iters else (x, w)
+    out, launch = bind(y, lam_full, w_init, max_iters, max_armijo, sigma,
+                       stop_rel, head_steps, lam_scalar, return_dual,
+                       return_iters, tol_eps)
+    if y.shape[0] > 0:
+        launch()
+        LAUNCHES.value += 1
+    return out
+
+
+def bind(y, lam_full=None, w_init=None, max_iters: int = 100,
+         max_armijo: int = 12, sigma: float = 0.05, stop_rel: float = 1e-6,
+         head_steps: int = 4, lam_scalar=None, return_dual: bool = True,
+         return_iters: bool = False, tol_eps: float = 10.0):
+    """The C entry point's call for a CUDA batch, its arguments made once,
+    for tools that time the kernel alone.  Takes what
+    :func:`pn_tv1_fused` takes, checks it as that does and allocates the
+    outputs.  Returns ``(out, launch)``: ``out`` is what
+    :func:`pn_tv1_fused` returns, and each ``launch()`` runs the kernel
+    into it and raises on a refused launch.  ``launch`` does not count in
+    :data:`LAUNCHES`."""
+    if (lam_full is None) == (lam_scalar is None):
+        raise ValueError("pass exactly one of lam_full and lam_scalar")
+    if not y.is_cuda:
+        raise ValueError("bind takes a CUDA batch: the kernel has no CPU "
+                         "mode")
     B, n = y.shape
     lo, hi = lane_limits("pn")
     if y.dtype != torch.float32 or not lo <= n <= hi:
@@ -302,15 +328,15 @@ def pn_tv1_fused(y, lam_full=None, w_init=None, max_iters: int = 100,
     w = torch.empty_like(y) if return_dual else None
     iters = (torch.empty((B,), dtype=torch.int32, device=y.device)
              if return_iters else None)
-    if B > 0:
-        lib = build.lib()
-        err = lib.pn_tv1_fused(
-            build.ptr(y), build.ptr(lam_t),
+    args = (build.ptr(y), build.ptr(lam_t),
             float(lam_scalar) if lam_scalar is not None else 0.0,
             build.ptr(w0), build.ptr(x), build.ptr(w), build.ptr(iters),
             B, n, int(max_iters), int(max_armijo), float(sigma),
             float(stop_rel), float(tol_eps), int(head_steps),
             build.stream_ptr(y.device))
-        build.check(err, "pn_tv1_fused")
-        LAUNCHES.value += 1
-    return (x, w, iters) if return_iters else (x, w)
+
+    # keep: every tensor the pointers name, the outputs too.
+    def launch(keep=(y, lam_t, w0, x, w, iters)):
+        build.check(build.lib().pn_tv1_fused(*args), "pn_tv1_fused")
+
+    return ((x, w, iters) if return_iters else (x, w)), launch

@@ -18,6 +18,11 @@ from proxtv_tpu_torch.ops import tv1d_l1 as PL
 from proxtv_tpu_torch.utils import config as PCONF
 from proxtv_tpu_torch.utils import interop
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -14,6 +14,11 @@ from proxtv_tpu_torch import __main__ as tcli
 from proxtv_tpu_torch.runtime import native
 from proxtv_tpu_torch.utils import checkpoint as ckpt
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("tree", ["dict", "nested"])
 def test_checkpoint_roundtrip_and_leaf_order(tree, tmp_path):

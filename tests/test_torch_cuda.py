@@ -588,6 +588,41 @@ def test_ms_bind_launches_what_the_wrapper_does(mode, dev):
         assert torch.equal(o, r)
 
 
+@pytest.mark.parametrize("mode", ["scalar", "field warm", "long"])
+def test_pn_bind_launches_what_the_wrapper_does(mode, dev):
+    """pn_fused.bind's launch (chip_smoke.py's and the timing tools' call
+    of B1's C entry point) gives the wrapper's outputs bit for bit (x, the
+    dual, the Newton counts), does not count in LAUNCHES, and keeps its
+    outputs alive after the caller drops them: a scalar lam at n = 1000
+    (one warp a fiber), a weight field with a warm start at n = 200, and a
+    field at n = 1000 with tol_eps 0 and no dual (the long route's
+    windows)."""
+    rng = np.random.RandomState(17)
+    n = 200 if mode == "field warm" else 1000
+    y = torch.from_numpy(rng.randn(40, n).astype(np.float32)).to(dev)
+    lam = torch.from_numpy((rng.rand(40, n) * 1.4).astype(np.float32)).to(dev)
+    lam[:, -1] = 0.0
+    kw = {"scalar": dict(lam_scalar=0.7),
+          "field warm": dict(lam_full=lam, w_init=0.5 * lam),
+          "long": dict(lam_full=lam, tol_eps=0.0, return_dual=False)}[mode]
+    ref = PPF.pn_tv1_fused(y, return_iters=True, **kw)
+    before = PPF.LAUNCHES.value
+    outs, launch = PPF.bind(y, return_iters=True, **kw)
+    launch()
+    torch.cuda.synchronize()
+    assert PPF.LAUNCHES.value == before
+    for o, r in zip(outs, ref):
+        assert (o is None and r is None) or torch.equal(o, r)
+    held = {t.data_ptr() for t in outs if t is not None}
+    del outs
+    fresh = [torch.empty_like(y) for _ in range(8)]
+    assert held.isdisjoint(t.data_ptr() for t in fresh)
+    launch()
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="CUDA"):
+        PPF.bind(y.cpu(), lam_scalar=0.7)
+
+
 def test_bind_launch_keeps_its_outputs_alive(dev):
     """A launch made by bind writes into the outputs bind allocated, so it
     keeps them alive after the caller drops them: the caching allocator
@@ -1039,20 +1074,33 @@ def test_dp_batch_layouts_match_plain_bit_for_bit(side, dev):
                       (133, "row"), (133, "edge"))),
     ("tautstring", 10000, 64, "scalar"), ("dp", 10000, 64, "row"),
     ("tautstring", 1, 16384, "vector"), ("tautstring", 1, 16385, "scalar"),
-    ("dp", 1, 8192, "vector")])
+    ("dp", 1, 8192, "vector"),
+    *((k, B, 300, kind) for k in ("condat", "classic_ts")
+      for B, kind in ((1, "scalar"), (132, "row"), (133, "scalar"),
+                      (133, "row"), (512, "scalar"), (512, "row"))),
+    *((k, 1, n, "scalar") for k in ("condat", "classic_ts")
+      for n in ("warp_max_n", "warp_max_n + 1"))])
 def test_direct_layouts_match_plain_bit_for_bit(kernel, B, n, kind, dev):
-    """D1 and D2 at the edges of their layouts (one warp a signal up to
-    warp_max_n, one thread a signal past it; B = 1, 31, 32, 33, 133 and
-    10000): bit for bit with their plain versions on every row that is
-    not degenerate, and within 1e-5 of the data's size on the degenerate
-    rows, whose mean the kernels sum in another order.  The other side of
-    D2's threshold in n (8193, 10000) is test_direct_kernels_match_plain's,
-    in B test_dp_batch_layouts_match_plain_bit_for_bit's."""
+    """D1-D4 at the edges of their layouts (one warp a signal up to
+    warp_max_n, one thread a signal past it; B = 1, 31, 32, 33, 132, 133,
+    512 and 10000; D3 and D4 at n = warp_max_n() and one more, named so
+    because the threshold is read from the library): bit for bit with
+    their plain versions on every row that is not degenerate, and within
+    1e-5 of the data's size on the degenerate rows, whose mean the kernels
+    sum in another order.  The other side of D2's threshold in n (8193,
+    10000) is test_direct_kernels_match_plain's, in B
+    test_dp_batch_layouts_match_plain_bit_for_bit's."""
     from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
     from proxtv_tpu_torch.ops.kernels import dp as DPK
 
     mod, plain = {"tautstring": (TSK, tv1d_l1.tv1_tautstring_plain),
-                  "dp": (DPK, tv1d_l1.tv1_dp_plain)}[kernel]
+                  "dp": (DPK, tv1d_l1.tv1_dp_plain),
+                  "condat": (CDK, tv1d_l1.tv1_condat_plain),
+                  "classic_ts": (CTK, tv1d_l1.tv1_classic_ts_plain)}[kernel]
+    if isinstance(n, str):
+        n = mod.warp_max_n() + n.endswith("+ 1")
     rng = np.random.RandomState(7 * n + B)
     y, lam, deg = _layout_case(rng, B, n, kind)
     yt = torch.from_numpy(y)
@@ -1265,16 +1313,19 @@ def test_tv1_batched_routes_on_the_card(method, dev):
 # -- D3 (Condat) and D4 (classic taut string): one lambda a signal ------
 
 UNWEIGHTED = ["512x1000", "row", "one", "copies", "adversarial", "tie",
-              "guards"]
+              "guards", "walk", "adversarial (CPU test's)", "behind"]
 
 
 def _unweighted_case(case, rng):
     """Signals (float32) and the lams of an unweighted card case: the main
     path's 512 x 1000 batch at 0.7, per-signal lams, one signal of 1000,
     32 copies of one signal, the adversarial rows of the CPU tests (ties,
-    plateaus, alternation, staircases, a jump of 2 lam), the float32 tie
-    row at lam 0 and 1e-7, and the guards (lam 0: the identity; huge: the
-    mean)."""
+    plateaus, alternation, staircases, a jump of 2 lam; drawn here, and as
+    test_condat_adversarial_patterns_match_jax draws them), the float32
+    tie row at lam 0 and 1e-7, the guards (lam 0: the identity; huge: the
+    mean), chip_smoke.py's main-path walk at lam 2.0 (drawn as it draws
+    it), and two rows on which a float32 tie makes Condat jump behind the
+    run it closes (found by a search of tie-heavy rows)."""
     walk = lambda B, n: (rng.randn(B, n) + np.cumsum(  # noqa: E731
         rng.randn(B, n), axis=1) * 0.1)
     if case == "512x1000":
@@ -1294,6 +1345,31 @@ def _unweighted_case(case, rng):
             np.concatenate([np.full(n // 2, 1.0), np.full(n - n // 2, -1.0)]),
             np.cumsum(np.tile([2 * lam, -2 * lam], n // 2))[:n]])
         lams = [lam, 0.25, 1.0]
+    elif case == "adversarial (CPU test's)":
+        n, lam = 120, 0.5
+        r4 = np.random.RandomState(4)
+        y = np.stack([
+            np.zeros(n), np.repeat(r4.randn(n // 8), 8),
+            np.tile([1.0, -1.0], n // 2), np.arange(n, dtype=float),
+            np.concatenate([np.full(n // 2, 1.0), np.full(n - n // 2, -1.0)]),
+            np.cumsum(np.tile([2 * lam, -2 * lam], n // 2))[:n]])
+        lams = [lam, 0.0, 1e-7]
+    elif case == "walk":
+        r0 = np.random.RandomState(0)  # chip_smoke.py's SEED and draws
+        r0.randn(1024, 1024)
+        r0.randn(10000, 1000)
+        y, lams = (np.cumsum(r0.randn(1000)) * 0.3)[None], [2.0]
+    elif case == "behind":
+        y = np.array([
+            [1, 0, 0, -1, 0, -1, -1, -1, -1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 1, 1,
+             2, 2, 3, 3, 3, 1, 2, 2, 3, 3, 2, 0, 0, -2, 0, 1, 1, 2, -1, -1, 0,
+             -1, 0, 0, 1, 1, 0, 0, -1, 0, 0, -1, 0, 1, 1, 2, 2, 1, 0, 1, 1, 1,
+             1, 1],
+            [1, 2, -1, 0, -1, 0, -1, -1, 0, 0, 0, -1, 0, 1, -1, 1, 0, 2, 1,
+             -3, 1, 0, -2, 1, 0, 1, -1, 0, 1, -1, 1, 0, -1, -1, 0, 1, 0, 2,
+             -3, 0, 0, 0, 2, 1, -1, -1, -1, 0, 1, 1, 0, -1, -2, 1, 0, 0, -1,
+             1, 0, -1, 2, 0, 0, -1]]) / 10
+        lams = [0.1 * 1.0000001]
     elif case == "tie":
         t = np.random.RandomState(5)
         truth = np.repeat(t.randn(6), 30)
@@ -1354,8 +1430,8 @@ def test_unweighted_thread_layout_matches_float64(kernel, dev):
     float64 prox (the native host taut string) within 2e-3, the bar of the
     1D TV-L1 outputs on the card; for the classic taut string within 2e-3
     plus 4 ulp of its largest float32 prefix sum, of which it builds the
-    tube (8.97e-3 here, 2.3 of those ulp, in the plain version as in the
-    kernel; ROADMAP C)."""
+    tube (8.97e-3, 2.3 of those ulp, on such a signal of 11621, in the
+    plain version as in the kernel; ROADMAP C)."""
     from proxtv_tpu_torch.ops import tv1d_l1
     from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
     from proxtv_tpu_torch.ops.kernels import condat as CDK
@@ -1363,7 +1439,7 @@ def test_unweighted_thread_layout_matches_float64(kernel, dev):
 
     mod, plain = {"condat": (CDK, tv1d_l1.tv1_condat_plain),
                   "classic_ts": (CTK, tv1d_l1.tv1_classic_ts_plain)}[kernel]
-    assert (CDK.warp_max_n(), CTK.warp_max_n()) == (16384, 11620)
+    assert (CDK.warp_max_n(), CTK.warp_max_n()) == (16384, 6280)
     n = mod.warp_max_n() + 1
     rng = np.random.RandomState(15)
     y = np.cumsum(rng.randn(n)) * 0.3 + rng.randn(n)
@@ -1380,6 +1456,38 @@ def test_unweighted_thread_layout_matches_float64(kernel, dev):
     if kernel == "classic_ts":
         bar += 4 * float(np.spacing(np.abs(np.cumsum(y32[0].numpy())).max()))
     np.testing.assert_allclose(out.double().numpy()[0], ref, atol=bar)
+
+
+@pytest.mark.parametrize("side", ["warp", "thread"])
+def test_classic_ts_cap_matches_plain(side, dev, monkeypatch):
+    """D4's cap of 8n + 64 events, which no signal reaches (its events are
+    at most 7n - 3: csrc/classic_ts.cu), held by a constructed case: the
+    kernel run through classic_ts.bind with a smaller cap and the plain
+    version with the same cap on its lock-step loop stop at the same
+    event and give the same x bit for bit (the runs emitted so far, the
+    last one filled forward, 0 where none), in both layouts."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+
+    n = 40 if side == "warp" else CTK.warp_max_n() + 1
+    rng = np.random.RandomState(16)
+    y = (rng.randn(6, n) + np.cumsum(rng.randn(6, n), axis=1) * 0.3).astype(
+        np.float32)
+    lam = torch.from_numpy(np.array([0.1, 0.5, 1.0, 3.0, 0.7, 0.05],
+                                    np.float32))
+    run = tv1d_l1._run_lockstep
+    caps = (0, 1, 2, 5, 17, 60, 150, 400)  # past the last event at n = 40
+    for cap in caps if side == "thread" else caps + (8 * n + 64,):
+        monkeypatch.setattr(tv1d_l1, "_run_lockstep",
+                            lambda body, state, running, cap=None, c=cap:
+                            run(body, state, running, cap=c))
+        ref = tv1d_l1.tv1_classic_ts_plain(torch.from_numpy(y), lam).numpy()
+        out, launch = CTK.bind(torch.from_numpy(y).to(dev), lam.to(dev),
+                               cap=cap)
+        launch()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(out.cpu().numpy(), ref,
+                                      err_msg=f"cap {cap}")
 
 
 def test_native_host_engine_on_the_card_machine(dev):

@@ -17,6 +17,11 @@ from proxtv_tpu_torch.utils import interop
 
 import torch_label_fields as LF
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 F64 = torch.float64
 
 

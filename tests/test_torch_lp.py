@@ -21,6 +21,11 @@ from proxtv_tpu.ops import lp as JLP
 from proxtv_tpu_torch.ops import lp as PLP
 from proxtv_tpu_torch.utils import debug
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))

@@ -19,6 +19,11 @@ from proxtv_tpu_torch.models import tv2d as P2
 from proxtv_tpu_torch.ops.kernels import pdhg_fused as PPK
 from proxtv_tpu_torch.utils.config import DEFAULT_COMBINER as PCFG
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def interpret_pallas(monkeypatch):

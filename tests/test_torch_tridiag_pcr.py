@@ -15,6 +15,11 @@ from proxtv_tpu.ops import tridiag as JT
 from proxtv_tpu_torch.ops import tridiag as PT
 from proxtv_tpu_torch.ops.kernels import pcr as PK
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def interpret_pallas(monkeypatch):

@@ -16,6 +16,11 @@ import jax.numpy as jnp
 from proxtv_tpu.ops import tv1d_l1 as J
 from proxtv_tpu_torch.ops import tv1d_l1 as P
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 BAR = 1e-12
 ENGINES = {"tautstring": (J.tv1_tautstring, P.tv1_tautstring),
            "dp": (J.tv1_dp, P.tv1_dp),
@@ -132,6 +137,41 @@ def test_classic_tautstring_float32_tie_no_hang():
         np.testing.assert_allclose(x.numpy(), xs.numpy(), atol=1e-4)
     np.testing.assert_array_equal(P.tv1_classic_ts(y, 0.0).numpy(),
                                   noisy[None])
+
+
+def test_classic_tautstring_events_stay_under_the_cap(monkeypatch):
+    """The classic taut string's cap of 8n + 64 events, which kernel D4
+    keeps, is out of reach: on ties at lam 0 and 1e-7, plateaus,
+    alternation, a NaN and an inf, walks and noise, its plain version's
+    lock-step scan (run a step at a time here, each row's count the step at
+    which it ends) ends every row within 6n - 5 events, the bound that
+    csrc/classic_ts.cu derives for any data."""
+    counts = []
+
+    def counted(body, state, running, cap=None):
+        steps = torch.zeros_like(state[0])
+        for _ in range(cap):
+            steps += state[0] != P._CT_DONE
+            state = body(state)
+            if not bool(running(state)):
+                break
+        counts.append(steps)
+        return state
+
+    monkeypatch.setattr(P, "_run_lockstep", counted)
+    rng = np.random.RandomState(16)
+    for n in (2, 3, 17, 64):
+        y = np.concatenate([
+            rng.randn(8, n), np.cumsum(rng.randn(8, n), axis=1),
+            np.round(rng.randn(8, n) * 2) / 2,
+            np.repeat(np.round(rng.randn(8, n // 4 + 1)), 4, axis=1)[:, :n],
+            np.tile([1.0, -1.0], (4, n))[:, :n], np.zeros((1, n))])
+        y[0, n // 2], y[1, -1] = np.nan, np.inf
+        for lam in (0.0, 1e-7, 0.3, 2.0):
+            counts.clear()
+            P.tv1_classic_ts_plain(torch.from_numpy(y.astype(np.float32)),
+                                   lam)
+            assert int(counts[0].max()) <= 6 * n - 5 < 8 * n + 64, (n, lam)
 
 
 PLAIN = {"condat": (J.tv1_condat, P.tv1_condat_plain),

@@ -28,6 +28,11 @@ from proxtv_tpu_torch.ops import tv1d_long as TL
 from proxtv_tpu_torch.ops.kernels import gating
 from proxtv_tpu_torch.utils import debug
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 
 def _instance(name):
     """(Y, lam, chunk, overlap, atol) of the JAX test of the same name,

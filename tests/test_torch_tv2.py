@@ -18,6 +18,11 @@ from proxtv_tpu_torch.ops import tv1d_l2 as PL2
 from proxtv_tpu_torch.ops.kernels import ms_fused as PMS
 from proxtv_tpu_torch.utils import interop
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def interpret_pallas(monkeypatch):

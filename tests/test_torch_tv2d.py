@@ -13,6 +13,11 @@ import jax.numpy as jnp
 from proxtv_tpu.models import tv2d as J2
 from proxtv_tpu_torch.models import tv2d as P2
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 METHODS = ["dr", "pd", "yang", "kolmogorov", "condat", "chambolle-pock",
            "chambolle-pock-acc"]
 

@@ -30,6 +30,11 @@ from proxtv_tpu_torch.utils import debug, interop
 from proxtv_tpu_torch.utils.config import DEFAULT_TVP as PCFG
 from proxtv_tpu_torch.utils.diffs import tvp_objective
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 METHODS = ["gp", "ogp", "fista", "fw", "gpfw"]
 
 

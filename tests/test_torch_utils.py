@@ -15,6 +15,11 @@ from proxtv_tpu_torch.ops.kernels import gating
 from proxtv_tpu_torch.utils import debug
 from proxtv_tpu_torch.utils import diffs as PD
 
+# Tier-1 runs several test processes on the machine's cores at once: one
+# intra-op thread each, or every process's spinning thread pool slows the
+# others' many small tensor ops (by ~20x under load).
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("fn", ["forward_diff", "primal2grad",
                                 "adjoint_diff", "dual2primal",

@@ -5,23 +5,31 @@ taut string, ``csrc/classic_ts.cu``) per launch on one CUDA card, across
 batch sizes.
 
     python3 tools/time_direct.py [--rows 1,32,132,1024,10000] [--n 1000]
+                                 [--kernels D1,D2,D3,D4] [--no-events]
                                  [--repo DIR]
 
 For each batch of B signals of length n (randn, seeded, lam 0.7), for a
-batch of 32 copies of one signal (every signal takes the same path), and
-for the per-edge-weighted batches of ``chip_smoke.py``'s main path (512
-and 1 signals, weights U[0, 1.4] with 5% zeroed), each kernel is first held
+batch of 32 copies of one signal (every signal takes the same path), for
+the per-edge-weighted batches of ``chip_smoke.py``'s main path (512
+and 1 signals, weights U[0, 1.4] with 5% zeroed), and for the two inputs
+that main path gives D3 and D4 (the first 512 rows of its 10000 x 1000
+batch at lam 0.7, and its random walk of 1000 at lam 2.0, drawn as
+``chip_smoke.py`` draws them), each kernel is first held
 against its plain version on the CPU on three of its rows, the first, the
 middle and the last (max |kernel - plain| within 1e-5 of the data's size,
 the bar of ``chip_smoke.py`` ``TOL["direct"]``), then timed by CUDA
 events: 20 launches of its C entry point, arguments made once by ``bind``,
 after one untimed.  D3 and D4 take one lambda a signal and skip the
-per-edge cases.  ``--repo`` times the package of another checkout (an
-unpacked parent commit, say) with the same cases, so that two versions are
-compared in one call on one card; a kernel that checkout lacks is left
-out.  Prints one JSON line with the card's
-name and power limit and each case's ms per launch.  Imports nothing of
-JAX.
+per-edge cases.  On the main path's two inputs the line also gives D3's
+and D4's events a signal, mean and most, counted in their plain versions
+on the CPU (the lock-step step at which each signal ends), and ns an event
+of the signal with the most (one signal's dependent chain sets a launch
+that fits in one wave); ``--no-events`` leaves the counts out.
+``--kernels`` picks the kernels timed.  ``--repo`` times the package of
+another checkout (an unpacked parent commit, say) with the same cases, so
+that two versions are compared in one call on one card; a kernel that
+checkout lacks is left out.  Prints one JSON line with the card's name and
+power limit and each case's ms per launch.  Imports nothing of JAX.
 """
 import argparse
 import json
@@ -51,8 +59,57 @@ def time_ms(fn):
     return start.elapsed_time(end) / REPS
 
 
+def main_path_inputs(n):
+    """The D3 / D4 inputs of chip_smoke.py's main path: its bench batch's
+    first 512 rows (at lam 0.7) and its random walk (at lam 2.0), from the
+    same seed and in the same draws."""
+    rng = np.random.RandomState(0)
+    rng.randn(1024, 1024)                       # the bench image
+    Y1 = rng.randn(10000, n).astype(np.float32)  # the bench batch
+    walk = np.cumsum(rng.randn(n)) * 0.3
+    return Y1[:512], walk[None].astype(np.float32)
+
+
+def events(plain, y, lam):
+    """(mean, most) events a signal of a D3 / D4 plain version on the CPU:
+    its lock-step scan run one step at a time, each signal's count the
+    step at which it ends."""
+    import torch
+
+    from proxtv_tpu_torch.ops import tv1d_l1
+
+    ended = {"tv1_condat_plain": lambda s: s[8],
+             "tv1_classic_ts_plain": lambda s: s[0] == tv1d_l1._CT_DONE}[
+        plain.__name__]
+    ends = []
+
+    def lockstep(body, state, running, cap=None):
+        end = None
+        step = 0
+        while cap is None or step < cap:
+            state = body(state)
+            step += 1
+            done = ended(state)
+            at = torch.where(done, step, torch.iinfo(torch.int64).max)
+            end = at if end is None else torch.minimum(end, at)
+            if bool(done.all()):
+                break
+        ends.append(end)
+        return state
+
+    run = tv1d_l1._run_lockstep
+    tv1d_l1._run_lockstep = lockstep
+    try:
+        plain(torch.from_numpy(y), lam)
+    finally:
+        tv1d_l1._run_lockstep = run
+    e = ends[0].double()
+    return float(e.mean()), int(e.max())
+
+
 def cases(rows, n):
     """(name, y, lam) of every case, from seeded numpy draws."""
+    Ymain, walk = main_path_inputs(n)
     rng = np.random.RandomState(0)
     out = [(f"{B}x{n}", rng.randn(B, n).astype(np.float32), LAM)
            for B in rows]
@@ -64,10 +121,12 @@ def cases(rows, n):
         w = rng.rand(B, n - 1) * LAMW
         w[rng.rand(B, n - 1) < ZERO_W] = 0.0
         out.append((f"{B}x{n} per-edge", y, w.astype(np.float32)))
+    out.append((f"512x{n} main path", Ymain, LAM))
+    out.append((f"1x{n} walk, lam 2.0", walk, 2.0))
     return out
 
 
-def main(rows, n, repo):
+def main(rows, n, repo, only, count_events=True):
     sys.path.insert(0, repo)
     import torch
 
@@ -90,7 +149,8 @@ def main(rows, n, repo):
                 f"proxtv_tpu_torch.ops.kernels.{name}")
         except ImportError:
             continue  # a checkout before this kernel
-        kernels[kid] = (mod, getattr(tv1d_l1, plain))
+        if kid in only:
+            kernels[kid] = (mod, getattr(tv1d_l1, plain))
     out = {"card": card, "repo": os.path.abspath(repo), "n": n, "lam": LAM,
            "cases": []}
     for name, y, lam in cases(rows, n):
@@ -116,9 +176,19 @@ def main(rows, n, repo):
                          f"{TOL}")
             rec[kid + "_ms"] = time_ms(launch)
             rec[kid + "_err"] = err
+            if count_events and kid in ("D3", "D4") and name.endswith(
+                    ("main path", "walk, lam 2.0")):
+                mean, most = events(plain, y, lam)
+                rec[kid + "_events_mean"], rec[kid + "_events_max"] = (mean,
+                                                                       most)
+                rec[kid + "_ns_per_event"] = rec[kid + "_ms"] * 1e6 / most
         out["cases"].append(rec)
-        times = ", ".join(f"{k[:2]} {v:.4f} ms" for k, v in rec.items()
-                          if k.endswith("_ms"))
+        times = ", ".join(
+            f"{k[:2]} {v:.4f} ms" + (
+                f" ({rec[k[:2] + '_events_max']} events, "
+                f"{rec[k[:2] + '_ns_per_event']:.1f} ns each)"
+                if k[:2] + "_events_max" in rec else "")
+            for k, v in rec.items() if k.endswith("_ms"))
         print(f"[{name}] {times} ({card}; {out['repo']})", flush=True)
     print(json.dumps(out))
 
@@ -127,7 +197,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", default="1,32,132,1024,10000")
     ap.add_argument("--n", type=int, default=1000)
+    ap.add_argument("--kernels", default="D1,D2,D3,D4",
+                    help="the kernels to time")
+    ap.add_argument("--no-events", action="store_true",
+                    help="leave out D3's and D4's event counts")
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package is timed")
     a = ap.parse_args()
-    main([int(r) for r in a.rows.split(",")], a.n, a.repo)
+    main([int(r) for r in a.rows.split(",")], a.n, a.repo,
+         a.kernels.split(","), not a.no_events)

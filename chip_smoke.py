@@ -40,10 +40,17 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    n = 10^6 signal at lam 0.7 and on ROADMAP C2's n = 20000 walk at lam 2.0
    (its windows in one B1 launch; no ``tv1_pn``), ``api.tv1w_2d`` dr
    at 1024^2 with seeded weight fields (B1 on weighted fibers), per-image
-   lam on 4 x 512^2 with cp-acc (B3's weighted route), and the demos;
+   lam on 4 x 512^2 with cp-acc (B3's weighted route), bench.py's
+   configurations the card had not run (ROADMAP F): F1, 4K UHD (2160 x
+   3840) through ``tv1_2d_batched`` cp-acc (B3), F2, ``tv1_batched`` pn
+   on 10000 x 1000 with per-edge weights (B1), F3, ``tv1d_long.tv1_long``
+   on a stream of 8 signals of 10^6 (B1, 1568 windows), each with its
+   first B1 / B3 launch held against the plain version, timed by CUDA
+   events and profiled (``[F]`` lines), and the demos;
    then hold the outputs against float64 references: independent float64
    primal-dual solves on the card for 1024^2 (weighted too), the 512^2
-   images and the volume, the same calls in float64 on the CPU for the 1D,
+   images, the 4K image and the volume, the float64 host engine for F2 and
+   F3, the same calls in float64 on the CPU for the 1D,
    TV-L2 and TV-Lp calls, the native host taut string in float64 for the
    10^6-long TV-L1 row, the
    KKT certificate of tests/test_tv1d_lp.py for the long TV-Lp signal;
@@ -75,22 +82,34 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    bench's widths: at world 1 on NCCL in this process, counted and tapped
    with the main path, ``tv1_2d_banded`` and ``tv1w_2d_banded`` 1024^2
    (B3), ``tv1_3d_banded`` 32 x 256 x 256 (B6), ``tv1_1d_banded`` on the
-   10^6 signal (B1), ``tv1_2d_sharded_fused`` 4 x 512^2 (B3) and
-   ``tv1_1d_sharded`` 10000 x 1000 (B1), held against the float64
-   references of phase 3 (certified-gap rule; the host taut string) and
-   bit for bit against the single-card calls; then the first five at
-   world 2 on gloo, two subprocesses sharing the card, each holding its
-   own first B1/B3/B6 launch against the plain version, held against
-   world 1.  One ``[dist]`` line a call (wall, device busy, exchanges,
-   all-reduces, gathers, bytes, staging copies, host syncs, launches);
+   10^6 signal (B1), ``tv1_2d_sharded_fused`` 4 x 512^2 (B3), the
+   column-split ``tv1_2d_sharded(shard_axis="cols")`` of the 1024^2 image
+   with dr (B1), chambolle-pock-acc (the unfused iteration, no kernel, as
+   the JAX package runs it sharded) and kolmogorov (B1), and of the
+   4 x 512^2 batch with per-image lam and dr (B1), each at most
+   ``COLS_ITERS`` sweeps, ``tv1_1d_sharded`` 10000 x 1000 (B1), F1's 4K
+   image through ``tv1_2d_banded`` (B3) and F4, the 10^7 signal through
+   ``tv1_1d_banded`` (B1, 1954 windows), held against the float64
+   references of phase 3 (certified-gap rule; the host taut string), bit
+   for bit against the single-card calls, and the column-split calls
+   within 1e-5 of the data's size of the single-card run of the same
+   engine; then the first nine at world 2 on gloo, two subprocesses
+   sharing the card, each holding its own first B1/B3/B6 launch against
+   the plain version, held against world 1.  One ``[dist]`` line a call
+   (wall, device busy, exchanges, all-reduces, gathers, bytes, staging
+   copies, host syncs, launches);
 4. time each kernel (CUDA events, many launches after warm-up), its plain
-   version, and the main-path calls, and print the ``kernels`` line; B1, B2,
+   version, and the main-path calls, and print the ``kernels`` line; B3 on
+   the 1024^2 chunk and on F1's two 4K canvases; B1, B2,
    B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
    shape's launches (B2's, B4's, B5's, D1-D4's and L1's first held against
    their plain versions on each of them), through the wrapper and, for
    B1-B6, D1-D4 and L1, through the C entry point; and L1 on a flat and a
    serpentine 1024^2 image, held against their known labels;
-5. profile the main-path calls: device time by kernel and the idle share;
+5. profile the main-path calls: device time by kernel and the idle share
+   (a window that records none of the port's kernels that the call
+   launched is profiled again, up to three windows; then the port's
+   launches of one more call are timed by CUDA events, ``event_busy``);
 6. run the training cells again, untapped: each step's forward and
    backward by CUDA events, its launches (B1, B3, L1), host syncs and label
    trips, and one profiled step a cell; then the redesign queue (each
@@ -128,6 +147,9 @@ TOL = {
     # ... and their Newton iteration counts per fiber at most 2 apart, the
     # bar of the card test test_pn_kernel_matches_plain.
     "pn_iters": 2,
+    # On the per-image column split's launches a fiber past "pn" whose
+    # counts part is held by float64 certificates of both sides instead
+    # (pn_hold's ``margin``).
     # PDHG chunk: absolute on the K-step state; certificate sums relative.
     "pdhg": 1e-4, "pdhg_cert": 1e-4,
     # MS (B4): absolute on x in data units, alpha relative.  Both stop on
@@ -220,6 +242,26 @@ T1B, T1N, T1SEG, T1LAM, T1STEPS, T1LR = 10000, 1000, 50, 0.01, 5, 0.05
 T2M, T2BLOCK, T2LAM, T2STEPS = 1024, 64, 0.3, 3
 TNOISE = 0.3
 T1SMALL, T2SMALL = 512, 256  # the flat-edge finding's reduced sizes
+# bench.py's configurations F1-F4 (ROADMAP F), at the bench's widths.  F1:
+# 4K UHD, single card (cp-acc, bench.py:487-490) and banded on a mesh of one
+# (bench.py:500-510), against a float64 reference of F4K_REF_ITERS
+# Chambolle-Pock iterations on the card.  F2: per-edge-weighted pn on
+# 10000 x 1000, weights 0.5 + U[0, 1) (bench.py:512-514).  F3: the stream of
+# S_LONG signals of 10^6 (bench.py:626-629).  F4: the 10^7-sample signal
+# through tv1_1d_banded at world 1 (bench.py:53,600-624).
+M4K, N4K, LAM4K, ITERS4K = 2160, 3840, 0.3, 2500
+F4K_REF_ITERS = 10000
+S_LONG, N_LONG7 = 8, 10_000_000
+# The column-split 2D calls of the dist phase stop by mean change or at
+# COLS_ITERS sweeps: kolmogorov and the unfused PDHG default to 2500
+# (utils/config.py), and at world 2 each sweep's one-column halo exchanges
+# and all-reduce cost ~2.5 ms apiece through gloo, so the cap keeps the
+# phase inside the smoke run's time.
+COLS_ITERS = 300
+# The per-image column split (dist phase), whose B1 launches pn_hold takes
+# with ``margin``.
+COLS_PI_NAME = (f"tv1_2d_sharded cols {B_PI}x{M_PI}^2 per-image lam {LAM_PI} "
+                f"dr max_iters {COLS_ITERS}")
 
 
 class Fail(Exception):
@@ -262,40 +304,115 @@ def cuda_ms(fn, reps=None, target_s=0.5, max_reps=200):
     return start.elapsed_time(end) / reps
 
 
-def profile_call(fn):
-    """One call under torch.profiler: wall time, summed device kernel time,
-    the device's idle share and the five costliest kernels.  Where the
-    profiler records no device time the shares read "not measured"."""
+# Main-path launches of one B1 shape that phase 4 times the plain version
+# on (the kernel is timed over all of them).
+PLAIN_SAMPLE = 32
+# Each kernel's module under proxtv_tpu_torch.ops.kernels and the wrapper
+# that launches it (and counts the launch in the module's LAUNCHES).
+WRAPPERS = {"B1": ("pn_fused", "pn_tv1_fused"),
+            "B2": ("pcr", "pcr_spd_solve"), "B3": ("pdhg_fused", "pdhg_chunk"),
+            "B4": ("ms_fused", "ms_tv2_fused"),
+            "B5": ("lp_fused", "gpfw_fused"),
+            "B6": ("pdhg3d_fused", "pdhg3d_chunk"),
+            "D1": ("tautstring", "tautstring"), "D2": ("dp", "dp"),
+            "D3": ("condat", "condat"), "D4": ("classic_ts", "classic_ts"),
+            "L1": ("labels", "component_labels")}
+
+
+def kernel_module(kid):
+    import importlib
+
+    return importlib.import_module(
+        f"proxtv_tpu_torch.ops.kernels.{WRAPPERS[kid][0]}")
+
+
+def event_busy(fn):
+    """Device ms of the port's kernel launches in one call of ``fn``, by
+    CUDA events around each wrapper call.  The events also span the
+    wrapper's own work on the stream before its launch, so this bounds the
+    kernels' time from above and the call's device busy time from below
+    (PyTorch's own ops are not timed)."""
+    import torch
+
+    pairs, saved = [], []
+    for kid, (_, attr) in WRAPPERS.items():
+        mod = kernel_module(kid)
+        orig = getattr(mod, attr)
+        saved.append((mod, attr, orig))
+
+        def tap(*a, _orig=orig, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = _orig(*a, **kw)
+            e1.record()
+            pairs.append((e0, e1))
+            return out
+
+        setattr(mod, attr, tap)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    return sum(e0.elapsed_time(e1) for e0, e1 in pairs)
+
+
+def profile_call(fn, windows=3):
+    """One call under torch.profiler, which keeps its events
+    (``acc_events=True``): wall time, summed device kernel time, the
+    device's idle share and the five costliest kernels.  A window that
+    records none of the port's kernels that the call launched (their
+    LAUNCHES counters) is profiled again, up to ``windows``; if none does,
+    the busy time is the port's launches in one more call by CUDA events
+    (event_busy, ``busy_source``).  A rank of a world passes ``windows=1``
+    and gets no event timing: one more call would leave its collectives
+    without a partner."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # One PyTorch launch before the window: a window whose first launch
-        # is a ctypes kernel (tv2_batched) recorded no device time without.
-        torch.zeros(1, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    per = {}
-    n = 0
-    for e in prof.events():  # device-side events: kernels and copies
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        per[e.name] = per.get(e.name, 0.0) + e.device_time_total / 1e3
-        n += 1
-    busy = sum(per.values())
+    counters = {kid: kernel_module(kid).LAUNCHES for kid in WRAPPERS}
+    for window in range(1, windows + 1):
+        before = {kid: c.value for kid, c in counters.items()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            # One PyTorch launch before the window: a window whose first
+            # launch is a ctypes kernel (tv2_batched) recorded no device
+            # time without.
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        launched = [kid for kid, c in counters.items()
+                    if c.value > before[kid]]
+        per = {}
+        n = 0
+        for e in prof.events():  # device-side events: kernels and copies
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            per[e.name] = per.get(e.name, 0.0) + e.device_time_total / 1e3
+            n += 1
+        ours = {}  # device ms of the port's kernels, by kernel id
+        for name, ms in per.items():
+            for kid, fn_ in KERNEL_FNS.items():
+                if fn_ in name:
+                    ours[kid] = ours.get(kid, 0.0) + ms
+        complete = sum(per.values()) > 0 and all(k in ours
+                                                 for k in launched)
+        if complete:
+            break
+    busy, source = sum(per.values()), "profiler"
+    if not complete:
+        busy, source = ((event_busy(fn), "port kernels by CUDA events")
+                        if windows > 1 and launched else (0.0, "not measured"))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
-    ours = {}  # device ms of the port's kernels, by kernel id
-    for name, ms in per.items():
-        for kid, fn in KERNEL_FNS.items():
-            if fn in name:
-                ours[kid] = ours.get(kid, 0.0) + ms
     return {"wall_ms": wall, "busy_ms": busy, "kernels": n,
+            "windows": window, "busy_source": source,
             "idle_share": (1.0 - busy / wall) if busy > 0 else "not measured",
             "top": [(k[:60], v) for k, v in top], "ours": ours}
 
@@ -319,23 +436,60 @@ COMM = ("EXCHANGES", "ALL_REDUCES", "GATHERS", "BYTES_MOVED",
 def dist_calls(P, mesh, d, world):
     """The parallel path's calls at the bench's widths, on the global
     arrays ``d`` (every rank passes the same): (name, fn, kernel it must
-    launch).  tv1_1d_sharded only at world 1."""
+    launch or None for a call that launches none of B1, B3 and B6, kind of
+    check).  tv1_1d_sharded, the 4K banded image (F1) and the 10^7 signal
+    (F4) only at world 1."""
     calls = [
         (f"tv1_2d_banded {M2D}^2 lam {LAM2D} cp-acc",
-         lambda: P.tv1_2d_banded(d["Y2"], LAM2D, mesh), "B3"),
+         lambda: P.tv1_2d_banded(d["Y2"], LAM2D, mesh), "B3", "cert2d"),
         (f"tv1w_2d_banded {M2D}^2 weights {LAMW2D} x U[0.5, 1.5] cp-acc",
-         lambda: P.tv1w_2d_banded(d["Y2"], d["Wc2"], d["Wr2"], mesh), "B3"),
+         lambda: P.tv1w_2d_banded(d["Y2"], d["Wc2"], d["Wr2"], mesh), "B3",
+         "cert2dw"),
         (f"tv1_3d_banded {L3}x{M3}x{N3} lam {LAM3} cp-acc",
-         lambda: P.tv1_3d_banded(d["V"], LAM3, mesh), "B6"),
+         lambda: P.tv1_3d_banded(d["V"], LAM3, mesh), "B6", "cert3d"),
         (f"tv1_1d_banded n=1e6 lam {LAM1D} chunk 5120 overlap 640",
-         lambda: P.tv1_1d_banded(d["ylong"], LAM1D, mesh), "B1"),
+         lambda: P.tv1_1d_banded(d["ylong"], LAM1D, mesh), "B1", "long1d"),
         (f"tv1_2d_sharded_fused {B_PI}x{M_PI}^2 lam {LAM2D} cp-acc",
-         lambda: P.tv1_2d_sharded_fused(d["Ypi"], LAM2D, mesh), "B3"),
+         lambda: P.tv1_2d_sharded_fused(d["Ypi"], LAM2D, mesh), "B3",
+         "fused"),
     ]
+    # The column-split solve (shard_axis="cols") of one 1024^2 image and of
+    # the per-image 4 x 512^2 batch, COLS_ITERS sweeps at most.
+    for m, kid in (("dr", "B1"), ("chambolle-pock-acc", None),
+                   ("kolmogorov", "B1")):
+        calls.append((
+            f"tv1_2d_sharded cols {M2D}^2 lam {LAM2D} {m} max_iters "
+            f"{COLS_ITERS}",
+            lambda m=m: P.tv1_2d_sharded(d["Y2"][None], LAM2D, mesh,
+                                         method=m, max_iters=COLS_ITERS,
+                                         shard_axis="cols"), kid, "cols"))
+    calls.append((
+        COLS_PI_NAME,
+        lambda: P.tv1_2d_sharded(d["Ypi"], np.array(LAM_PI, np.float32),
+                                 mesh, method="dr", max_iters=COLS_ITERS,
+                                 shard_axis="cols"), "B1", "cols_pi"))
     if world == 1:
-        calls.append((f"tv1_1d_sharded {B1D}x{N1D} lam {LAM1D}",
-                      lambda: P.tv1_1d_sharded(d["Y1"], LAM1D, mesh), "B1"))
+        calls += [
+            (f"tv1_1d_sharded {B1D}x{N1D} lam {LAM1D}",
+             lambda: P.tv1_1d_sharded(d["Y1"], LAM1D, mesh), "B1", "tv1"),
+            (f"F1 tv1_2d_banded {M4K}x{N4K} lam {LAM4K} cp-acc",
+             lambda: P.tv1_2d_banded(d["Y4"][0], LAM4K, mesh), "B3",
+             "cert4k"),
+            (f"F4 tv1_1d_banded n=1e7 lam {LAM1D} chunk 5120 overlap 640",
+             lambda: P.tv1_1d_banded(d["ylong7"], LAM1D, mesh), "B1",
+             "long7"),
+        ]
     return calls
+
+
+def check_launches(got, must, where):
+    """A dist call launched the kernel it names; one that names none
+    launched none of B1, B3 and B6."""
+    if must is None:
+        check(all(got.get(k, 0) == 0 for k in ("B1", "B3", "B6")),
+              f"{where} launched a kernel: {got}")
+    else:
+        check(got[must] > 0, f"{where} did not launch {must}")
 
 
 def comm_counts(debug, reset=False):
@@ -380,11 +534,167 @@ class FirstLaunch:
             setattr(mod, attr, self.saved[kid])
 
 
-def hold_first(kid, a, kw, B1, B3, B6):
+def gap_over_tol(x, w, y, lam_full, lam_scalar, stop_rel, tol_eps):
+    """Each row's duality gap over its stop tolerance (pn_solve's rule,
+    with the launch's float32 floor tol_eps), in float64 from the
+    outputs."""
+    x, w, y = x.double(), w.double(), y.double()
+    g = x[:, :-1] - x[:, 1:]
+    lam = lam_full[:, :-1].double() if lam_full is not None else lam_scalar
+    gap = (g.abs() * lam + w[:, :-1] * g).sum(1).abs()
+    yc = y - y.mean(1, keepdim=True)
+    scale = (0.5 * (yc * yc).sum(1)).clamp(min=1.0)
+    eps = float(np.finfo(np.float32).eps)
+    return gap / (tol_eps * eps * scale).clamp(min=stop_rel)
+
+
+def pn_certificate(x, w, y, lam, stop_rel, tol_eps):
+    """Float64 checks of float32 B1 outputs, row by row (rows of ``x``,
+    ``w``, ``y`` and the per-edge ``lam``, (k, n), the last column unused).
+
+    From the dual w (clipped to |w| <= lam) the primal x64 = y + B'w and the
+    duality gap G = sum lam |g| + w g, g = x64[:-1] - x64[1:], are exact in
+    float64, and ||x64 - x*|| <= sqrt(2 G) for the optimum x*.  ``delta``
+    bounds how far the solver's float32 stop test can read from G and tol:
+    its g parts from g by the drift of the returned x from x64 and a
+    rounding of each x and of the difference (dg), which moves an edge's
+    term by (lam + |w|) dg, except where w sits at its bound against g's
+    sign beyond dg (the term is 0 in both); each term's products round
+    (2 u lam |g|); the sum and the tol's 0.5 ||y - mean||^2 take (n + 4)
+    roundings.  Returns (G, tol, delta, max|x - x64|), (k,) float64 each."""
+    import torch
+
+    u = 2.0 ** -24
+    x, w, y, lam = x.double(), w.double(), y.double(), lam[:, :-1].double()
+    n = y.shape[1]
+    wc = torch.maximum(torch.minimum(w[:, :-1], lam), -lam)
+    x64 = (y + torch.nn.functional.pad(wc, (0, 1))
+           - torch.nn.functional.pad(wc, (1, 0)))
+    g = x64[:, :-1] - x64[:, 1:]
+    G = (lam * g.abs() + wc * g).sum(1)
+    yc = y - y.mean(1, keepdim=True)
+    scale = (0.5 * (yc * yc).sum(1)).clamp(min=1.0)
+    tol = (tol_eps * float(np.finfo(np.float32).eps) * scale).clamp(
+        min=stop_rel)
+    d = x - x64
+    dg = (d[:, :-1] - d[:, 1:]).abs() + u * (
+        x[:, :-1].abs() + x[:, 1:].abs() + g.abs())
+    zero = (wc.abs() == lam) & (wc * g < 0) & (g.abs() > dg)
+    delta = (torch.where(zero, 0.0, (lam + wc.abs()) * dg).sum(1)
+             + 2.0 * u * (lam * g.abs()).sum(1) + (n + 4) * u * (G + tol))
+    return G, tol, delta, d.abs().amax(1)
+
+
+def pn_hold(B1, y, lam_full=None, w_init=None, margin=False, **kw):
+    """One B1 launch against its plain version (tb = 1), both with the
+    launch's own settings: every fiber's max |x - x_plain| and |w - w_plain|
+    within TOL["pn"] and its Newton counts within TOL["pn_iters"].
+
+    ``margin`` (the per-image column split's launches): a fiber past
+    TOL["pn"] whose counts part is held instead by float64 checks of both
+    sides (pn_certificate).  A warm start whose gap lies at the stop
+    tolerance lets the float32 gap's rounding, not the arithmetic, decide
+    one more Newton step, which may move x by up to sqrt(2 tol).  There
+    each side's output must read G <= tol + delta (for the side that
+    stopped first, at its count m) and lie within sqrt(2 (tol + delta)) +
+    max|x - x64| of the float64 optimum (the host taut string); the side
+    that ran on, run again on the whole launch with max_iters = m, must
+    read G >= tol - delta at m.  Returns a dict: ``err``, ``iters_apart``,
+    ``ok`` (the bars hold), ``it``, ``it_ref``, ``w``, where the worst
+    fiber lies, and ``margin`` (the held fibers' readings, relative to
+    tol)."""
+    import torch
+
+    from proxtv_tpu_torch.runtime import native
+
+    kw = {k: v for k, v in kw.items()
+          if k not in ("return_dual", "return_iters")}
+    ref, wref, it_ref = B1.pn_tv1_fused_plain(y, lam_full, w_init, tb=1,
+                                              **kw)
+    x, w, it = B1.pn_tv1_fused(y, lam_full, w_init, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    fib = torch.maximum((x - ref).abs().amax(1), (w - wref).abs().amax(1))
+    part = it != it_ref
+    di = int((it - it_ref).abs().max())
+    past = fib > TOL["pn"]
+    ok = di <= TOL["pn_iters"]
+    held = past & part if margin else torch.zeros_like(past)
+    ok = ok and not bool((past & ~held).any())
+    stop_rel, tol_eps = kw.get("stop_rel", 1e-6), kw.get("tol_eps", 10.0)
+    lam = (lam_full if lam_full is not None
+           else torch.full_like(y, float(kw["lam_scalar"])))
+    mg = {"fibers": int(held.sum()), "ran_on": math.inf, "final": -math.inf,
+          "to_optimum": 0.0}
+    idx = torch.nonzero(held).flatten()
+    if len(idx):
+        def cert(xs, ws, i):
+            return pn_certificate(xs[i], ws[i], y[i], lam[i], stop_rel,
+                                  tol_eps)
+
+        low = torch.minimum(it, it_ref)
+        for m in torch.unique(low[idx]).tolist():
+            i = idx[low[idx] == m]
+            more = it[i] > it_ref[i]  # the kernel ran on
+            runs = {}  # the side that ran on, on the whole launch, at m
+            if bool(more.any()):
+                runs["k"] = B1.pn_tv1_fused(y, lam_full, w_init,
+                                            **dict(kw, max_iters=m))[:2]
+            if bool((~more).any()):
+                runs["p"] = B1.pn_tv1_fused_plain(
+                    y, lam_full, w_init, tb=1, **dict(kw, max_iters=m))[:2]
+            for side, sel in (("k", more), ("p", ~more)):
+                if not bool(sel.any()):
+                    continue
+                at_m = cert(*runs[side], i[sel])
+                mg["ran_on"] = min(mg["ran_on"], float(
+                    ((at_m[0] - at_m[1] + at_m[2]) / at_m[1]).min()))
+        for xs, ws in ((x, w), (ref, wref)):
+            G, tol, delta, drift = cert(xs, ws, idx)
+            mg["final"] = max(mg["final"],
+                              float(((G - tol - delta) / tol).max()))
+            for r, jj in enumerate(idx.tolist()):
+                xstar = torch.from_numpy(native.tv1w_host(
+                    y[jj].cpu().numpy(), lam[jj, :-1].cpu().numpy()))
+                dist_ = float((xs[jj].cpu().double() - xstar).abs().max())
+                bar = math.sqrt(2.0 * float(tol[r] + delta[r])) + float(
+                    drift[r])
+                mg["to_optimum"] = max(mg["to_optimum"], dist_ / bar)
+        ok = (ok and mg["ran_on"] >= 0.0 and mg["final"] <= 0.0
+              and mg["to_optimum"] <= 1.0)
+    j = int(fib.argmax())
+    row = slice(j, j + 1)
+    lf = None if lam_full is None else lam_full[row]
+    gkw = (kw.get("lam_scalar"), stop_rel, tol_eps)
+    return {
+        "err": float(fib.max()), "iters_apart": di, "ok": ok,
+        "it": it, "it_ref": it_ref, "w": w, "margin": mg,
+        "err_counts_agree": float(torch.where(part, 0.0, fib).max()),
+        "err_counts_part": float(torch.where(part, fib, 0.0).max()),
+        "err_unheld": float(torch.where(held, 0.0, fib).max()),
+        "fibers_counts_part": int(part.sum()),
+        "worst_iters": [int(it[j]), int(it_ref[j])],
+        "worst_gap_over_tol": [
+            float(gap_over_tol(x[row], w[row], y[row], lf, *gkw)),
+            float(gap_over_tol(ref[row], wref[row], y[row], lf, *gkw))]}
+
+
+def margin_text(mg):
+    """pn_hold's margin readings as a line's tail."""
+    if not mg["fibers"]:
+        return "no fiber held at the stop margin"
+    return (f"{mg['fibers']} fibers past {TOL['pn']} held at the stop "
+            f"margin: outputs (G - tol - delta) / tol at most "
+            f"{mg['final']:.3e} (bar 0), the side that ran on at the other's "
+            f"count (G - tol + delta) / tol at least {mg['ran_on']:.3e} (bar "
+            f"0), distance to the float64 optimum over "
+            f"its bar {mg['to_optimum']:.3f} (bar 1)")
+
+
+def hold_first(kid, a, kw, B1, B3, B6, margin=False):
     """One recorded launch of B1, B3 or B6 against its plain version on the
-    card, at TOL (B1: x and w within TOL["pn"], Newton counts within
-    TOL["pn_iters"]; B3, B6: the fields on the canvas less its 2K halo rows
-    or layers at each end, as phase 2 holds B3).  A band's canvas may end
+    card, at TOL (B1: pn_hold's bars, ``margin`` as it takes it; B3, B6:
+    the fields on the canvas less its 2K halo rows or layers at each end,
+    as phase 2 holds B3).  A band's canvas may end
     inside the image: the kernel's windows carry the cells past it as zeros
     that evolve, the plain version holds them at zero, and the two part
     within the halo, which the driver refreshes before the next chunk.
@@ -392,30 +702,31 @@ def hold_first(kid, a, kw, B1, B3, B6):
     import torch
 
     if kid == "B1":
-        kw = {k: v for k, v in kw.items()
-              if k not in ("return_dual", "return_iters")}
-        xr, wr, itr = B1.pn_tv1_fused_plain(*a, tb=1, **kw)
-        x, w, it = B1.pn_tv1_fused(*a, return_iters=True, **kw)
-        torch.cuda.synchronize()
-        err = max(float((x - xr).abs().max()), float((w - wr).abs().max()))
-        di = int((it - itr).abs().max())
-        check(err <= TOL["pn"] and di <= TOL["pn_iters"],
-              f"B1's first banded launch disagrees ({err}, {di})")
-        return err
+        h = pn_hold(B1, *a, margin=margin, **kw)
+        check(h["ok"], f"B1's first launch disagrees ({h['err']}, "
+              f"{h['iters_apart']}; {margin_text(h['margin'])})")
+        return h["err"]
     if kid == "B3":
         ref = B3.pdhg_chunk_plain(*a, **kw)
         out = B3.pdhg_chunk(*a, **kw)
-        tol = TOL["pdhg"]
+        tol, fields = TOL["pdhg"], 4
     else:
         ref = B6.pdhg3d_chunk_plain(*a, **{k: v for k, v in kw.items()
                                            if k != "tile"})
         out = B6.pdhg3d_chunk(*a, **kw)
-        tol = TOL["pdhg3d"]
+        tol, fields = TOL["pdhg3d"], 5
     torch.cuda.synchronize()
     h = 2 * kw["k_steps"]
     err = max(float((o[h:o.shape[0] - h] - r[h:r.shape[0] - h]).abs().max())
-              for o, r in zip(out[:5], ref[:5]))
-    check(err <= tol, f"{kid}'s first banded launch disagrees ({err})")
+              for o, r in zip(out[:fields], ref[:fields]))
+    check(err <= tol, f"{kid}'s first launch disagrees ({err})")
+    # A certificate chunk (one image on one card): its gap and objective
+    # sums as phase 3b holds them.
+    for o, r in zip(out[fields:], ref[fields:]):
+        rel = abs(float(o.sum()) - float(r.sum())) / max(1.0,
+                                                         abs(float(r.sum())))
+        check(rel <= TOL["pdhg_cert"], f"{kid}'s first launch's certificate "
+              f"disagrees ({rel})")
     return err
 
 
@@ -457,8 +768,8 @@ def dist_rank(rank, ddir, card):
         counters = {"B1": B1.LAUNCHES, "B3": B3.LAUNCHES, "B6": B6.LAUNCHES}
         first = FirstLaunch(B1, B3, B6)
         out, lines = {}, []
-        for i, (name, fn, must) in enumerate(dist_calls(P, mesh, d,
-                                                        DIST_WORLD)):
+        for i, (name, fn, must, _) in enumerate(dist_calls(P, mesh, d,
+                                                           DIST_WORLD)):
             for c in counters.values():
                 c.reset()
             debug.HOST_SYNCS.reset()
@@ -471,7 +782,7 @@ def dist_rank(rank, ddir, card):
             comm = comm_counts(debug)
             syncs = debug.HOST_SYNCS.value
             got = {k: c.value for k, c in counters.items()}
-            check(got[must] > 0, f"rank {rank}: {name} did not launch {must}")
+            check_launches(got, must, f"rank {rank}: {name}")
             x, info = res
             out[f"x{i}"] = x.cpu().numpy()
             for f_ in ("iters", "gap", "rc"):
@@ -480,7 +791,9 @@ def dist_rank(rank, ddir, card):
                   f"rank {rank}: {name} left the card")
             wall = cuda_ms(fn, reps=1)
             if rank == 0:
-                prof = profile_call(fn)
+                # one window: rank 1 makes the same two calls, so a second
+                # window would leave its collectives without a partner
+                prof = profile_call(fn, windows=1)
             else:  # the same calls, for the collectives, unprofiled
                 fn()
                 fn()
@@ -495,8 +808,8 @@ def dist_rank(rank, ddir, card):
             out[f"syncs{i}"] = np.array(syncs)
         holds = {}
         for (name, kid), (a, kw) in first.seen.items():
-            holds[f"{name}: {kid}"] = err = hold_first(kid, a, kw, B1, B3,
-                                                       B6)
+            holds[f"{name}: {kid}"] = err = hold_first(
+                kid, a, kw, B1, B3, B6, margin=name == COLS_PI_NAME)
             lines.append(f"[dist] world {DIST_WORLD} rank {rank} {name}: "
                          f"first {kid} launch vs plain {err:.3e}")
         with open(os.path.join(ddir, f"holds{rank}.json"), "w") as f:
@@ -858,7 +1171,8 @@ def main(out_dir):
     from proxtv_tpu_torch.demos import demo_filter_image_weighted as demo_w
     from proxtv_tpu_torch.demos import demo_filter_signal as demo_s
     from proxtv_tpu_torch.models import tv2d, tvnd
-    from proxtv_tpu_torch.ops import diffprox, tv1d_l1, tv1d_l2, tv1d_lp
+    from proxtv_tpu_torch.ops import (diffprox, tv1d_l1, tv1d_l2,
+                                      tv1d_long, tv1d_lp)
     from proxtv_tpu_torch.ops.kernels import build, gating
     from proxtv_tpu_torch.ops.kernels import classic_ts as D4
     from proxtv_tpu_torch.ops.kernels import condat as D3
@@ -932,6 +1246,13 @@ def main(out_dir):
                        np.ones((T2BLOCK, T2BLOCK)))
     noisy_t2 = (truth_t2 + TNOISE * rng7.randn(1, T2M, T2M)).astype(
         np.float32)
+    rng8 = np.random.RandomState(SEED + 6)  # bench.py's F1-F4 (ROADMAP F)
+    Y4 = rng8.randn(1, M4K, N4K).astype(np.float32)     # 4K UHD
+    W1 = (0.5 + rng8.rand(B1D, N1D - 1)).astype(np.float32)  # F2's weights
+    Ylong = (np.cumsum(rng8.randn(S_LONG, NLONG), axis=1) * 0.05
+             + rng8.randn(S_LONG, NLONG)).astype(np.float32)  # F3's stream
+    ylong7 = (np.cumsum(rng8.randn(N_LONG7)) * 0.05
+              + rng8.randn(N_LONG7)).astype(np.float32)       # F4's signal
     errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0,
             "lp": 0.0, "direct": 0.0}
 
@@ -984,65 +1305,16 @@ def main(out_dir):
           f"{worst['plain']:.3e}, masked {worst['masked']:.3e} (tol "
           f"{TOL['pcr_path']})")
 
-    def gap_over_tol(x, w, y, lam_full, lam_scalar, stop_rel, tol_eps):
-        """Each row's duality gap over its stop tolerance (pn_solve's rule,
-        with the launch's float32 floor tol_eps), in float64 from the
-        outputs."""
-        x, w, y = x.double(), w.double(), y.double()
-        g = x[:, :-1] - x[:, 1:]
-        lam = lam_full[:, :-1].double() if lam_full is not None else lam_scalar
-        gap = (g.abs() * lam + w[:, :-1] * g).sum(1).abs()
-        yc = y - y.mean(1, keepdim=True)
-        scale = (0.5 * (yc * yc).sum(1)).clamp(min=1.0)
-        eps = float(np.finfo(np.float32).eps)
-        return gap / (tol_eps * eps * scale).clamp(min=stop_rel)
-
-    def pn_compare(y, lam_full=None, w_init=None, **kw):
-        """One B1 launch against its plain version (tb = 1), both with the
-        launch's own settings: max |x - x_plain| and |w - w_plain|, the
-        largest per-fiber difference of the Newton iteration counts, the
-        kernel's and the plain version's counts, the kernel's w, and where
-        the worst fiber lies: the largest difference among fibers whose
-        counts agree and among those whose counts part, and the worst
-        fiber's counts and gap over tolerance on each side."""
-        kw = {k_: v for k_, v in kw.items()
-              if k_ not in ("return_dual", "return_iters")}
-        ref, wref, it_ref = B1.pn_tv1_fused_plain(y, lam_full, w_init, tb=1,
-                                                  **kw)
-        x, w, it = B1.pn_tv1_fused(y, lam_full, w_init, return_iters=True,
-                                   **kw)
-        torch.cuda.synchronize()
-        fib = torch.maximum((x - ref).abs().amax(1), (w - wref).abs().amax(1))
-        err = float(fib.max())
-        di = int((it - it_ref).abs().max())
-        part = it != it_ref
-        j = int(fib.argmax())
-        row = slice(j, j + 1)
-        lf = None if lam_full is None else lam_full[row]
-        args = (y[row], lf, kw.get("lam_scalar"), kw.get("stop_rel", 1e-6),
-                kw.get("tol_eps", 10.0))
-        where = {
-            "err_counts_agree": float(torch.where(part, 0.0, fib).max()),
-            "err_counts_part": float(torch.where(part, fib, 0.0).max()),
-            "fibers_counts_part": int(part.sum()),
-            "worst_iters": [int(it[j]), int(it_ref[j])],
-            "worst_gap_over_tol": [float(gap_over_tol(x[row], w[row], *args)),
-                                   float(gap_over_tol(ref[row], wref[row],
-                                                      *args))],
-        }
-        return err, di, it, it_ref, w, where
-
     def pn_case(name, y, **kw):
-        err, di, it, it_ref, w, _ = pn_compare(y, **kw)
-        print(f"[B1 pn] {name}: max|kernel - plain| = {err:.3e} (tol "
-              f"{TOL['pn']}); Newton iterations at most {di} apart (tol "
-              f"{TOL['pn_iters']}), kernel mean "
-              f"{float(it.float().mean()):.2f}, plain mean "
-              f"{float(it_ref.float().mean()):.2f}")
-        check(err <= TOL["pn"] and di <= TOL["pn_iters"],
-              f"PN {name} disagrees")
-        errs["pn"] = max(errs["pn"], err)
-        return w
+        h = pn_hold(B1, y, **kw)
+        print(f"[B1 pn] {name}: max|kernel - plain| = {h['err']:.3e} (tol "
+              f"{TOL['pn']}); Newton iterations at most "
+              f"{h['iters_apart']} apart (tol {TOL['pn_iters']}), kernel mean "
+              f"{float(h['it'].float().mean()):.2f}, plain mean "
+              f"{float(h['it_ref'].float().mean()):.2f}")
+        check(h["ok"], f"PN {name} disagrees")
+        errs["pn"] = max(errs["pn"], h["err"])
+        return h["w"]
 
     Yf = t(Y2)
     w_cold = pn_case("(1024, 1024) lam 0.3 cold", Yf, lam_scalar=LAM2D)
@@ -1365,7 +1637,8 @@ def main(out_dir):
 
     def tap_b1(y, lam_full=None, w_init=None, **kw):
         if tap_path[0] is not None:
-            b1_calls.setdefault(tuple(y.shape), []).append(
+            kind = "scalar" if lam_full is None else "field"
+            b1_calls.setdefault((*y.shape, kind), []).append(
                 (tap_path[0], y.clone(),
                  None if lam_full is None else lam_full.clone(),
                  None if w_init is None else w_init.clone(), dict(kw)))
@@ -1566,6 +1839,35 @@ def main(out_dir):
                                     method="chambolle-pock-acc"), ["B3"])
     check(bool((info_pi.rc == RC_OK).all()), "per-image cp-acc did not "
           "certify")
+    # bench.py's F1-F3 on one card, counted and tapped with the main path
+    # (phase 3b holds every B1 and B3 launch against its plain version);
+    # the first B1 / B3 launch of each is also kept and held as the dist
+    # calls' are (hold_first).  Checked against float64 after the dist
+    # phase; timed and profiled in phases 4 and 5.
+    first_f = FirstLaunch(B1, B3, B6)
+    Y4t, W1t, Ylong_t = t(Y4), t(W1), t(Ylong)
+    f_calls = {
+        "F1": (f"F1 tv1_2d_batched {M4K}x{N4K} lam {LAM4K} "
+               f"chambolle-pock-acc max_iters {ITERS4K}",
+               lambda: tv2d.tv1_2d_batched(Y4t, LAM4K,
+                                           method="chambolle-pock-acc",
+                                           max_iters=ITERS4K), "B3"),
+        "F2": (f"F2 tv1_batched {B1D}x{N1D} per-edge weights 0.5 + U[0, 1) "
+               "pn", lambda: tv1d_l1.tv1_batched(Y1t, W1t, method="pn"),
+               "B1"),
+        "F3": (f"F3 tv1_long {S_LONG}x1e6 lam {LAM1D}",
+               lambda: tv1d_long.tv1_long(Ylong_t, LAM1D), "B1"),
+    }
+    f_out = {}
+    with first_f:
+        for key_, (name_, fn_, must_) in f_calls.items():
+            first_f.label = name_
+            f_out[key_] = run(name_, fn_, [must_])
+            first_f.label = None
+    x_f1, info_f1 = f_out["F1"]
+    check(int(info_f1.rc[0]) == RC_OK, "F1 (4K cp-acc) did not certify")
+    x_f3, info_f3 = f_out["F3"]
+    check(bool((info_f3.rc == RC_OK).all()), "F3 (tv1_long) did not certify")
     # -- 3e. dist, world 1: the parallel path on a one-rank NCCL mesh ------
     # Counted and tapped with the main path (phase 3b holds its B1 and B3
     # launches, phase 4 replays them); the first B1, B3 and B6 launch of
@@ -1581,17 +1883,20 @@ def main(out_dir):
                             rank=0, world_size=1)
     mesh1 = parallel.make_mesh()
     d_in = {"Y2": Y2, "Wc2": Wc2, "Wr2": Wr2, "V": V, "ylong": ylong,
-            "Ypi": Ypi, "Y1": Y1}
+            "Ypi": Ypi, "Y1": Y1, "Y4": Y4, "ylong7": ylong7}
     first1 = FirstLaunch(B1, B3, B6)
     dist1 = {}
     with first1:
-        for name_, fn_, must_ in dist_calls(parallel, mesh1, d_in, 1):
+        for name_, fn_, must_, kind_ in dist_calls(parallel, mesh1, d_in, 1):
             comm_counts(debug, reset=True)
             first1.label = name_
-            res_ = run(f"dist world 1 {name_}", fn_, [must_])
+            res_ = run(f"dist world 1 {name_}", fn_,
+                       [must_] if must_ else [])
             first1.label = None
+            check_launches(main[f"dist world 1 {name_}"]["launches"], must_,
+                           f"dist world 1 {name_}")
             dist1[name_] = {"res": res_, "comm": comm_counts(debug),
-                            "fn": fn_}
+                            "fn": fn_, "kind": kind_}
     t_dist = time.perf_counter() - t_dist
     # -- 3d. train: the differentiable path on the card ------------------
     # Each cell runs once here, counted and tapped like every main-path call
@@ -1635,42 +1940,54 @@ def main(out_dir):
           "the B1 tap missed main-path launches")
     b1_shapes = {}
     for shp, calls in b1_calls.items():
-        worst, di_max, its = 0.0, 0, []
-        agree, part, n_part, worst_where = 0.0, 0.0, 0, None
-        for _, y_, lf_, w0_, kw_ in calls:
-            err, di, it, _, _, where = pn_compare(y_, lf_, w0_, **kw_)
+        worst, di_max, its, ok = 0.0, 0, [], True
+        agree, part, unheld, n_part, worst_where = 0.0, 0.0, 0.0, 0, None
+        mg = {"fibers": 0, "ran_on": math.inf, "final": -math.inf,
+              "to_optimum": 0.0}
+        for path_, y_, lf_, w0_, kw_ in calls:
+            where = pn_hold(B1, y_, lf_, w0_,
+                            margin=path_.endswith(COLS_PI_NAME), **kw_)
+            err, di = where["err"], where["iters_apart"]
             if worst_where is None or err > worst:
                 worst_where = where
             worst, di_max = max(worst, err), max(di_max, di)
+            ok = ok and where["ok"]
             agree = max(agree, where["err_counts_agree"])
             part = max(part, where["err_counts_part"])
+            unheld = max(unheld, where["err_unheld"])
             n_part += where["fibers_counts_part"]
-            its.append(int(it.sum()))
+            m_ = where["margin"]
+            mg = {"fibers": mg["fibers"] + m_["fibers"],
+                  "ran_on": min(mg["ran_on"], m_["ran_on"]),
+                  "final": max(mg["final"], m_["final"]),
+                  "to_optimum": max(mg["to_optimum"], m_["to_optimum"])}
+            its.append(int(where["it"].sum()))
         paths = sorted({c[0] for c in calls})
         warm = calls[-1][3] is not None
         b1_shapes[shp] = {"launches": len(calls), "paths": paths,
                           "warm": warm, "iters": its, "max_abs_err": worst,
                           "iters_apart": di_max,
                           "err_counts_agree": agree, "err_counts_part": part,
+                          "err_not_at_margin": unheld, "margin": mg,
                           "fibers_counts_part": n_part,
                           "worst_iters": worst_where["worst_iters"],
                           "worst_gap_over_tol":
                               worst_where["worst_gap_over_tol"]}
-        name = f"{shp[0]}x{shp[1]} {'warm' if warm else 'cold'}"
+        name = f"{shp[0]}x{shp[1]} {shp[2]} {'warm' if warm else 'cold'}"
         print(f"[B1 pn] main path {name} ({len(calls)} launches, "
               f"{', '.join(paths)}): max|kernel - plain| = {worst:.3e} (tol "
-              f"{TOL['pn']}); Newton iterations at most {di_max} apart (tol "
+              f"{TOL['pn']}; {unheld:.3e} over fibers not held at the stop "
+              f"margin); Newton iterations at most {di_max} apart (tol "
               f"{TOL['pn_iters']}), kernel mean per fiber "
               f"{sum(its) / (len(calls) * shp[0]):.2f}")
         wi, wg = worst_where["worst_iters"], worst_where["worst_gap_over_tol"]
         print(f"[B1 pn] main path {name}: fibers whose Newton counts agree "
               f"differ by at most {agree:.3e}; {n_part} of "
               f"{len(calls) * shp[0]} fibers part in count, differing by at "
-              f"most {part:.3e}; worst fiber: iterations kernel {wi[0]} / "
-              f"plain {wi[1]}, gap over stop tolerance kernel {wg[0]:.3f} / "
-              f"plain {wg[1]:.3f}")
-        check(worst <= TOL["pn"] and di_max <= TOL["pn_iters"],
-              f"PN main path {name} disagrees")
+              f"most {part:.3e}; {margin_text(mg)}; worst fiber: iterations "
+              f"kernel {wi[0]} / plain {wi[1]}, gap over stop tolerance "
+              f"kernel {wg[0]:.3f} / plain {wg[1]:.3f}")
+        check(ok, f"PN main path {name} disagrees")
         errs["pn"] = max(errs["pn"], worst)
 
     # -- 3b. B3 against its plain version at each main-path chunk ---------
@@ -1679,6 +1996,7 @@ def main(out_dir):
     check(len(b3_calls) == sum(by_path["B3"].values()),
           "the B3 tap missed main-path launches")
     b3_err = b3_rel = 0.0
+    b3_by_path = {}  # the largest field difference of each path's launches
     b3_worst = None  # the launch of the largest certificate difference
     for i_, (path_, a_, kw_) in enumerate(b3_calls):
         ref = B3.pdhg_chunk_plain(*a_, **kw_)
@@ -1687,6 +2005,7 @@ def main(out_dir):
         e_ = max(float((o - r_).abs().max())
                  for o, r_ in zip(out[:4], ref[:4]))
         b3_err = max(b3_err, e_)
+        b3_by_path[path_] = max(b3_by_path.get(path_, 0.0), e_)
         for which, o, r_ in zip(("gap", "objective"), out[4:], ref[4:]):
             ra, rb = float(o.sum()), float(r_.sum())
             rel_ = abs(ra - rb) / max(1.0, abs(rb))
@@ -2196,13 +2515,139 @@ def main(out_dir):
         xc[f"per-image cp-acc image {b_}"] = {"F_minus_F_ref": dF_,
                                               "gap": g_}
 
+    def obj1(z, y, lam):
+        """The 1D TV-L1 objective in float64."""
+        z = np.asarray(z, np.float64)
+        return (0.5 * np.sum((z - y) ** 2)
+                + lam * np.sum(np.abs(np.diff(z))))
+
+    # bench.py's F1-F3 (ROADMAP F) against float64: F1 by the certified-gap
+    # rule against float64 Chambolle-Pock on the card (F4K_REF_ITERS
+    # iterations; the banded F1 of the dist phase too), F2 and F3 by the
+    # same rule against the float64 host engine, every signal of F3
+    # certified.
+    t0 = time.perf_counter()
+    x4k_ref, gap4k_ref = reference_2d(t(Y4[0].astype(np.float64)), LAM4K,
+                                      F4K_REF_ITERS)
+    x4k_ref = x4k_ref.cpu().numpy()
+    F4k_ref = obj2d(x4k_ref, Y4[0], LAM4K)
+    print(f"[F] float64 4K reference ({F4K_REF_ITERS} Chambolle-Pock "
+          f"iterations, {time.perf_counter() - t0:.1f} s): F* >= F_ref - "
+          f"{gap4k_ref:.3e}, F_ref = {F4k_ref:.6f}")
+    f_checks = {}
+    X = x_f1[0].cpu().numpy()
+    dF, g_ = obj2d(X, Y4[0], LAM4K) - F4k_ref, float(info_f1.gap[0])
+    print(f"[F] {f_calls['F1'][0]}: F - F_ref = {dF:.4e} (bar: gap "
+          f"{g_:.4e} + {gap4k_ref:.3e} + {F_ROUND * F4k_ref:.3e}), iters "
+          f"{int(info_f1.iters[0])}, max|x - x_ref| = "
+          f"{float(np.abs(X - x4k_ref).max()):.3e}")
+    check(x_f1.is_cuda and dF <= g_ + gap4k_ref + F_ROUND * F4k_ref,
+          "F1 (4K cp-acc) misses its certificate")
+    f_checks["F1"] = {"F_minus_F_ref": dF, "gap": g_,
+                      "iters": int(info_f1.iters[0])}
+    # F2 by the certified-gap rule row by row: B1 stops where its float32
+    # duality gap falls under tol = max(1e-6, 10 eps 0.5 ||y - mean||^2)
+    # (the TPU kernel's floor, which tv1_batched keeps), so each row's
+    # objective lies within that tol of the float64 optimum, plus the
+    # float32 rounding of x (F_ROUND).  The floor lets x itself land up to
+    # sqrt(2 tol) from the optimum, so max|x - x_host64| is printed, not
+    # held (ROADMAP C, "The float32 stop floors").
+    t1 = time.perf_counter()
+    x_f2 = f_out["F2"]
+    ref_ = np.stack([native.tv1w_host(Y1[i_], W1[i_]) for i_ in range(B1D)])
+    X = x_f2.cpu().numpy().astype(np.float64)
+    e_row = np.abs(X - ref_).max(axis=1)
+    e_ = float(e_row.max())
+    far = np.nonzero(e_row > TOL["pn"])[0]
+    W64 = W1.astype(np.float64)
+
+    def obj1w(Z):
+        return (0.5 * np.sum((Z - Y1) ** 2, axis=1)
+                + np.sum(W64 * np.abs(np.diff(Z, axis=1)), axis=1))
+
+    F_, Fr_ = obj1w(X), obj1w(ref_)
+    yc_ = Y1.astype(np.float64) - Y1.mean(axis=1, keepdims=True)
+    tol_ = np.maximum(1e-6, 10.0 * float(np.finfo(np.float32).eps)
+                      * np.maximum(1.0, 0.5 * np.sum(yc_ * yc_, axis=1)))
+    over = F_ - Fr_ - tol_ - F_ROUND * Fr_
+    k_ = int(np.argmax(over))
+    print(f"[F] {f_calls['F2'][0]}: F - F_ref per row at most "
+          f"{float(np.max(F_ - Fr_)):.4e}; the worst row against its bar: "
+          f"{F_[k_] - Fr_[k_]:.4e} (bar: stop tol {tol_[k_]:.4e} + "
+          f"{F_ROUND * Fr_[k_]:.3e}); max|x - x_host64| = {e_:.3e} "
+          f"({len(far)} of {B1D} rows past {TOL['pn']}, printed: "
+          f"{', '.join(f'row {i_} {e_row[i_]:.4e}' for i_ in far)}); the "
+          f"float64 "
+          f"host taut string, {B1D} signals, took "
+          f"{time.perf_counter() - t1:.1f} s")
+    check(x_f2.is_cuda and float(np.max(over)) <= 0.0,
+          "F2 misses the certified-gap rule against float64")
+    f_checks["F2"] = {"max_abs_err": e_,
+                      "rows_past_tol_pn": {int(i_): float(e_row[i_])
+                                           for i_ in far},
+                      "F_minus_F_ref_max": float(np.max(F_ - Fr_)),
+                      "worst_over_bar": float(np.max(over))}
+    # F3 by the certified-gap rule signal by signal: the long route stops
+    # when the glued dual's gap is under 2 eps 0.5 ||y - mean||^2 (the JAX
+    # package's tv1_long, ~95 on these walks), and each signal's objective
+    # lies within its gap of the float64 optimum, plus rounding.  Its x may
+    # land several 1e-2 away on a few signals, as the JAX package's float32
+    # tv1_long does on the same signals (tests/test_torch_bench_rows.py):
+    # printed, not held.
+    t1 = time.perf_counter()
+    X = x_f3.cpu().numpy().astype(np.float64)
+    g3 = info_f3.gap.cpu().numpy().astype(np.float64)
+    e_s, over_s = [], []
+    for s_ in range(S_LONG):
+        ref_ = native.tv1_host(Ylong[s_].astype(np.float64), LAM1D)
+        e_s.append(float(np.abs(X[s_] - ref_).max()))
+        Fr_ = obj1(ref_, Ylong[s_], LAM1D)
+        over_s.append(obj1(X[s_], Ylong[s_], LAM1D) - Fr_ - g3[s_]
+                      - F_ROUND * Fr_)
+    print(f"[F] {f_calls['F3'][0]}: F - F_ref - gap - {F_ROUND} F_ref per "
+          f"signal {', '.join(f'{v:.4e}' for v in over_s)} (bar 0); gaps "
+          f"{', '.join(f'{v:.4e}' for v in g3)}; max|x - x_host64| "
+          f"{', '.join(f'{v:.3e}' for v in e_s)} (printed; "
+          f"{time.perf_counter() - t1:.1f} s on the host)")
+    check(x_f3.is_cuda and max(over_s) <= 0.0,
+          "F3 misses the certified-gap rule against float64")
+    f_checks["F3"] = {"max_abs_err": e_s, "gap": g3.tolist(),
+                      "over_bar": over_s}
+    for (name_, kid), (a_, kw_) in first_f.seen.items():
+        err_ = hold_first(kid, a_, kw_, B1, B3, B6)
+        f_checks[f"first {kid} launch vs plain: {name_}"] = err_
+        print(f"[F] {name_}: first {kid} launch vs plain {err_:.3e}")
+    # Each call's wall by CUDA events, one profiled call (device busy, idle
+    # share), and the counted run's launches and host syncs.
+    f_prof = {}
+    for key_, (name_, fn_, must_) in f_calls.items():
+        wall_ = cuda_ms(fn_, reps=3)
+        prof_ = f_prof[name_] = profile_call(fn_)
+        m_ = main[name_]
+        print(f"[F] {name_}: wall {wall_:.3f} ms (CUDA events), device busy "
+              f"{prof_['busy_ms']:.3f} ms, idle share "
+              f"{prof_['idle_share']}, {must_} device "
+              f"{prof_['ours'].get(must_, 0.0):.3f} ms; launches "
+              f"{m_['launches'][must_]} {must_} (counted run), host syncs "
+              f"{m_['host_syncs']}  ({card})")
+        f_checks[key_].update(wall_ms=wall_, busy_ms=prof_["busy_ms"],
+                              idle_share=prof_["idle_share"],
+                              launches=m_["launches"][must_],
+                              host_syncs=m_["host_syncs"])
+    xc["bench F1-F3"] = f_checks
+
     # -- 3e. dist: world 1 held against the references, timed; then the
     # gloo world of DIST_WORLD ranks on this card, held against world 1 ----
-    # 2D and 3D by the certified-gap rule against the float64 references;
-    # the 10^6 walk against the float64 host taut string at TOL["pn"];
-    # the batch-split calls bit for bit against the single-card calls that
-    # make the same launches.  The first B1, B3 and B6 launch of each call
-    # against its plain version (hold_first).
+    # By kind (dist_calls): 2D and 3D by the certified-gap rule against the
+    # float64 references (the 4K image against F1's); the 10^6 and 10^7
+    # walks against the float64 host taut string at TOL["pn"]; the
+    # batch-split calls bit for bit against the single-card calls that make
+    # the same launches; the column-split calls within 1e-5 of the data's
+    # size of the port's single-card run of the same engine, method and
+    # max_iters (for cp-acc the unfused iteration, tv2d._run_pdhg, which is
+    # what the column split runs, as the JAX package does under sharding).
+    # The first B1, B3 and B6 launch of each call against its plain version
+    # (hold_first).
     t0 = time.perf_counter()
     report["dist"] = {"world1": {}, "world2": {}}
     Wr64, Wc64 = Wr2.astype(np.float64), Wc2.astype(np.float64)
@@ -2210,30 +2655,58 @@ def main(out_dir):
                                   method="chambolle-pock-acc")[0]
     single = {"fused": per_img.cpu().numpy(),
               "tv1": tv1d_l1.tv1_batched(Y1t, LAM1D).cpu().numpy()}
+    Y2b, lam32 = t(Y2)[None], tv2d._scalar(LAM2D, torch.float32)
+    cols_single = {
+        "dr": tv2d.tv1_2d_batched(Y2b, LAM2D, method="dr",
+                                  max_iters=COLS_ITERS)[0],
+        "chambolle-pock-acc": tv2d._run_pdhg(
+            Y2b, lam32, lam32, COLS_ITERS, DEFAULT_COMBINER.stop,
+            DEFAULT_COMBINER, "cp-acc")[0],
+        "kolmogorov": tv2d.tv1_2d_batched(Y2b, LAM2D, method="kolmogorov",
+                                          max_iters=COLS_ITERS)[0],
+        "per-image": tv2d.tv1_2d_batched(
+            t(Ypi), torch.tensor(LAM_PI, device=dev), method="dr",
+            max_iters=COLS_ITERS)[0]}
+    cols_single = {k_: v.cpu().numpy() for k_, v in cols_single.items()}
+    t1 = time.perf_counter()
+    xl7_ref = native.tv1_host(ylong7.astype(np.float64), LAM1D)
+    print(f"[dist] (the float64 host taut string at n = 10^7 took "
+          f"{time.perf_counter() - t1:.1f} s)")
 
-    def dist_objective(i_, X):
-        """(objective, float64 reference objective, reference gap) of call
-        i_ of dist_calls, per image for the batch call."""
-        if i_ == 0:
+    def cols_ref(name_):
+        """The single-card solve a column-split call is held against, and
+        the data's size."""
+        if "per-image" in name_:
+            return cols_single["per-image"], float(np.abs(Ypi).max())
+        m_ = next(m_ for m_ in ("chambolle-pock-acc", "kolmogorov", "dr")
+                  if f" {m_} " in name_)
+        return cols_single[m_], float(np.abs(Y2).max())
+
+    def dist_objective(kind_, X):
+        """(objective, float64 reference objective, reference gap) of a
+        certified call, per image for the batch call."""
+        if kind_ == "cert2d":
             return obj2d(X, Y2, LAM2D), F_ref, gap_ref
-        if i_ == 1:
+        if kind_ == "cert2dw":
             return obj2dw(X, Y2, Wr64, Wc64), Fw_ref, gapw_ref
-        if i_ == 2:
+        if kind_ == "cert3d":
             return obj3d(X, V, LAM3), F3_ref, gap_ref3
+        if kind_ == "cert4k":
+            return obj2d(X, Y4[0], LAM4K), F4k_ref, gap4k_ref
         return np.array([obj2d(X[b_], Ypi[b_], LAM2D)
                          for b_ in range(B_PI)]), None, None
 
-    w1_out, dist_prof = [], {}
-    for i_, (name_, e_) in enumerate(dist1.items()):
-        res_ = e_["res"]
+    w1_out, dist_prof = {}, {}
+    for name_, e_ in dist1.items():
+        res_, kind_ = e_["res"], e_["kind"]
         x_, info_ = res_ if isinstance(res_, tuple) else (res_, None)
         X = x_.cpu().numpy()
-        w1_out.append((X, info_))
+        w1_out[name_] = (X, info_)
         rec = {"launches": main[f"dist world 1 {name_}"]["launches"],
                "host_syncs": main[f"dist world 1 {name_}"]["host_syncs"],
                **e_["comm"]}
-        if i_ < 3:
-            F_, Fr_, gr_ = dist_objective(i_, X)
+        if kind_.startswith("cert"):
+            F_, Fr_, gr_ = dist_objective(kind_, X)
             g_ = float(info_.gap[0])
             print(f"[dist] world 1 nccl {name_}: F - F_ref = {F_ - Fr_:.4e} "
                   f"(bar: gap {g_:.4e} + {gr_:.3e} + {F_ROUND * Fr_:.3e}), "
@@ -2243,7 +2716,7 @@ def main(out_dir):
                   "certificate")
             rec.update(F_minus_F_ref=F_ - Fr_, gap=g_,
                        iters=int(info_.iters[0]))
-        elif i_ == 3:
+        elif kind_ == "long1d":
             e_l = float(np.abs(X.astype(np.float64) - xl1_ref).max())
             print(f"[dist] world 1 nccl {name_}: max|x - x_host64| = "
                   f"{e_l:.3e} (tol {TOL['pn']}), rc {int(info_.rc[0])}, gap "
@@ -2251,9 +2724,31 @@ def main(out_dir):
             check(int(info_.rc[0]) == RC_OK and e_l <= TOL["pn"],
                   f"dist world 1 {name_} disagrees")
             rec.update(max_abs_err=e_l)
+        elif kind_ == "long7":
+            # F4 by the certified-gap rule, as F3: its x printed
+            e_l = float(np.abs(X.astype(np.float64) - xl7_ref).max())
+            g_ = float(info_.gap[0])
+            Fr_ = obj1(xl7_ref, ylong7, LAM1D)
+            dF = obj1(X, ylong7, LAM1D) - Fr_
+            print(f"[dist] world 1 nccl {name_}: F - F_ref = {dF:.4e} (bar: "
+                  f"gap {g_:.4e} + {F_ROUND * Fr_:.3e}), rc "
+                  f"{int(info_.rc[0])}, max|x - x_host64| = {e_l:.3e} "
+                  f"(printed)")
+            check(int(info_.rc[0]) == RC_OK and dF <= g_ + F_ROUND * Fr_,
+                  f"dist world 1 {name_} misses the certified-gap rule")
+            rec.update(max_abs_err=e_l, F_minus_F_ref=dF, gap=g_)
+        elif kind_ in ("cols", "cols_pi"):
+            ref_, scale_ = cols_ref(name_)
+            e_c = float(np.abs(X - ref_).max())
+            its = info_.iters.cpu().numpy().tolist()
+            print(f"[dist] world 1 nccl {name_}: max|x - x_single| = "
+                  f"{e_c:.3e} (bar 1e-5 x {scale_:.3e}), sweeps {its}, rc "
+                  f"{info_.rc.cpu().numpy().tolist()}")
+            check(bool(np.isfinite(X).all()) and e_c <= 1e-5 * scale_,
+                  f"dist world 1 {name_} parts from the single-card solve")
+            rec.update(max_abs_err=e_c, iters=its)
         else:
-            ref_ = single["fused" if i_ == 4 else "tv1"]
-            same = bool(np.array_equal(X, ref_))
+            same = bool(np.array_equal(X, single[kind_]))
             print(f"[dist] world 1 nccl {name_}: bit for bit with the "
                   f"single-card call: {same}")
             check(same, f"dist world 1 {name_} parts from the single-card "
@@ -2267,7 +2762,8 @@ def main(out_dir):
         report["dist"]["world1"][name_] = rec
     report["dist"]["world1_first_launch_vs_plain"] = {}
     for (name_, kid), (a_, kw_) in first1.seen.items():
-        err_ = hold_first(kid, a_, kw_, B1, B3, B6)
+        err_ = hold_first(kid, a_, kw_, B1, B3, B6,
+                          margin=name_ == COLS_PI_NAME)
         report["dist"]["world1_first_launch_vs_plain"][f"{name_}: {kid}"] = (
             err_)
         print(f"[dist] world 1 {name_}: first {kid} launch vs plain "
@@ -2305,8 +2801,9 @@ def main(out_dir):
                 json.load(f_))
     shutil.rmtree(ddir)
     ymax = float(np.abs(ylong).max())
-    for i_, name_ in enumerate(list(dist1)[:5]):
-        X1, info1 = w1_out[i_]
+    for i_, (name_, _, _, kind_) in enumerate(
+            dist_calls(parallel, None, {}, DIST_WORLD)):
+        X1, info1 = w1_out[name_]
         X2, g2, rc2 = w2[f"x{i_}"], w2[f"gap{i_}"], w2[f"rc{i_}"]
         g1 = info1.gap.cpu().numpy()
         rec = {"wall_ms": float(w2[f"wall{i_}"]),
@@ -2314,16 +2811,20 @@ def main(out_dir):
                "comm": dict(zip((k_.lower() for k_ in COMM),
                                 w2[f"comm{i_}"].tolist())),
                "host_syncs": int(w2[f"syncs{i_}"]), "rc": rc2.tolist()}
-        if i_ == 3:
+        if kind_ in ("long1d", "cols", "cols_pi"):
+            scale_ = ymax if kind_ == "long1d" else cols_ref(name_)[1]
             e_ = float(np.abs(X2.astype(np.float64) - X1).max())
             print(f"[dist] world {DIST_WORLD} {name_}: max|x - x_world1| = "
-                  f"{e_:.3e} (bar 1e-5 x {ymax:.3e}), rc {int(rc2[0])}")
-            check(e_ <= 1e-5 * ymax and int(rc2[0]) == RC_OK,
+                  f"{e_:.3e} (bar 1e-5 x {scale_:.3e}), rc {rc2.tolist()}, "
+                  f"sweeps {w2[f'iters{i_}'].tolist()} (world 1 "
+                  f"{info1.iters.cpu().numpy().tolist()})")
+            check(e_ <= 1e-5 * scale_ and (kind_ != "long1d"
+                                           or int(rc2[0]) == RC_OK),
                   f"dist world {DIST_WORLD} {name_} parts from world 1")
             rec.update(max_abs_err=e_)
         else:
-            F1, Fr_, gr_ = dist_objective(i_, X1)
-            F2, _, _ = dist_objective(i_, X2)
+            F1, Fr_, gr_ = dist_objective(kind_, X1)
+            F2, _, _ = dist_objective(kind_, X2)
             F1, F2 = np.atleast_1d(F1), np.atleast_1d(F2)
             rnd = F_ROUND * np.abs(F1)
             ok = (np.all(F2 - F1 <= g2 + rnd) and np.all(F1 - F2 <= g1 + rnd)
@@ -2653,9 +3154,13 @@ def main(out_dir):
                      for _, y_, lf_, w0_, kw_ in calls]
         kernel_ms = cuda_ms(lambda: [f() for f in launchers]) / len(calls)
         del launchers
-        plain_ms = cuda_ms(lambda: replay(B1.pn_tv1_fused_plain),
-                           reps=1) / len(calls)
-        Bs, ns = shp
+        # the plain version over the shape's first PLAIN_SAMPLE launches:
+        # at ~25 ms a launch it would take ~30 s over the 1024^2 fibers'
+        # several hundred
+        sample = calls[:PLAIN_SAMPLE]
+        plain_ms = cuda_ms(lambda: replay(B1.pn_tv1_fused_plain, sample),
+                           reps=1) / len(sample)
+        Bs, ns, lam_kind = shp
         per_el = sum(8 + 4 * (w0_ is not None) + 4 * (lf_ is not None)
                      + 4 * bool(kw_.get("return_dual", True))
                      for _, _, lf_, w0_, kw_ in calls) / len(calls)
@@ -2664,7 +3169,7 @@ def main(out_dir):
                               + Bs * (PN_OPS_INIT_WARM if s["warm"]
                                       else PN_OPS_INIT)))
         kern.append(dict(
-            name=f"B1 pn_tv1_fused ({Bs}x{ns} "
+            name=f"B1 pn_tv1_fused ({Bs}x{ns} {lam_kind} lam "
                  f"{'warm' if s['warm'] else 'cold'}, {', '.join(s['paths'])})",
             route="cuda", source="proxtv_tpu_torch/csrc/pn_fused.cu",
             replaces="proxtv_tpu/ops/kernels/pn_fused.py:329",
@@ -2692,14 +3197,57 @@ def main(out_dir):
     plain_ms = cuda_ms(lambda: B3.pdhg_chunk_plain(sched, *st, ypad, **geo,
                                                    cert=True), reps=3)
     b, f = bound_ms(Mp * Np * 4 * 9, Mp * Np * (k * PDHG_OPS_PER_STEP + 25))
+    # The 4K paths (F1) have rows of their own below; this row keeps the
+    # other main-path launches.
+    f1_paths = [f_calls["F1"][0]] + [f"dist world 1 {n_}" for n_ in dist1
+                                     if dist1[n_]["kind"] == "cert4k"]
+    b3_rest = {p_: n_ for p_, n_ in by_path["B3"].items()
+               if p_ not in f1_paths}
     kern.append(dict(name=f"B3 pdhg_chunk (cert, K={k}, {Mp}x{Np} canvas)",
                      route="cuda", source="proxtv_tpu_torch/csrc/pdhg_fused.cu",
                      replaces="proxtv_tpu/ops/kernels/pdhg_fused.py:307",
-                     launches=sum(by_path["B3"].values()),
-                     launches_by_path=by_path["B3"], max_abs_err=b3_err,
+                     launches=sum(b3_rest.values()),
+                     launches_by_path=b3_rest,
+                     max_abs_err=max(v for p_, v in b3_by_path.items()
+                                     if p_ not in f1_paths),
                      cert_rel_err=b3_rel, ms=ms, plain_ms=plain_ms,
                      bound_ms=b, bound_by=f, library_ms=None,
                      kernel_ms=kernel_ms))
+    # B3 on the 4K canvases (F1: the single-card certificate chunks, the
+    # banded image's plain chunks, transposed to 3840 x 2160): each path's
+    # first main-path chunk through the wrapper, the C entry point and the
+    # plain version; max_abs_err over all of that path's launches (3b).
+    for p_ in f1_paths:
+        _, a_, kw_ = next(c_ for c_ in b3_calls if c_[0] == p_)
+        Mp_, Np_ = a_[1].shape
+        k_, cert_ = kw_["k_steps"], bool(kw_.get("cert"))
+        outs_, launch_ = B3.bind(*a_, **{k2: v for k2, v in kw_.items()
+                                         if k2 != "tm"})
+        launch_()
+        ref_ = B3.pdhg_chunk(*a_, **kw_)
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(u_, v_)) for u_, v_ in zip(outs_, ref_)),
+              "B3's C entry point and its wrapper disagree at 4K")
+        ms_ = cuda_ms(lambda: B3.pdhg_chunk(*a_, **kw_))
+        kms_ = cuda_ms(launch_)
+        pms_ = cuda_ms(lambda: B3.pdhg_chunk_plain(*a_, **kw_), reps=3)
+        del outs_, launch_, ref_
+        fields_ = 9 + 2 * (kw_.get("wr") is not None)
+        b_, f_ = bound_ms(Mp_ * Np_ * 4 * fields_, Mp_ * Np_ * (
+            k_ * PDHG_OPS_PER_STEP + 25 * cert_))
+        kern.append(dict(
+            name=f"B3 pdhg_chunk ({'cert, ' if cert_ else ''}K={k_}, "
+                 f"{Mp_}x{Np_} canvas, {p_})",
+            route="cuda", source="proxtv_tpu_torch/csrc/pdhg_fused.cu",
+            replaces="proxtv_tpu/ops/kernels/pdhg_fused.py:307",
+            launches=by_path["B3"].get(p_, 0),
+            launches_by_path={p_: by_path["B3"].get(p_, 0)},
+            max_abs_err=b3_by_path.get(p_, 0.0), ms=ms_, plain_ms=pms_,
+            bound_ms=b_, bound_by=f_, library_ms=None, kernel_ms=kms_))
+        print(f"[B3 pdhg] {p_}: {Mp_}x{Np_} canvas, K = {k_}, "
+              f"{by_path['B3'].get(p_, 0)} launches; {ms_:.4f} ms a chunk "
+              f"(C entry {kms_:.4f}, plain {pms_:.3f}, bound {b_:.4f} by "
+              f"{f_})  ({card})")
     # B4 at each main-path shape (tv2_batched 10000x1000 cold, tvp_2d's
     # 1024x1024 fiber passes warm, tv2_1d's one fiber): the path's own
     # launches, held against the plain version on their inputs (the bars of
@@ -3125,7 +3673,8 @@ def main(out_dir):
         b_ = breakdown[name]
         top = ", ".join(f"{k_} {v:.3f} ms" for k_, v in b_["top"])
         print(f"[profile] {name}: wall {b_['wall_ms']:.3f} ms, device busy "
-              f"{b_['busy_ms']:.3f} ms, idle share {b_['idle_share']}; "
+              f"{b_['busy_ms']:.3f} ms ({b_['busy_source']}), idle share "
+              f"{b_['idle_share']}; "
               f"{b_['kernels']} kernel launches; top: {top}  ({card})")
 
     for name_, run_, t_ in (
@@ -3192,18 +3741,17 @@ def main(out_dir):
     # B6).  L1 runs only in the training cells' backwards: its device time
     # is the profiled step's (one launch, phase 6) times the cell's
     # main-path launches.
-    at_shape = {"B3": sum(by_path["B3"].values()),
-                "B6": sum(by_path["B6"].values())}
+    at_shape = {"B6": sum(by_path["B6"].values())}
     queue = {}
     for kid in counters:
         dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in (
-            *breakdown.values(), *dist_prof.values()))
+            *breakdown.values(), *dist_prof.values(), *f_prof.values()))
         if kid == "L1":
             dev_ms = sum(v["profile"]["ours"].get("L1", 0.0)
                          * by_path["L1"].get(train_main[c_]["path"], 0)
                          for c_, v in train_times.items())
-        per_shape = kid in ("B1", "B2", "B4", "B5", "D1", "D2", "D3", "D4",
-                            "L1")
+        per_shape = kid in ("B1", "B2", "B3", "B4", "B5", "D1", "D2", "D3",
+                            "D4", "L1")
         bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
                                     else at_shape.get(kid, 0))
                   for k_ in kern if k_["name"].startswith(kid + " "))
@@ -3224,7 +3772,8 @@ def main(out_dir):
                   F_ref=F_ref, gap_ref=gap_ref, F3_ref=F3_ref,
                   gap_ref3=gap_ref3, tvgen_nd_iters=int(info_3d.iters[0]),
                   tvgen_sweeps=int(info_gen.iters[0]),
-                  b1_shapes={f"{a}x{b}": v for (a, b), v in b1_shapes.items()})
+                  b1_shapes={f"{a}x{b} {c}": v
+                             for (a, b, c), v in b1_shapes.items()})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(f"[done] {report['total_s']:.1f} s")

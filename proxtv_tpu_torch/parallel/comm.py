@@ -170,6 +170,18 @@ def halo_exchange(mesh: Mesh, fields, halo: int, local: int):
     return fields
 
 
+def column_halo(mesh: Mesh, col, hop: int):
+    """The one-column halo of a column-split field: this rank sends ``col``
+    (a (..., 1) slice) to rank ``rank + hop`` and returns the slice that
+    rank ``rank - hop`` sent, zeros at the mesh's ends.  ``hop = -1`` brings
+    the first column of the rank to the right, ``hop = 1`` the last column
+    of the rank to the left.  Every rank passes the same shape; a one-rank
+    mesh has no neighbour, and nothing moves."""
+    if mesh.size == 1:
+        return torch.zeros_like(col)
+    return permute(mesh, [(col, hop)])[0]
+
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 

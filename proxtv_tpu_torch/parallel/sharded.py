@@ -103,12 +103,26 @@ def tv1_2d_sharded(Y, lam, mesh: Mesh, method: str = "dr", max_iters: int = 0,
 
     ``shard_axis="batch"``: the images split over the ranks.
     ``shard_axis="cols"``: every image's columns split over the ranks
-    (fiber parallelism for one large image) for the splitting methods
-    pd, dr and yang: the column pass runs on the ranks' whole columns, the
-    row pass on whole rows after an all-to-all transpose, and the
-    combiner's mean-change stop is all-reduced (a scalar ``lam``).  The
-    primal-dual methods span the mesh through :func:`tv1_2d_banded`
-    instead.
+    (fiber parallelism for one large image), for every method, as the JAX
+    package shards them:
+
+    *   pd, dr, yang: the column pass runs on the rank's whole columns, the
+        row pass on whole rows after an all-to-all transpose; ``lam`` is a
+        scalar or a (B,) per-image penalty (uniform per-edge weights, B1's
+        weighted fibers on the card).
+    *   condat, chambolle-pock, chambolle-pock-acc: the unfused primal-dual
+        iteration (one sweep a step, plain tensor ops, no kernel), as the
+        JAX package runs it under sharding; the row differences reach the
+        neighbour's column through a one-column halo exchange.
+    *   kolmogorov: the exact column prox on the rank's own columns (B1 on
+        the card), the row dual with the same one-column halos.
+
+    The stop's mean change and the schedule's statistic are all-reduced, so
+    every rank takes the same branch.  A per-image ``lam`` with a
+    primal-dual method or kolmogorov raises ``ValueError``, as in the JAX
+    package.  For one large image :func:`tv1_2d_banded` is the fast route:
+    kernel B3 on each rank's band, a halo exchange every K steps instead of
+    every step, and a duality-gap certificate.
     """
     if shard_axis == "batch":
         return _batch_sharded(lambda y: tv2d.tv1_2d_batched(
@@ -119,20 +133,110 @@ def tv1_2d_sharded(Y, lam, mesh: Mesh, method: str = "dr", max_iters: int = 0,
     return _tv1_2d_cols(_host(Y), lam, mesh, method.lower(), max_iters)
 
 
+_SPLITTING = ("pd", "dr", "yang")
+
+
 def _tv1_2d_cols(Y, lam, mesh, method, max_iters, cfg=DEFAULT_COMBINER):
-    """Fiber-parallel 2D combiner: the state lives column-split, (B, M,
-    N_r) a rank; the row pass transposes to (B, M_r, N) and back."""
-    if method not in ("pd", "dr", "yang"):
-        raise ValueError(f"shard_axis='cols' runs the splitting methods pd, "
-                         f"dr and yang, got {method!r}; use tv1_2d_banded "
-                         "for the primal-dual methods")
+    """Fiber-parallel 2D solve: the state lives column-split, (B, M, N_r) a
+    rank; the splitting methods' row pass transposes to (B, M_r, N) and
+    back, the primal-dual methods exchange one column with each
+    neighbour."""
+    if method not in _SPLITTING + ("kolmogorov",) + tuple(tv2d._PDHG_VARIANTS):
+        raise ValueError(f"Unknown 2D method: {method!r}")
+    per_image = (lam.ndim if torch.is_tensor(lam) else np.ndim(lam)) == 1
+    if per_image and method in tv2d._PDHG_VARIANTS:
+        raise ValueError("weighted primal-dual requires the fused kernel on "
+                         "one card; shard_axis='cols' runs it unfused, so "
+                         "use method='dr' or 'pd'")
+    if per_image and method not in _SPLITTING:
+        raise ValueError(f"method {method!r} does not support per-image "
+                         "penalties; use a scalar lam or one of pd/dr/yang")
     B, M, N = Y.shape
     P, r = mesh.size, mesh.rank
     cols = [len(c) for c in torch.tensor_split(torch.arange(N), P)]
-    rows = [len(c) for c in torch.tensor_split(torch.arange(M), P)]
     c0 = sum(cols[:r])
     Yl = Y[:, :, c0:c0 + cols[r]].to(mesh.device)
-    lam = tv2d._scalar(float(lam), Yl.dtype)
+    dt, dev = Yl.dtype, mesh.device
+    if per_image:
+        lam = torch.as_tensor(lam, dtype=dt).to(dev)
+    else:
+        lam = tv2d._scalar(float(lam), dt)
+
+    def mean_change(x, x_last):
+        """Per-image mean |x - x_last| over the whole image, all-reduced."""
+        part = torch.sum(torch.abs(x - x_last), dim=(1, 2))
+        return comm.all_reduce(mesh, part) / (M * N)
+
+    tol = cfg.stop
+    if method in _SPLITTING:
+        x, info = _cols_splitting(Yl, lam, mesh, method, max_iters, cfg,
+                                  cols, M, N, mean_change)
+    else:
+        if min(cols) == 0:
+            raise ValueError(f"shard_axis='cols' with {method!r} needs a "
+                             f"column on every rank: {N} columns over "
+                             f"{P} ranks")
+        drow, drow_t = _row_differences(mesh, r == P - 1)
+        row_edges = cols[r] - (r == P - 1)  # the row edges this rank holds
+
+        def edge_mean(t):
+            """The mean of a row-edge field over the whole image."""
+            return comm.all_reduce(mesh, torch.sum(t)) / (B * M * (N - 1))
+
+        if method == "kolmogorov":
+            x, info = tv2d._run_kolmogorov(
+                Yl, lam, lam, max_iters or cfg.max_iters_kolmogorov, tol,
+                "pn", drow=drow, drow_t=drow_t, mean_change=mean_change,
+                row_edges=row_edges)
+        else:
+            x, info = tv2d._run_pdhg(
+                Yl, lam, lam, max_iters or cfg.max_iters_condat, tol, cfg,
+                tv2d._PDHG_VARIANTS[method], drow=drow, drow_t=drow_t,
+                edge_mean=edge_mean, mean_change=mean_change,
+                row_edges=row_edges)
+    # the column blocks, padded to the widest, gathered column-major
+    w = max(cols)
+    full = comm.all_gather(mesh, torch.nn.functional.pad(
+        x, (0, w - x.shape[2])).permute(2, 0, 1).contiguous())
+    x = torch.cat([full[j * w: j * w + cols[j]] for j in range(P)])
+    return x.permute(1, 2, 0), info
+
+
+def _row_differences(mesh, last: bool):
+    """The row differences of a column-split field and their adjoint.
+
+    A rank holds the row edges that start in its columns: N_r of them, and
+    N_r - 1 on the last rank, whose last column ends the image.  ``drow``
+    reaches into the first column of the rank to the right, ``drow_t`` into
+    the last edge of the rank to the left (``comm.column_halo``, one
+    exchange each); every entry is the single-card stencil's own
+    difference, so a one-rank mesh gives ``tv2d._drow`` / ``_drow_t`` bit
+    for bit."""
+
+    def drow(X):
+        nxt = comm.column_halo(mesh, X[..., :1], -1)
+        return tv2d._drow(X if last else torch.cat([X, nxt], dim=-1))
+
+    def drow_t(U):
+        n = U.shape[-1] + last  # the rank's columns
+        tail = U[..., -1:] if U.shape[-1] else U.new_zeros(
+            U.shape[:-1] + (1,))
+        prev = comm.column_halo(mesh, tail, 1)
+        cur = torch.cat([U, torch.zeros_like(tail)], dim=-1) if last else U
+        return cur - torch.cat([prev, U[..., :n - 1]], dim=-1)
+
+    return drow, drow_t
+
+
+def _cols_splitting(Yl, lam, mesh, method, max_iters, cfg, cols, M, N,
+                    mean_change):
+    """pd, dr or yang on the rank's (B, M, N_r) column block: the column
+    pass on its own columns, the row pass on (B, M_r, N) rows after an
+    all-to-all.  ``lam``: a scalar, or a (B,) tensor of per-image
+    penalties, which the passes take as uniform per-edge weight fields."""
+    B = Yl.shape[0]
+    P, r = mesh.size, mesh.rank
+    rows = [len(c) for c in torch.tensor_split(torch.arange(M), P)]
     dt, dev = Yl.dtype, mesh.device
 
     def to_rows(V):
@@ -149,16 +253,22 @@ def _tv1_2d_cols(Y, lam, mesh, method, max_iters, cfg=DEFAULT_COMBINER):
                               [(B, rows[j], cols[r]) for j in range(P)])
         return torch.cat(got, dim=1)
 
-    def stateful(make, b, m, n, lam_):
-        """A fiber pass on the rank's (b, m, n) block; nothing to do on an
-        empty one (its state is empty too)."""
-        if b * m * n == 0:
+    def stateful(make, m, n, edges, scale):
+        """A fiber pass on the rank's (B, m, n) block; nothing to do on an
+        empty one (its state is empty too).  ``edges``: the block's edge
+        count along the pass, for per-image weights."""
+        if B * m * n == 0:
             return (lambda V, s: (V, s)), Yl.new_zeros((0,))
-        return make(b, m, n, lam_, 1.0, "pn", None, dt, dev)
+        if torch.is_tensor(lam):
+            w = torch.broadcast_to(lam[:, None, None] / scale, (B,) + edges)
+            return make(B, m, n, None, 1.0, "pn", w, dt, dev)
+        return make(B, m, n, lam / scale, 1.0, "pn", None, dt, dev)
 
-    def passes(lam_):
-        pc, s1 = stateful(tv2d._make_col_prox, B, M, cols[r], lam_)
-        pr, s2 = stateful(tv2d._make_row_prox, B, rows[r], N, lam_)
+    def passes(scale):
+        pc, s1 = stateful(tv2d._make_col_prox, M, cols[r],
+                          (M - 1, cols[r]), scale)
+        pr, s2 = stateful(tv2d._make_row_prox, rows[r], N,
+                          (rows[r], N - 1), scale)
 
         def prow(V, s):
             out, s = pr(to_rows(V), s)
@@ -166,31 +276,18 @@ def _tv1_2d_cols(Y, lam, mesh, method, max_iters, cfg=DEFAULT_COMBINER):
 
         return pc, s1, prow, s2
 
-    def mean_change(x, x_last):
-        """Per-image mean |x - x_last| over the whole image, all-reduced."""
-        part = torch.sum(torch.abs(x - x_last), dim=(1, 2))
-        return comm.all_reduce(mesh, part) / (M * N)
-
     tol = cfg.stop
     if method == "yang":
         rho = cfg.yang_rho
-        pc, s1, prow, s2 = passes(lam / tv2d._scalar(rho, dt))
-        x, info = tv2d._run_yang(Yl, pc, s1, prow, s2,
-                                 max_iters or cfg.max_iters_yang, tol, rho,
-                                 mean_change=mean_change)
-    else:
-        pc, s1, prow, s2 = passes(lam)
-        run = tv2d._run_pd if method == "pd" else tv2d._run_dr
-        cap = max_iters or (cfg.max_iters_pd if method == "pd"
-                            else cfg.max_iters_dr)
-        x, info = run(Yl, pc, s1, prow, s2, cap, tol,
-                      mean_change=mean_change)
-    # the column blocks, padded to the widest, gathered column-major
-    w = max(cols)
-    full = comm.all_gather(mesh, torch.nn.functional.pad(
-        x, (0, w - x.shape[2])).permute(2, 0, 1).contiguous())
-    x = torch.cat([full[j * w: j * w + cols[j]] for j in range(P)])
-    return x.permute(1, 2, 0), info
+        pc, s1, prow, s2 = passes(tv2d._scalar(rho, dt))
+        return tv2d._run_yang(Yl, pc, s1, prow, s2,
+                              max_iters or cfg.max_iters_yang, tol, rho,
+                              mean_change=mean_change)
+    pc, s1, prow, s2 = passes(tv2d._scalar(1.0, dt))
+    run = tv2d._run_pd if method == "pd" else tv2d._run_dr
+    cap = max_iters or (cfg.max_iters_pd if method == "pd"
+                        else cfg.max_iters_dr)
+    return run(Yl, pc, s1, prow, s2, cap, tol, mean_change=mean_change)
 
 
 def tv1_2d_sharded_fused(Y, lam, mesh: Mesh,

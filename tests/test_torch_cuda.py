@@ -1781,3 +1781,124 @@ def test_banded_world2_gloo_shares_the_card(dev, tmp_path):
     xl, _ = tv1d_long.tv1_long(t(inp["y"]), 0.7, chunk=1024, overlap=128)
     err = float(np.abs(out["b1d"] - xl.cpu().numpy()).max())
     assert err <= 1e-5 * float(np.abs(inp["y"]).max()), err
+
+
+@pytest.mark.parametrize("method", ["dr", "chambolle-pock-acc", "kolmogorov"])
+def test_cols_sharded_world1_nccl_matches_the_single_card_solve(method, dev,
+                                                                tmp_path):
+    """tv1_2d_sharded(shard_axis="cols") on a one-rank NCCL mesh: the result
+    on the card within 1e-5 of the data's size of the single-card run of
+    the same engine and sweep cap (for chambolle-pock-acc the unfused
+    iteration, tv2d._run_pdhg, which the column split runs); dr and
+    kolmogorov launch B1, chambolle-pock-acc none of B1, B3 and B6."""
+    import torch.distributed as dist
+
+    from proxtv_tpu_torch import parallel
+    from proxtv_tpu_torch.models import tv2d
+    from proxtv_tpu_torch.utils.config import DEFAULT_COMBINER as cfg
+
+    rng = np.random.RandomState(7)
+    Y = rng.randn(1, 300, 260).astype(np.float32)
+    before = {k: m.LAUNCHES.value for k, m in (("B1", PPF), ("B3", PPK),
+                                               ("B6", P3K))}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        x, info = parallel.tv1_2d_sharded(Y, 0.3, parallel.make_mesh(),
+                                          method=method, max_iters=100,
+                                          shard_axis="cols")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    got = {k: m.LAUNCHES.value - before[k]
+           for k, m in (("B1", PPF), ("B3", PPK), ("B6", P3K))}
+    if method == "chambolle-pock-acc":
+        assert got == {"B1": 0, "B3": 0, "B6": 0}, got
+    else:
+        assert got["B1"] > 0 and got["B3"] == got["B6"] == 0, got
+    assert x.is_cuda and info.iters.is_cuda
+    Yt = torch.from_numpy(Y).to(dev)
+    if method == "chambolle-pock-acc":
+        lam = tv2d._scalar(0.3, torch.float32)
+        ref, _ = tv2d._run_pdhg(Yt, lam, lam, 100, cfg.stop, cfg, "cp-acc")
+    else:
+        ref, _ = tv2d.tv1_2d_batched(Yt, 0.3, method=method, max_iters=100)
+    err = float((x - ref).abs().max())
+    assert err <= 1e-5 * float(np.abs(Y).max()), err
+
+
+@pytest.mark.parametrize("case", ["windows 1568x6400", "per-edge 10000x1000"])
+def test_pn_kernel_at_the_bench_long_and_per_edge_shapes(case, dev):
+    """B1 against its plain version (both on the card) at two of bench.py's
+    shapes: the long-signal route's 1568 windows of 6400 for a stream of 8
+    signals of 10^6 at lam 0.7 (tol_eps = 0, as the route runs them), and
+    10000 x 1000 with per-edge weights 0.5 + U[0, 1); the bars of
+    test_pn_kernel_matches_plain (x and w within 2e-3, Newton counts at
+    most 2 apart)."""
+    from proxtv_tpu_torch.ops import tv1d_long as TL
+
+    rng = np.random.RandomState(9)
+    kw = {}
+    if case.startswith("windows"):
+        S, n, chunk, overlap = 8, 1_000_000, 5120, 640
+        K, win = -(-n // chunk), chunk + 2 * overlap
+        y = torch.from_numpy((np.cumsum(rng.randn(S, n), axis=1) * 0.05
+                              + rng.randn(S, n)).astype(np.float32)).to(dev)
+        Y = TL._windows(y, K, chunk, overlap).reshape(S * K, win)
+        lam_w = TL._window_weights(torch.tensor(0.7, device=dev), False, S,
+                                   K, chunk, overlap, win, 0, n - 1,
+                                   torch.float32, dev)
+        assert tuple(Y.shape) == (1568, 6400)
+        kw["tol_eps"] = 0.0
+    else:
+        Y = torch.from_numpy(rng.randn(10000, 1000).astype(np.float32)).to(
+            dev)
+        lam_w = torch.from_numpy((0.5 + rng.rand(10000, 999)).astype(
+            np.float32)).to(dev)
+    lf = torch.cat([lam_w, lam_w.new_zeros((lam_w.shape[0], 1))], dim=1)
+    ref, wref, it_ref = PPF.pn_tv1_fused_plain(Y, lf, tb=1, **kw)
+    before = PPF.LAUNCHES.value
+    x, w, it = PPF.pn_tv1_fused(Y, lf, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    assert PPF.LAUNCHES.value == before + 1
+    assert float((x - ref).abs().max()) <= 2e-3
+    assert float((w - wref).abs().max()) <= 2e-3
+    assert int((it - it_ref).abs().max()) <= 2
+
+
+def test_pdhg_kernel_on_the_4k_canvas(dev):
+    """B3 against its plain version on the 4K UHD (2160 x 3840) image's
+    canvas: the cp-acc driver's third certificate chunk, mid-solve, taken
+    from the driver (the four fields within 1e-4, the certificate sums
+    within 1e-4 relative: the bars of test_pdhg_kernel_matches_plain)."""
+    from proxtv_tpu_torch.models import tv2d
+
+    Y = torch.from_numpy(np.random.RandomState(10).randn(1, 2160, 3840)
+                         .astype(np.float32)).to(dev)
+    seen = []
+    launch = PPK.pdhg_chunk
+
+    def tap(*a, **kw):
+        out = launch(*a, **kw)
+        if len(seen) < 3:
+            seen.append(([v.clone() if torch.is_tensor(v) else v for v in a],
+                         dict(kw)))
+        return out
+
+    PPK.pdhg_chunk = tap
+    try:
+        tv2d.tv1_2d_batched(Y, 0.3, method="chambolle-pock-acc",
+                            max_iters=24)
+    finally:
+        PPK.pdhg_chunk = launch
+    a, kw = seen[-1]
+    assert a[1].shape[1] == 3840 and kw["cert"]
+    ref = PPK.pdhg_chunk_plain(*a, **kw)
+    out = PPK.pdhg_chunk(*a, **kw)
+    torch.cuda.synchronize()
+    for o, r in zip(out[:4], ref[:4]):
+        assert float((o - r).abs().max()) <= 1e-4
+    for o, r in zip(out[4:], ref[4:]):
+        assert abs(float(o.sum()) - float(r.sum())) <= 1e-4 * abs(
+            float(r.sum()))
+

@@ -34,7 +34,9 @@ def _inputs():
         Yf=rng.randn(6, 16, 14).astype(np.float32),
         Yw=rng.randn(6, 12, 10).astype(np.float32),
         Wc=(0.5 + rng.rand(6, 11, 10)).astype(np.float32),
-        Wr=(0.5 + rng.rand(6, 12, 9)).astype(np.float32))
+        Wr=(0.5 + rng.rand(6, 12, 9)).astype(np.float32),
+        Yc2=rng.randn(2, 16, 24),                # two images, 24 columns
+        lam_pi=np.array([0.2, 0.5]))
 
 
 @pytest.fixture(scope="module")
@@ -105,6 +107,52 @@ def test_fiber_split_2d_matches_jax(batch_world):
                                max_iters=40, shard_axis="cols")
     np.testing.assert_allclose(out["cols"], np.asarray(xj), atol=1e-10)
     np.testing.assert_array_equal(out["cols_iters"], np.asarray(ij.iters))
+
+
+@pytest.mark.parametrize("method", W.COLS_METHODS)
+def test_fiber_split_2d_every_method_matches_jax(batch_world, method):
+    """Every method under column sharding, the JAX package's GSPMD run of
+    the same engine, to 1e-10 with equal sweep counts: the splitting
+    methods behind the all-to-all, the primal-dual methods (unfused, as
+    JAX runs them sharded) and kolmogorov with one-column halo exchanges
+    between the ranks each sweep."""
+    inp, out = batch_world
+    xj, ij = JP.tv1_2d_sharded(inp["Yc2"], 0.4, JP.make_mesh(WORLD),
+                               method=method, max_iters=40,
+                               shard_axis="cols")
+    np.testing.assert_allclose(out["cols_" + method], np.asarray(xj),
+                               atol=1e-10)
+    np.testing.assert_array_equal(out[f"cols_{method}_iters"],
+                                  np.asarray(ij.iters))
+    halos = int(out[f"cols_{method}_exchanges"])
+    assert (halos > 0) == (method not in W.COLS_PER_IMAGE), halos
+
+
+@pytest.mark.parametrize("method", W.COLS_PER_IMAGE)
+def test_fiber_split_2d_per_image_lam_matches_jax(batch_world, method):
+    """A (B,) lam under column sharding: uniform per-edge weight fields,
+    the column pass on the rank's (B, M-1, N_r) block and the row pass on
+    its (B, M_r, N-1) block, against the JAX package to 1e-10."""
+    inp, out = batch_world
+    xj, ij = JP.tv1_2d_sharded(inp["Yc2"], inp["lam_pi"],
+                               JP.make_mesh(WORLD), method=method,
+                               max_iters=40, shard_axis="cols")
+    np.testing.assert_allclose(out["cols_pi_" + method], np.asarray(xj),
+                               atol=1e-10)
+    np.testing.assert_array_equal(out[f"cols_pi_{method}_iters"],
+                                  np.asarray(ij.iters))
+
+
+@pytest.mark.parametrize("method", W.COLS_PER_IMAGE_RAISE)
+def test_fiber_split_2d_per_image_lam_raises_where_jax_raises(batch_world,
+                                                              method):
+    """A per-image lam with a primal-dual method or kolmogorov raises
+    ValueError under column sharding, in both packages."""
+    inp, out = batch_world
+    assert str(out["cols_pi_error_" + method]), method
+    with pytest.raises(ValueError):
+        JP.tv1_2d_sharded(inp["Yc2"], inp["lam_pi"], JP.make_mesh(WORLD),
+                          method=method, max_iters=40, shard_axis="cols")
 
 
 def _oracle(x, starts, op):

@@ -77,6 +77,15 @@ def _reset():
         getattr(debug, k).reset()
 
 
+# The column-split 2D solves beside dr: every other method on a scalar lam,
+# the per-image lam of the splitting methods, and the methods that raise on
+# a per-image lam, as the JAX package's raise.
+COLS_METHODS = ("pd", "yang", "condat", "chambolle-pock",
+                "chambolle-pock-acc", "kolmogorov")
+COLS_PER_IMAGE = ("pd", "dr", "yang")
+COLS_PER_IMAGE_RAISE = ("chambolle-pock", "kolmogorov")
+
+
 def suite_batch(mesh, inp):
     """The batch-split entry points and the column-split 2D combiner."""
     from proxtv_tpu_torch import parallel as P
@@ -98,6 +107,25 @@ def suite_batch(mesh, inp):
                                shard_axis="cols")
     out["cols"] = _np(x)
     _info("cols", info, out)
+    for m in COLS_METHODS:
+        _reset()
+        x, info = P.tv1_2d_sharded(inp["Yc2"], 0.4, mesh, method=m,
+                                   max_iters=40, shard_axis="cols")
+        out["cols_" + m] = _np(x)
+        _info("cols_" + m, info, out)
+        out["cols_" + m + "_exchanges"] = np.array(_counters()["EXCHANGES"])
+    for m in COLS_PER_IMAGE:
+        x, info = P.tv1_2d_sharded(inp["Yc2"], inp["lam_pi"], mesh, method=m,
+                                   max_iters=40, shard_axis="cols")
+        out["cols_pi_" + m] = _np(x)
+        _info("cols_pi_" + m, info, out)
+    for m in COLS_PER_IMAGE_RAISE:
+        try:
+            P.tv1_2d_sharded(inp["Yc2"], inp["lam_pi"], mesh, method=m,
+                             max_iters=40, shard_axis="cols")
+            out["cols_pi_error_" + m] = np.array("")
+        except ValueError as e:
+            out["cols_pi_error_" + m] = np.array(str(e))
     _reset()
     x, info = P.tv1_2d_sharded_fused(inp["Yf"], 0.4, mesh,
                                      method="chambolle-pock", max_iters=200)

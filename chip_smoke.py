@@ -113,7 +113,24 @@ Phases (each failure ends the run with a non-zero exit and no result line):
 6. run the training cells again, untapped: each step's forward and
    backward by CUDA events, its launches (B1, B3, L1), host syncs and label
    trips, and one profiled step a cell; then the redesign queue (each
-   kernel's device time over its main-path launches, less their bounds).
+   kernel's device time over its main-path launches, less their bounds);
+7. float64, the JAX package's float64 route of the batched TV-L1 layers
+   on the card, with B2, D1, D3 and D4 built in double (``float64_phase``;
+   ``[f64]`` lines): ``tv1_batched`` at 10000 x 1000 (D1), condat and
+   classictautstring strict at 512 x 1000 (D3, D4) and on ROADMAP C's
+   n = 11621 walk (D4), ``tv1_pn`` on the n = 1000 walk (B2),
+   ``tv1_2d_batched`` dr at 1024^2 and every 2D method at 256^2 (B2 under
+   the fiber methods; the unfused primal-dual iteration, no kernel), each
+   launching its double kernel and no float32 kernel and running no
+   kernel's plain version on the card; each double kernel held at its
+   main-path launches against its float64 plain version (D1, D3, D4 bit
+   for bit, and one past their float64 warp layouts; their plain versions
+   run on the CPU in three worker processes started after the build), the
+   outputs against float64 witnesses (the native host taut string, the
+   CPU's tv1_pn and dr, phase 3's float64 reference image, the cross-method
+   bar), and each double kernel timed through its wrapper and its C entry
+   (``B2.f64``, ``D1.f64``, ``D3.f64``, ``D4.f64`` entries of the
+   ``kernels`` line, bounds at the float64 rate).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 card line and the ``kernels`` line come before it.  Details (the report and
@@ -262,6 +279,40 @@ COLS_ITERS = 300
 # with ``margin``.
 COLS_PI_NAME = (f"tv1_2d_sharded cols {B_PI}x{M_PI}^2 per-image lam {LAM_PI} "
                 f"dr max_iters {COLS_ITERS}")
+
+
+# The float64 phase (7): the float64 route of the batched TV-L1 layers on
+# the card, with kernels B2, D1, D3 and D4 built in double.  Its bars:
+# D1, D3 and D4 bit for bit with their float64 plain versions (as in
+# float32) on every row the guards do not take, the rest within
+# 1e-12 max|y| (the guards' means summed in another order); B2 within
+# 1e-10 max|plain| of its float64 plain version (the unmasked system's
+# condition is ~4e5 at n = 1000); the full-width direct calls within
+# 1e-10 max|y| of the native host taut string (float64), D4 on ROADMAP C's
+# n = 11621 walk within 1e-9 of it (float32 lands 8.97e-3); tv1_pn within
+# 5e-4 of the CPU's float64 tv1_pn (tests/test_tv1d_l1.py's oracle bar);
+# dr at 256^2 within 1e-6 of the same call on the CPU, every other 2D
+# method within XBAR of dr at tests/test_tv2d.py's caps.
+TOL64 = {"direct_guard": 1e-12, "pcr": 1e-10, "host": 1e-10, "walk": 1e-9,
+         "pn": 5e-4, "dr_cpu": 1e-6}
+# NVIDIA's data sheet for the H100 SXM: float64 outside the tensor cores.
+PEAK_F64_FLOP_S = 34e12
+N_WALK64, LAM_WALK64 = 11621, 1.3   # ROADMAP C's D4 walk (seed 15)
+M64 = 256                           # the 2D methods' float64 image
+# The cross-method bar's runs: tests/test_tv2d.py:72's caps (1000 sweeps
+# for dr, pd and yang, 2500 iterations for the others), every method to a
+# mean change of 1e-8 (at 256^2 in float64 the default 1e-6 stops pd and
+# kolmogorov 1.02e-3 and 1.58e-3 from dr, and 1e-7 chambolle-pock-acc
+# 1.04e-3 from dr, itself ~7e-4 from where condat, chambolle-pock and
+# yang meet).
+CAPS64 = {"dr": 1000, "pd": 1000, "yang": 1000, "kolmogorov": 2500,
+          "condat": 2500, "chambolle-pock": 2500, "chambolle-pock-acc": 2500}
+STOP64 = 1e-8
+METHODS_2D = ("dr", "pd", "yang", "kolmogorov", "condat", "chambolle-pock",
+              "chambolle-pock-acc")
+# The first launches of each B2 float64 shape kept for its holds and its
+# replays (the 1024^2 dr solve launches hundreds of 1024 x 1023 systems).
+B2_KEEP = 8
 
 
 class Fail(Exception):
@@ -1049,10 +1100,20 @@ def reference_3d(V, lam, iters):
     return xh, float(gap)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flop_s=PEAK_F32_FLOP_S):
+    """The least time for the work: the bytes over the memory rate, the
+    operations over the rate of their type (float32 unless given)."""
     t_b = nbytes / PEAK_BYTES_S * 1e3
-    t_f = flops / PEAK_F32_FLOP_S * 1e3
+    t_f = flops / peak_flop_s * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def obj2d(X, Y, lam):
+    """The 2D TV-L1 prox objective of X for Y at lam, in float64."""
+    X = X.astype(np.float64)
+    return (0.5 * np.sum((X - Y) ** 2)
+            + lam * (np.abs(np.diff(X, axis=0)).sum()
+                     + np.abs(np.diff(X, axis=1)).sum()))
 
 
 # Operation counts per element, read off the CUDA sources (adds, multiplies,
@@ -1155,6 +1216,495 @@ def lp_ops_init(p):
     return 10 + lp_pow_ops(p)
 
 
+def _cpu_job(kind, *args):
+    """One float64 reference on the CPU, in a worker process of the float64
+    phase's pool (one torch thread): a direct engine's plain version
+    (``tv1d_l1.<name>``) on (y, lam), or the 2D dr solve.  Returns its
+    result as numpy arrays and its seconds."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    # The references yield the CPU to the process that drives the card.
+    os.nice(19 - os.nice(0))
+    torch.set_num_threads(1)
+    from proxtv_tpu_torch.models import tv2d
+    from proxtv_tpu_torch.ops import tv1d_l1
+
+    t0 = time.perf_counter()
+    if kind == "dr":
+        Y, lam = args
+        x, info = tv2d.tv1_2d_batched(torch.from_numpy(Y), lam, method="dr")
+        out = (x.numpy(), int(info.iters[0]), int(info.rc[0]),
+               float(info.gap[0]))
+    else:
+        y, lam = args
+        out = getattr(tv1d_l1, kind)(torch.from_numpy(y), lam).numpy()
+    return out, time.perf_counter() - t0
+
+
+_POOL = []  # the float64 phase's worker pool, stopped on every exit
+
+
+def start_cpu64(Y1, wmax):
+    """Start the float64 phase's CPU references in a pool of three worker
+    processes, while the card runs the earlier phases: the plain versions
+    of D1 (10000 x 1000), D3 and D4 (512 x 1000) at lam LAM1D on the main
+    path's rows in float64, D4's on ROADMAP C's walk, each of the three on
+    two walks one past its float64 warp layout (``wmax``), and dr on the
+    256^2 image.  Returns the inputs and the pending results."""
+    import multiprocessing
+
+    rng = np.random.RandomState(SEED + 9)
+    rng15 = np.random.RandomState(15)  # ROADMAP C's walk
+    inp = {"Y1": Y1.astype(np.float64), "Ycon": Y1[:BW].astype(np.float64),
+           "Y256": rng.randn(1, M64, M64),
+           "walk": (np.cumsum(rng15.randn(N_WALK64)) * 0.3
+                    + rng15.randn(N_WALK64))[None]}
+    for kid, n in wmax.items():
+        inp["cross " + kid] = (rng.randn(2, n + 1)
+                               + np.cumsum(rng.randn(2, n + 1), axis=1) * 0.1)
+    pool = multiprocessing.get_context("spawn").Pool(3)
+    _POOL.append(pool)
+    plain = {"D1": "tv1_tautstring_plain", "D3": "tv1_condat_plain",
+             "D4": "tv1_classic_ts_plain"}
+    jobs = {"walk": pool.apply_async(_cpu_job, (plain["D4"], inp["walk"],
+                                                LAM_WALK64)),
+            "dr 256": pool.apply_async(_cpu_job, ("dr", inp["Y256"],
+                                                  LAM2D))}
+    for kid, name in plain.items():  # the slowest (D4) first
+        jobs["cross " + kid] = pool.apply_async(
+            _cpu_job, (name, inp["cross " + kid], LAM1D))
+    for kid, y in (("D4", "Ycon"), ("D1", "Y1"), ("D3", "Ycon")):
+        jobs[kid] = pool.apply_async(_cpu_job, (plain[kid], inp[y], LAM1D))
+    return inp, jobs
+
+
+def stop_pools():
+    for pool in _POOL:
+        pool.terminate()
+        pool.join()
+    _POOL.clear()
+
+
+def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
+    """Phase 7: the float64 route of the batched TV-L1 layers on the card.
+
+    Drives, counting every kernel's launches per call (each
+    instantiation's own counter: LAUNCHES in float32, LAUNCHES_F64 in
+    float64) and with every kernel's plain version made to count any call
+    on a CUDA tensor: ``tv1_batched`` at 10000 x 1000 (D1), condat and
+    classictautstring strict at 512 x 1000 (D3, D4) and on ROADMAP C's
+    n = 11621 walk (D4's thread layout), ``tv1_pn`` on the n = 1000 walk
+    (B2), ``tv1_2d_batched`` dr at 1024^2 (the reference default and the
+    JAX package's float64 auto; B2 under tv1_pn's fibers) and every 2D
+    method at 256^2 (B2 for the fiber methods, the unfused primal-dual
+    iteration for the others).  Each call must launch its float64 kernel,
+    no float32 kernel and no plain version on the card.  Then holds each
+    double kernel at its main-path launches (and D1, D3, D4 one past their
+    float64 warp layouts) against its float64 plain version, the outputs
+    against float64 witnesses (TOL64), and times each double kernel
+    through its wrapper and its C entry.  Returns (kernels line entries,
+    report)."""
+    import torch
+
+    from proxtv_tpu_torch.models import tv2d
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import pcr as B2
+    from proxtv_tpu_torch.runtime import native
+    from proxtv_tpu_torch.utils import debug
+    from proxtv_tpu_torch.utils.config import CombinerConfig
+    from proxtv_tpu_torch.utils.info import RC_OK
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    D = {kid: kernel_module(kid) for kid in ("D1", "D3", "D4")}
+    fns = {"D1": "tautstring", "D3": "condat", "D4": "classic_ts"}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    counters = {kid: kernel_module(kid).LAUNCHES for kid in WRAPPERS}
+    counters.update({kid + ".f64": kernel_module(kid).LAUNCHES_F64
+                     for kid in ("B2", "D1", "D3", "D4")})
+    plain_on_card = debug.Counter()
+    saved, b2_calls, tap_on = [], {}, [False]
+
+    def trip(mod, name):  # a plain version called on a CUDA tensor counts
+        orig = getattr(mod, name)
+
+        def f(y, *a, **k):
+            plain_on_card.value += bool(torch.is_tensor(y) and y.is_cuda)
+            return orig(y, *a, **k)
+
+        saved.append((mod, name, orig))
+        setattr(mod, name, f)
+
+    def tap_b2(rhs, mask=None, diag_shift=None):
+        if tap_on[0] and rhs.dtype == f64:
+            rec = b2_calls.setdefault(tuple(rhs.shape), [0, []])
+            rec[0] += 1
+            if len(rec[1]) < B2_KEEP:
+                rec[1].append((rhs.clone(), None if mask is None
+                               else mask.clone(), None if diag_shift is None
+                               else diag_shift.clone()))
+        return launch_b2(rhs, mask=mask, diag_shift=diag_shift)
+
+    for name in ("tv1_tautstring_plain", "tv1_condat_plain",
+                 "tv1_classic_ts_plain", "tv1_dp_plain"):
+        trip(tv1d_l1, name)
+    trip(B2, "pcr_spd_solve_plain")
+    trip(kernel_module("B1"), "pn_tv1_fused_plain")
+    trip(kernel_module("B3"), "pdhg_chunk_plain")
+    launch_b2 = B2.pcr_spd_solve
+    saved.append((B2, "pcr_spd_solve", launch_b2))
+    B2.pcr_spd_solve = tap_b2
+    calls, launches = {}, {k: 0 for k in ("B2.f64", "D1.f64", "D3.f64",
+                                          "D4.f64")}
+
+    def run64(name, fn, must):
+        for c in counters.values():
+            c.reset()
+        plain_on_card.reset()
+        debug.HOST_SYNCS.reset()
+        tap_on[0] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        tap_on[0] = False
+        got = {k: c.value for k, c in counters.items() if c.value}
+        calls[name] = {"seconds": sec, "launches": got,
+                       "host_syncs": debug.HOST_SYNCS.value,
+                       "plain_on_card": plain_on_card.value}
+        print(f"[f64] {name}: {sec:.3f} s, launches {got}, host syncs "
+              f"{debug.HOST_SYNCS.value}, plain versions on the card "
+              f"{plain_on_card.value}")
+        for k in must:
+            check(got.get(k, 0) > 0, f"{name} did not launch {k}")
+        check(all(k.endswith(".f64") and k in must for k in got),
+              f"{name} launched {sorted(got)}, not only {must}")
+        check(plain_on_card.value == 0,
+              f"{name} ran a kernel's plain version on the card")
+        for k in must:
+            launches[k] += got[k]
+        return res
+
+    try:
+        xs = {}
+        Y1d, Ycon = t(inp["Y1"]), t(inp["Ycon"])
+        walk = inp["walk"]
+        xs["D1"] = run64(f"tv1_batched {B1D}x{N1D} lam {LAM1D} float64",
+                         lambda: tv1d_l1.tv1_batched(Y1d, LAM1D), ["D1.f64"])
+        xs["D3"] = run64(f"tv1_batched {BW}x{N1D} lam {LAM1D} condat strict "
+                         "float64", lambda: tv1d_l1.tv1_batched(
+                             Ycon, LAM1D, method="condat", strict=True),
+                         ["D3.f64"])
+        xs["D4"] = run64(f"tv1_batched {BW}x{N1D} lam {LAM1D} "
+                         "classictautstring strict float64",
+                         lambda: tv1d_l1.tv1_batched(
+                             Ycon, LAM1D, method="classictautstring",
+                             strict=True), ["D4.f64"])
+        xs["walk"] = run64(f"tv1_batched walk n={N_WALK64} lam {LAM_WALK64} "
+                           "classictautstring strict float64",
+                           lambda: tv1d_l1.tv1_batched(
+                               t(walk), LAM_WALK64,
+                               method="classictautstring", strict=True),
+                           ["D4.f64"])
+        y1d = t(y1[None])
+        x_pn, info_pn = run64(f"tv1_pn walk n={N1D} lam 2.0 float64",
+                              lambda: tv1d_l1.tv1_pn(y1d, 2.0), ["B2.f64"])
+        Y2d = t(Y2.astype(np.float64)[None])
+        x_dr, info_dr = run64(f"tv1_2d_batched {M2D}^2 lam {LAM2D} dr "
+                              "float64", lambda: tv2d.tv1_2d_batched(
+                                  Y2d, LAM2D, method="dr"), ["B2.f64"])
+        x_dr7, info_dr7 = run64(
+            f"tv1_2d_batched {M2D}^2 lam {LAM2D} dr float64, mean change "
+            "1e-7, max_iters 200", lambda: tv2d.tv1_2d_batched(
+                Y2d, LAM2D, method="dr", max_iters=200,
+                cfg=CombinerConfig(stop=1e-7)), ["B2.f64"])
+        Y256 = t(inp["Y256"])
+        x256 = {"dr": run64(f"tv1_2d_batched {M64}^2 lam {LAM2D} dr float64",
+                            lambda: tv2d.tv1_2d_batched(Y256, LAM2D,
+                                                        method="dr"),
+                            ["B2.f64"])}
+        for m in METHODS_2D:
+            x256[m + " c"] = run64(
+                f"tv1_2d_batched {M64}^2 lam {LAM2D} {m} float64, mean "
+                f"change {STOP64}, max_iters {CAPS64[m]}",
+                lambda m=m: tv2d.tv1_2d_batched(
+                    Y256, LAM2D, method=m, max_iters=CAPS64[m],
+                    cfg=CombinerConfig(stop=STOP64)),
+                ["B2.f64"] if m in ("dr", "pd", "yang", "kolmogorov")
+                else [])
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+    t_drive = time.perf_counter() - t_phase
+
+    # -- holds ----------------------------------------------------------
+    rep = {"calls": calls, "holds": {}}
+    holds = rep["holds"]
+    t0 = time.perf_counter()
+    cpu = {k: j.get(timeout=900) for k, j in jobs.items()}
+    t_wait = time.perf_counter() - t0
+
+    def bit_hold(kid, y, out, ref, what, lam=LAM1D):
+        """Bit for bit on the rows the guards do not take, within
+        TOL64["direct_guard"] of max|y| on the rows they take."""
+        out = out.cpu().numpy() if torch.is_tensor(out) else out
+        n = y.shape[1]
+        dy = np.abs(np.diff(y, axis=1)).max(axis=1)
+        deg = lam >= (float(n) * n) * dy
+        same = bool((out[~deg] == ref[~deg]).all())
+        e = float(np.abs(out - ref).max()) / max(1.0, float(np.abs(y).max()))
+        holds[f"{kid}.f64 {what}"] = {"bit_for_bit": same, "max_abs_err": e,
+                                      "degenerate_rows": int(deg.sum())}
+        print(f"[f64 {kid}] {what}: bit for bit with the float64 plain "
+              f"version on {int((~deg).sum())} rows: {same}; max|kernel - "
+              f"plain| / max|y| = {e:.3e} ({int(deg.sum())} degenerate rows)")
+        check(same and e <= TOL64["direct_guard"],
+              f"{kid}.f64 {what} disagrees with its plain version")
+        return e
+
+    err64 = {}
+    for kid, key, y in (("D1", "D1", inp["Y1"]), ("D3", "D3", inp["Ycon"]),
+                        ("D4", "D4", inp["Ycon"]),
+                        ("D4", "walk", inp["walk"])):
+        ref, _ = cpu[key]
+        err64[key] = bit_hold(kid, y, xs[key], ref,
+                              f"main path {y.shape[0]}x{y.shape[1]}",
+                              LAM_WALK64 if key == "walk" else LAM1D)
+    wmax = {}
+    for kid in ("D1", "D3", "D4"):
+        y = inp["cross " + kid]
+        wmax[kid] = D[kid].warp_max_n(f64)
+        check(y.shape[1] == wmax[kid] + 1, "the crossing is not one past "
+              f"{kid}'s float64 warp layout")
+        out = getattr(D[kid], fns[kid])(t(y), LAM1D)
+        torch.cuda.synchronize()
+        ref, _ = cpu["cross " + kid]
+        bit_hold(kid, y, out, ref, f"thread layout {y.shape[0]}x"
+                 f"{y.shape[1]} (warp layout to {wmax[kid]})")
+    check(native.available(), "the native host engine did not build")
+    t0 = time.perf_counter()
+    host = {"Y1": native.tv1_batch_host(inp["Y1"], LAM1D),
+            "Ycon": native.tv1_batch_host(inp["Ycon"], LAM1D),
+            "walk": native.tv1_host(walk[0], LAM_WALK64)[None]}
+    t_host = time.perf_counter() - t0
+    for name, x, y, key, bar in (
+            ("tv1_batched (D1)", xs["D1"], inp["Y1"], "Y1", TOL64["host"]),
+            ("condat strict (D3)", xs["D3"], inp["Ycon"], "Ycon",
+             TOL64["host"]),
+            ("classictautstring strict (D4)", xs["D4"], inp["Ycon"], "Ycon",
+             TOL64["host"]),
+            (f"classictautstring walk n={N_WALK64} (D4)", xs["walk"], walk,
+             "walk", None)):
+        e = float(np.abs(x.cpu().numpy() - host[key]).max())
+        lim = TOL64["walk"] if bar is None else bar * max(
+            1.0, float(np.abs(y).max()))
+        holds[name + " vs host"] = {"max_abs_err": e, "bar": lim}
+        print(f"[f64 check] {name} vs the float64 host taut string: "
+              f"max|dx| = {e:.3e} (bar {lim:.3e})")
+        check(e <= lim, f"{name} in float64 is {e} from the host engine")
+    x_pn_ref, info_pn_ref = tv1d_l1.tv1_pn(torch.from_numpy(y1[None]), 2.0)
+    e = float((x_pn.cpu() - x_pn_ref).abs().max())
+    holds["tv1_pn vs CPU float64"] = {"max_abs_err": e,
+                                      "iters": int(info_pn.iters[0]),
+                                      "iters_cpu": int(info_pn_ref.iters[0])}
+    print(f"[f64 check] tv1_pn n={N1D} vs the CPU's float64 tv1_pn: "
+          f"max|dx| = {e:.3e} (bar {TOL64['pn']}), iterations "
+          f"{int(info_pn.iters[0])} / {int(info_pn_ref.iters[0])}, rc "
+          f"{int(info_pn.rc[0])}")
+    check(e <= TOL64["pn"], "tv1_pn in float64 disagrees with the CPU")
+    check(int(info_pn.rc[0]) == RC_OK, "tv1_pn in float64 did not certify")
+
+    Y2d_np = Y2.astype(np.float64)
+    fbar = 0.5 * XBAR ** 2 * M2D * N2D
+    for name, x, info in (("dr (35 sweeps)", x_dr, info_dr),
+                          ("dr, mean change 1e-7", x_dr7, info_dr7)):
+        xn = x[0].cpu().numpy()
+        check(np.isfinite(xn).all() and xn.shape == (M2D, N2D),
+              f"dr {name}: bad output")
+        dF = obj2d(xn, Y2d_np, LAM2D) - F_ref
+        e = float(np.abs(xn - x_ref).max())
+        holds[f"dr 1024^2 {name}"] = {
+            "F_minus_F_ref": dF, "max_abs_err_ref": e,
+            "iters": int(info.iters[0]), "rc": int(info.rc[0]),
+            "delta": float(info.gap[0])}
+        print(f"[f64 check] tv1_2d_batched {M2D}^2 {name}: certificate rc "
+              f"{int(info.rc[0])}, {int(info.iters[0])} sweeps, last mean "
+              f"change {float(info.gap[0]):.3e}; F - F_ref = {dF:.4e}, "
+              f"max|x - x_ref| = {e:.3e} (x_ref: float64 Chambolle-Pock on "
+              "the card)")
+    e32 = float(np.abs(x_dr[0].cpu().numpy() - x_dr32).max())
+    holds["dr 1024^2 float64 vs float32"] = {"max_abs_err": e32}
+    print(f"[f64 check] dr {M2D}^2 35 sweeps, float64 vs float32 on the "
+          f"card: max|dx| = {e32:.3e}")
+    check(int(info_dr7.rc[0]) == RC_OK,
+          "dr in float64 did not certify at mean change 1e-7")
+    dF7 = holds["dr 1024^2 dr, mean change 1e-7"]["F_minus_F_ref"]
+    check(dF7 <= fbar, f"dr float64: F - F_ref = {dF7} over the objective "
+          f"form of the bar ({fbar})")
+    (x_c, it_c, rc_c, gap_c), s_c = cpu["dr 256"]
+    x_g = x256["dr"][0].cpu().numpy()
+    it_g, rc_g = int(x256["dr"][1].iters[0]), int(x256["dr"][1].rc[0])
+    e = float(np.abs(x_g - x_c).max())
+    holds["dr 256^2 vs CPU"] = {"max_abs_err": e, "card": [it_g, rc_g,
+                                float(x256["dr"][1].gap[0])],
+                                "cpu": [it_c, rc_c, gap_c]}
+    print(f"[f64 check] dr {M64}^2 on the card vs the same call in float64 on "
+          f"the CPU ({s_c:.1f} s there): max|dx| = {e:.3e} (bar "
+          f"{TOL64['dr_cpu']}); certificates: card {it_g} sweeps rc {rc_g} "
+          f"mean change {float(x256['dr'][1].gap[0]):.3e}, CPU {it_c} sweeps "
+          f"rc {rc_c} mean change {gap_c:.3e}")
+    check(e <= TOL64["dr_cpu"], "dr 256^2 in float64 disagrees with the CPU")
+    base = x256["dr c"][0].cpu().numpy()
+    x_r, gap_r = reference_2d(Y256[0], LAM2D, 24000)
+    x_r = x_r.cpu().numpy()
+    holds["256^2 float64 reference"] = {"gap": gap_r}
+    for m in METHODS_2D:
+        xm, info = x256[m + " c"]
+        xm = xm[0].cpu().numpy()
+        e = float(np.abs(xm - base).max())
+        e_r = float(np.abs(xm - x_r).max())
+        holds[f"{m} 256^2 vs dr"] = {"max_abs_err": e,
+                                     "max_abs_err_ref": e_r,
+                                     "iters": int(info.iters[0]),
+                                     "rc": int(info.rc[0])}
+        print(f"[f64 check] {m} {M64}^2 (mean change {STOP64}, cap "
+              f"{CAPS64[m]}: {int(info.iters[0])} iterations, rc "
+              f"{int(info.rc[0])}) "
+              f"vs dr at mean change {STOP64}: max|dx| = {e:.3e} (bar "
+              f"{XBAR}); vs 24000 float64 Chambolle-Pock iterations on the "
+              f"card (gap {gap_r:.2e}): {e_r:.3e}")
+        check(np.isfinite(xm).all() and e <= XBAR,
+              f"{m} in float64 is {e} from dr")
+
+    # -- B2.f64 at its main-path launches: held and timed ---------------
+    kern = []
+    for (Bs, ns), (count, kept) in sorted(b2_calls.items()):
+        worst = 0.0
+        launchers = []
+        for r_, m_, s_ in kept:
+            ref = B2.pcr_spd_solve_plain(r_, mask=m_, diag_shift=s_)
+            out = B2.pcr_spd_solve(r_, mask=m_, diag_shift=s_)
+            worst = max(worst, float((out - ref).abs().max())
+                        / max(1e-300, float(ref.abs().max())))
+            o2, launch = B2.bind(r_, mask=m_, diag_shift=s_)
+            launch()
+            torch.cuda.synchronize()
+            check(bool(torch.equal(o2, out)),
+                  "B2.f64's C entry point and its wrapper disagree")
+            launchers.append(launch)
+        print(f"[f64 B2] main path {Bs}x{ns} ({count} launches, {len(kept)} "
+              f"held): max|kernel - plain| / max|plain| = {worst:.3e} (bar "
+              f"{TOL64['pcr']})")
+        check(worst <= TOL64["pcr"], f"B2.f64 {Bs}x{ns} disagrees")
+
+        def replay(fn, kept=kept):
+            for r_, m_, s_ in kept:
+                fn(r_, mask=m_, diag_shift=s_)
+
+        def replay_c(launchers=launchers):
+            for launch in launchers:
+                launch()
+
+        ms = cuda_ms(lambda: replay(B2.pcr_spd_solve)) / len(kept)
+        kernel_ms = cuda_ms(replay_c) / len(kept)
+        plain_ms = cuda_ms(lambda: replay(B2.pcr_spd_solve_plain),
+                           reps=3) / len(kept)
+        nbytes = sum(Bs * ns * 16 + (Bs * ns if m_ is not None else 0)
+                     + (Bs * 8 if s_ is not None else 0)
+                     for _, m_, s_ in kept) / len(kept)
+        b, f = bound_ms(nbytes, Bs * ns * TRIDIAG_OPS, PEAK_F64_FLOP_S)
+        kern.append(dict(
+            name=f"B2.f64 pcr_spd_solve_f64 ({Bs}x{ns})", route="cuda",
+            source="proxtv_tpu_torch/csrc/pcr.cu",
+            replaces="proxtv_tpu/ops/kernels/pcr.py:100",
+            launches=count, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=f, library_ms=None, kernel_ms=kernel_ms,
+            dtype="float64"))
+    check(sum(k_["launches"] for k_ in kern) == launches["B2.f64"],
+          "the B2.f64 tap missed main-path launches")
+
+    # -- D1.f64, D3.f64, D4.f64: timed at their main-path shapes ---------
+    ops_pp = {"D1": TS_OPS_PER_POINT, "D3": CONDAT_OPS_PER_POINT,
+              "D4": CLASSIC_OPS_PER_POINT}
+    line = {"D1": 334, "D3": 468, "D4": 854}
+    for kid, key, y, lam, what in (
+            ("D1", "D1", Y1d, LAM1D, f"{B1D}x{N1D}"),
+            ("D3", "D3", Ycon, LAM1D, f"{BW}x{N1D}"),
+            ("D4", "D4", Ycon, LAM1D, f"{BW}x{N1D}"),
+            ("D4", "walk", t(walk), LAM_WALK64, f"1x{N_WALK64}")):
+        mod, fn = D[kid], getattr(D[kid], fns[kid])
+        out, launch = mod.bind(y, lam)
+        launch()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, fn(y, lam))),
+              f"{kid}.f64's C entry point and its wrapper disagree")
+        ms = cuda_ms(lambda: fn(y, lam))
+        kernel_ms = cuda_ms(launch)
+        Bs, ns = y.shape
+        b, f = bound_ms(Bs * ns * 16, Bs * ns * ops_pp[kid],
+                        PEAK_F64_FLOP_S)
+        src = {"D1": "tautstring", "D3": "condat", "D4": "classic_ts"}[kid]
+        kern.append(dict(
+            name=f"{kid}.f64 {fns[kid]}_tv1_f64 ({what} scalar)",
+            route="cuda", source=f"proxtv_tpu_torch/csrc/{src}.cu",
+            replaces=f"proxtv_tpu/ops/tv1d_l1.py:{line[kid]} (XLA lock-step "
+                     "scan; no TPU kernel)",
+            launches=1, max_abs_err=err64[key], ms=ms,
+            plain_ms=cpu[key][1] * 1e3, plain_device="cpu", bound_ms=b,
+            bound_by=f, library_ms=None, kernel_ms=kernel_ms,
+            dtype="float64"))
+    for kid in ("D1", "D3", "D4"):
+        n_kern = sum(k_["launches"] for k_ in kern
+                     if k_["name"].startswith(kid + ".f64 "))
+        check(n_kern == launches[kid + ".f64"],
+              f"{kid}.f64: {n_kern} timed launches, "
+              f"{launches[kid + '.f64']} on the path")
+    for k_ in kern:
+        print(f"[f64 time] {k_['name']}: wrapper {k_['ms']:.4f} ms, C entry "
+              f"{k_['kernel_ms']:.4f} ms, bound {k_['bound_ms']:.6f} ms "
+              f"({k_['bound_by']}), plain "
+              + f"{k_['plain_ms']:.1f} ms"
+              + (" (CPU)" if k_.get("plain_device") == "cpu" else "")
+              + f", launches {k_['launches']}  ({card})")
+    # Wall of each float64 main-path call by CUDA events, and the device's
+    # share of it for the 1D calls and dr (one profiled call each).
+    timed = {
+        "tv1_batched 10000x1000 D1.f64": lambda: tv1d_l1.tv1_batched(
+            Y1d, LAM1D),
+        "tv1_batched 512x1000 condat D3.f64": lambda: tv1d_l1.tv1_batched(
+            Ycon, LAM1D, method="condat", strict=True),
+        "tv1_batched 512x1000 classictautstring D4.f64":
+            lambda: tv1d_l1.tv1_batched(Ycon, LAM1D,
+                                        method="classictautstring",
+                                        strict=True),
+        "tv1_pn n=1000 B2.f64": lambda: tv1d_l1.tv1_pn(y1d, 2.0),
+        "tv1_2d_batched 1024^2 dr B2.f64": lambda: tv2d.tv1_2d_batched(
+            Y2d, LAM2D, method="dr"),
+    }
+    walls = {}
+    for name, fn in timed.items():
+        ms_ = cuda_ms(fn, reps=3 if "1024" in name else 20)
+        prof = profile_call(fn, windows=1)
+        walls[name] = {"ms": ms_, "profile": prof}
+        busy = prof["busy_ms"]
+        busy = busy if isinstance(busy, str) else f"{busy:.3f}"
+        print(f"[f64 time] {name}: {ms_:.4f} ms by CUDA events; profiled "
+              f"wall {prof['wall_ms']:.3f} ms, device busy {busy} ms, "
+              f"idle share {prof['idle_share']}  ({card})")
+    rep.update(walls=walls, seconds={
+        "drive": t_drive, "wait_cpu": t_wait, "host_engine": t_host,
+        "cpu_jobs": {k: v[1] for k, v in cpu.items()},
+        "phase": time.perf_counter() - t_phase})
+    print(f"[f64] phase: {rep['seconds']['phase']:.1f} s (driving "
+          f"{t_drive:.1f} s, then waiting {t_wait:.1f} s for the CPU "
+          "references, which ran in three worker processes beside the "
+          "earlier phases)")
+    return kern, rep
+
+
 def main(out_dir):
     import torch
 
@@ -1197,6 +1747,10 @@ def main(out_dir):
     report = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     t_all = time.perf_counter()
+
+    def stamp(what):
+        """A line with the run's seconds so far, at each phase's end."""
+        print(f"[t] {what}: {time.perf_counter() - t_all:.1f} s")
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1255,6 +1809,9 @@ def main(out_dir):
               + rng8.randn(N_LONG7)).astype(np.float32)       # F4's signal
     errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0,
             "lp": 0.0, "direct": 0.0}
+    # The float64 phase's CPU references start now, in worker processes.
+    inp64, jobs64 = start_cpu64(Y1, {kid: kernel_module(kid).warp_max_n(
+        torch.float64) for kid in ("D1", "D3", "D4")})
 
     # -- 2. kernels vs plain versions at main-path shapes -----------------
     d = t((0.01 * rng.randn(B1D, N1D)).astype(np.float32))
@@ -1557,6 +2114,7 @@ def main(out_dir):
         scale = max(1.0, float(y.abs().max()))
         return float((out - ref).abs().max()) / scale, sec
 
+    stamp("phase 2 done")
     # -- 3. main path -------------------------------------------------------
     counters = {"B1": B1.LAUNCHES, "B2": B2.LAUNCHES, "B3": B3.LAUNCHES,
                 "B4": B4.LAUNCHES, "B5": B5.LAUNCHES, "B6": B6.LAUNCHES,
@@ -1675,12 +2233,6 @@ def main(out_dir):
             check(debug.HOST_ROUTE.value == 0,
                   f"{name} gave way to the native host route")
         return res
-
-    def obj2d(X, Y, lam):
-        X = X.astype(np.float64)
-        return (0.5 * np.sum((X - Y) ** 2)
-                + lam * (np.abs(np.diff(X, axis=0)).sum()
-                         + np.abs(np.diff(X, axis=1)).sum()))
 
     B1.pn_tv1_fused = tap_b1  # all five restored after the main path
     B2.pcr_spd_solve = tap_b2
@@ -1868,6 +2420,7 @@ def main(out_dir):
     check(int(info_f1.rc[0]) == RC_OK, "F1 (4K cp-acc) did not certify")
     x_f3, info_f3 = f_out["F3"]
     check(bool((info_f3.rc == RC_OK).all()), "F3 (tv1_long) did not certify")
+    stamp("the main path's calls done")
     # -- 3e. dist, world 1: the parallel path on a one-rank NCCL mesh ------
     # Counted and tapped with the main path (phase 3b holds its B1 and B3
     # launches, phase 4 replays them); the first B1, B3 and B6 launch of
@@ -1932,6 +2485,7 @@ def main(out_dir):
     D4.classic_ts = launch_d["D4"]
     L1.component_labels = launch_l1
 
+    stamp("train and dist (world 1) calls done")
     # -- 3b. B1 against its plain version at the main path's own inputs ----
     # Every recorded launch, by shape: the 1024^2 dr fibers and the tvgen
     # fibers are warm-started from the duals of the sweeps before them.
@@ -2636,6 +3190,7 @@ def main(out_dir):
                               host_syncs=m_["host_syncs"])
     xc["bench F1-F3"] = f_checks
 
+    stamp("phase 3's checks done")
     # -- 3e. dist: world 1 held against the references, timed; then the
     # gloo world of DIST_WORLD ranks on this card, held against world 1 ----
     # By kind (dist_calls): 2D and 3D by the certified-gap rule against the
@@ -2847,6 +3402,7 @@ def main(out_dir):
           f"checks, timing and profiles, and the gloo world of "
           f"{DIST_WORLD} on this card)")
 
+    stamp("the dist phase done")
     # -- 3c. past the TPU's lane limits (ROADMAP C1) -----------------------
     # Each instance on the card against the same call in float64 on the
     # CPU, at the bars the port already uses: 2e-3 on 1D TV-L1 outputs (the
@@ -2978,6 +3534,7 @@ def main(out_dir):
               f"C1 {name}: rc {rc_c} (float64 {rc_r})")
         xc["C1 " + name] = {"max_abs_err": e_, "rc": rc_c, "rc_ref": rc_r}
 
+    stamp("phase 3c done")
     # -- 4. times -----------------------------------------------------------
     # Whole calls, numpy in and out (CUDA events around host-synchronous
     # calls: wall time on the card's clock).
@@ -3604,6 +4161,7 @@ def main(out_dir):
               f"{k_['bound_by']}{extra}), {k_['launches']} launches on the "
               f"main path {k_['launches_by_path']}  ({card})")
 
+    stamp("phase 4 done")
     # -- 5. where the time goes: device time by kernel, idle share -------
     breakdown = {}
     for name, fn in (("tv1_2d auto", lambda: ptv.tv1_2d(Y2, LAM2D)),
@@ -3692,6 +4250,7 @@ def main(out_dir):
               f"{b_['ours'].get('B1', 0.0):.3f} ms), host syncs "
               f"{m_['host_syncs']}  ({card})")
 
+    stamp("phase 5 done")
     # -- 6. train: each cell again, untapped, step by step; one profiled
     # step a cell ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -3763,6 +4322,13 @@ def main(out_dir):
               f"{q['launches']} main-path launches, bounds {q['bound_ms']:.4f}"
               f" ms: {q['gap_ms']:.4f} ms over  ({card})")
 
+    stamp("phase 6 done")
+    # -- 7. float64 on the card ------------------------------------------
+    kern64, report["float64"] = float64_phase(card, inp64, jobs64, Y2, y1,
+                                              x_ref, F_ref, x_dr)
+    kern += kern64
+    stop_pools()
+
     report.update(errors=errs, main_path=main, times=times, kernels=kern,
                   queue=queue,
                   breakdown=breakdown,
@@ -3804,3 +4370,5 @@ if __name__ == "__main__":
     except Fail as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_pools()

@@ -13,9 +13,12 @@
 // cross (a run of the output), the other hull restarting as one segment
 // from the knot to the tube's end; after the last sample the longer hull's
 // segments are emitted.  Every operation is the plain version's
-// (tv1_classic_ts_plain) in the same order and float32 rounding, with IEEE
+// (tv1_classic_ts_plain) in the same order and rounding, with IEEE
 // division and no multiply-add, so the two agree bit for bit away from the
-// degenerate guards (direct1d.cuh).  Kept from the plain version: the
+// degenerate guards (direct1d.cuh).  The kernel is written for the
+// signal's type T and built for float (classic_ts_tv1) and double
+// (classic_ts_tv1_f64, the float64 route of tv1_batched, whose tube is
+// built from float64 prefix sums).  Kept from the plain version: the
 // both-single guard (two single-segment hulls never cross: in float32 a
 // 1-ulp tie of their merged sums at lam = 0 could fake a crossing that
 // empties a deque) and the cap of 8n + 64 events, at which a signal stops
@@ -66,9 +69,10 @@
 //
 // Two layouts by n (direct1d.cuh):
 // * n <= kWarpMaxN, one warp a signal: the two deques (n + 2 slots of 16
-//   bytes: ix, iy, the slope and ix as float32, one load or store a slot),
-//   y and the run marks in shared memory, 32 (n + 2) + 4n bytes rounded to
-//   16, plus n + 3 bytes rounded to 32: at most 227 KB at n = 6280.  All
+//   bytes: ix, iy, the slope and ix as float32, one load or store a slot;
+//   32 bytes in float64), y and the run marks in shared memory, 32 (n + 2)
+//   + 4n bytes rounded to 16, plus n + 3 bytes rounded to 32: at most
+//   227 KB at n = 6280 (float64: 64 (n + 2) + 8n, n = 3182).  All
 //   32 lanes run the events redundantly (broadcast reads, the same value
 //   written to the same slot, uniform branches).  One warp a block.
 // * n > kWarpMaxN, one thread a signal, y read from global memory and the
@@ -79,40 +83,69 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include <type_traits>
+
 #include "direct1d.cuh"
 
 namespace {
 
-using direct1d::Lam;
+using direct1d::add_rn;
+using direct1d::LamT;
+using direct1d::mul_rn;
+using direct1d::sub_rn;
 
-// A hull segment in registers: ix samples (and ix as float32), rising by
-// iy, at slope sl = iy / ix.
+// A hull segment in registers: ix samples (and ix in the signal's type T),
+// rising by iy, at slope sl = iy / ix.
+template <class T>
 struct Seg {
   int ix;
-  float ixf, iy, sl;
+  T ixf, iy, sl;
 };
 
-// A deque's slots, 16 bytes each (ix's bits, iy, slope, ix as float32),
-// one load or store a slot; slot k at [k * step].
+// A deque slot: 16 bytes in float32 (ix's bits, iy, slope, ix as float32),
+// one load or store; 32 bytes in float64 (ix's bits and iy, then slope and
+// ix as float64), two of each.
+struct Slot64 {
+  double2 a, b;
+};
+template <class T>
+using Slot = typename std::conditional<sizeof(T) == 4, float4, Slot64>::type;
+__device__ __forceinline__ Seg<float> get(const float4& v) {
+  return Seg<float>{__float_as_int(v.x), v.w, v.y, v.z};
+}
+__device__ __forceinline__ Seg<double> get(const Slot64& v) {
+  return Seg<double>{(int)__double_as_longlong(v.a.x), v.b.y, v.a.y, v.b.x};
+}
+__device__ __forceinline__ float4 make_slot(const Seg<float>& g) {
+  return make_float4(__int_as_float(g.ix), g.iy, g.sl, g.ixf);
+}
+__device__ __forceinline__ Slot64 make_slot(const Seg<double>& g) {
+  return Slot64{make_double2(__longlong_as_double(g.ix), g.iy),
+                make_double2(g.sl, g.ixf)};
+}
+
+// A deque's slots, slot k at [k * step].
+template <class T>
 struct Deque {
-  float4* s;
+  Slot<T>* s;
   size_t step;
-  __device__ __forceinline__ Seg ld(int k) const {
-    const float4 v = s[(size_t)k * step];
-    return Seg{__float_as_int(v.x), v.w, v.y, v.z};
+  __device__ __forceinline__ Seg<T> ld(int k) const {
+    const Slot<T> v = s[(size_t)k * step];
+    return get(v);
   }
-  __device__ __forceinline__ void st(int k, const Seg& g) const {
-    s[(size_t)k * step] = make_float4(__int_as_float(g.ix), g.iy, g.sl, g.ixf);
+  __device__ __forceinline__ void st(int k, const Seg<T>& g) const {
+    s[(size_t)k * step] = make_slot(g);
   }
 };
 
 // A hull: its deque, first and last live slots, and the segments of the
 // first, the last and the next-to-last slot (bel, valid while the hull
 // holds two segments or more).
+template <class T>
 struct Hull {
-  Deque q;
+  Deque<T> q;
   int f, l;
-  Seg first, top, bel;
+  Seg<T> first, top, bel;
 };
 // Which hull a merge is into: the majorant pops while the pending segment
 // lies above the last one, the minorant while it lies below.
@@ -126,60 +159,62 @@ struct Minorant {
 // One signal's events (tv1_classic_ts_plain's body), lam >= 0 and n >= 2,
 // at most cap of them (8n + 64 but in a test of the cap itself), counted
 // in Count.  yv(i) reads sample i; emit(p, v) records a run of value v
-// starting at sample p (in increasing p, from 0).  kExactSum: n < 2^24,
-// so the pending segment's ix, a sum of at most n, is exact as a float32
-// sum; otherwise it is converted from the int.
-template <bool kExactSum, class Count, class YF, class EF>
-__device__ __forceinline__ void classic_scan(YF yv, float lam, int n,
-                                             Count cap, Deque maj,
-                                             Deque mnr, EF emit) {
+// starting at sample p (in increasing p, from 0).  kExactSum: the pending
+// segment's ix, a sum of at most n, is exact as a sum in T (n < 2^24 in
+// float32, always in float64); otherwise it is converted from the int.
+template <bool kExactSum, class T, class Count, class YF, class EF>
+__device__ __forceinline__ void classic_scan(YF yv, T lam, int n,
+                                             Count cap, Deque<T> maj,
+                                             Deque<T> mnr, EF emit) {
+  using S = Seg<T>;
+  using H = Hull<T>;
   Count ev = 0;  // events so far; the event at ev == cap never runs
-  const float y0 = yv(0);
-  const float a0 = __fsub_rn(y0, lam), c0 = __fadd_rn(y0, lam);
-  Hull mj{maj, 0, 0}, mn{mnr, 0, 0};
-  mj.top = mj.first = mj.bel = Seg{1, 1.f, a0, a0};  // iy / 1 is iy
-  mn.top = mn.first = mn.bel = Seg{1, 1.f, c0, c0};
+  const T y0 = yv(0);
+  const T a0 = sub_rn(y0, lam), c0 = add_rn(y0, lam);
+  H mj{maj, 0, 0}, mn{mnr, 0, 0};
+  mj.top = mj.first = mj.bel = S{1, T(1), a0, a0};  // iy / 1 is iy
+  mn.top = mn.first = mn.bel = S{1, T(1), c0, c0};
   maj.st(0, mj.top);
   mnr.st(0, mn.top);
-  int lx = 1, ox = 0;       // the tube's end and the last knot, x
-  float ly = y0, oy = 0.f;  // ... and y
+  int lx = 1, ox = 0;     // the tube's end and the last knot, x
+  T ly = y0, oy = T(0);   // ... and y
 
   // Where p: a pop of h's last segment into the pending one (sx, sxf,
   // sy), by selects.  Then a push of the pending one at slope sl.
-  auto pop_if = [&](bool p, Hull& h, int& sx, float& sxf, float& sy) {
-    const Seg below = h.q.ld(h.l > 1 ? h.l - 2 : 0);
+  auto pop_if = [&](bool p, H& h, int& sx, T& sxf, T& sy) {
+    const S below = h.q.ld(h.l > 1 ? h.l - 2 : 0);
     sx = p ? sx + h.top.ix : sx;
-    sxf = p ? (kExactSum ? __fadd_rn(sxf, h.top.ixf) : (float)sx) : sxf;
-    sy = p ? __fadd_rn(sy, h.top.iy) : sy;
+    sxf = p ? (kExactSum ? add_rn(sxf, h.top.ixf) : (T)sx) : sxf;
+    sy = p ? add_rn(sy, h.top.iy) : sy;
     h.l -= p;
     h.top = p ? h.bel : h.top;
     h.bel = p ? below : h.bel;
   };
-  auto push = [&](Hull& h, int sx, float sxf, float sy, float sl) {
+  auto push = [&](H& h, int sx, T sxf, T sy, T sl) {
     h.l += 1;
     h.bel = h.top;
-    h.top = Seg{sx, sxf, sy, sl};
+    h.top = S{sx, sxf, sy, sl};
     h.q.st(h.l, h.top);
     if (h.l == h.f) h.first = h.top;
   };
   // A push of a unit segment with no pop before it: its slope is sy / 1,
   // and the hull, which held a segment, keeps its first.
-  auto push_unit = [&](Hull& h, float sy) {
+  auto push_unit = [&](H& h, T sy) {
     h.l += 1;
     h.bel = h.top;
-    h.top = Seg{1, 1.f, sy, sy};
+    h.top = S{1, T(1), sy, sy};
     h.q.st(h.l, h.top);
   };
   // The plain version's merge of the pending unit segment (1, sy) into one
   // hull, event by event against the cap: pop while it lies above (the
   // majorant) or below (the minorant) the last segment's slope, then push.
   // False when the cap stops the signal.
-  auto merge = [&](auto side, Hull& h, float sy) -> bool {
+  auto merge = [&](auto side, H& h, T sy) -> bool {
     constexpr bool kUp = decltype(side)::kUp;
     int sx = 1;
-    float sxf = 1.f;
+    T sxf = T(1);
     while (h.l >= h.f) {
-      const float t = __fmul_rn(sxf, h.top.sl);
+      const T t = mul_rn(sxf, h.top.sl);
       if (kUp ? !(sy > t) : !(sy < t)) break;
       if (ev++ == cap) return false;
       pop_if(true, h, sx, sxf, sy);
@@ -190,29 +225,29 @@ __device__ __forceinline__ void classic_scan(YF yv, float lam, int n,
   };
   // A knot from hull g (its first segment, of two or more), hull h
   // restarting as one segment from the knot to the tube's end at y_end.
-  auto knot = [&](Hull& g, Hull& h, float y_end) {
-    const Seg k = g.first;
+  auto knot = [&](H& g, H& h, T y_end) {
+    const S k = g.first;
     const int rx = lx - ox - k.ix;
-    const float rxf = (float)rx;
-    const float ry = __fsub_rn(__fsub_rn(y_end, oy), k.iy);
-    h.top = h.first = Seg{rx, rxf, ry, direct1d::div_whole(ry, rxf)};
+    const T rxf = (T)rx;
+    const T ry = sub_rn(sub_rn(y_end, oy), k.iy);
+    h.top = h.first = S{rx, rxf, ry, direct1d::div_whole(ry, rxf)};
     h.q.st(0, h.top);
     h.f = h.l = 0;
     g.f += 1;
-    const Seg nf = g.q.ld(g.f);
+    const S nf = g.q.ld(g.f);
     g.first = g.f == g.l ? g.top : nf;
     emit(ox, k.sl);
     ox += k.ix;
-    oy = __fadd_rn(oy, k.iy);
+    oy = add_rn(oy, k.iy);
   };
 
-  float ynext = yv(1);
+  T ynext = yv(1);
   for (int i = 1;; ++i) {
     const bool last = i == n - 1;
-    const float yi = ynext;
+    const T yi = ynext;
     if (!last) ynext = yv(i + 1);
-    float sj = last ? __fadd_rn(yi, lam) : yi;  // the pending rises
-    float sn = last ? __fsub_rn(yi, lam) : yi;
+    T sj = last ? add_rn(yi, lam) : yi;  // the pending rises
+    T sn = last ? sub_rn(yi, lam) : yi;
     if (__builtin_expect(ev + (mj.l - mj.f) + (mn.l - mn.f) + 4 <= cap, 1)) {
       // Both merges at once: the hulls are independent, and the cap cannot
       // fall among these events (at most both hulls' segments and two
@@ -222,13 +257,13 @@ __device__ __forceinline__ void classic_scan(YF yv, float lam, int n,
       bool pj = sj > mj.top.sl, pn = sn < mn.top.sl;
       if (pj || pn) {
         int xj = 1, xn = 1;
-        float fj = 1.f, fn = 1.f;
+        T fj = T(1), fn = T(1);
         do {  // a pop in each hull that pops, by selects
           pop_if(pj, mj, xj, fj, sj);
           pop_if(pn, mn, xn, fn, sn);
           ev += (Count)pj + (Count)pn;
-          pj = pj && mj.l >= mj.f && sj > __fmul_rn(fj, mj.top.sl);
-          pn = pn && mn.l >= mn.f && sn < __fmul_rn(fn, mn.top.sl);
+          pj = pj && mj.l >= mj.f && sj > mul_rn(fj, mj.top.sl);
+          pn = pn && mn.l >= mn.f && sn < mul_rn(fn, mn.top.sl);
         } while (pj || pn);
         push(mj, xj, fj, sj, direct1d::div_whole(sj, fj));
         push(mn, xn, fn, sn, direct1d::div_whole(sn, fn));
@@ -242,25 +277,25 @@ __device__ __forceinline__ void classic_scan(YF yv, float lam, int n,
     }
     if (__builtin_expect(last, 0)) break;
     lx += 1;
-    ly = __fadd_rn(ly, yi);
+    ly = add_rn(ly, yi);
     for (;;) {  // knots while the first segments cross
       if (__builtin_expect(ev++ == cap, 0)) return;
       const bool both_single = mj.l == mj.f && mn.l == mn.f;
       if (both_single || !(mn.first.sl < mj.first.sl)) break;
       if (mn.first.ix < mj.first.ix)
-        knot(mn, mj, __fsub_rn(ly, lam));
+        knot(mn, mj, sub_rn(ly, lam));
       else
-        knot(mj, mn, __fadd_rn(ly, lam));
+        knot(mj, mn, add_rn(ly, lam));
     }
   }
   // Emit the longer hull's segments (the minorant's on equal lengths, as
   // the plain version's test).
   const bool fm = (mj.l - mj.f) > (mn.l - mn.f);
-  const Deque q = fm ? maj : mnr;
+  const Deque<T> q = fm ? maj : mnr;
   const int l = fm ? mj.l : mn.l;
   for (int k = fm ? mj.f : mn.f; k <= l; ++k) {
     if (ev++ == cap) return;
-    const Seg s = q.ld(k);
+    const S s = q.ld(k);
     emit(ox, s.sl);
     ox += s.ix;
   }
@@ -268,40 +303,51 @@ __device__ __forceinline__ void classic_scan(YF yv, float lam, int n,
 
 // A warp's shared memory: the deques, then y (and the runs' values),
 // 16-byte aligned, then the run marks.  The warp layout takes the longest
-// signal whose warp fits a block.
+// signal whose warp fits a block: 6280 in float32, 3182 in float64.
+template <class T>
 __host__ __device__ constexpr size_t warp_smem(int n) {
-  return ((32 * ((size_t)n + 2) + 4 * (size_t)n + 15) & ~(size_t)15)
+  return ((2 * sizeof(Slot<T>) * ((size_t)n + 2) + sizeof(T) * (size_t)n
+           + 15) & ~(size_t)15)
          + direct1d::mark_bytes(n);
 }
-constexpr int kWarpMaxN = 6280;
-static_assert(warp_smem(kWarpMaxN) <= (size_t)direct1d::kMaxBlockSmem &&
-                  warp_smem(kWarpMaxN + 1) > (size_t)direct1d::kMaxBlockSmem,
+template <class T>
+constexpr int kWarpMaxN = sizeof(T) == 4 ? 6280 : 3182;
+static_assert(warp_smem<float>(kWarpMaxN<float>)
+                      <= (size_t)direct1d::kMaxBlockSmem &&
+                  warp_smem<float>(kWarpMaxN<float> + 1)
+                      > (size_t)direct1d::kMaxBlockSmem,
+              "kWarpMaxN is the longest signal whose warp fits a block");
+static_assert(warp_smem<double>(kWarpMaxN<double>)
+                      <= (size_t)direct1d::kMaxBlockSmem &&
+                  warp_smem<double>(kWarpMaxN<double> + 1)
+                      > (size_t)direct1d::kMaxBlockSmem,
               "kWarpMaxN is the longest signal whose warp fits a block");
 
 // One warp a block, as D3's (condat.cu): the signal is blockIdx.x, so the
 // chain's branches need no reconvergence barrier.
+template <class T>
 __global__ void __launch_bounds__(32)
-classic_ts_warp_kernel(const float* __restrict__ y, Lam lam,
-                       float* __restrict__ x, int n, long long cap) {
+classic_ts_warp_kernel(const T* __restrict__ y, LamT<T> lam,
+                       T* __restrict__ x, int n, long long cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   unsigned char* base = smem;
-  float4* w = reinterpret_cast<float4*>(base);
-  const Deque maj{w, 1}, mnr{w + n + 2, 1};
-  float* ys = reinterpret_cast<float*>(w + 2 * (n + 2));
-  unsigned char* mk = base + warp_smem(n) - direct1d::mark_bytes(n);
-  float* __restrict__ xb = x + (size_t)b * n;
+  Slot<T>* w = reinterpret_cast<Slot<T>*>(base);
+  const Deque<T> maj{w, 1}, mnr{w + n + 2, 1};
+  T* ys = reinterpret_cast<T*>(w + 2 * (n + 2));
+  unsigned char* mk = base + warp_smem<T>(n) - direct1d::mark_bytes(n);
+  T* __restrict__ xb = x + (size_t)b * n;
   direct1d::stage_row(y + (size_t)b * n, n, ys, lane);
   direct1d::zero_bytes(mk, direct1d::mark_bytes(n), lane);
   __syncwarp();
-  const float l = lam(b, 0);
+  const T l = lam(b, 0);
   auto yv = [&](int i) { return ys[i]; };
   if (direct1d::warp_degenerate(yv, [&](int) { return l; }, n, xb, lane))
     return;
   const int head = direct1d::mark_head(xb);
   const int icap = cap < INT_MAX ? (int)cap : INT_MAX;  // at most 8n + 64
-  classic_scan<true>(yv, l, n, icap, maj, mnr, [&](int p, float v) {
+  classic_scan<true>(yv, l, n, icap, maj, mnr, [&](int p, T v) {
     ys[p] = v;
     mk[head + p] = 1;
   });
@@ -309,29 +355,51 @@ classic_ts_warp_kernel(const float* __restrict__ y, Lam lam,
   direct1d::warp_forward_fill(mk, yv, n, xb, lane);
 }
 
+template <class T>
 __global__ void __launch_bounds__(64)
-classic_ts_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
-                  float* __restrict__ ws, int B, int n, long long cap) {
+classic_ts_kernel(const T* __restrict__ y, LamT<T> lam, T* __restrict__ x,
+                  Slot<T>* __restrict__ ws, int B, int n, long long cap) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* __restrict__ yb = y + (size_t)b * n;
-  float* __restrict__ xb = x + (size_t)b * n;
+  const T* __restrict__ yb = y + (size_t)b * n;
+  T* __restrict__ xb = x + (size_t)b * n;
   if (direct1d::degenerate(yb, lam, b, n, xb)) return;
-  float4* w = reinterpret_cast<float4*>(ws) + b;
-  const Deque maj{w, (size_t)B}, mnr{w + ((size_t)n + 2) * B, (size_t)B};
+  Slot<T>* w = ws + b;
+  const Deque<T> maj{w, (size_t)B}, mnr{w + ((size_t)n + 2) * B, (size_t)B};
   int cp = 0;  // the current run's start and value
-  float cv = 0.f;
-  auto emit = [&](int p, float v) {
+  T cv = T(0);
+  auto emit = [&](int p, T v) {
     direct1d::fill(xb, cp, p, cv, 0, 1);
     cp = p;
     cv = v;
   };
   auto yv = [&](int i) { return __ldg(yb + i); };
-  if (n < (1 << 24))
+  if (sizeof(T) == 8 || n < (1 << 24))
     classic_scan<true>(yv, lam(b, 0), n, cap, maj, mnr, emit);
   else
     classic_scan<false>(yv, lam(b, 0), n, cap, maj, mnr, emit);
   direct1d::fill(xb, cp, n, cv, 0, 1);
+}
+
+template <class T>
+int run(const T* y, const T* lam, int lam_rs, T lam_s, T* x, void* ws, int B,
+        int n, long long cap, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  const LamT<T> l{lam, (size_t)lam_rs, 0, lam_s};
+  if (n <= kWarpMaxN<T>) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        classic_ts_warp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        direct1d::kMaxBlockSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    classic_ts_warp_kernel<T><<<B, 32, warp_smem<T>(n), stream>>>(y, l, x, n,
+                                                                  cap);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!ws) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 64;
+  classic_ts_kernel<T><<<(B + threads - 1) / threads, threads, 0, stream>>>(
+      y, l, x, static_cast<Slot<T>*>(ws), B, n, cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -347,29 +415,33 @@ extern "C" int classic_ts_tv1_capped(const float* y, const float* lam,
                                      int lam_rs, float lam_s, float* x,
                                      void* ws, int B, int n, long long cap,
                                      cudaStream_t stream) {
-  if (B <= 0) return 0;
-  const Lam l{lam, (size_t)lam_rs, 0, lam_s};
-  if (n <= kWarpMaxN) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        classic_ts_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        direct1d::kMaxBlockSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    classic_ts_warp_kernel<<<B, 32, warp_smem(n), stream>>>(y, l, x, n, cap);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (!ws) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 64;
-  classic_ts_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      y, l, x, static_cast<float*>(ws), B, n, cap);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(y, lam, lam_rs, lam_s, x, ws, B, n, cap, stream);
 }
 
 extern "C" int classic_ts_tv1(const float* y, const float* lam, int lam_rs,
                               float lam_s, float* x, void* ws, int B, int n,
                               cudaStream_t stream) {
-  return classic_ts_tv1_capped(y, lam, lam_rs, lam_s, x, ws, B, n,
-                               8LL * n + 64, stream);
+  return run<float>(y, lam, lam_rs, lam_s, x, ws, B, n, 8LL * n + 64, stream);
 }
 
-// The longest signal the warp layout takes (the layouts' threshold).
-extern "C" int classic_ts_warp_max_n() { return kWarpMaxN; }
+// The same in float64: y, x and lam double, and the workspace's slots 32
+// bytes (n > classic_ts_warp_max_n_f64()).
+extern "C" int classic_ts_tv1_f64_capped(const double* y, const double* lam,
+                                         int lam_rs, double lam_s, double* x,
+                                         void* ws, int B, int n,
+                                         long long cap, cudaStream_t stream) {
+  return run<double>(y, lam, lam_rs, lam_s, x, ws, B, n, cap, stream);
+}
+
+extern "C" int classic_ts_tv1_f64(const double* y, const double* lam,
+                                  int lam_rs, double lam_s, double* x,
+                                  void* ws, int B, int n,
+                                  cudaStream_t stream) {
+  return run<double>(y, lam, lam_rs, lam_s, x, ws, B, n, 8LL * n + 64,
+                     stream);
+}
+
+// The longest signal the warp layout takes (the layouts' threshold), in
+// float32 and in float64.
+extern "C" int classic_ts_warp_max_n() { return kWarpMaxN<float>; }
+extern "C" int classic_ts_warp_max_n_f64() { return kWarpMaxN<double>; }

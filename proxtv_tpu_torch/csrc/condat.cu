@@ -14,9 +14,12 @@
 // Each closed run is recorded at its start, and x is written from the
 // records after the chain (the plain version's forward fill).  Every
 // operation is the plain version's (tv1_condat_plain) in the same order and
-// float32 rounding, with IEEE division; none can contract into an FMA
-// (y + 2 lam is exact whether contracted or not), so the two agree bit for
-// bit away from the degenerate guards (direct1d.cuh).
+// rounding, with IEEE division; none can contract into an FMA (y + 2 lam
+// is exact whether contracted or not), so the two agree bit for bit away
+// from the degenerate guards (direct1d.cuh).  The kernel is written for the
+// signal's type T and built for float (condat_tv1) and double
+// (condat_tv1_f64, the float64 route of tv1_batched); in double both of an
+// advance's divides are IEEE double divides.
 //
 // What bounds it on this card: the function reads y once and writes x
 // once, 8 bytes an element: 512 x 1000 is 4 MB, 1.2 us at 3.35 TB/s.  The
@@ -45,9 +48,11 @@
 //   version's rule for a jump that lands behind the run it closes.
 //
 // Two layouts by n, as D1 (direct1d.cuh):
-// * n <= kWarpMaxN, one warp a signal: y (with two slots past it), the
-//   runs' values and their marks in shared memory (8n + 8 bytes rounded to
-//   16, plus n + 3 rounded to 32; 148 KB at 16384); the warp stages y with
+// * n <= kWarpMaxN (16384 in float32, 8192 in float64), one warp a
+//   signal: y (with two slots past it), the runs' values and their marks in
+//   shared memory (2 (n + 1) values rounded to 16 bytes, plus n + 3 bytes
+//   rounded to 32; 148 KB at 16384 in float32, 139 KB at 8192 in
+//   float64); the warp stages y with
 //   16-byte loads and takes the guards by warp reductions, and its 32
 //   lanes run the event chain redundantly, uniform branches and broadcast
 //   reads.
@@ -59,15 +64,20 @@
 
 namespace {
 
-using direct1d::Lam;
+using direct1d::add_rn;
+using direct1d::LamT;
+using direct1d::sub_rn;
 
-// The longest signal of the warp layout (D1's threshold).
-constexpr int kWarpMaxN = 16384;
+// The longest signal of the warp layout (D1's threshold in each type).
+template <class T>
+constexpr int kWarpMaxN = sizeof(T) == 4 ? 16384 : 8192;
 
 // A warp's shared memory: y (and two slots past it, which the scan may read
 // ahead but never uses), then the runs' values, then the marks.
+template <class T>
 __host__ __device__ constexpr size_t warp_smem(int n) {
-  return ((8 * (size_t)n + 8 + 15) & ~(size_t)15) + direct1d::mark_bytes(n);
+  return ((sizeof(T) * (2 * (size_t)n + 2) + 15) & ~(size_t)15)
+         + direct1d::mark_bytes(n);
 }
 
 // One signal's events (tv1_condat_plain's body, one event an iteration),
@@ -80,39 +90,38 @@ __host__ __device__ constexpr size_t warp_smem(int n) {
 // index lands at j <= k0: the scan goes back behind the run it closes.
 // The plain version, which marks each run's start and fills forward, then
 // keeps that run from k0 up to the next start above it.
-template <class YF, class EF>
-__device__ __forceinline__ void condat_scan(YF yv, float lam, int n,
-                                            EF emit) {
-  const float twolam = 2.f * lam;
+template <class T, class YF, class EF>
+__device__ __forceinline__ void condat_scan(YF yv, T lam, int n, EF emit) {
+  const T twolam = T(2) * lam;
   const int last = n - 1;
   int k = 0, k0 = 0, kminus = 0, kplus = 0;
-  const float y0 = yv(0);
-  float vmin = __fsub_rn(y0, lam), vmax = __fadd_rn(y0, lam);
-  float umin = lam, umax = -lam;
-  float y1 = yv(1), y2 = yv(2);  // samples k + 1 and k + 2
+  const T y0 = yv(0);
+  T vmin = sub_rn(y0, lam), vmax = add_rn(y0, lam);
+  T umin = lam, umax = -lam;
+  T y1 = yv(1), y2 = yv(2);  // samples k + 1 and k + 2
   for (;;) {
     // The advances, one straight run each: the excursions advance by the
     // next sample, the touched bounds tighten by a divide by k - k0 + 1,
     // selects keep what an advance changes, and the loop's one branch
     // leaves it for every other event.
-    float umin1, umax1;
+    T umin1, umax1;
     for (;;) {
-      umin1 = __fsub_rn(__fadd_rn(umin, y1), vmin);
-      umax1 = __fsub_rn(__fadd_rn(umax, y1), vmax);
-      const float a = __fsub_rn(umin1, lam), c = __fadd_rn(umax1, lam);
+      umin1 = sub_rn(add_rn(umin, y1), vmin);
+      umax1 = sub_rn(add_rn(umax, y1), vmax);
+      const T a = sub_rn(umin1, lam), c = add_rn(umax1, lam);
       const bool lo = umin1 >= lam, hi = umax1 <= -lam;
-      const direct1d::Recip rd = direct1d::recip((float)(k - k0 + 2));
-      const float dmin = direct1d::div_fast(a, rd);
-      const float dmax = direct1d::div_fast(c, rd);
+      const auto rd = direct1d::recip((T)(k - k0 + 2));
+      const T dmin = direct1d::div_fast(a, rd);
+      const T dmax = direct1d::div_fast(c, rd);
       if ((k == last) | (umin1 < -lam) | (umax1 > lam) |
           (lo & !direct1d::div_fast_ok(a)) | (hi & !direct1d::div_fast_ok(c)))
         break;
-      const float y3 = yv(k + 3);
+      const T y3 = yv(k + 3);
       ++k;
-      vmin = lo ? __fadd_rn(vmin, dmin) : vmin;
+      vmin = lo ? add_rn(vmin, dmin) : vmin;
       umin = lo ? lam : umin1;
       kminus = lo ? k : kminus;
-      vmax = hi ? __fadd_rn(vmax, dmax) : vmax;
+      vmax = hi ? add_rn(vmax, dmax) : vmax;
       umax = hi ? -lam : umax1;
       kplus = hi ? k : kplus;
       y1 = y2;
@@ -120,20 +129,20 @@ __device__ __forceinline__ void condat_scan(YF yv, float lam, int n,
     }
     if (k == last) {
       // The boundary events (the plain version's b_neg, b_pos, b_term).
-      if (umin < 0.f) {
+      if (umin < T(0)) {
         const int j = kminus + 1;
         emit(k0, j, vmin);
-        const float yj = yv(j);
+        const T yj = yv(j);
         k = k0 = kminus = j;
         vmin = yj;
         umin = lam;
-        umax = __fsub_rn(__fadd_rn(yj, lam), vmax);
-      } else if (umax > 0.f) {
+        umax = sub_rn(add_rn(yj, lam), vmax);
+      } else if (umax > T(0)) {
         const int j = kplus + 1;
         emit(k0, j, vmax);
-        const float yj = yv(j);
+        const T yj = yv(j);
         k = k0 = kplus = j;
-        umin = __fsub_rn(__fsub_rn(yj, lam), vmin);
+        umin = sub_rn(sub_rn(yj, lam), vmin);
         vmax = yj;
         umax = -lam;
       } else {
@@ -145,26 +154,26 @@ __device__ __forceinline__ void condat_scan(YF yv, float lam, int n,
       const bool neg = umin1 < -lam;
       const int j = (neg ? kminus : kplus) + 1;
       emit(k0, j, neg ? vmin : vmax);
-      const float yj = yv(j);
+      const T yj = yv(j);
       k = k0 = kminus = kplus = j;
-      vmin = neg ? yj : __fsub_rn(yj, twolam);
-      vmax = neg ? __fadd_rn(yj, twolam) : yj;
+      vmin = neg ? yj : sub_rn(yj, twolam);
+      vmax = neg ? add_rn(yj, twolam) : yj;
       umin = lam;
       umax = -lam;
     } else {
       // An advance whose touched bound's divide takes the IEEE path.
-      const float den = (float)(k - k0 + 2);
-      const float a = __fsub_rn(umin1, lam), c = __fadd_rn(umax1, lam);
+      const T den = (T)(k - k0 + 2);
+      const T a = sub_rn(umin1, lam), c = add_rn(umax1, lam);
       ++k;
       if (umin1 >= lam) {
-        vmin = __fadd_rn(vmin, a / den);
+        vmin = add_rn(vmin, a / den);
         umin = lam;
         kminus = k;
       } else {
         umin = umin1;
       }
       if (umax1 <= -lam) {
-        vmax = __fadd_rn(vmax, c / den);
+        vmax = add_rn(vmax, c / den);
         umax = -lam;
         kplus = k;
       } else {
@@ -174,31 +183,32 @@ __device__ __forceinline__ void condat_scan(YF yv, float lam, int n,
     y1 = yv(k + 1);
     y2 = yv(k + 2);
   }
-  emit(k0, n, __fadd_rn(vmin, umin / (float)(k - k0 + 1)));
+  emit(k0, n, add_rn(vmin, umin / (T)(k - k0 + 1)));
 }
 
+template <class T>
 __global__ void __launch_bounds__(32 * direct1d::kMaxWarps)
-condat_warp_kernel(const float* __restrict__ y, Lam lam,
-                   float* __restrict__ x, int B, int n) {
+condat_warp_kernel(const T* __restrict__ y, LamT<T> lam,
+                   T* __restrict__ x, int B, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // the whole warp
-  unsigned char* base = smem + (size_t)warp * warp_smem(n);
-  float* ys = reinterpret_cast<float*>(base);
-  float* vs = ys + n + 2;
-  unsigned char* mk = base + warp_smem(n) - direct1d::mark_bytes(n);
-  float* __restrict__ xb = x + (size_t)b * n;
+  unsigned char* base = smem + (size_t)warp * warp_smem<T>(n);
+  T* ys = reinterpret_cast<T*>(base);
+  T* vs = ys + n + 2;
+  unsigned char* mk = base + warp_smem<T>(n) - direct1d::mark_bytes(n);
+  T* __restrict__ xb = x + (size_t)b * n;
   direct1d::stage_row(y + (size_t)b * n, n, ys, lane);
   direct1d::zero_bytes(mk, direct1d::mark_bytes(n), lane);
   __syncwarp();
-  const float l = lam(b, 0);
+  const T l = lam(b, 0);
   auto yv = [&](int i) { return ys[i]; };
   if (direct1d::warp_degenerate(yv, [&](int) { return l; }, n, xb, lane))
     return;
   const int head = direct1d::mark_head(xb);
-  condat_scan(yv, l, n, [&](int k0, int, float v) {
+  condat_scan(yv, l, n, [&](int k0, int, T v) {
     if (k0 < n) {
       vs[k0] = v;
       mk[head + k0] = 1;
@@ -208,13 +218,14 @@ condat_warp_kernel(const float* __restrict__ y, Lam lam,
   direct1d::warp_forward_fill(mk, [&](int i) { return vs[i]; }, n, xb, lane);
 }
 
+template <class T>
 __global__ void __launch_bounds__(64)
-condat_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
+condat_kernel(const T* __restrict__ y, LamT<T> lam, T* __restrict__ x,
               int B, int n) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* __restrict__ yb = y + (size_t)b * n;
-  float* __restrict__ xb = x + (size_t)b * n;
+  const T* __restrict__ yb = y + (size_t)b * n;
+  T* __restrict__ xb = x + (size_t)b * n;
   if (direct1d::degenerate(yb, lam, b, n, xb)) return;
   // Each run written as it closes: to its end, or to the row's end when
   // the scan goes back behind it (j <= k0); later runs then stop at its
@@ -223,11 +234,31 @@ condat_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
   int pin = n;
   condat_scan([&](int i) { return __ldg(yb + (i < n ? i : n - 1)); },
               lam(b, 0), n,
-              [&](int k0, int j, float v) {
+              [&](int k0, int j, T v) {
                 if (k0 >= pin) pin = n;
                 direct1d::fill(xb, k0, min(j > k0 ? j : n, pin), v, 0, 1);
                 if (j <= k0) pin = k0;
               });
+}
+
+template <class T>
+int run(const T* y, const T* lam, int lam_rs, T lam_s, T* x, int B, int n,
+        cudaStream_t stream) {
+  if (B <= 0) return 0;
+  const LamT<T> l{lam, (size_t)lam_rs, 0, lam_s};
+  if (n <= kWarpMaxN<T>) {
+    direct1d::WarpPlan p;
+    const cudaError_t e =
+        direct1d::warp_plan(condat_warp_kernel<T>, warp_smem<T>(n), B, &p);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    condat_warp_kernel<T><<<p.blocks, 32 * p.warps, p.smem, stream>>>(
+        y, l, x, B, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int threads = 64;
+  condat_kernel<T><<<(B + threads - 1) / threads, threads, 0, stream>>>(
+      y, l, x, B, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -238,22 +269,17 @@ condat_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
 extern "C" int condat_tv1(const float* y, const float* lam, int lam_rs,
                           float lam_s, float* x, int B, int n,
                           cudaStream_t stream) {
-  if (B <= 0) return 0;
-  const Lam l{lam, (size_t)lam_rs, 0, lam_s};
-  if (n <= kWarpMaxN) {
-    direct1d::WarpPlan p;
-    const cudaError_t e =
-        direct1d::warp_plan(condat_warp_kernel, warp_smem(n), B, &p);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    condat_warp_kernel<<<p.blocks, 32 * p.warps, p.smem, stream>>>(y, l, x, B,
-                                                                   n);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int threads = 64;
-  condat_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(y, l, x,
-                                                                     B, n);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(y, lam, lam_rs, lam_s, x, B, n, stream);
 }
 
-// The longest signal the warp layout takes (the layouts' threshold).
-extern "C" int condat_warp_max_n() { return kWarpMaxN; }
+// The same in float64.
+extern "C" int condat_tv1_f64(const double* y, const double* lam, int lam_rs,
+                              double lam_s, double* x, int B, int n,
+                              cudaStream_t stream) {
+  return run<double>(y, lam, lam_rs, lam_s, x, B, n, stream);
+}
+
+// The longest signal the warp layout takes (the layouts' threshold), in
+// float32 and in float64.
+extern "C" int condat_warp_max_n() { return kWarpMaxN<float>; }
+extern "C" int condat_warp_max_n_f64() { return kWarpMaxN<double>; }

@@ -1,6 +1,8 @@
 // A fiber (one row of a batch) solved by W warps, each lane holding a
 // contiguous chunk of the row in registers; shared by the per-fiber kernels
-// B2 (pcr.cu), B4 (ms_fused.cu) and B5 (lp_fused.cu).
+// B2 (pcr.cu), B4 (ms_fused.cu) and B5 (lp_fused.cu).  The crossings and
+// the PCR step take the fiber's scalar type T: float, or double for B2's
+// float64 instantiation (row sums are float only).
 //
 // Row sums are butterflies within a warp; across warps, partials go to
 // double-buffered shared slots (the buffer alternates per use, so one
@@ -19,36 +21,48 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// The hardware's approximate reciprocal (within 1 ulp; flushes denormals).
+// The hardware's approximate reciprocal (within 1 ulp; flushes denormals);
+// in double the correctly rounded one.
 __device__ __forceinline__ float rcp(float v) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
 }
+__device__ __forceinline__ double rcp(double v) { return __drcp_rn(v); }
+
+// a b + c rounded once.
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_(double a, double b, double c) {
+  return fma(a, b, c);
+}
 
 // v of lane - s (0 below lane s) and of lane + s (0 at or past `width`).
-__device__ __forceinline__ float from_below(float v, int s, int lane) {
-  const float t = __shfl_up_sync(kFull, v, s);
-  return lane >= s ? t : 0.f;
+template <class T>
+__device__ __forceinline__ T from_below(T v, int s, int lane) {
+  const T t = __shfl_up_sync(kFull, v, s);
+  return lane >= s ? t : T(0);
 }
-__device__ __forceinline__ float from_above(float v, int s, int lane,
-                                            int width = 32) {
-  const float t = __shfl_down_sync(kFull, v, s);
-  return lane + s < width ? t : 0.f;
+template <class T>
+__device__ __forceinline__ T from_above(T v, int s, int lane,
+                                        int width = 32) {
+  const T t = __shfl_down_sync(kFull, v, s);
+  return lane + s < width ? t : T(0);
 }
 
 // The W warps of one fiber.  Crossings between warps (W > 1) go through
-// double-buffered shared slots of SLOT floats, one barrier each.
-template <int W, int SLOT = 4 * 32>
+// double-buffered shared slots of SLOT values of T, one barrier each.
+template <int W, int SLOT = 4 * 32, class T = float>
 struct Fiber {
   int lane, wid;  // lane in its warp, warp in the fiber
-  float* slots;   // 2 x SLOT (W > 1)
+  T* slots;       // 2 x SLOT (W > 1)
   int ph = 0;     // buffer parity (uniform across the fiber)
 
   __device__ int rank() const { return wid * 32 + lane; }
 
-  __device__ __forceinline__ float* slot() {
-    float* s = slots + (ph & 1) * SLOT;
+  __device__ __forceinline__ T* slot() {
+    T* s = slots + (ph & 1) * SLOT;
     ++ph;
     return s;
   }
@@ -73,13 +87,12 @@ struct Fiber {
 
   // The previous chunk's last element and the next chunk's first (0 past
   // the row's ends).
-  __device__ __forceinline__ void exchange(float first, float last,
-                                           float& prev_last,
-                                           float& next_first) {
+  __device__ __forceinline__ void exchange(T first, T last, T& prev_last,
+                                           T& next_first) {
     prev_last = from_below(last, 1, lane);
     next_first = from_above(first, 1, lane);
     if constexpr (W > 1) {
-      float* s = slot();
+      T* s = slot();
       if (lane == 0) s[wid] = first;
       if (lane == 31) s[32 + wid] = last;
       __syncthreads();
@@ -92,13 +105,13 @@ struct Fiber {
   // 31 its b row) into lanes 0 .. 2W - 1 of every warp, in the order
   // a_0, b_0, a_1, b_1, ...; identity rows (lower, upper, excess, rhs) =
   // (0, 0, 1, 0) above.
-  __device__ __forceinline__ void gather(float (&row)[4]) {
+  __device__ __forceinline__ void gather(T (&row)[4]) {
     if constexpr (W == 1) {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         row[q] = __shfl_sync(kFull, row[q], lane == 1 ? 31 : 0);
     } else {
-      float* s = slot();
+      T* s = slot();
       if (lane == 0 || lane == 31) {
         const int v = 2 * wid + (lane == 31);
 #pragma unroll
@@ -106,11 +119,11 @@ struct Fiber {
       }
       __syncthreads();
 #pragma unroll
-      for (int q = 0; q < 4; ++q) row[q] = lane < 2 * W ? s[4 * lane + q] : 0.f;
+      for (int q = 0; q < 4; ++q) row[q] = lane < 2 * W ? s[4 * lane + q] : T(0);
     }
     if (lane >= 2 * W) {
-      row[0] = row[1] = row[3] = 0.f;
-      row[2] = 1.f;
+      row[0] = row[1] = row[3] = T(0);
+      row[2] = T(1);
     }
   }
 };
@@ -119,29 +132,33 @@ struct Fiber {
 // - sum_c col_c = d with row excess ex (1 = ex + lo + up + sum of the
 // columns): every pivot is a sum of nonnegative terms.  NC boundary columns
 // travel with the right-hand side.
-template <int NC>
-__device__ __forceinline__ void pcr_step(float& lo, float& up, float& ex,
-                                         float& d, float* col, int s,
+template <class T>
+struct Same {
+  using type = T;
+};
+template <int NC, class T>
+__device__ __forceinline__ void pcr_step(T& lo, T& up, T& ex, T& d,
+                                         typename Same<T>::type* col, int s,
                                          int lane, int width) {
-  const float lom = from_below(lo, s, lane);
-  const float exm = from_below(ex, s, lane);
-  const float dm = from_below(d, s, lane);
-  const float upp = from_above(up, s, lane, width);
-  const float exp_ = from_above(ex, s, lane, width);
-  const float dp = from_above(d, s, lane, width);
-  const float nlo = lo * lom, nup = up * upp;
-  const float nex = fmaf(lo, exm, fmaf(up, exp_, ex));
-  float piv = nex + nlo + nup;
-  float ncol[NC > 0 ? NC : 1];
+  const T lom = from_below(lo, s, lane);
+  const T exm = from_below(ex, s, lane);
+  const T dm = from_below(d, s, lane);
+  const T upp = from_above(up, s, lane, width);
+  const T exp_ = from_above(ex, s, lane, width);
+  const T dp = from_above(d, s, lane, width);
+  const T nlo = lo * lom, nup = up * upp;
+  const T nex = fma_(lo, exm, fma_(up, exp_, ex));
+  T piv = nex + nlo + nup;
+  T ncol[NC > 0 ? NC : 1];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const float cm = from_below(col[c], s, lane);
-    const float cp = from_above(col[c], s, lane, width);
-    ncol[c] = fmaf(lo, cm, fmaf(up, cp, col[c]));
+    const T cm = from_below(col[c], s, lane);
+    const T cp = from_above(col[c], s, lane, width);
+    ncol[c] = fma_(lo, cm, fma_(up, cp, col[c]));
     piv += ncol[c];
   }
-  const float r = rcp(piv);
-  d = fmaf(lo, dm, fmaf(up, dp, d)) * r;
+  const T r = rcp(piv);
+  d = fma_(lo, dm, fma_(up, dp, d)) * r;
   lo = nlo * r;
   up = nup * r;
   ex = nex * r;

@@ -32,6 +32,11 @@
 // float64, so that where the unmasked system's condition grows as n^2 the
 // float32 solution stays no further from the float64 one than the TPU
 // kernel's float32 PCR (tests/test_torch_cuda.py holds it).
+//
+// The kernel is written for the system's type T: float (pcr_spd_solve) and
+// double (pcr_spd_solve_f64, the Newton systems of tv1_pn on a float64
+// batch), the same layouts, the same solve and the same refinement step
+// (in float64 its residual is rounded like the solve's own arithmetic).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,30 +46,30 @@ namespace {
 
 // The coefficients of a row's chunk, made from its mask bytes or its shift
 // (tridiag.cuh): every rhs is read (masked rows carry 0).
-template <int E>
+template <int E, class T>
 struct RowCoef {
   unsigned cb;   // bit k: c of chunk element k
-  float a_0;     // a of element 0
-  float ex[E];   // the excesses
+  T a_0;         // a of element 0
+  T ex[E];       // the excesses
   __device__ __forceinline__ bool c(int k) const { return (cb >> k) & 1u; }
-  __device__ __forceinline__ float a0() const { return a_0; }
-  __device__ __forceinline__ float e(int k) const { return ex[k]; }
+  __device__ __forceinline__ T a0() const { return a_0; }
+  __device__ __forceinline__ T e(int k) const { return ex[k]; }
   __device__ __forceinline__ bool live(int) const { return true; }
 };
 
-constexpr int kSlot = 4 * 32;          // floats per shared slot
+constexpr int kSlot = 4 * 32;          // values per shared slot
 constexpr int kRowsPerBlock = 4;       // W = 1: one warp per row
 
 template <int W>
 constexpr int threads_of() { return W == 1 ? 32 * kRowsPerBlock : 32 * W; }
 
-template <int E, int W>
+template <class T, int E, int W>
 __global__ void __launch_bounds__(threads_of<W>())
-pcr_kernel(const float* __restrict__ rhs, const uint8_t* __restrict__ mask,
-           const float* __restrict__ shift, float* __restrict__ out,
+pcr_kernel(const T* __restrict__ rhs, const uint8_t* __restrict__ mask,
+           const T* __restrict__ shift, T* __restrict__ out,
            int nrows, int n) {
-  __shared__ float slots[W > 1 ? 2 * kSlot : 1];
-  Fiber<W, kSlot> g;
+  __shared__ T slots[W > 1 ? 2 * kSlot : 1];
+  Fiber<W, kSlot, T> g;
   g.lane = threadIdx.x & 31;
   g.slots = slots;
   size_t row;
@@ -79,48 +84,48 @@ pcr_kernel(const float* __restrict__ rhs, const uint8_t* __restrict__ mask,
   const int j0 = g.rank() * E;
   const size_t base = row * n;
 
-  Tridiag<E, RowCoef<E>> sys;
-  RowCoef<E>& cf = sys.cf;
+  Tridiag<E, RowCoef<E, T>, T> sys;
+  RowCoef<E, T>& cf = sys.cf;
   cf.cb = 0;
-  float r[E];
+  T r[E];
   if (mask != nullptr) {
     const uint8_t* m = mask + base;
     const bool prev = j0 >= 1 && j0 - 1 < n && m[j0 - 1] != 0;
     bool cur = j0 < n && m[j0] != 0;
-    cf.a_0 = prev && cur ? 1.f : 0.f;
-    float ak = cf.a_0;
+    cf.a_0 = prev && cur ? T(1) : T(0);
+    T ak = cf.a_0;
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       const int j = j0 + k;
       const bool nxt = j + 1 < n && m[j + 1] != 0;
       const bool ck = cur && nxt;
       cf.cb |= (ck ? 1u : 0u) << k;
-      cf.ex[k] = (cur ? 2.f : 1.f) - ak - (ck ? 1.f : 0.f);
-      r[k] = cur ? rhs[base + j] : 0.f;
-      ak = ck ? 1.f : 0.f;
+      cf.ex[k] = (cur ? T(2) : T(1)) - ak - (ck ? T(1) : T(0));
+      r[k] = cur ? rhs[base + j] : T(0);
+      ak = ck ? T(1) : T(0);
       cur = nxt;
     }
   } else {
-    const float s = shift != nullptr ? shift[row] : 0.f;
-    cf.a_0 = j0 >= 1 && j0 < n ? 1.f : 0.f;
+    const T s = shift != nullptr ? shift[row] : T(0);
+    cf.a_0 = j0 >= 1 && j0 < n ? T(1) : T(0);
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       const int j = j0 + k;
       const bool act = j < n, ck = j + 1 < n;
-      const float ak = k == 0 ? cf.a_0 : (act ? 1.f : 0.f);
+      const T ak = k == 0 ? cf.a_0 : (act ? T(1) : T(0));
       cf.cb |= (ck ? 1u : 0u) << k;
-      cf.ex[k] = act ? s + (1.f - ak) + (1.f - (ck ? 1.f : 0.f)) : 1.f;
-      r[k] = act ? rhs[base + j] : 0.f;
+      cf.ex[k] = act ? s + (T(1) - ak) + (T(1) - (ck ? T(1) : T(0))) : T(1);
+      r[k] = act ? rhs[base + j] : T(0);
     }
   }
   sys.setup();
-  float x[E], dx[E], res[E];
+  T x[E], dx[E], res[E];
   sys.solve(g, r, x);
   // One step of iterative refinement.  The residual
   // r_j - e_j x_j - a_j (x_j - x_{j-1}) - c_j (x_j - x_{j+1}) is formed in
   // float64, where the products and differences of float32 values are
-  // exact, and rounded once.
-  float xp, xn;
+  // exact, and rounded once (a float64 system's in float64 itself).
+  T xp, xn;
   g.exchange(x[0], x[E - 1], xp, xn);
 #pragma unroll
   for (int k = 0; k < E; ++k) {
@@ -128,8 +133,8 @@ pcr_kernel(const float* __restrict__ rhs, const uint8_t* __restrict__ mask,
     const double ck = cf.c(k) ? 1.0 : 0.0;
     const double xk = x[k];
     const double xl = k > 0 ? x[k - 1] : xp, xr = k + 1 < E ? x[k + 1] : xn;
-    res[k] = static_cast<float>(static_cast<double>(r[k]) - cf.ex[k] * xk -
-                                ak * (xk - xl) - ck * (xk - xr));
+    res[k] = static_cast<T>(static_cast<double>(r[k]) - cf.ex[k] * xk -
+                            ak * (xk - xl) - ck * (xk - xr));
   }
   sys.solve(g, res, dx);
 #pragma unroll
@@ -141,28 +146,21 @@ pcr_kernel(const float* __restrict__ rhs, const uint8_t* __restrict__ mask,
   }
 }
 
-template <int E, int W>
-int launch(const float* rhs, const uint8_t* mask, const float* shift,
-           float* out, int B, int n, cudaStream_t stream) {
+template <class T, int E, int W>
+int launch(const T* rhs, const uint8_t* mask, const T* shift, T* out, int B,
+           int n, cudaStream_t stream) {
   const int blocks = W == 1 ? (B + kRowsPerBlock - 1) / kRowsPerBlock : B;
-  pcr_kernel<E, W><<<blocks, threads_of<W>(), 0, stream>>>(rhs, mask, shift,
-                                                           out, B, n);
+  pcr_kernel<T, E, W><<<blocks, threads_of<W>(), 0, stream>>>(
+      rhs, mask, shift, out, B, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" const char* proxtv_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// rhs, out: (B, n) float32; mask: (B, n) uint8 or NULL; shift: (B,) or NULL.
-// 2 <= n <= 8192 (checked by the Python wrapper).  A row covers 32 W E
-// elements.
-extern "C" int pcr_spd_solve(const float* rhs, const uint8_t* mask,
-                             const float* shift, float* out, int B, int n,
-                             cudaStream_t stream) {
-#define PCR_LAUNCH(E, W) return launch<E, W>(rhs, mask, shift, out, B, n, stream)
+// A row covers 32 W E elements.
+template <class T>
+int solve(const T* rhs, const uint8_t* mask, const T* shift, T* out, int B,
+          int n, cudaStream_t stream) {
+#define PCR_LAUNCH(E, W) \
+  return launch<T, E, W>(rhs, mask, shift, out, B, n, stream)
   if (n <= 128) PCR_LAUNCH(4, 1);
   if (n <= 256) PCR_LAUNCH(8, 1);
   if (n <= 512) PCR_LAUNCH(4, 4);
@@ -172,4 +170,25 @@ extern "C" int pcr_spd_solve(const float* rhs, const uint8_t* mask,
   if (n <= 8192) PCR_LAUNCH(16, 16);
 #undef PCR_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" const char* proxtv_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// rhs, out: (B, n) float32; mask: (B, n) uint8 or NULL; shift: (B,) or NULL.
+// 2 <= n <= 8192 (checked by the Python wrapper).
+extern "C" int pcr_spd_solve(const float* rhs, const uint8_t* mask,
+                             const float* shift, float* out, int B, int n,
+                             cudaStream_t stream) {
+  return solve<float>(rhs, mask, shift, out, B, n, stream);
+}
+
+// The same in float64: rhs, out and shift double.
+extern "C" int pcr_spd_solve_f64(const double* rhs, const uint8_t* mask,
+                                 const double* shift, double* out, int B,
+                                 int n, cudaStream_t stream) {
+  return solve<double>(rhs, mask, shift, out, B, n, stream);
 }

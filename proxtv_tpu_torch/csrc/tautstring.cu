@@ -12,23 +12,27 @@
 // restarts right after it (a backtrack); otherwise the touched walls
 // tighten mn/mx.  The end point compares with kEps, as the JAX scan does.
 // Every operation is the plain version's (tv1_tautstring_plain) in the
-// same order and float32 rounding, and none can contract into an FMA, so
-// the two agree bit for bit away from the degenerate guards.
+// same order and rounding, and none can contract into an FMA, so the two
+// agree bit for bit away from the degenerate guards.  The kernel is
+// written for the signal's type T and built for float (tautstring_tv1)
+// and double (tautstring_tv1_f64, the float64 route of tv1_batched).
 //
 // What bounds it on this card: the function reads y (and the weights) once
-// and writes x once, ~8 bytes an element: 10000 x 1000 is 80 MB, 24 us at
-// 3.35 TB/s.  The scan is a chain of dependent events (about n to 2n a
-// signal, a backtrack re-reads earlier points), so a signal is latency:
-// its chain at the latency of the memory its events read.
+// and writes x once, ~8 bytes an element in float32 (16 in float64):
+// 10000 x 1000 is 80 MB, 24 us at 3.35 TB/s.  The scan is a chain of
+// dependent events (about n to 2n a signal, a backtrack re-reads earlier
+// points), so a signal is latency: its chain at the latency of the memory
+// its events read.
 //
 // Design, two layouts by n (direct1d.cuh):
-// * n <= kWarpMaxN, one warp a signal.  The warp stages y (and a per-edge
-//   weight row) into shared memory with 16-byte loads, takes the guards by
-//   warp reductions, and its 32 lanes run the event chain redundantly out
-//   of shared memory: every branch is uniform, so the divergence between
-//   signals that one thread a signal suffers inside a warp is gone, and an
-//   event waits on shared memory, not on L1.  A closed segment is written
-//   to the output by the lanes, 32 elements a store.
+// * n <= kWarpMaxN (16384 in float32, 8192 in float64), one warp a
+//   signal.  The warp stages y (and a per-edge weight row) into shared
+//   memory with 16-byte loads, takes the guards by warp reductions, and
+//   its 32 lanes run the event chain redundantly out of shared memory:
+//   every branch is uniform, so the divergence between signals that one
+//   thread a signal suffers inside a warp is gone, and an event waits on
+//   shared memory, not on L1.  A closed segment is written to the output
+//   by the lanes, 32 elements a store.
 // * n > kWarpMaxN, one thread a signal, y and the weights read from global
 //   memory; each closed segment is written straight to the output.
 #include <cuda_runtime.h>
@@ -37,60 +41,76 @@
 
 namespace {
 
-using direct1d::kEps;
-using direct1d::Lam;
+using direct1d::LamT;
 
-// The longest signal of the warp layout: at 16384 a per-edge signal
-// stages 128 KB (y and its weights); auto's taut string on the card ends
-// there (past it the long-signal route runs).
-constexpr int kWarpMaxN = 16384;
+// The longest signal of the warp layout: at 16384 a per-edge float32
+// signal stages 128 KB (y and its weights), and at 8192 a float64 one;
+// auto's taut string on the card ends at 16384 (past it the long-signal
+// route runs).
+template <class T>
+constexpr int kWarpMaxN = sizeof(T) == 4 ? 16384 : 8192;
 
-template <bool kEdge>
+// The warp layout's dynamic shared memory, typed (one array a type).
+template <class T>
+__device__ __forceinline__ T* dyn_smem();
+template <>
+__device__ __forceinline__ float* dyn_smem<float>() {
+  extern __shared__ float smem_f[];
+  return smem_f;
+}
+template <>
+__device__ __forceinline__ double* dyn_smem<double>() {
+  extern __shared__ double smem_d[];
+  return smem_d;
+}
+
+template <class T, bool kEdge>
 __global__ void __launch_bounds__(32 * direct1d::kMaxWarps)
-tautstring_warp_kernel(const float* __restrict__ y, Lam lam,
-                       float* __restrict__ x, int B, int n) {
-  extern __shared__ float smem[];
+tautstring_warp_kernel(const T* __restrict__ y, LamT<T> lam,
+                       T* __restrict__ x, int B, int n) {
+  T* smem = dyn_smem<T>();
+  constexpr T kEps = direct1d::kEps<T>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // the whole warp
-  float* ys = smem + (size_t)warp * (kEdge ? 2 * n - 1 : n);
-  float* ls = ys + n;  // per-edge weights (kEdge)
-  float* __restrict__ xb = x + (size_t)b * n;
+  T* ys = smem + (size_t)warp * (kEdge ? 2 * n - 1 : n);
+  T* ls = ys + n;  // per-edge weights (kEdge)
+  T* __restrict__ xb = x + (size_t)b * n;
   direct1d::stage_row(y + (size_t)b * n, n, ys, lane);
   if (kEdge) direct1d::stage_lam(lam, b, n - 1, ls, lane);
   __syncwarp();
-  const float lc = kEdge ? 0.f : lam(b, 0);  // one weight a signal
+  const T lc = kEdge ? T(0) : lam(b, 0);  // one weight a signal
   auto W = [&](int i) { return kEdge ? ls[i] : lc; };
   if (direct1d::warp_degenerate([&](int i) { return ys[i]; }, W, n, xb,
                                 lane))
     return;
 
-  const float l0 = W(0);
-  float mn = ys[0] - l0, mx = ys[0] + l0;  // segment value bounds
-  float mnH = 0.f, mxH = 0.f;  // tube heights of the two bounds
+  const T l0 = W(0);
+  T mn = ys[0] - l0, mx = ys[0] + l0;  // segment value bounds
+  T mnH = T(0), mxH = T(0);  // tube heights of the two bounds
   int mnB = 0, mxB = 0;        // last touches of the walls
   int last = -1;               // end of the last closed segment
   int i = 0;
   while (i < n) {
     const bool is_last = i == n - 1;
-    const float yi = ys[i];
-    const float li = W(min(i, n - 2));
-    const float mnH1 = mnH + mn - yi;
-    const float mxH1 = mxH + mx - yi;
+    const T yi = ys[i];
+    const T li = W(min(i, n - 2));
+    const T mnH1 = mnH + mn - yi;
+    const T mxH1 = mxH + mx - yi;
     const bool ceil_v = is_last ? mnH1 > kEps : li < mnH1;
     const bool floor_v = !ceil_v && (is_last ? mxH1 < -kEps : -li > mxH1);
     if (ceil_v || floor_v) {
       // Close the segment at the pinned wall and restart after it.
       const int b_end = ceil_v ? mnB : mxB;
-      const float b_val = ceil_v ? mn : mx;
+      const T b_val = ceil_v ? mn : mx;
       for (int k = last + 1 + lane; k <= b_end; k += 32) xb[k] = b_val;
       const int j = b_end + 1;
       if (j >= n) return;  // a re-break at the restarted end point
-      const float yj = ys[j];
-      const float lp = W(j - 1);
-      const float ln = (is_last && j == n - 1) ? 0.f : W(min(j, n - 2));
-      const float base = ceil_v ? yj + lp : yj - lp;
+      const T yj = ys[j];
+      const T lp = W(j - 1);
+      const T ln = (is_last && j == n - 1) ? T(0) : W(min(j, n - 2));
+      const T base = ceil_v ? yj + lp : yj - lp;
       mn = base - ln;
       mx = base + ln;
       if (is_last) {
@@ -104,10 +124,10 @@ tautstring_warp_kernel(const float* __restrict__ y, Lam lam,
       i = is_last ? j : j + 1;
       continue;
     }
-    const float denom = (float)(i - last);
+    const T denom = (T)(i - last);
     if (is_last) {
       // Tie the string to the end point and close the last segment.
-      const float v = mnH1 <= 0.f ? mn + (-mnH1) / denom : mn;
+      const T v = mnH1 <= T(0) ? mn + (-mnH1) / denom : mn;
       for (int k = last + 1 + lane; k < n; k += 32) xb[k] = v;
       return;
     }
@@ -129,11 +149,11 @@ tautstring_warp_kernel(const float* __restrict__ y, Lam lam,
   }
 }
 
-template <bool kEdge>
-cudaError_t launch_warp(const float* y, const Lam& l, float* x, int B, int n,
+template <class T, bool kEdge>
+cudaError_t launch_warp(const T* y, const LamT<T>& l, T* x, int B, int n,
                         cudaStream_t stream) {
-  auto kernel = tautstring_warp_kernel<kEdge>;
-  const size_t per_warp = sizeof(float) * (kEdge ? 2 * (size_t)n - 1 : n);
+  auto kernel = tautstring_warp_kernel<T, kEdge>;
+  const size_t per_warp = sizeof(T) * (kEdge ? 2 * (size_t)n - 1 : n);
   direct1d::WarpPlan p;
   const cudaError_t e = direct1d::warp_plan(kernel, per_warp, B, &p);
   if (e != cudaSuccess) return e;
@@ -141,40 +161,42 @@ cudaError_t launch_warp(const float* y, const Lam& l, float* x, int B, int n,
   return cudaGetLastError();
 }
 
+template <class T>
 __global__ void __launch_bounds__(64)
-tautstring_kernel(const float* __restrict__ y, Lam lam,
-                  float* __restrict__ x, int B, int n) {
+tautstring_kernel(const T* __restrict__ y, LamT<T> lam,
+                  T* __restrict__ x, int B, int n) {
+  constexpr T kEps = direct1d::kEps<T>;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* __restrict__ yb = y + (size_t)b * n;
-  float* __restrict__ xb = x + (size_t)b * n;
+  const T* __restrict__ yb = y + (size_t)b * n;
+  T* __restrict__ xb = x + (size_t)b * n;
   if (direct1d::degenerate(yb, lam, b, n, xb)) return;
 
-  const float l0 = lam(b, 0);
-  float mn = __ldg(yb) - l0, mx = __ldg(yb) + l0;  // segment value bounds
-  float mnH = 0.f, mxH = 0.f;  // tube heights of the two bounds
+  const T l0 = lam(b, 0);
+  T mn = __ldg(yb) - l0, mx = __ldg(yb) + l0;  // segment value bounds
+  T mnH = T(0), mxH = T(0);  // tube heights of the two bounds
   int mnB = 0, mxB = 0;        // last touches of the walls
   int last = -1;               // end of the last closed segment
   int i = 0;
   while (i < n) {
     const bool is_last = i == n - 1;
-    const float yi = __ldg(yb + i);
-    const float li = lam(b, min(i, n - 2));
-    const float mnH1 = mnH + mn - yi;
-    const float mxH1 = mxH + mx - yi;
+    const T yi = __ldg(yb + i);
+    const T li = lam(b, min(i, n - 2));
+    const T mnH1 = mnH + mn - yi;
+    const T mxH1 = mxH + mx - yi;
     const bool ceil_v = is_last ? mnH1 > kEps : li < mnH1;
     const bool floor_v = !ceil_v && (is_last ? mxH1 < -kEps : -li > mxH1);
     if (ceil_v || floor_v) {
       // Close the segment at the pinned wall and restart after it.
       const int b_end = ceil_v ? mnB : mxB;
-      const float b_val = ceil_v ? mn : mx;
+      const T b_val = ceil_v ? mn : mx;
       for (int k = last + 1; k <= b_end; ++k) xb[k] = b_val;
       const int j = b_end + 1;
       if (j >= n) return;  // a re-break at the restarted end point
-      const float yj = __ldg(yb + j);
-      const float lp = lam(b, j - 1);
-      const float ln = (is_last && j == n - 1) ? 0.f : lam(b, min(j, n - 2));
-      const float base = ceil_v ? yj + lp : yj - lp;
+      const T yj = __ldg(yb + j);
+      const T lp = lam(b, j - 1);
+      const T ln = (is_last && j == n - 1) ? T(0) : lam(b, min(j, n - 2));
+      const T base = ceil_v ? yj + lp : yj - lp;
       mn = base - ln;
       mx = base + ln;
       if (is_last) {
@@ -188,10 +210,10 @@ tautstring_kernel(const float* __restrict__ y, Lam lam,
       i = is_last ? j : j + 1;
       continue;
     }
-    const float denom = (float)(i - last);
+    const T denom = (T)(i - last);
     if (is_last) {
       // Tie the string to the end point and close the last segment.
-      const float v = mnH1 <= 0.f ? mn + (-mnH1) / denom : mn;
+      const T v = mnH1 <= T(0) ? mn + (-mnH1) / denom : mn;
       for (int k = last + 1; k < n; ++k) xb[k] = v;
       return;
     }
@@ -213,6 +235,21 @@ tautstring_kernel(const float* __restrict__ y, Lam lam,
   }
 }
 
+template <class T>
+int run(const T* y, const T* lam, int lam_rs, int lam_cs, T lam_s, T* x,
+        int B, int n, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  const LamT<T> l{lam, (size_t)lam_rs, (size_t)lam_cs, lam_s};
+  if (n <= kWarpMaxN<T>)
+    return static_cast<int>(l.per_edge()
+                                ? launch_warp<T, true>(y, l, x, B, n, stream)
+                                : launch_warp<T, false>(y, l, x, B, n, stream));
+  const int threads = 64;
+  tautstring_kernel<T><<<(B + threads - 1) / threads, threads, 0, stream>>>(
+      y, l, x, B, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // y, x: (B, n) float32, row-major; lam: a strided (B, n-1) weight field
@@ -221,17 +258,18 @@ tautstring_kernel(const float* __restrict__ y, Lam lam,
 extern "C" int tautstring_tv1(const float* y, const float* lam, int lam_rs,
                               int lam_cs, float lam_s, float* x, int B, int n,
                               cudaStream_t stream) {
-  if (B <= 0) return 0;
-  const Lam l{lam, (size_t)lam_rs, (size_t)lam_cs, lam_s};
-  if (n <= kWarpMaxN)
-    return static_cast<int>(l.per_edge()
-                                ? launch_warp<true>(y, l, x, B, n, stream)
-                                : launch_warp<false>(y, l, x, B, n, stream));
-  const int threads = 64;
-  tautstring_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      y, l, x, B, n);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(y, lam, lam_rs, lam_cs, lam_s, x, B, n, stream);
 }
 
-// The longest signal the warp layout takes (the layouts' threshold).
-extern "C" int tautstring_warp_max_n() { return kWarpMaxN; }
+// The same in float64: y, x and the weights double.
+extern "C" int tautstring_tv1_f64(const double* y, const double* lam,
+                                  int lam_rs, int lam_cs, double lam_s,
+                                  double* x, int B, int n,
+                                  cudaStream_t stream) {
+  return run<double>(y, lam, lam_rs, lam_cs, lam_s, x, B, n, stream);
+}
+
+// The longest signal the warp layout takes (the layouts' threshold), in
+// float32 and in float64.
+extern "C" int tautstring_warp_max_n() { return kWarpMaxN<float>; }
+extern "C" int tautstring_warp_max_n_f64() { return kWarpMaxN<double>; }

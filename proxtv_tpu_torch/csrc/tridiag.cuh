@@ -34,37 +34,39 @@
 // through each elimination: no pivot is a difference of nearly equal
 // numbers, so the float32 solve stays accurate where the system's condition
 // grows as n^2 (no shift, long unmasked runs).  Reciprocals take the place
-// of divides (rcp, within 1 ulp).
+// of divides (rcp, within 1 ulp in float32; correctly rounded in float64).
+// The solve is written for the fiber's scalar type T: float (B2 and B4), or
+// double (B2's float64 instantiation).
 #pragma once
 
 #include "fiber.cuh"
 
 namespace {
 
-template <int E, class Cf>
+template <int E, class Cf, class T = float>
 struct Tridiag {
   static_assert(E >= 4, "the chunk elimination needs 4 elements a lane");
   Cf cf;             // the coefficients
-  float inv[E];      // 1 / pivot of the downward pass, k = 1 .. E-1
-  float G[E], H[E];  // x_k = T_k + G_k a + H_k b, k = 1 .. E-2
-  float c0, La, Ua, sa, ia, la, ua, sga;  // the a row (element 0)
-  float Lb, Ub, sb;                       // the b row (element E-1), normalized
+  T inv[E];          // 1 / pivot of the downward pass, k = 1 .. E-1
+  T G[E], H[E];      // x_k = T_k + G_k a + H_k b, k = 1 .. E-2
+  T c0, La, Ua, sa, ia, la, ua, sga;  // the a row (element 0)
+  T Lb, Ub, sb;                       // the b row (element E-1), normalized
 
-  __device__ __forceinline__ float C(int k) const {
-    return cf.c(k) ? inv[k] : 0.f;
+  __device__ __forceinline__ T C(int k) const {
+    return cf.c(k) ? inv[k] : T(0);
   }
 
   // The elimination coefficients of the chunk, from cf.
   __device__ __forceinline__ void setup() {
     // Downward: row k -> x_k - F_k x_0 - C_k x_{k+1} = S_k, excess sig_k.
-    float F[E], sig[E];
+    T F[E], sig[E];
 #pragma unroll
     for (int k = 1; k < E; ++k) {
-      const float ak = cf.c(k - 1) ? 1.f : 0.f;
-      const float ck = cf.c(k) ? 1.f : 0.f;
-      const float e = cf.e(k);
-      const float s = k == 1 ? e : fmaf(ak, sig[k - 1], e);
-      const float f = k == 1 ? ak : ak * F[k - 1];
+      const T ak = cf.c(k - 1) ? T(1) : T(0);
+      const T ck = cf.c(k) ? T(1) : T(0);
+      const T e = cf.e(k);
+      const T s = k == 1 ? e : fma_(ak, sig[k - 1], e);
+      const T f = k == 1 ? ak : ak * F[k - 1];
       inv[k] = rcp(s + f + ck);
       F[k] = f * inv[k];
       sig[k] = s * inv[k];
@@ -72,19 +74,19 @@ struct Tridiag {
     // Upward: x_k - G_k x_0 - H_k x_{E-1} = T_k, excess tau.
     G[E - 2] = F[E - 2];
     H[E - 2] = C(E - 2);
-    float tau = sig[E - 2];
+    T tau = sig[E - 2];
 #pragma unroll
     for (int k = E - 3; k >= 1; --k) {
-      const float ck = C(k);
-      G[k] = fmaf(ck, G[k + 1], F[k]);
+      const T ck = C(k);
+      G[k] = fma_(ck, G[k + 1], F[k]);
       H[k] = ck * H[k + 1];
-      tau = fmaf(ck, tau, sig[k]);
+      tau = fma_(ck, tau, sig[k]);
     }
     La = cf.a0();
-    c0 = cf.c(0) ? 1.f : 0.f;
-    const float e0 = cf.e(0);
+    c0 = cf.c(0) ? T(1) : T(0);
+    const T e0 = cf.e(0);
     Ua = c0 * H[1];
-    sa = fmaf(c0, tau, e0);
+    sa = fma_(c0, tau, e0);
     ia = rcp(sa + La + Ua);
     la = La * ia;
     ua = Ua * ia;
@@ -95,44 +97,44 @@ struct Tridiag {
   }
 
   template <int W, int SLOT>
-  __device__ __forceinline__ void solve(Fiber<W, SLOT>& g,
-                                        const float (&rhs)[E],
-                                        float (&x)[E]) const {
+  __device__ __forceinline__ void solve(Fiber<W, SLOT, T>& g,
+                                        const T (&rhs)[E],
+                                        T (&x)[E]) const {
     const int lane = g.lane;
-    // 1. The chunk: downward S, upward T (T[E-1] = S[E-1] = b's rhs).
-    float T[E];
+    // 1. The chunk: downward S, upward T (Tk[E-1] = S[E-1] = b's rhs).
+    T Tk[E];
 #pragma unroll
     for (int k = 1; k < E; ++k) {
       const bool ak = cf.c(k - 1);
-      const float r = cf.live(k) ? rhs[k] : 0.f;
-      T[k] = (k == 1 || !ak ? r : r + T[k - 1]) * inv[k];
+      const T r = cf.live(k) ? rhs[k] : T(0);
+      Tk[k] = (k == 1 || !ak ? r : r + Tk[k - 1]) * inv[k];
     }
 #pragma unroll
-    for (int k = E - 3; k >= 1; --k) T[k] = fmaf(C(k), T[k + 1], T[k]);
-    const float Ra = fmaf(c0, T[1], cf.live(0) ? rhs[0] : 0.f);
-    const float Rb = T[E - 1];
-    const float ra = Ra * ia;
+    for (int k = E - 3; k >= 1; --k) Tk[k] = fma_(C(k), Tk[k + 1], Tk[k]);
+    const T Ra = fma_(c0, Tk[1], cf.live(0) ? rhs[0] : T(0));
+    const T Rb = Tk[E - 1];
+    const T ra = Ra * ia;
 
     // 2. Lanes: eliminate a_{i+1} (lane i + 1's a row) from lane i's b
     // row, and a_i too except in lane 0, whose a is the warp's boundary
     // column A; lane 30's coupling to b_31 is the boundary column B, and
     // lane 31 (B itself) is an identity row here.
-    const float ua_n = from_above(ua, 1, lane);
-    const float sga_n = from_above(sga, 1, lane);
-    const float ra_n = from_above(ra, 1, lane);
+    const T ua_n = from_above(ua, 1, lane);
+    const T sga_n = from_above(sga, 1, lane);
+    const T ra_n = from_above(ra, 1, lane);
     const bool first = lane == 0;
-    const float lo = first ? 0.f : Lb * la;
-    const float upc = Ub * ua_n;
-    const float ex = fmaf(Ub, sga_n, first ? sb : fmaf(Lb, sga, sb));
-    const float rh = fmaf(Ub, ra_n, first ? Rb : fmaf(Lb, ra, Rb));
-    const float colA = first ? Lb : 0.f;
-    const float ib = rcp(ex + lo + upc + colA);
-    float plo = lo * ib, pup = lane == 30 ? 0.f : upc * ib;
-    float pex = ex * ib, pd = rh * ib;
-    float col[2] = {colA * ib, lane == 30 ? upc * ib : 0.f};
+    const T lo = first ? T(0) : Lb * la;
+    const T upc = Ub * ua_n;
+    const T ex = fma_(Ub, sga_n, first ? sb : fma_(Lb, sga, sb));
+    const T rh = fma_(Ub, ra_n, first ? Rb : fma_(Lb, ra, Rb));
+    const T colA = first ? Lb : T(0);
+    const T ib = rcp(ex + lo + upc + colA);
+    T plo = lo * ib, pup = lane == 30 ? T(0) : upc * ib;
+    T pex = ex * ib, pd = rh * ib;
+    T col[2] = {colA * ib, lane == 30 ? upc * ib : T(0)};
     if (lane == 31) {
-      plo = pup = pd = col[0] = col[1] = 0.f;
-      pex = 1.f;
+      plo = pup = pd = col[0] = col[1] = T(0);
+      pex = T(1);
     }
 #pragma unroll
     for (int s = 1; s < 32; s <<= 1) pcr_step<2>(plo, pup, pex, pd, col, s, lane, 32);
@@ -140,42 +142,42 @@ struct Tridiag {
 
     // 3. The warps' boundary rows: a_0 of lane 0, b_31 of lane 31 (with
     // lane 30's solution).
-    const float z30 = from_below(pd, 1, lane), U30 = from_below(col[0], 1, lane);
-    const float e30 = from_below(pex, 1, lane);
-    float row[4];
+    const T z30 = from_below(pd, 1, lane), U30 = from_below(col[0], 1, lane);
+    const T e30 = from_below(pex, 1, lane);
+    T row[4];
     if (first) {  // a_0, coupled to b_31 of the previous warp and to B
       row[0] = La;
       row[1] = Ua * col[1];
-      row[2] = fmaf(Ua, pex, sa);
-      row[3] = fmaf(Ua, pd, Ra);
+      row[2] = fma_(Ua, pex, sa);
+      row[3] = fma_(Ua, pd, Ra);
     } else {      // b_31 (lane 31; other lanes' values are not read)
-      const float l31 = Lb * la;
+      const T l31 = Lb * la;
       row[0] = l31 * U30;
       row[1] = Ub;
-      row[2] = fmaf(Lb, fmaf(la, e30, sga), sb);
-      row[3] = fmaf(l31, z30, fmaf(Lb, ra, Rb));
+      row[2] = fma_(Lb, fma_(la, e30, sga), sb);
+      row[3] = fma_(l31, z30, fma_(Lb, ra, Rb));
     }
     g.gather(row);
     {
-      const float r = rcp(row[0] + row[1] + row[2]);
-      float rlo = row[0] * r, rup = row[1] * r, rex = row[2] * r;
-      float rd = row[3] * r;
+      const T r = rcp(row[0] + row[1] + row[2]);
+      T rlo = row[0] * r, rup = row[1] * r, rex = row[2] * r;
+      T rd = row[3] * r;
 #pragma unroll
       for (int s = 1; s < 2 * W; s <<= 1)
         pcr_step<0>(rlo, rup, rex, rd, nullptr, s, lane, 2 * W);
       row[3] = rd;
     }
-    const float A = __shfl_sync(kFull, row[3], 2 * g.wid);
-    const float B = __shfl_sync(kFull, row[3], 2 * g.wid + 1);
+    const T A = __shfl_sync(kFull, row[3], 2 * g.wid);
+    const T B = __shfl_sync(kFull, row[3], 2 * g.wid + 1);
 
     // 4. Back-substitution.
-    const float b = lane == 31 ? B : fmaf(col[0], A, fmaf(col[1], B, pd));
-    const float bprev = from_below(b, 1, lane);
-    const float a = first ? A : fmaf(la, bprev, fmaf(ua, b, ra));
+    const T b = lane == 31 ? B : fma_(col[0], A, fma_(col[1], B, pd));
+    const T bprev = from_below(b, 1, lane);
+    const T a = first ? A : fma_(la, bprev, fma_(ua, b, ra));
     x[0] = a;
     x[E - 1] = b;
 #pragma unroll
-    for (int k = 1; k < E - 1; ++k) x[k] = fmaf(G[k], a, fmaf(H[k], b, T[k]));
+    for (int k = 1; k < E - 1; ++k) x[k] = fma_(G[k], a, fma_(H[k], b, Tk[k]));
   }
 };
 

@@ -34,12 +34,16 @@ BUILD_LOG = {"seconds": None, "ptxas": ""}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _PF = ctypes.POINTER(ctypes.c_float)  # host arrays
 _PI = ctypes.POINTER(ctypes.c_int)
 # C entry points: every one returns cudaGetLastError() after its launch.
+# An entry ending in _f64 is its kernel's float64 instantiation: the same
+# arguments with double arrays and a double scalar weight.
 _SIGNATURES = {
     # rhs, mask (u8 or NULL), shift (or NULL), out, B, n, stream
     "pcr_spd_solve": (_P, _P, _P, _P, _I, _I, _P),
+    "pcr_spd_solve_f64": (_P, _P, _P, _P, _I, _I, _P),
     # y, lam_field (or NULL), lam_scalar, w0 (or NULL), x, w (or NULL), iters
     # (or NULL), B, n, max_iters, max_armijo, sigma, stop_rel, tol_eps,
     # head_steps, stream
@@ -70,25 +74,33 @@ _SIGNATURES = {
     # y, lam (or NULL), lam row stride, lam column stride, lam_scalar, x, B,
     # n, stream
     "tautstring_tv1": (_P, _P, _I, _I, _F, _P, _I, _I, _P),
+    "tautstring_tv1_f64": (_P, _P, _I, _I, _D, _P, _I, _I, _P),
     # y, lam (or NULL), lam row stride, lam column stride, lam_scalar, x,
     # plam, pslope, lohi (workspace), B, n, stream
     "dp_tv1": (_P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _I, _P),
     # the longest n of D1's warp layout (one warp a signal)
     "tautstring_warp_max_n": (),
+    "tautstring_warp_max_n_f64": (),
     # B, n, per_edge -> 1 on D2's warp layout, 0 on its thread layout
     "dp_warp_layout": (_I, _I, _I),
     # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, B, n,
     # stream
     "condat_tv1": (_P, _P, _I, _F, _P, _I, _I, _P),
+    "condat_tv1_f64": (_P, _P, _I, _D, _P, _I, _I, _P),
     # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, ws
     # (the thread layout's workspace, or NULL), B, n, stream
     "classic_ts_tv1": (_P, _P, _I, _F, _P, _P, _I, _I, _P),
+    "classic_ts_tv1_f64": (_P, _P, _I, _D, _P, _P, _I, _I, _P),
     # the same with the most events a signal runs (a test of D4's cap)
     "classic_ts_tv1_capped": (_P, _P, _I, _F, _P, _P, _I, _I,
                               ctypes.c_longlong, _P),
+    "classic_ts_tv1_f64_capped": (_P, _P, _I, _D, _P, _P, _I, _I,
+                                  ctypes.c_longlong, _P),
     # the longest n of D3's and D4's warp layouts
     "condat_warp_max_n": (),
+    "condat_warp_max_n_f64": (),
     "classic_ts_warp_max_n": (),
+    "classic_ts_warp_max_n_f64": (),
     # X, tol, labels (the output and the parent array), B, M, N, stream
     "component_labels": (_P, _P, _P, _I, _I, _I, _P),
 }

@@ -3,10 +3,13 @@
 No TPU kernel: it replaces the JAX package's XLA lock-step scan
 ``proxtv_tpu/ops/tv1d_l1.py:tv1_condat``; the CUDA source is
 ``proxtv_tpu_torch/csrc/condat.cu``, which runs the same events as a plain
-sequential loop per signal: up to n = :func:`warp_max_n` (16384) on one
-warp a signal, out of shared memory, recording each closed run at its start
-and writing x after the chain by the plain version's forward fill; past it
-on one thread a signal, writing each run as it closes.
+sequential loop per signal: up to n = :func:`warp_max_n` (16384 in
+float32, 8192 in float64) on one warp a signal, out of shared memory,
+recording each closed run at its start and writing x after the chain by the
+plain version's forward fill; past it on one thread a signal, writing each
+run as it closes.  The kernel is built for float32 and for float64;
+:data:`LAUNCHES` counts the float32 launches, :data:`LAUNCHES_F64` the
+float64 ones.
 
 :func:`condat` launches the kernel for a CUDA tensor and runs
 :func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_condat_plain` for a CPU tensor;
@@ -19,16 +22,17 @@ import torch
 from ...utils.debug import Counter
 from .. import tv1d_l1
 from . import build
-from .direct1d import check_batch, signal_lam_args
+from .direct1d import check_batch, entry, signal_lam_args
 
 LAUNCHES = Counter()
+LAUNCHES_F64 = Counter()
 REF = "reference TV1D_denoise, src/condat_fast_tv.cpp:78,"
 
 
-def warp_max_n():
-    """The longest signal of the warp layout (``csrc/condat.cu``
-    kWarpMaxN)."""
-    return build.lib().condat_warp_max_n()
+def warp_max_n(dtype=torch.float32):
+    """The longest signal of the warp layout in ``dtype``
+    (``csrc/condat.cu`` kWarpMaxN)."""
+    return getattr(build.lib(), entry("condat_warp_max_n", dtype))()
 
 
 def bind(y, lam):
@@ -38,22 +42,24 @@ def bind(y, lam):
     (negative weights clamped to 0)."""
     y = check_batch(y, "condat")
     B, n = y.shape
-    lamv, rs, lam_s = signal_lam_args(lam, B, n, y.device, "condat", REF)
+    lamv, rs, lam_s = signal_lam_args(lam, B, n, y.device, "condat", REF,
+                                      y.dtype)
     out = torch.empty_like(y)
     args = (build.ptr(y), build.ptr(lamv), rs, lam_s, build.ptr(out), B, n,
             build.stream_ptr(y.device))
+    name = entry("condat_tv1", y.dtype)
 
     # keep: every tensor the pointers name, the output too.
     def launch(keep=(y, lamv, out)):
-        build.check(build.lib().condat_tv1(*args), "condat_tv1")
+        build.check(getattr(build.lib(), name)(*args), name)
 
     return out, launch
 
 
 def condat(y, lam):
     """Condat TV-L1 prox of a (B, n) batch.  A CUDA tensor must be float32
-    (the kernel launches or this raises); a CPU tensor runs the plain
-    version."""
+    or float64 (the kernel's instantiation for it launches, or this
+    raises); a CPU tensor runs the plain version."""
     if not y.is_cuda:
         return tv1d_l1.tv1_condat_plain(y, lam)
     if y.shape[-1] == 1:
@@ -61,5 +67,5 @@ def condat(y, lam):
     out, launch = bind(y, lam)
     if y.shape[0] > 0:
         launch()
-        LAUNCHES.value += 1
+        (LAUNCHES_F64 if y.dtype == torch.float64 else LAUNCHES).value += 1
     return out

@@ -6,14 +6,23 @@ kernel or the plain PyTorch composition?  The answer follows the device
 alone:
 
 *   a CPU tensor takes the plain composition;
-*   a CUDA tensor takes the kernel, or the call raises with the limit it
-    broke: the kernels are float32 by design, one fiber/line must fit the
-    kernel's lane limits, and the fused-kernel switch (:func:`fused_ctx`)
-    must be on.  Nothing on the card runs the plain composition instead,
-    with one exception, a property of the kernel family: past the upper
-    lane limit of a family whose JAX callers run an XLA composition there,
-    the gate says "not this kernel" and the port's caller runs the same
-    composition on the card.
+*   a CUDA float32 tensor takes the kernel, or the call raises with the
+    limit it broke: one fiber/line must fit the kernel's lane limits, and
+    the fused-kernel switch (:func:`fused_ctx`) must be on.  Nothing on the
+    card runs a kernel's plain version instead, with one exception, a
+    property of the kernel family: past the upper lane limit of a family
+    whose JAX callers run an XLA composition there, the gate says "not
+    this kernel" and the port's caller runs the same composition on the
+    card;
+*   a CUDA float64 tensor takes the JAX package's float64 route, whose
+    gate says no to every kernel ("f32 by design (f64 runs use the XLA
+    compositions)", ``proxtv_tpu/ops/kernels/gating.py:8``): the families
+    whose callers compose (``pn``: ``tv1_pn``; ``pdhg2d``: the unfused
+    primal-dual iteration) say "not this kernel" at any length, the
+    families that the composition runs on (B2's ``pcr``) or that the
+    float64 route names (D1's ``tautstring``, D3's ``condat``, D4's
+    ``classic``) take the kernel's float64 instantiation, and every other
+    family raises: its float64 form on the card is queued.
 """
 from __future__ import annotations
 
@@ -68,35 +77,74 @@ _KIND_LANE_LIMITS = {
 }
 
 
+# Each family's kernel, named in the gate's refusals.
+_KIND_KERNEL = {
+    "pn": "B1 (csrc/pn_fused.cu)", "pn_window": "B1 (csrc/pn_fused.cu)",
+    "ms": "B4 (csrc/ms_fused.cu)", "lp": "B5 (csrc/lp_fused.cu)",
+    "pcr": "B2 (csrc/pcr.cu)", "pdhg2d": "B3 (csrc/pdhg_fused.cu)",
+    "pdhg3d": "B6 (csrc/pdhg3d_fused.cu)",
+    "tautstring": "D1 (csrc/tautstring.cu)", "dp": "D2 (csrc/dp.cu)",
+    "condat": "D3 (csrc/condat.cu)", "classic": "D4 (csrc/classic_ts.cu)",
+}
+# The float64 route (module docstring): the families built in double, and
+# those whose callers run the JAX package's float64 composition instead.
+# Every other family's float64 form is queued: a float64 CUDA tensor raises.
+F64_KERNELS = frozenset({"pcr", "tautstring", "condat", "classic"})
+F64_COMPOSES = frozenset({"pn", "pdhg2d"})
+
+
 def lane_limits(kind: str):
     return _KIND_LANE_LIMITS[kind][:2]
 
 
-def gate(y: torch.Tensor, kind: str) -> bool:
-    """Route for kernel family ``kind``: False for a CPU tensor (the plain
-    composition runs), True for a CUDA tensor the kernel takes.  A CUDA
-    tensor the kernel cannot take raises: the switch off, not float32, or
-    last axis outside the family's lane limits, except that a float32
-    tensor longer than the upper limit of a family whose callers compose
-    there returns False (its caller runs the composition the JAX package
-    runs there).  A torch tensor lives on one device, so there is no
-    sharding test."""
-    if not y.is_cuda:
+def decide(kind: str, is_cuda: bool, dtype, n: int) -> bool:
+    """:func:`gate`'s answer for a tensor on a CUDA card (``is_cuda``) or
+    the CPU, of ``dtype``, with ``n`` along its last axis: the route a
+    batch takes, which a test can ask without a card.  False: the caller
+    runs its composition (the plain composition on the CPU; on the card,
+    the composition the JAX package runs there); True: the kernel launches
+    (its float64 instantiation for a float64 tensor).  Raises where the
+    card has no path: the switch off, a dtype the family does not take on
+    the card (float64 where its float64 form is queued), or n outside the
+    family's lane limits."""
+    if not is_cuda:
         return False
     if not _fused_flag.get():
         raise RuntimeError(
             f"the {kind} kernel is switched off (fused_ctx(False)) and a CUDA "
             "tensor has no other path; move the input to the CPU")
-    if y.dtype != torch.float32:
-        raise ValueError(f"the {kind} kernel takes float32 on the card; got "
-                         f"{y.dtype} (float64 solves run on the CPU)")
+    if dtype == torch.float64:
+        if kind in F64_COMPOSES:
+            return False
+        if kind not in F64_KERNELS:
+            raise ValueError(
+                f"the {kind} kernel {_KIND_KERNEL[kind]} takes float32 on the "
+                "card: its float64 form is queued (ROADMAP F6); run float64 "
+                "on the CPU")
+    elif dtype != torch.float32:
+        raise ValueError(f"the {kind} kernel {_KIND_KERNEL[kind]} takes "
+                         f"float32 (or, where built, float64) on the card; "
+                         f"got {dtype}")
     lo, hi, composes = _KIND_LANE_LIMITS[kind]
-    if composes and y.shape[-1] > hi:
+    if composes and n > hi:
         return False
-    if not lo <= y.shape[-1] <= hi:
+    if not lo <= n <= hi:
         raise ValueError(f"the {kind} kernel takes {lo} <= n <= {hi} along "
-                         f"the last axis; got n = {y.shape[-1]}")
+                         f"the last axis; got n = {n}")
     return True
+
+
+def gate(y: torch.Tensor, kind: str) -> bool:
+    """Route for kernel family ``kind`` (:func:`decide` on ``y``'s device,
+    dtype and last axis): False for a CPU tensor (the plain composition
+    runs), True for a CUDA tensor the kernel takes.  A CUDA tensor the
+    kernel cannot take raises: the switch off, a dtype it does not take,
+    or last axis outside the family's lane limits, except that a tensor
+    longer than the upper limit of a family whose callers compose there,
+    or a float64 tensor of a family whose float64 callers compose, returns
+    False (its caller runs the composition the JAX package runs there).
+    A torch tensor lives on one device, so there is no sharding test."""
+    return decide(kind, y.is_cuda, y.dtype, y.shape[-1])
 
 
 def pdhg2d_params():

@@ -7,7 +7,10 @@ cyclic reduction; the CUDA source is ``proxtv_tpu_torch/csrc/pcr.cu``, which
 solves each row exactly in O(n) (each lane's chunk in registers, the lanes'
 and warps' interface rows by PCR over shuffles, one step of iterative
 refinement), so it rounds differently from the plain version and lands
-closer to the float64 solution.
+closer to the float64 solution.  The kernel is built for float32 and for
+float64 (the Newton systems of ``tv1_pn`` on a float64 batch);
+:data:`LAUNCHES` counts the float32 launches, :data:`LAUNCHES_F64` the
+float64 ones.
 
 :func:`pcr_spd_solve` launches the kernel for a CUDA tensor and runs
 :func:`pcr_spd_solve_plain` — the TPU kernel's arithmetic on tensors — for a
@@ -30,6 +33,7 @@ from .common import shift_right as _shift_right
 from .gating import lane_limits
 
 LAUNCHES = Counter()
+LAUNCHES_F64 = Counter()
 
 
 def _pcr_body(a, b, c, d, n):
@@ -89,9 +93,9 @@ def bind(rhs, mask=None, diag_shift=None):
                          "mode")
     B, n = rhs.shape
     lo, hi = lane_limits("pcr")
-    if rhs.dtype != torch.float32 or not lo <= n <= hi:
-        raise ValueError(f"PCR kernel takes float32 with {lo} <= n <= {hi}; "
-                         f"got {rhs.dtype}, n = {n}")
+    if rhs.dtype not in (torch.float32, torch.float64) or not lo <= n <= hi:
+        raise ValueError(f"PCR kernel takes float32 or float64 with {lo} <= "
+                         f"n <= {hi}; got {rhs.dtype}, n = {n}")
     rhs = rhs.contiguous()
     m8 = None
     if mask is not None:
@@ -100,18 +104,20 @@ def bind(rhs, mask=None, diag_shift=None):
         m8 = mask.to(torch.uint8).contiguous()
     sh = None
     if diag_shift is not None:
-        sh = diag_shift.to(device=rhs.device, dtype=torch.float32)
+        sh = diag_shift.to(device=rhs.device, dtype=rhs.dtype)
         sh = sh.reshape(-1).contiguous()
         if sh.shape[0] != B:
             raise ValueError("diag_shift must be (B,)")
     out = torch.empty_like(rhs)
     args = (build.ptr(rhs), build.ptr(m8), build.ptr(sh), build.ptr(out), B,
             n, build.stream_ptr(rhs.device))
+    name = ("pcr_spd_solve_f64" if rhs.dtype == torch.float64
+            else "pcr_spd_solve")
 
     # keep: every tensor the pointers name, the output too: a caller may
     # drop it and launch again.
     def launch(keep=(rhs, m8, sh, out)):
-        build.check(build.lib().pcr_spd_solve(*args), "pcr_spd_solve")
+        build.check(getattr(build.lib(), name)(*args), name)
 
     return out, launch
 
@@ -121,7 +127,8 @@ def pcr_spd_solve(rhs, mask=None, diag_shift=None):
 
     ``mask``: optional (B, n) bool active-row mask. ``diag_shift``: optional
     (B,) per-row diagonal shift (at most one of the two).  A CUDA tensor must
-    be float32 with 2 <= n <= 8192; the kernel launches or this raises.
+    be float32 or float64 with 2 <= n <= 8192; the kernel's instantiation
+    for it launches or this raises.
     """
     if mask is not None and diag_shift is not None:
         raise ValueError("pcr_spd_solve takes a mask or a shift, not both")
@@ -130,5 +137,5 @@ def pcr_spd_solve(rhs, mask=None, diag_shift=None):
     out, launch = bind(rhs, mask, diag_shift)
     if rhs.shape[0] > 0:
         launch()
-        LAUNCHES.value += 1
+        (LAUNCHES_F64 if rhs.dtype == torch.float64 else LAUNCHES).value += 1
     return out

@@ -4,8 +4,11 @@ No TPU kernel: it replaces the JAX package's XLA lock-step scan
 ``proxtv_tpu/ops/tv1d_l1.py:tv1_tautstring``; the CUDA source is
 ``proxtv_tpu_torch/csrc/tautstring.cu``, which runs the same events as a
 plain sequential loop per signal and writes each closed segment straight to
-the output: up to n = :func:`warp_max_n` (16384) on one warp a signal, out
-of shared memory, past it on one thread a signal.
+the output: up to n = :func:`warp_max_n` (16384 in float32, 8192 in
+float64) on one warp a signal, out of shared memory, past it on one thread
+a signal.  The kernel is built for float32 and for float64 (the float64
+route of ``tv1_batched``); :data:`LAUNCHES` counts the float32 launches,
+:data:`LAUNCHES_F64` the float64 ones.
 
 :func:`tautstring` launches the kernel for a CUDA tensor and runs
 :func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_tautstring_plain` — the JAX scan's
@@ -19,15 +22,16 @@ import torch
 from ...utils.debug import Counter
 from .. import tv1d_l1
 from . import build
-from .direct1d import check_batch, lam_args
+from .direct1d import check_batch, entry, lam_args
 
 LAUNCHES = Counter()
+LAUNCHES_F64 = Counter()
 
 
-def warp_max_n():
-    """The longest signal of the warp layout (``csrc/tautstring.cu``
-    kWarpMaxN)."""
-    return build.lib().tautstring_warp_max_n()
+def warp_max_n(dtype=torch.float32):
+    """The longest signal of the warp layout in ``dtype``
+    (``csrc/tautstring.cu`` kWarpMaxN)."""
+    return getattr(build.lib(), entry("tautstring_warp_max_n", dtype))()
 
 
 def bind(y, lam):
@@ -39,22 +43,23 @@ def bind(y, lam):
     in :data:`LAUNCHES`."""
     y = check_batch(y, "tautstring")
     B, n = y.shape
-    lamv, rs, cs, lam_s = lam_args(lam, B, n, y.device)
+    lamv, rs, cs, lam_s = lam_args(lam, B, n, y.device, y.dtype)
     out = torch.empty_like(y)
     args = (build.ptr(y), build.ptr(lamv), rs, cs, lam_s, build.ptr(out), B,
             n, build.stream_ptr(y.device))
+    name = entry("tautstring_tv1", y.dtype)
 
     # keep: every tensor the pointers name, the output too.
     def launch(keep=(y, lamv, out)):
-        build.check(build.lib().tautstring_tv1(*args), "tautstring_tv1")
+        build.check(getattr(build.lib(), name)(*args), name)
 
     return out, launch
 
 
 def tautstring(y, lam):
     """Taut-string TV-L1 prox of a (B, n) batch.  A CUDA tensor must be
-    float32 (the kernel launches or this raises); a CPU tensor runs the
-    plain version."""
+    float32 or float64 (the kernel's instantiation for it launches, or this
+    raises); a CPU tensor runs the plain version."""
     if not y.is_cuda:
         return tv1d_l1.tv1_tautstring_plain(y, lam)
     if y.shape[-1] == 1:
@@ -62,5 +67,5 @@ def tautstring(y, lam):
     out, launch = bind(y, lam)
     if y.shape[0] > 0:
         launch()
-        LAUNCHES.value += 1
+        (LAUNCHES_F64 if y.dtype == torch.float64 else LAUNCHES).value += 1
     return out

@@ -91,11 +91,12 @@ def spd_second_difference_solve(rhs, diag_shift=0.0, mask=None, method="pcr"):
         method: 'pcr' or 'thomas'.
 
     A CUDA tensor up to n = 8192 runs the PCR kernel (:mod:`.kernels.pcr`)
-    or raises: the kernel takes float32, n >= 2, and a mask or a shift that
-    is constant along the system axis, not both (the JAX package's routing,
+    or raises: the kernel takes float32 or float64 (its instantiation for
+    the tensor's dtype), n >= 2, and a mask or a shift that is constant
+    along the system axis, not both (the JAX package's routing,
     ``tridiag.py:145-164``, where the rest falls to the plain composition).
-    A float32 CUDA tensor past n = 8192 runs the plain composition, where
-    the JAX package solves with its XLA ``pcr_solve``
+    A CUDA tensor past n = 8192 runs the plain composition, where the JAX
+    package solves with its XLA ``pcr_solve``
     (``proxtv_tpu/ops/tridiag.py:153-179``).
     """
     from .kernels import gating

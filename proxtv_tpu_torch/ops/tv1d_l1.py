@@ -11,11 +11,12 @@ with scalar, per-signal or per-edge weights.
     ``PN_TV1_Weighted``).  The inactive-set Newton system is solved at full
     size by *masked* parallel cyclic reduction (active rows become identity
     rows), batched over signals.  On a CUDA batch its tridiagonal solves
-    run kernel B2 (float32 only).
+    run kernel B2 in the batch's dtype (float32 or float64).
 *   :func:`tv1_tautstring` — the weighted linearized taut string (reference
     ``src/TVL1Wopt.cpp:364``).  On a CUDA batch kernel D1
-    (:mod:`.kernels.tautstring`, one warp a signal up to n = 16384); on
-    the CPU :func:`tv1_tautstring_plain`, the JAX package's lock-step scan.
+    (:mod:`.kernels.tautstring`, one warp a signal up to n = 16384 in
+    float32, 8192 in float64); on the CPU :func:`tv1_tautstring_plain`,
+    the JAX package's lock-step scan.
 *   :func:`tv1_dp` — the Kolmogorov/Pock/Rolinek message-passing DP
     (reference ``src/TVL1opt_kolmogorov.cpp:38``), weighted-capable.  On a
     CUDA batch kernel D2 (:mod:`.kernels.dp`); on the CPU
@@ -25,10 +26,11 @@ with scalar, per-signal or per-edge weights.
     hull-merge taut string (``src/TVL1opt_tautstring.cpp:256``): unweighted
     (one lambda a signal).  On a CUDA batch kernels D3
     (:mod:`.kernels.condat`) and D4 (:mod:`.kernels.classic_ts`), one
-    launch each; on the CPU :func:`tv1_condat_plain` and
+    launch each, float32 or float64; on the CPU :func:`tv1_condat_plain` and
     :func:`tv1_classic_ts_plain`, the JAX package's lock-step scans.
 *   :func:`tv1_batched` — reference-compatible method names, routed by the
-    JAX package's table.
+    JAX package's table (:func:`tv1_route`), a float64 CUDA batch by its
+    float64 route.
 
 The lock-step engines repeat the JAX package's ``while_loop`` bodies event
 for event; their loops read the running flag to the host every
@@ -402,8 +404,9 @@ def tv1_tautstring_plain(y, lam):
 
 def tv1_tautstring(y, lam):
     """Batched weighted taut-string TV-L1 prox: kernel D1 on a CUDA batch
-    (float32; it launches or raises), :func:`tv1_tautstring_plain` on the
-    CPU.  ``lam``: scalar, (B,) per signal, (n-1,) shared or (B, n-1) per
+    (float32 or float64, its instantiation for the batch's dtype; it
+    launches or raises), :func:`tv1_tautstring_plain` on the CPU.
+    ``lam``: scalar, (B,) per signal, (n-1,) shared or (B, n-1) per
     edge."""
     from .kernels import tautstring
 
@@ -519,7 +522,8 @@ def tv1_condat_plain(y, lam):
 
 def tv1_condat(y, lam):
     """Batched Condat direct TV-L1 prox: kernel D3 on a CUDA batch
-    (float32; it launches or raises), :func:`tv1_condat_plain` on the CPU.
+    (float32 or float64, its instantiation for the batch's dtype; it
+    launches or raises), :func:`tv1_condat_plain` on the CPU.
     ``lam``: scalar or (B,) per signal."""
     from .kernels import condat
 
@@ -701,7 +705,8 @@ def tv1_dp_plain(y, lam):
 
 def tv1_dp(y, lam):
     """Batched message-passing DP TV-L1 prox: kernel D2 on a CUDA batch
-    (float32; it launches or raises), :func:`tv1_dp_plain` on the CPU.
+    (float32; it launches or raises: its float64 form is queued, ROADMAP
+    F6), :func:`tv1_dp_plain` on the CPU.
     ``lam`` as :func:`tv1_tautstring`."""
     from .kernels import dp
 
@@ -893,8 +898,9 @@ def tv1_classic_ts_plain(y, lam):
 
 def tv1_classic_ts(y, lam):
     """Batched classic taut-string TV-L1 prox: kernel D4 on a CUDA batch
-    (float32; it launches or raises), :func:`tv1_classic_ts_plain` on the
-    CPU.  ``lam``: scalar or (B,) per signal."""
+    (float32 or float64, its instantiation for the batch's dtype; it
+    launches or raises), :func:`tv1_classic_ts_plain` on the CPU.
+    ``lam``: scalar or (B,) per signal."""
     from .kernels import classic_ts
 
     return classic_ts.classic_ts(y, lam)
@@ -916,11 +922,69 @@ def _per_edge(lam, B, n):
                                and B != n - 1)
 
 
+def _route_method(method, lam, B, n, strict):
+    """The method name tv1_batched routes: lower case, checked, and an
+    unweighted engine's name with per-edge weights refused (strict) or
+    coerced to the taut string."""
+    method = method.lower()
+    known = _SCAN_METHODS | _DP_METHODS | {"condat", "pn"}
+    if method not in known:
+        raise ValueError(f"Unknown TV-L1 method: {method!r}")
+    if method in ("classictautstring", "condat") and _per_edge(lam, B, n):
+        if strict:
+            raise ValueError(
+                f"method={method!r} is unweighted (one lambda per signal); "
+                "use 'tautstring'/'pn'/'dp' for per-edge weights")
+        method = "hybridtautstring"
+    return method
+
+
+def _engine(method, fused_ok):
+    """The engine of a routed method: ``pn_fused`` (kernel B1) where the
+    gate let B1 take the batch, else the named engine: ``tv1_pn``,
+    ``classic_ts``, ``condat``, ``tautstring`` or ``dp``."""
+    if fused_ok:
+        return "pn_fused"
+    if method == "pn":
+        return "tv1_pn"
+    if method == "classictautstring":
+        return "classic_ts"
+    if method == "condat":
+        return "condat"
+    return "tautstring" if method in _SCAN_METHODS else "dp"
+
+
+def tv1_route(method, lam, B, n, strict=False, is_cuda=False,
+              dtype=torch.float32):
+    """The engine :func:`tv1_batched` runs for a (B, n) batch of ``dtype``
+    on a CUDA card (``is_cuda``) or the CPU, which a test can ask without
+    a card: ``pn_fused`` (B1), ``tv1_pn`` (its Newton systems on B2 where
+    ``gating.gate(rhs, "pcr")`` says so), or a direct engine,
+    ``tautstring`` (D1), ``dp`` (D2), ``condat`` (D3) or ``classic_ts``
+    (D4), each of which launches its kernel's instantiation for ``dtype``
+    on the card.  A float64 CUDA batch takes the JAX package's float64
+    route: B1 never, so the named engine (``tv1_pn`` for ``pn``).  Raises
+    as :func:`tv1_batched` does (an unknown name, per-edge weights with a
+    strict unweighted name, a card route the gate refuses)."""
+    from .kernels import gating
+
+    method = _route_method(method, lam, B, n, strict)
+    fused_ok = ((method == "pn" or not strict)
+                and gating.decide("pn", is_cuda, dtype, n))
+    engine = _engine(method, fused_ok)
+    kind = {"tautstring": "tautstring", "dp": "dp", "condat": "condat",
+            "classic_ts": "classic"}.get(engine)
+    if kind is not None:
+        gating.decide(kind, is_cuda, dtype, n)  # raises where it would
+    return engine
+
+
 def tv1_batched(y, lam, method: str = "hybridtautstring",
                 cfg: TV1Config = DEFAULT_TV1, strict: bool = False,
                 tol_eps: float = 10.0):
     """Batched 1D TV-L1 prox with reference-compatible method names, routed
-    by the JAX package's table (``tv1d_l1.py:1141-1191``).
+    by the JAX package's table (``tv1d_l1.py:1141-1191``; :func:`tv1_route`
+    names the engine).
 
     ``classictautstring`` names :func:`tv1_classic_ts`; ``condat``
     :func:`tv1_condat`; ``tautstring``, ``linearizedtautstring``,
@@ -933,9 +997,12 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
     string is kernel D1, the DP kernel D2, Condat kernel D3 and the classic
     taut string kernel D4, one launch each).  With ``strict=False`` every name runs
     kernel B1 where ``gating.gate(y, "pn")`` says so (a CUDA float32 batch
-    with 2 <= n <= 8192), and the named engine where it says no: on the CPU
-    and past B1's lane limit.  ``method="pn"`` runs B1 where the gate says
-    so and :func:`tv1_pn` elsewhere, strict or not.
+    with 2 <= n <= 8192), and the named engine where it says no: on the CPU,
+    past B1's lane limit, and for a float64 batch, which takes the JAX
+    package's float64 route (D1, D3 and D4 in float64; the DP's float64
+    form is queued and raises).  ``method="pn"`` runs B1 where the gate
+    says so and :func:`tv1_pn` elsewhere (on a float64 CUDA batch its
+    Newton systems on B2 in float64), strict or not.
     The unweighted engines (``condat``, ``classictautstring``) raise on
     per-edge weights when strict and take the taut string otherwise.
     ``tol_eps`` is B1's float32 stop floor (``pn_fused.pn_tv1_fused``; 10,
@@ -943,27 +1010,19 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
     """
     from .kernels import gating
 
-    method = method.lower()
     B, n = y.shape
-    known = _SCAN_METHODS | _DP_METHODS | {"condat", "pn"}
-    if method not in known:
-        raise ValueError(f"Unknown TV-L1 method: {method!r}")
-    if method in ("classictautstring", "condat") and _per_edge(lam, B, n):
-        if strict:
-            raise ValueError(
-                f"method={method!r} is unweighted (one lambda per signal); "
-                "use 'tautstring'/'pn'/'dp' for per-edge weights")
-        method = "hybridtautstring"
+    method = _route_method(method, lam, B, n, strict)
     fused_ok = (method == "pn" or not strict) and gating.gate(y, "pn")
-    if method != "pn" and not fused_ok:
-        if method == "classictautstring":
-            return tv1_classic_ts(y, lam)
-        if method == "condat":
-            return tv1_condat(y, lam)
-        if method in _SCAN_METHODS:
-            return tv1_tautstring(y, lam)
+    engine = _engine(method, fused_ok)
+    if engine == "classic_ts":
+        return tv1_classic_ts(y, lam)
+    if engine == "condat":
+        return tv1_condat(y, lam)
+    if engine == "tautstring":
+        return tv1_tautstring(y, lam)
+    if engine == "dp":
         return tv1_dp(y, lam)
-    if fused_ok:
+    if engine == "pn_fused":
         from .kernels import pn_fused
 
         if torch.as_tensor(lam).ndim == 0:
@@ -977,5 +1036,6 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
         x, _ = pn_fused.pn_tv1_fused(y, lam_full, return_dual=False,
                                      tol_eps=tol_eps)
         return x
-    x, _ = tv1_pn(y, lam, cfg=cfg)  # CPU, or past B1's lane limit
+    # the CPU, past B1's lane limit, or a float64 batch on the card
+    x, _ = tv1_pn(y, lam, cfg=cfg)
     return x

@@ -85,6 +85,10 @@ def _tol_of(cfg, den, dtype):
 
 
 def _common_setup(y, lam, p):
+    if y.dtype == torch.float64:
+        # TV-Lp's float64 route on the card (B5's and its compositions') is
+        # queued: a float64 CUDA batch raises here, before any composition.
+        gating.gate(y, "lp")
     B, n = y.shape
     dtype, dev = y.dtype, y.device
     lamv = _lam_vec(lam, B, dtype, dev)

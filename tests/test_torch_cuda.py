@@ -137,9 +137,11 @@ def test_pcr_and_lp_bind_launch_what_the_wrappers_do(dev):
 
 
 def test_kernels_raise_on_unsupported_cuda_input(dev):
+    """B1 has no float64 form (it raises for float64); B2 is built in
+    float32 and float64 and raises for any other dtype."""
     y64 = torch.zeros((4, 16), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
-        PK.pcr_spd_solve(y64)
+        PK.pcr_spd_solve(y64.half())
     with pytest.raises(ValueError):
         PPF.pn_tv1_fused(y64, lam_scalar=0.5)
     with pytest.raises(ValueError):
@@ -342,9 +344,13 @@ def test_tv1_2d_batched_on_card_matches_cpu_float64(method, dev):
                                   "tv2d_dr_f64", "tv2d_cp_acc_f64",
                                   "tv2d_dr_n1", "pcr_mask_and_shift",
                                   "pcr_thomas", "switch_off"])
-def test_call_sites_raise_instead_of_running_plain_on_the_card(case, dev):
+def test_call_sites_raise_instead_of_running_plain_on_the_card(case, dev,
+                                                              monkeypatch):
     """Every call site that holds a kernel launches it for a CUDA tensor or
-    raises; none runs the plain composition on the card."""
+    raises; none runs a kernel's plain version on the card.  A float64
+    tensor takes the JAX package's float64 route: tv1_pn with its Newton
+    systems on B2 in float64 (no B1), the primal-dual methods by the
+    unfused iteration (no B3)."""
     from proxtv_tpu_torch.models import tv2d
     from proxtv_tpu_torch.ops import tridiag, tv1d_l1
     from proxtv_tpu_torch.ops.kernels import gating
@@ -368,8 +374,42 @@ def test_call_sites_raise_instead_of_running_plain_on_the_card(case, dev):
         with gating.fused_ctx(False), pytest.raises(RuntimeError):
             tv1d_l1.tv1_batched(y32, 0.5, method="pn")
         return
+    if case.endswith("_f64"):
+        _no_plain_on_the_card(monkeypatch)
+        counts = (PPF.LAUNCHES.value, PPK.LAUNCHES.value,
+                  PK.LAUNCHES_F64.value)
+        out = calls[case]()
+        torch.cuda.synchronize()
+        x = out[0] if isinstance(out, tuple) else out
+        assert x.dtype == torch.float64 and x.is_cuda
+        assert PPF.LAUNCHES.value == counts[0]  # no B1
+        assert PPK.LAUNCHES.value == counts[1]  # no B3
+        assert (PK.LAUNCHES_F64.value > counts[2]) == (case != "tv2d_cp_acc_f64")
+        return
     with pytest.raises(ValueError):
         calls[case]()
+
+
+def _no_plain_on_the_card(monkeypatch):
+    """Make every kernel's plain version fail on a CUDA tensor (the float64
+    route may run compositions there, never a kernel's plain version)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+
+    def trip(mod, name):
+        orig = getattr(mod, name)
+
+        def f(y, *a, **k):
+            assert not y.is_cuda, f"{name} ran on the card"
+            return orig(y, *a, **k)
+
+        monkeypatch.setattr(mod, name, f)
+
+    for name in ("tv1_tautstring_plain", "tv1_condat_plain",
+                 "tv1_classic_ts_plain", "tv1_dp_plain"):
+        trip(tv1d_l1, name)
+    trip(PK, "pcr_spd_solve_plain")
+    trip(PPF, "pn_tv1_fused_plain")
+    trip(PPK, "pdhg_chunk_plain")
 
 
 def _obj2d(X, Y, lam):
@@ -1252,22 +1292,32 @@ def test_direct_bind_launches_what_the_wrapper_does(kernel, dev):
 
 
 def test_direct_kernels_raise_on_unsupported_cuda_input(dev):
+    """D1-D4 take float32 on the card, and D1, D3 and D4 float64; another
+    dtype, float64 for D2 (its float64 form is queued), the switch off and
+    per-edge weights for the unweighted D3 and D4 raise."""
     from proxtv_tpu_torch.ops import tv1d_l1
     from proxtv_tpu_torch.ops.kernels import gating
 
     y64 = torch.zeros((4, 16), dtype=torch.float64, device=dev)
+    y16 = y64.half()
     for fn in (tv1d_l1.tv1_tautstring, tv1d_l1.tv1_dp, tv1d_l1.tv1_condat,
                tv1d_l1.tv1_classic_ts):
         with pytest.raises(ValueError):
-            fn(y64, 0.5)
+            fn(y16, 0.5)
         with gating.fused_ctx(False), pytest.raises(RuntimeError):
             fn(y64.float(), 0.5)
+        with gating.fused_ctx(False), pytest.raises(RuntimeError):
+            fn(y64, 0.5)
+    with pytest.raises(ValueError, match="D2"):
+        tv1d_l1.tv1_dp(y64, 0.5)
     for fn in (tv1d_l1.tv1_condat, tv1d_l1.tv1_classic_ts):
         with pytest.raises(ValueError, match="unweighted"):
             fn(y64.float(), torch.ones((4, 15), device=dev))
+        with pytest.raises(ValueError, match="unweighted"):
+            fn(y64, torch.ones((4, 15), dtype=torch.float64, device=dev))
     for m in ("tautstring", "condat", "classictautstring"):
         with pytest.raises(ValueError):
-            tv1d_l1.tv1_batched(y64, 0.5, method=m, strict=True)
+            tv1d_l1.tv1_batched(y16, 0.5, method=m, strict=True)
 
 
 @pytest.mark.parametrize("method", ["hybridtautstring", "dp", "condat",
@@ -1902,3 +1952,274 @@ def test_pdhg_kernel_on_the_4k_canvas(dev):
         assert abs(float(o.sum()) - float(r.sum())) <= 1e-4 * abs(
             float(r.sum()))
 
+
+
+# -- float64 on the card: B2, D1, D3 and D4 built in double -----------------
+
+def _f64_rows(rng, B, n):
+    """Float64 signals of a float64 card case: walks plus noise, and (B > 2)
+    a constant row (degenerate: its mean); returns (y, degenerate rows)."""
+    y = rng.randn(B, n) + np.cumsum(rng.randn(B, n), axis=1) * 0.1
+    deg = []
+    if B > 2:
+        y[1] = y[1, 0]
+        deg.append(1)
+    return y, deg
+
+
+def test_float64_thresholds_and_counters(dev):
+    """Each float64 warp layout ends at its own n (D1 and D3 at 8192, half
+    their float32 16384; D4 at 3182, the longest whose double deques fit a
+    block), the float32 ones where they were; a float32 launch counts in
+    LAUNCHES and a float64 one in LAUNCHES_F64 only."""
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
+
+    f64 = torch.float64
+    assert (TSK.warp_max_n(), CDK.warp_max_n(), CTK.warp_max_n()) == (
+        16384, 16384, 6280)
+    assert (TSK.warp_max_n(f64), CDK.warp_max_n(f64),
+            CTK.warp_max_n(f64)) == (8192, 8192, 3182)
+    y = torch.randn((3, 100), dtype=f64, device=dev)
+    for mod, fn in ((TSK, TSK.tautstring), (CDK, CDK.condat),
+                    (CTK, CTK.classic_ts), (PK, PK.pcr_spd_solve)):
+        for t, hit in ((y.float(), "LAUNCHES"), (y, "LAUNCHES_F64")):
+            before = (mod.LAUNCHES.value, mod.LAUNCHES_F64.value)
+            out = fn(t) if mod is PK else fn(t, 0.5)
+            torch.cuda.synchronize()
+            assert out.dtype == t.dtype
+            after = (mod.LAUNCHES.value, mod.LAUNCHES_F64.value)
+            want = (1, 0) if hit == "LAUNCHES" else (0, 1)
+            assert tuple(a - b for a, b in zip(after, before)) == want
+
+
+@pytest.mark.parametrize("kernel", ["tautstring", "condat", "classic_ts"])
+@pytest.mark.parametrize("case", ["64x1000", "row", "warp_max_n",
+                                  "warp_max_n + 1"])
+def test_direct_kernels_f64_match_plain(kernel, case, dev):
+    """D1, D3 and D4 in float64 against their float64 plain versions (on
+    the CPU): bit for bit on every row the guards do not take (the same
+    events in the same float64 roundings), within 1e-12 of the data's size
+    on the rows they take (the mean summed in another order); on 64 x 1000
+    at lam 0.7, per-signal weights (D1 also per edge), and one row each
+    side of the float64 warp layout's end (one warp a signal up to
+    warp_max_n(float64), one thread a signal past it; D4's deques then in
+    the wrapper's float64 workspace)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
+
+    mod, plain = {"tautstring": (TSK, tv1d_l1.tv1_tautstring_plain),
+                  "condat": (CDK, tv1d_l1.tv1_condat_plain),
+                  "classic_ts": (CTK, tv1d_l1.tv1_classic_ts_plain)}[kernel]
+    rng = np.random.RandomState(40 + len(case))
+    lams = [0.7]
+    if case == "64x1000":
+        y, deg = _f64_rows(rng, 64, 1000)
+    elif case == "row":
+        y, deg = _f64_rows(rng, 37, 1000)
+        lams = [torch.from_numpy(rng.rand(37) * 1.4)]
+        if kernel == "tautstring":
+            lams.append(torch.from_numpy(rng.rand(37, 999) * 1.4))
+    else:
+        n = mod.warp_max_n(torch.float64) + case.endswith("+ 1")
+        y, deg = _f64_rows(rng, 3, n)
+    yt = torch.from_numpy(y)
+    scale = max(1.0, float(np.abs(y).max()))
+    rest = np.setdiff1d(np.arange(len(y)), deg)
+    for lam in lams:
+        before = mod.LAUNCHES_F64.value
+        out = getattr(mod, kernel)(yt.to(dev), lam.to(dev)
+                                   if torch.is_tensor(lam) else lam)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES_F64.value == before + 1
+        out = out.cpu().numpy()
+        ref = plain(yt, lam).numpy()
+        np.testing.assert_array_equal(out[rest], ref[rest])
+        np.testing.assert_allclose(out, ref, atol=1e-12 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 33, 128, 129, 256, 257, 512, 513, 999,
+                               1024, 1025, 2048, 2049, 4096, 4097, 8192])
+def test_pcr_kernel_f64_matches_plain(n, dev):
+    """B2 in float64 at every edge of its layouts, plain, masked and
+    shifted, against its float64 plain version (PCR, on the CPU): within
+    1e-10 of the solution's size up to n = 1000, where the unmasked
+    system's condition is ~4e5, and 1e-10 (n / 1000)^2 above it (the
+    condition grows as n^2)."""
+    rng = np.random.RandomState(n)
+    B = 5
+    d = torch.from_numpy(0.01 * rng.randn(B, n))
+    mask = _pcr_masks(rng, B, n)
+    sh = torch.from_numpy(rng.rand(B) + 0.5)
+    bar = 1e-10 * max(1.0, (n / 1000) ** 2)
+    for kw in ({}, {"mask": mask}, {"diag_shift": sh}):
+        ref = PK.pcr_spd_solve_plain(d, **kw).numpy()
+        before = PK.LAUNCHES_F64.value
+        out = PK.pcr_spd_solve(d.to(dev), **{k: v.to(dev)
+                                             for k, v in kw.items()})
+        torch.cuda.synchronize()
+        assert PK.LAUNCHES_F64.value == before + 1
+        assert out.dtype == torch.float64
+        np.testing.assert_allclose(
+            out.cpu().numpy(), ref, rtol=0,
+            atol=bar * max(1.0, float(np.abs(ref).max())), err_msg=str(kw))
+
+
+def test_pcr_f64_composes_past_its_lane_limit(dev):
+    """Past n = 8192 a float64 system takes the composition the JAX package
+    runs there (its XLA pcr_solve) on the card, as float32 does: no B2
+    launch, the same values as on the CPU."""
+    from proxtv_tpu_torch.ops import tridiag
+
+    rng = np.random.RandomState(9)
+    d = torch.from_numpy(0.01 * rng.randn(2, 8193))
+    before = PK.LAUNCHES_F64.value + PK.LAUNCHES.value
+    out = tridiag.spd_second_difference_solve(d.to(dev))
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES_F64.value + PK.LAUNCHES.value == before
+    ref = tridiag.spd_second_difference_solve(d)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-9 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("method", ["hybridtautstring", "condat",
+                                    "classictautstring", "pn"])
+def test_tv1_batched_float64_routes_on_the_card(method, dev, monkeypatch):
+    """A float64 CUDA batch takes the JAX package's float64 route, strict or
+    not: the named engine's kernel in float64 (D1, D3, D4; pn: tv1_pn with
+    its systems on B2 in float64), never B1 and never a kernel's plain
+    version on the card; against the same call in float64 on the CPU
+    (1e-12 of the data's size the direct engines, 5e-4 pn)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
+
+    _no_plain_on_the_card(monkeypatch)
+    own = {"hybridtautstring": TSK, "condat": CDK,
+           "classictautstring": CTK, "pn": PK}[method]
+    rng = np.random.RandomState(12)
+    Y = rng.randn(40, 700) + np.cumsum(rng.randn(40, 700), axis=1) * 0.1
+    for strict in (False, True):
+        b1, o = PPF.LAUNCHES.value, own.LAUNCHES_F64.value
+        x = tv1d_l1.tv1_batched(torch.from_numpy(Y).to(dev), 0.7,
+                                method=method, strict=strict)
+        torch.cuda.synchronize()
+        assert PPF.LAUNCHES.value == b1 and own.LAUNCHES_F64.value > o
+        if method != "pn":
+            assert own.LAUNCHES_F64.value == o + 1
+        ref = tv1d_l1.tv1_batched(torch.from_numpy(Y), 0.7, method=method,
+                                  strict=strict)
+        bar = 5e-4 if method == "pn" else 1e-12 * float(np.abs(Y).max())
+        np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), atol=bar,
+                                   rtol=0)
+
+
+def test_classic_ts_f64_on_the_long_walk(dev):
+    """D4 in float64 on the n = 11621 walk of ROADMAP C (seed 15, lam 1.3;
+    its thread layout): within 1e-9 of the float64 host taut string, where
+    float32 lands 8.97e-3 (its tube's float32 prefix sums)."""
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.runtime import native
+
+    n = 11621
+    rng = np.random.RandomState(15)
+    y = np.cumsum(rng.randn(n)) * 0.3 + rng.randn(n)
+    x = CTK.classic_ts(torch.from_numpy(y[None]).to(dev), 1.3)
+    torch.cuda.synchronize()
+    assert native.available()
+    ref = native.tv1_host(y, 1.3)
+    np.testing.assert_allclose(x.cpu().numpy()[0], ref, atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["dr", "pd", "yang", "kolmogorov",
+                                    "condat", "chambolle-pock",
+                                    "chambolle-pock-acc"])
+def test_tv1_2d_batched_float64_on_the_card(method, dev, monkeypatch):
+    """Every 2D method on a float64 CUDA image takes the JAX package's
+    float64 route: the fiber methods tv1_pn on B2 in float64 (no B1), the
+    primal-dual methods the unfused iteration (no B3, no B2); within 1e-6 of
+    the same call in float64 on the CPU."""
+    from proxtv_tpu_torch.models import tv2d
+
+    _no_plain_on_the_card(monkeypatch)
+    rng = np.random.RandomState(13)
+    Y = rng.randn(2, 40, 36)
+    b1, b3, b2 = (PPF.LAUNCHES.value, PPK.LAUNCHES.value,
+                  PK.LAUNCHES_F64.value)
+    x, info = tv2d.tv1_2d_batched(torch.from_numpy(Y).to(dev), 0.35,
+                                  method=method)
+    torch.cuda.synchronize()
+    assert PPF.LAUNCHES.value == b1 and PPK.LAUNCHES.value == b3
+    fibers = method in ("dr", "pd", "yang", "kolmogorov")
+    assert (PK.LAUNCHES_F64.value > b2) == fibers
+    ref, info_ref = tv2d.tv1_2d_batched(torch.from_numpy(Y), 0.35,
+                                        method=method)
+    np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_array_equal(info.iters.cpu().numpy(),
+                                  info_ref.iters.numpy())
+
+
+@pytest.mark.parametrize("kind", ["dp", "ms", "lp", "pdhg3d", "pn_window",
+                                  "B1", "B3", "L1"])
+def test_float64_queued_kinds_raise_on_the_card(kind, dev):
+    """The families whose float64 form is queued raise for a float64 CUDA
+    tensor at their call sites, naming their kernel (D2, B4, B5 and its
+    compositions, B6, B1's long-signal windows); the wrappers with no
+    double instantiation (B1, B3, L1) refuse one handed to them."""
+    from proxtv_tpu_torch.models import tvnd
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_long, tv1d_lp
+
+    y = torch.randn((3, 40), dtype=torch.float64, device=dev)
+    calls = {
+        "dp": (lambda: tv1d_l1.tv1_batched(y, 0.5, method="dp",
+                                           strict=True), "D2"),
+        "ms": (lambda: tv1d_l2.tv2_batched(y, 0.5, method="ms"), "B4"),
+        "lp": (lambda: tv1d_lp.tvp_batched(y, 0.5, 1.5), "B5"),
+        "pdhg3d": (lambda: tvnd.tv_nd_batched(
+            torch.randn((1, 3, 4, 5), dtype=torch.float64, device=dev),
+            (0.3,) * 3, (1, 2, 3), (1.0,) * 3, method="chambolle-pock-acc"),
+            "B6"),
+        "pn_window": (lambda: tv1d_long.tv1_long(
+            torch.randn(20000, dtype=torch.float64, device=dev), 0.7), "B1"),
+        "B1": (lambda: PPF.pn_tv1_fused(y, lam_scalar=0.5), "PN kernel"),
+        "B3": (lambda: PPK.pdhg_chunk(
+            torch.zeros((8, 4), device=dev),
+            *([torch.zeros((32, 128), dtype=torch.float64, device=dev)] * 5),
+            8, 32, 128, 32, 128, 1), "PDHG"),
+        "L1": (lambda: LBK.component_labels(
+            y[None], torch.zeros(1, dtype=torch.float64, device=dev)),
+            "float32"),
+    }
+    fn, name = calls[kind]
+    with pytest.raises((ValueError, TypeError)) as e:
+        fn()
+    assert name in str(e.value)
+    if kind not in ("B1", "B3", "L1"):
+        assert "float64 form is queued" in str(e.value)
+
+
+def test_tv1_prox_float64_on_the_card(dev):
+    """The differentiable 1D prox on a float64 CUDA batch: its forward takes
+    the float64 route (tv1_pn on B2 in float64, no B1) and its backward is
+    tensor ops; the output within 5e-4 and the input's gradient within 1e-6
+    of the same step in float64 on the CPU."""
+    from proxtv_tpu_torch.ops import diffprox
+
+    rng = np.random.RandomState(17)
+    Y = rng.randn(8, 200) + np.cumsum(rng.randn(8, 200), axis=1) * 0.2
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        y = torch.from_numpy(Y).to(d).requires_grad_(True)
+        b1, b2 = PPF.LAUNCHES.value, PK.LAUNCHES_F64.value
+        x = diffprox.tv1_prox(y, 0.5)
+        (x ** 2).sum().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert PPF.LAUNCHES.value == b1 and PK.LAUNCHES_F64.value > b2
+        out[d.type] = (x.detach().cpu().numpy(), y.grad.cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=5e-4,
+                               rtol=0)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-6,
+                               rtol=0)

@@ -114,29 +114,49 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    backward by CUDA events, its launches (B1, B3, L1), host syncs and label
    trips, and one profiled step a cell; then the redesign queue (each
    kernel's device time over its main-path launches, less their bounds);
-7. float64, the JAX package's float64 route of the batched TV-L1 layers
-   on the card, with B2, D1, D3 and D4 built in double (``float64_phase``;
-   ``[f64]`` lines): ``tv1_batched`` at 10000 x 1000 (D1), condat and
-   classictautstring strict at 512 x 1000 (D3, D4) and on ROADMAP C's
-   n = 11621 walk (D4), ``tv1_pn`` on the n = 1000 walk (B2),
-   ``tv1_2d_batched`` dr at 1024^2 and every 2D method at 256^2 (B2 under
-   the fiber methods; the unfused primal-dual iteration, no kernel), each
-   launching its double kernel and no float32 kernel and running no
-   kernel's plain version on the card; each double kernel held at its
-   main-path launches against its float64 plain version (D1, D3, D4 bit
-   for bit, and one past their float64 warp layouts; their plain versions
-   run on the CPU in three worker processes started after the build), the
-   outputs against float64 witnesses (the native host taut string, the
-   CPU's tv1_pn and dr, phase 3's float64 reference image, the cross-method
-   bar), and each double kernel timed through its wrapper and its C entry
-   (``B2.f64``, ``D1.f64``, ``D3.f64``, ``D4.f64`` entries of the
-   ``kernels`` line, bounds at the float64 rate).
+7. float64, the JAX package's float64 route on the card, with B2, D1-D4
+   and L1 built in double (``float64_phase``; ``[f64]`` lines): TV-L1,
+   ``tv1_batched`` at 10000 x 1000 (D1; dp strict, D2), dp strict on the
+   per-edge 512 x 1000 batch (D2), condat and classictautstring strict at
+   512 x 1000 (D3, D4) and on ROADMAP C's n = 11621 walk (D4), ``tv1_pn``
+   on the n = 1000 walk (B2), ``tv1_2d_batched`` dr at 1024^2 and every 2D
+   method at 256^2 (B2 under the fiber methods; the unfused primal-dual
+   iteration, no kernel); the layers above it (:func:`_route64_table`), TV-L2
+   ``tv2_batched`` ms at 10000 x 1000 (its shifted solves on B2), TV-Lp
+   ``tvp_batched`` at 512 x 1000 for p in {1.5, 3, 5} (the setup solve on
+   B2), ``tvp_gpfw`` on the 10^6 signal (no kernel), ``tvp_2d_batched``
+   p = 2 at 1024^2 and p = 1.5 at 512^2, ``tvgen`` pd and a mixed-p
+   ``tv_nd_batched`` pd on the volume, each 2D / ND call again at 256^2 or
+   on a 4 x 64 x 64 volume, ``tv1_long`` and ``tv1_1d_banded`` (a gloo
+   world of 1) on the 10^6 signal (B2 under their windows' ``tv1_pn``),
+   one ``TVDenoise2D`` dr gradient step and one cp-acc VJP at 1024^2 (L1
+   in the backward), and ``tv_nd_batched`` chambolle-pock-acc, which must
+   raise the JAX package's error; each call launching its double kernels
+   and no float32 kernel and running no kernel's plain version on the
+   card.  Then each double kernel is held at its main-path launches
+   against its float64 plain version (D1-D4 bit for bit, and D1, D3, D4
+   one past their float64 warp layouts; L1's labels bit for bit; the
+   plain versions of D1-D4 run on the CPU in six worker processes started
+   after the build), the outputs against float64 witnesses (the native
+   host taut string, the same route in float64 on the CPU, within
+   ``TOL64["route"]`` for TV-L2 and TV-Lp rows, ``TOL64["route_long"]``
+   for the 10^6 one, or by both sides' certified gaps where a row's
+   iteration count parts; the ND calls at the bench's width and the 2D
+   and ND calls at 256^2 and 4 x 64 x 64 within ``TOL64["combiner"]``,
+   those with a TV-Lp term in ND by their objective, the 2D calls at the
+   bench's width by their objective against phase 3's float64 CPU run;
+   the long routes within sqrt(2 gap) of the host taut string, the
+   backward within ``TOL64["backward"]``), and each double
+   kernel timed through its wrapper and its C entry (``B2.f64`` at each
+   shape, ``D1.f64``-``D4.f64`` and ``L1.f64`` entries of the ``kernels``
+   line, bounds at the float64 rate).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 card line and the ``kernels`` line come before it.  Details (the report and
 the compiler's register / shared-memory lines) go to ``--out``, by default
 ``chip_smoke_out/``.  Imports nothing of JAX or ``proxtv_tpu``.
 """
+import collections
 import json
 import math
 import os
@@ -294,7 +314,36 @@ COLS_PI_NAME = (f"tv1_2d_sharded cols {B_PI}x{M_PI}^2 per-image lam {LAM_PI} "
 # dr at 256^2 within 1e-6 of the same call on the CPU, every other 2D
 # method within XBAR of dr at tests/test_tv2d.py's caps.
 TOL64 = {"direct_guard": 1e-12, "pcr": 1e-10, "host": 1e-10, "walk": 1e-9,
-         "pn": 5e-4, "dr_cpu": 1e-6}
+         "pn": 5e-4, "dr_cpu": 1e-6,
+         # The layers above TV-L1 (ROADMAP F6.1-F6.6): TV-L2 and TV-Lp rows
+         # within 1e-8 max|y| of the same route in float64 on the CPU
+         # (tests/test_torch_tv2.py's port-vs-JAX bar), a row whose
+         # iteration count parts at its stop tolerance within the two
+         # sides' certified gaps, sqrt(2 g) each (the objective is
+         # 1-strongly convex); the 10^6 TV-Lp row within 2e-6 max|y|: the
+         # same call on the CPU parts from itself by up to 1.5e-7 max|y|
+         # when only the order of its 10^6-term sums changes, float32 by
+         # 6.7e-5 (tools/f64_witness.py tvp_long); the 2D and ND combiners
+         # within 1e-6 max|y| of the same call in float64 on the CPU, at
+         # 256^2 and 4 x 64 x 64 and, for the ND calls, at the bench's
+         # width.  An ND combiner with a TV-Lp term (p = 1.5) parts from
+         # itself on the CPU by up to 1.2e-4 max|y| when only the order of
+         # its sums changes, half as far as float32 lands (2.8e-4): its
+         # Frank-Wolfe fiber solves stop at a duality gap of 1e-5 and the
+         # warm starts carry each difference on (tools/f64_witness.py
+         # mixed, 8 x 128 x 128 and 32 x 256 x 256).  There the root mean
+         # square of the parting is at most 9.2e-7 max|y| (float32 8.2e-6
+         # or more) and the objective's at most 1.7e-8 relative (float32
+         # 4.8e-7 or more), so those calls are held by the objective within
+         # 5e-8 relative ("combiner_lp_F"), dx's root mean square within
+         # 3e-6 max|y| ("combiner_lp_rms") and x within 1e-3 max|y|, the
+         # scale at which those fiber solves stop ("combiner_lp_max");
+         # the 2D backward within 1e-10 relative of float64 on the CPU
+         # (tests/test_diffprox.py).
+         "route": 1e-8, "route_long": 2e-6, "combiner": 1e-6,
+         "combiner_lp_F": 5e-8, "combiner_lp_rms": 3e-6,
+         "combiner_lp_max": 1e-3,
+         "backward": 1e-10}
 # NVIDIA's data sheet for the H100 SXM: float64 outside the tensor cores.
 PEAK_F64_FLOP_S = 34e12
 N_WALK64, LAM_WALK64 = 11621, 1.3   # ROADMAP C's D4 walk (seed 15)
@@ -313,6 +362,17 @@ METHODS_2D = ("dr", "pd", "yang", "kolmogorov", "condat", "chambolle-pock",
 # The first launches of each B2 float64 shape kept for its holds and its
 # replays (the 1024^2 dr solve launches hundreds of 1024 x 1023 systems).
 B2_KEEP = 8
+# The kernels built in double (their LAUNCHES_F64 counters).
+F64_KIDS = ("B2", "D1", "D2", "D3", "D4", "L1")
+# Phase 7's layers above TV-L1: the ND rows' mixed-p terms, the volume at
+# which the 2D and ND rows are also held against the CPU (with the 256^2
+# image), the reference's sweeps of the ND combiners and of T2's dr, and
+# the shorter window in which those calls are profiled (profiling a
+# 35-sweep call records ~1e5 events; its wall is timed by CUDA events).
+PS_MIXED = (1.0, 2.0, 1.5)
+V64_SMALL = (4, 64, 64)
+ND_SWEEPS = 35
+PROFILE_SWEEPS = 5
 
 
 class Fail(Exception):
@@ -1116,6 +1176,34 @@ def obj2d(X, Y, lam):
                      + np.abs(np.diff(X, axis=1)).sum()))
 
 
+def obj_2dp(X, Y, lam, p):
+    """The 2D TV-Lp prox objective (bench.py:_obj_2dp), in float64."""
+    X = X.astype(np.float64)
+    col = np.sum(np.sum(np.abs(np.diff(X, axis=0)) ** p, axis=0)
+                 ** (1.0 / p))
+    row = np.sum(np.sum(np.abs(np.diff(X, axis=1)) ** p, axis=1)
+                 ** (1.0 / p))
+    return 0.5 * np.sum((X - Y) ** 2) + lam * (col + row)
+
+
+def obj3d(X, Y, lam):
+    """The 3D TV-L1 prox objective of X for Y at lam on every axis, in
+    float64."""
+    X = X.astype(np.float64)
+    return (0.5 * np.sum((X - Y) ** 2)
+            + lam * sum(np.abs(np.diff(X, axis=a)).sum() for a in range(3)))
+
+
+def obj_nd(X, Y, lam, ps):
+    """The generalized TV prox objective of X for Y at lam on every axis,
+    axis a penalized by the p = ps[a] norm of each fiber's differences,
+    in float64."""
+    X = X.astype(np.float64)
+    return 0.5 * float(np.sum((X - Y) ** 2)) + lam * sum(
+        float(np.sum(np.sum(np.abs(np.diff(X, axis=a)) ** p, axis=a)
+                     ** (1.0 / p))) for a, p in enumerate(ps))
+
+
 # Operation counts per element, read off the CUDA sources (adds, multiplies,
 # divides, compares and selects counted one each; a lower bound).  The
 # tridiagonal solves of B2 and B4 are counted as the least work of their
@@ -1216,11 +1304,97 @@ def lp_ops_init(p):
     return 10 + lp_pow_ops(p)
 
 
+# A row of phase 7's table (:func:`_route64_table`).
+Row64 = collections.namedtuple("Row64", "label call inputs kernels hold swept")
+
+
+def _route64_table():
+    """Phase 7's calls of the layers above TV-L1 (ROADMAP F6.1-F6.6), one
+    table for the CPU references, the card's runs, the holds and the
+    timings: key -> :class:`Row64`.  ``call(a, s)`` runs on the tensors
+    ``a`` (start_cpu64's arrays named by ``inputs``, on the device they
+    lie on: the card drives it, a CPU worker runs it as the card's
+    reference) with ``s`` sweeps where ``swept``, and returns (x,
+    SolverInfo or None); ``kernels``: the double kernels the call must
+    launch on the card; ``hold``: how its result is held
+    (``float64_phase``): "D2" against D2's float64 plain version,
+    "phase3" against phase 3's float64 CPU run, the others against the
+    same call in float64 on the CPU."""
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_lp
+
+    def nd(a, s, ps):
+        x, info = tvnd.tv_nd_batched(a[0][None], (LAM3,) * 3, (1, 2, 3), ps,
+                                     method="pd", max_iters=s)
+        return x[0], info
+
+    vol = "{}x{}x{}".format
+    b2 = ("B2.f64",)
+    rows = {
+        "dp": Row64(
+            f"tv1_batched {B1D}x{N1D} lam {LAM1D} dp strict float64",
+            lambda a, s: (tv1d_l1.tv1_batched(a[0], LAM1D, method="dp",
+                                              strict=True), None),
+            ("Y1",), ("D2.f64",), "D2", False),
+        "dp per-edge": Row64(
+            f"tv1_batched {BW}x{N1D} per-edge dp strict float64",
+            lambda a, s: (tv1d_l1.tv1_batched(a[0], a[1], method="dp",
+                                              strict=True), None),
+            ("Ycon", "Ww"), ("D2.f64",), "D2", False),
+        "tv2 ms": Row64(
+            f"tv2_batched {B1D}x{N1D} lam {LAML2} ms float64",
+            lambda a, s: tv1d_l2.tv2_batched(a[0], LAML2, method="ms"),
+            ("Y1",), b2, "row", False),
+        **{f"tvp p{p}": Row64(
+            f"tvp_batched {BW}x{N1D} lam {LAMP} p {p} float64",
+            lambda a, s, p=p: tv1d_lp.tvp_batched(a[0], LAMP, p),
+            ("Ycon",), b2, "row", False) for p in PS},
+        "tvp long": Row64(
+            f"tvp_gpfw n=1e6 lam {LAMLONG} p {PLONG} float64 (setup past "
+            "B2's lanes: no kernel)",
+            lambda a, s: tv1d_lp.tvp_gpfw(a[0], LAMLONG, PLONG),
+            ("ylong",), (), "row_long", False),
+        "tvp_2d p2": Row64(
+            f"tvp_2d_batched {M2D}^2 lam {LAM2D} p 2 float64",
+            lambda a, s: tv2d.tvp_2d_batched(a[0], LAM2D, LAM2D, 2.0, 2.0),
+            ("Y2",), b2, "phase3", False),
+        "tvp_2d p1.5": Row64(
+            f"tvp_2d_batched {M5}^2 lam {LAM2P} p {P2P} {ND_SWEEPS} sweeps "
+            "float64", lambda a, s: tv2d.tvp_2d_batched(
+                a[0], LAM2P, LAM2P, P2P, P2P, max_iters=s),
+            ("Y5",), b2, "phase3", True),
+        "tvp_2d p2 256": Row64(
+            f"tvp_2d_batched {M64}^2 lam {LAM2D} p 2 float64",
+            lambda a, s: tv2d.tvp_2d_batched(a[0], LAM2D, LAM2D, 2.0, 2.0),
+            ("Y256",), b2, "combiner", False),
+        "tvp_2d p1.5 256": Row64(
+            f"tvp_2d_batched {M64}^2 lam {LAM2P} p {P2P} {ND_SWEEPS} sweeps "
+            "float64", lambda a, s: tv2d.tvp_2d_batched(
+                a[0], LAM2P, LAM2P, P2P, P2P, max_iters=s),
+            ("Y256",), b2, "combiner", True),
+    }
+    for key, shape, name in (("", (L3, M3, N3), "V"),
+                             (" small", V64_SMALL, "V_small")):
+        rows["tvgen" + key] = Row64(
+            f"tvgen pd {vol(*shape)} lam {LAM3} p 1 {ND_SWEEPS} sweeps "
+            "float64", lambda a, s: tvnd.tvgen_dispatch(
+                a[0], [LAM3] * 3, [1, 2, 3], [1] * 3, max_iters=s),
+            (name,), b2, "combiner", True)
+        rows["mixed" + key] = Row64(
+            f"tv_nd_batched pd {vol(*shape)} lam {LAM3} p {PS_MIXED} "
+            f"{ND_SWEEPS} sweeps float64",
+            lambda a, s: nd(a, s, PS_MIXED), (name,), b2, "combiner_lp",
+            True)
+    return rows
+
+
 def _cpu_job(kind, *args):
     """One float64 reference on the CPU, in a worker process of the float64
-    phase's pool (one torch thread): a direct engine's plain version
-    (``tv1d_l1.<name>``) on (y, lam), or the 2D dr solve.  Returns its
-    result as numpy arrays and its seconds."""
+    phase's pool: a direct engine's plain version (``tv1d_l1.<name>``) on
+    (y, lam), the 2D dr solve, or a row of :func:`_route64_table` (``kind``
+    "route", then its key, its arrays and the torch threads to use;
+    returns x and, where the call gives one, the info's iters, gap and
+    rc).  Returns its result as numpy arrays and its seconds."""
     sys.path.insert(0, REPO)
     import torch
 
@@ -1231,13 +1405,22 @@ def _cpu_job(kind, *args):
     from proxtv_tpu_torch.ops import tv1d_l1
 
     t0 = time.perf_counter()
-    if kind == "dr":
+    if kind == "route":
+        key, arrays, threads = args
+        torch.set_num_threads(threads)
+        x, info = _route64_table()[key].call(tuple(
+            torch.from_numpy(np.ascontiguousarray(v)) for v in arrays),
+            ND_SWEEPS)
+        out = (x.numpy(),) + (() if info is None else tuple(
+            v.numpy() for v in (info.iters, info.gap, info.rc)))
+    elif kind == "dr":
         Y, lam = args
         x, info = tv2d.tv1_2d_batched(torch.from_numpy(Y), lam, method="dr")
         out = (x.numpy(), int(info.iters[0]), int(info.rc[0]),
                float(info.gap[0]))
     else:
         y, lam = args
+        lam = torch.from_numpy(lam) if isinstance(lam, np.ndarray) else lam
         out = getattr(tv1d_l1, kind)(torch.from_numpy(y), lam).numpy()
     return out, time.perf_counter() - t0
 
@@ -1245,32 +1428,52 @@ def _cpu_job(kind, *args):
 _POOL = []  # the float64 phase's worker pool, stopped on every exit
 
 
-def start_cpu64(Y1, wmax):
-    """Start the float64 phase's CPU references in a pool of three worker
-    processes, while the card runs the earlier phases: the plain versions
-    of D1 (10000 x 1000), D3 and D4 (512 x 1000) at lam LAM1D on the main
-    path's rows in float64, D4's on ROADMAP C's walk, each of the three on
-    two walks one past its float64 warp layout (``wmax``), and dr on the
-    256^2 image.  Returns the inputs and the pending results."""
+def start_cpu64(arrays, wmax):
+    """Start the float64 phase's CPU references in a pool of six worker
+    processes, while the card runs the earlier phases: the ND rows at the
+    bench's width first (two threads each; the slowest), then the plain
+    versions of D1 and D2 (10000 x 1000), D3 and D4 (512 x 1000) at lam
+    LAM1D on the main path's rows in float64, D2's on the
+    per-edge-weighted 512 x 1000 batch, D4's on ROADMAP C's walk, D1, D3
+    and D4 on two walks one past their float64 warp layouts (``wmax``), dr
+    on the 256^2 image, and every row of :func:`_route64_table` held
+    against the CPU.  ``arrays``: the main path's Y1, Ww, ylong, Y2, Y5
+    and V.  Returns the float64 inputs and the pending results."""
     import multiprocessing
 
     rng = np.random.RandomState(SEED + 9)
     rng15 = np.random.RandomState(15)  # ROADMAP C's walk
-    inp = {"Y1": Y1.astype(np.float64), "Ycon": Y1[:BW].astype(np.float64),
+    f64 = {k: np.asarray(v, np.float64) for k, v in arrays.items()}
+    inp = {"Y1": f64["Y1"], "Ycon": f64["Y1"][:BW], "Ww": f64["Ww"],
+           "ylong": f64["ylong"][None], "Y2": f64["Y2"][None],
+           "Y5": f64["Y5"][None], "V": f64["V"],
            "Y256": rng.randn(1, M64, M64),
            "walk": (np.cumsum(rng15.randn(N_WALK64)) * 0.3
                     + rng15.randn(N_WALK64))[None]}
     for kid, n in wmax.items():
         inp["cross " + kid] = (rng.randn(2, n + 1)
                                + np.cumsum(rng.randn(2, n + 1), axis=1) * 0.1)
-    pool = multiprocessing.get_context("spawn").Pool(3)
+    inp["V_small"] = rng.randn(*V64_SMALL)
+    pool = multiprocessing.get_context("spawn").Pool(6)
     _POOL.append(pool)
+    rows = _route64_table()
+    jobs = {}
+    for key, threads in (("tvgen", 2), ("mixed", 2), ("tv2 ms", 1)):
+        jobs[key] = pool.apply_async(_cpu_job, (  # the slowest first
+            "route", key, [inp[k] for k in rows[key].inputs], threads))
     plain = {"D1": "tv1_tautstring_plain", "D3": "tv1_condat_plain",
              "D4": "tv1_classic_ts_plain"}
-    jobs = {"walk": pool.apply_async(_cpu_job, (plain["D4"], inp["walk"],
-                                                LAM_WALK64)),
-            "dr 256": pool.apply_async(_cpu_job, ("dr", inp["Y256"],
-                                                  LAM2D))}
+    jobs.update({
+        "D2": pool.apply_async(_cpu_job, ("tv1_dp_plain", inp["Y1"], LAM1D)),
+        "D2 edge": pool.apply_async(_cpu_job, ("tv1_dp_plain", inp["Ycon"],
+                                               inp["Ww"])),
+        "walk": pool.apply_async(_cpu_job, (plain["D4"], inp["walk"],
+                                            LAM_WALK64)),
+        "dr 256": pool.apply_async(_cpu_job, ("dr", inp["Y256"], LAM2D))})
+    for key, row in rows.items():
+        if key not in jobs and row.hold not in ("D2", "phase3"):
+            jobs[key] = pool.apply_async(_cpu_job, (
+                "route", key, [inp[k] for k in row.inputs], 1))
     for kid, name in plain.items():  # the slowest (D4) first
         jobs["cross " + kid] = pool.apply_async(
             _cpu_job, (name, inp["cross " + kid], LAM1D))
@@ -1286,29 +1489,33 @@ def stop_pools():
     _POOL.clear()
 
 
-def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
-    """Phase 7: the float64 route of the batched TV-L1 layers on the card.
+def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
+    """Phase 7: the float64 route on the card (the module docstring lists
+    its calls).
 
     Drives, counting every kernel's launches per call (each
     instantiation's own counter: LAUNCHES in float32, LAUNCHES_F64 in
     float64) and with every kernel's plain version made to count any call
-    on a CUDA tensor: ``tv1_batched`` at 10000 x 1000 (D1), condat and
-    classictautstring strict at 512 x 1000 (D3, D4) and on ROADMAP C's
-    n = 11621 walk (D4's thread layout), ``tv1_pn`` on the n = 1000 walk
-    (B2), ``tv1_2d_batched`` dr at 1024^2 (the reference default and the
-    JAX package's float64 auto; B2 under tv1_pn's fibers) and every 2D
-    method at 256^2 (B2 for the fiber methods, the unfused primal-dual
-    iteration for the others).  Each call must launch its float64 kernel,
-    no float32 kernel and no plain version on the card.  Then holds each
-    double kernel at its main-path launches (and D1, D3, D4 one past their
-    float64 warp layouts) against its float64 plain version, the outputs
-    against float64 witnesses (TOL64), and times each double kernel
-    through its wrapper and its C entry.  Returns (kernels line entries,
-    report)."""
+    on a CUDA tensor, the TV-L1 calls and then the layers above TV-L1
+    (``more``: phase 3's inputs and float64 references).  Each call must
+    launch its float64 kernels, no float32 kernel and no plain version on
+    the card.  Then holds each double kernel at its main-path launches
+    (and D1, D3, D4 one past their float64 warp layouts) against its
+    float64 plain version, the outputs against float64 witnesses (TOL64),
+    and times each double kernel through its wrapper and its C entry.
+    Returns (kernels line entries, report)."""
     import torch
 
-    from proxtv_tpu_torch.models import tv2d
-    from proxtv_tpu_torch.ops import tv1d_l1
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from proxtv_tpu_torch import parallel
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.models.layers import TVDenoise2D
+    from proxtv_tpu_torch.ops import diffprox, tv1d_l1, tv1d_long
+    from proxtv_tpu_torch.ops.kernels import labels as L1
     from proxtv_tpu_torch.ops.kernels import pcr as B2
     from proxtv_tpu_torch.runtime import native
     from proxtv_tpu_torch.utils import debug
@@ -1318,14 +1525,15 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     f64 = torch.float64
-    D = {kid: kernel_module(kid) for kid in ("D1", "D3", "D4")}
-    fns = {"D1": "tautstring", "D3": "condat", "D4": "classic_ts"}
+    D = {kid: kernel_module(kid) for kid in ("D1", "D2", "D3", "D4")}
+    fns = {"D1": "tautstring", "D2": "dp", "D3": "condat",
+           "D4": "classic_ts"}
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     counters = {kid: kernel_module(kid).LAUNCHES for kid in WRAPPERS}
     counters.update({kid + ".f64": kernel_module(kid).LAUNCHES_F64
-                     for kid in ("B2", "D1", "D3", "D4")})
+                     for kid in F64_KIDS})
     plain_on_card = debug.Counter()
-    saved, b2_calls, tap_on = [], {}, [False]
+    saved, b2_calls, l1_calls, tap_on = [], {}, [], [False]
 
     def trip(mod, name):  # a plain version called on a CUDA tensor counts
         orig = getattr(mod, name)
@@ -1347,17 +1555,26 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
                                else diag_shift.clone()))
         return launch_b2(rhs, mask=mask, diag_shift=diag_shift)
 
+    def tap_l1(X, tol):
+        if tap_on[0] and X.dtype == f64:
+            l1_calls.append((X.clone(), tol.clone()))
+        return launch_l1(X, tol)
+
     for name in ("tv1_tautstring_plain", "tv1_condat_plain",
                  "tv1_classic_ts_plain", "tv1_dp_plain"):
         trip(tv1d_l1, name)
     trip(B2, "pcr_spd_solve_plain")
     trip(kernel_module("B1"), "pn_tv1_fused_plain")
     trip(kernel_module("B3"), "pdhg_chunk_plain")
-    launch_b2 = B2.pcr_spd_solve
+    trip(kernel_module("B4"), "ms_tv2_fused_plain")
+    trip(kernel_module("B5"), "gpfw_fused_plain")
+    trip(kernel_module("B6"), "pdhg3d_chunk_plain")
+    trip(L1, "component_labels_plain")
+    launch_b2, launch_l1 = B2.pcr_spd_solve, L1.component_labels
     saved.append((B2, "pcr_spd_solve", launch_b2))
-    B2.pcr_spd_solve = tap_b2
-    calls, launches = {}, {k: 0 for k in ("B2.f64", "D1.f64", "D3.f64",
-                                          "D4.f64")}
+    saved.append((L1, "component_labels", launch_l1))
+    B2.pcr_spd_solve, L1.component_labels = tap_b2, tap_l1
+    calls, launches = {}, {k + ".f64": 0 for k in F64_KIDS}
 
     def run64(name, fn, must):
         for c in counters.values():
@@ -1435,6 +1652,72 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
                     cfg=CombinerConfig(stop=STOP64)),
                 ["B2.f64"] if m in ("dr", "pd", "yang", "kolmogorov")
                 else [])
+        # -- the layers above TV-L1 (ROADMAP F6.1-F6.6) -----------------
+        rows = _route64_table()
+        arg = {name: t(v) for name, v in inp.items()
+               if not name.startswith("cross ")}
+        lay = {}  # key: (label, result)
+        for key, row in rows.items():
+            lay[key] = (row.label, run64(row.label, lambda c=row.call,
+                                         n=row.inputs: c(tuple(
+                                             arg[k] for k in n), ND_SWEEPS),
+                                         list(row.kernels)))
+        xs["D2"], xs["D2 edge"] = lay["dp"][1][0], lay["dp per-edge"][1][0]
+        V64, ylong64 = arg["V"], arg["ylong"]
+        b6 = kernel_module("B6").LAUNCHES.value
+        try:
+            tvnd.tv_nd_batched(V64[None], (LAM3,) * 3, (1, 2, 3), (1.0,) * 3,
+                               method="chambolle-pock-acc")
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        print(f"[f64] tvgen_nd chambolle-pock-acc {L3}x{M3}x{N3} float64: "
+              f"raises {msg!r}")
+        check(msg is not None and "primal-dual ND methods need" in msg
+              and kernel_module("B6").LAUNCHES.value == b6,
+              "the float64 primal-dual ND method did not raise the JAX "
+              "package's error")
+        lay["long"] = (f"tv1_long n=1e6 lam {LAM1D} float64", run64(
+            f"tv1_long n=1e6 lam {LAM1D} float64",
+            lambda: tv1d_long.tv1_long(ylong64[0], LAM1D), ["B2.f64"]))
+        ddir = tempfile.mkdtemp(prefix="proxtv_f64_")
+        dist.init_process_group("gloo", init_method=f"file://{ddir}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh()
+            lay["banded"] = (
+                f"tv1_1d_banded n=1e6 lam {LAM1D} world 1 (gloo) float64",
+                run64(f"tv1_1d_banded n=1e6 lam {LAM1D} world 1 (gloo) "
+                      "float64", lambda: parallel.tv1_1d_banded(
+                          ylong64[0], LAM1D, mesh), ["B2.f64"]))
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(ddir, ignore_errors=True)
+        # T2 in float64: one gradient step of TVDenoise2D dr (the
+        # reference's 35 sweeps) on the input and one chambolle-pock-acc
+        # VJP, at 1024^2.
+        ny2, tg2 = t(more["noisy_t2"].astype(np.float64)), t(
+            more["truth_t2"].astype(np.float64))
+
+        def t2_step(method, sweeps=ND_SWEEPS):
+            layer = TVDenoise2D(init_lam=T2LAM, method=method, device=dev,
+                                dtype=f64, max_iters=sweeps
+                                if method == "dr" else 0)
+            Yv = ny2.clone().requires_grad_(True)
+            x = layer(Yv)
+            (gY,) = torch.autograd.grad(torch.mean((x - tg2) ** 2), Yv)
+            check(x.is_cuda and gY.is_cuda and x.dtype == f64,
+                  "a float64 training step left the card or float64")
+            return x.detach(), gY
+
+        label = (f"train T2 TVDenoise2D dr {T2M}^2 {ND_SWEEPS} sweeps "
+                 "float64, one gradient step")
+        lay["T2"] = (label, run64(label, lambda: t2_step("dr"),
+                                  ["B2.f64", "L1.f64"]))
+        label = (f"train T2 TVDenoise2D chambolle-pock-acc {T2M}^2 float64, "
+                 "one VJP")
+        lay["T2 cp-acc"] = (label, run64(
+            label, lambda: t2_step("chambolle-pock-acc"), ["L1.f64"]))
     finally:
         for mod, name, orig in reversed(saved):
             setattr(mod, name, orig)
@@ -1453,7 +1736,8 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
         out = out.cpu().numpy() if torch.is_tensor(out) else out
         n = y.shape[1]
         dy = np.abs(np.diff(y, axis=1)).max(axis=1)
-        deg = lam >= (float(n) * n) * dy
+        lmin = lam.min(axis=1) if np.ndim(lam) == 2 else lam
+        deg = lmin >= (float(n) * n) * dy
         same = bool((out[~deg] == ref[~deg]).all())
         e = float(np.abs(out - ref).max()) / max(1.0, float(np.abs(y).max()))
         holds[f"{kid}.f64 {what}"] = {"bit_for_bit": same, "max_abs_err": e,
@@ -1466,13 +1750,17 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
         return e
 
     err64 = {}
-    for kid, key, y in (("D1", "D1", inp["Y1"]), ("D3", "D3", inp["Ycon"]),
+    for kid, key, y in (("D1", "D1", inp["Y1"]), ("D2", "D2", inp["Y1"]),
+                        ("D2", "D2 edge", inp["Ycon"]),
+                        ("D3", "D3", inp["Ycon"]),
                         ("D4", "D4", inp["Ycon"]),
                         ("D4", "walk", inp["walk"])):
         ref, _ = cpu[key]
+        lam = {"walk": LAM_WALK64, "D2 edge": inp["Ww"]}.get(key, LAM1D)
         err64[key] = bit_hold(kid, y, xs[key], ref,
-                              f"main path {y.shape[0]}x{y.shape[1]}",
-                              LAM_WALK64 if key == "walk" else LAM1D)
+                              f"main path {y.shape[0]}x{y.shape[1]}"
+                              + (" per-edge" if key == "D2 edge" else ""),
+                              lam)
     wmax = {}
     for kid in ("D1", "D3", "D4"):
         y = inp["cross " + kid]
@@ -1579,6 +1867,168 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
         check(np.isfinite(xm).all() and e <= XBAR,
               f"{m} in float64 is {e} from dr")
 
+    # -- the layers above TV-L1: held ------------------------------------
+    parted = {}
+
+    def scale_of(y):
+        return max(1.0, float(np.abs(y).max()))
+
+    def row_hold(key, tol):
+        """A TV-L2 / TV-Lp row against the same route in float64 on the
+        CPU: within ``tol`` of max|y| where both took the same iterations,
+        within the two sides' certified gaps (sqrt(2 g) each, plus that
+        bar) where the counts part at the stop tolerance."""
+        label, (x, info) = lay[key]
+        (x_c, it_c, gap_c, rc_c), s_c = cpu[key]
+        x_g = np.atleast_2d(x.cpu().numpy())
+        it_g, gap_g, rc_g = (v.cpu().numpy() for v in (info.iters, info.gap,
+                                                       info.rc))
+        base = tol * scale_of(inp[rows[key].inputs[0]])
+        d = np.abs(x_g - np.atleast_2d(x_c)).max(axis=1)
+        part = it_g != it_c
+        cert = (np.sqrt(2 * np.maximum(gap_g, 0.0))
+                + np.sqrt(2 * np.maximum(gap_c, 0.0)))
+        bar = base + np.where(part, cert, 0.0)
+        parted[key] = int(part.sum())
+        e = float(d.max())
+        holds[label + " vs CPU"] = {
+            "max_abs_err": e, "bar": base,
+            "bar_parting_rows": float(bar[part].max()) if part.any()
+            else None, "max_abs_err_parting_rows": float(d[part].max())
+            if part.any() else None,
+            "rows_parting": int(part.sum()), "iters_max": int(it_g.max()),
+            "iters_max_cpu": int(it_c.max()), "rc_card": int(rc_g.max()),
+            "rc_cpu": int(rc_c.max()), "cpu_s": s_c}
+        print(f"[f64 check] {label} vs the same route in float64 on the CPU "
+              f"({s_c:.1f} s there): max|dx| = {e:.3e} (bar {base:.3e}); rows "
+              f"whose iteration count parts at the stop tolerance: "
+              f"{int(part.sum())} of {len(part)}"
+              + (f" (held by both sides' certified gaps, bar up to "
+                 f"{float(bar[part].max()):.3e})" if part.any() else "")
+              + f"; iterations max card {int(it_g.max())} / CPU "
+              f"{int(it_c.max())}; rc max {int(rc_g.max())} / "
+              f"{int(rc_c.max())}")
+        check(bool(np.all(d <= bar)) and bool(np.all(rc_g[~part]
+                                                      == rc_c[~part])),
+              f"{label} disagrees with the same route on the CPU")
+
+    def combiner_hold(key):
+        """A 2D or ND combiner call against the same call in float64 on
+        the CPU: x within TOL64["combiner"] of max|y|, or, with a TV-Lp
+        term in ND, the objective within TOL64["combiner_lp_F"] relative,
+        dx's root mean square within TOL64["combiner_lp_rms"] and x within
+        TOL64["combiner_lp_max"] of max|y|."""
+        label, (x, info) = lay[key]
+        (x_c, it_c, _, rc_c), s_c = cpu[key]
+        y = inp[rows[key].inputs[0]]
+        x_g = x.cpu().numpy()
+        dx = x_g - x_c if x_g.shape == x_c.shape else np.inf
+        e = float(np.abs(dx).max())
+        rec = {"max_abs_err": e, "rms": float(np.sqrt(np.mean(dx * dx))),
+               "iters": int(info.iters.max()), "iters_cpu": int(np.max(it_c)),
+               "rc": int(info.rc.max()), "rc_cpu": int(np.max(rc_c)),
+               "mean_change": float(info.gap.max()), "cpu_s": s_c}
+        ok = bool(np.isfinite(x_g).all())
+        if rows[key].hold == "combiner":
+            rec["bar"] = TOL64["combiner"] * scale_of(y)
+            text = f"max|dx| = {e:.3e} (bar {rec['bar']:.3e})"
+            ok = ok and e <= rec["bar"]
+        else:
+            F_c = obj_nd(x_c, y, LAM3, PS_MIXED)
+            rec.update(dF_over_F=(obj_nd(x_g, y, LAM3, PS_MIXED) - F_c)
+                       / abs(F_c), bar_F=TOL64["combiner_lp_F"],
+                       bar_rms=TOL64["combiner_lp_rms"] * scale_of(y),
+                       bar=TOL64["combiner_lp_max"] * scale_of(y))
+            text = (f"(F - F_cpu) / F_cpu = {rec['dF_over_F']:.3e} (bar "
+                    f"{rec['bar_F']}), rms(dx) = {rec['rms']:.3e} (bar "
+                    f"{rec['bar_rms']:.3e}), max|dx| = {e:.3e} (bar "
+                    f"{rec['bar']:.3e})")
+            ok = ok and abs(rec["dF_over_F"]) <= rec["bar_F"] \
+                and rec["rms"] <= rec["bar_rms"] and e <= rec["bar"]
+        holds[label + " vs CPU"] = rec
+        if rows[key].hold == "combiner":
+            text += f", rms(dx) = {rec['rms']:.3e}"
+        print(f"[f64 check] {label} vs the same call in float64 on the CPU "
+              f"({s_c:.1f} s there): {text}; "
+              f"sweeps card {rec['iters']} / CPU {rec['iters_cpu']}, rc "
+              f"{rec['rc']} / {rec['rc_cpu']}, last mean change "
+              f"{rec['mean_change']:.3e}")
+        check(ok, f"{label} disagrees with the same call on the CPU")
+
+    for key, row in rows.items():
+        if row.hold in ("row", "row_long"):
+            row_hold(key, TOL64["route" if row.hold == "row"
+                                else "route_long"])
+        elif row.hold.startswith("combiner"):
+            combiner_hold(key)
+    # tvgen at the bench's width also against phase 3's float64 3D
+    # reference, which bounds the optimum from below (F* >= F_ref -
+    # gap_ref): 35 sweeps of Parallel Dykstra stop short of it, as phase
+    # 3's float32 run does.
+    label, (x, _) = lay["tvgen"]
+    dF = obj3d(x.cpu().numpy(), more["V"], LAM3) - more["F3_ref"]
+    holds[label + " vs the 3D reference"] = {"F_minus_F_ref": dF}
+    print(f"[f64 check] {label}: F - F_ref = {dF:.4e} (at least "
+          f"-{more['gap_ref3']:.2e}; phase 3's float32 run at 35 sweeps: "
+          f"{more['dF_gen32']:.4e})")
+    check(dF >= -(more["gap_ref3"] + F_ROUND * more["F3_ref"]),
+          f"{label} lies below the optimum's certificate")
+    # At the bench's width the 2D calls by their certificates (the sweeps
+    # and last mean change, printed) and by their objective against phase
+    # 3's float64 CPU run of the same call, within the objective form of
+    # the cross-method bar (F is 1-strongly convex: 0.5 XBAR^2 M N).
+    for key, ref, y, lam, p in (
+            ("tvp_2d p2", more["x_p2_ref"], Y2, LAM2D, 2.0),
+            ("tvp_2d p1.5", more["x_2p_ref"], more["Y5"], LAM2P, P2P)):
+        label, (x, info) = lay[key]
+        xn = x[0].cpu().numpy()
+        yd = y.astype(np.float64)
+        dF = obj_2dp(xn, yd, lam, p) - obj_2dp(ref, yd, lam, p)
+        fbar_ = 0.5 * XBAR ** 2 * xn.size
+        e = float(np.abs(xn - ref).max())
+        holds[label] = {"F_minus_F_cpu": dF, "bar": fbar_,
+                        "max_abs_err_cpu": e, "iters": int(info.iters[0]),
+                        "rc": int(info.rc[0]),
+                        "mean_change": float(info.gap[0])}
+        print(f"[f64 check] {label}: {int(info.iters[0])} sweeps, rc "
+              f"{int(info.rc[0])}, last mean change {float(info.gap[0]):.3e}"
+              f"; F - F(phase 3's float64 CPU run) = {dF:.4e} (bar "
+              f"{fbar_:.3e}), max|dx| = {e:.3e}")
+        check(np.isfinite(xn).all() and abs(dF) <= fbar_,
+              f"{label} misses its certificate")
+    for key in ("long", "banded"):
+        label, (x, info) = lay[key]
+        xn = x.cpu().numpy().reshape(-1)
+        g = float(info.gap[0])
+        e = float(np.abs(xn - more["xl1_ref"]).max())
+        bar = math.sqrt(2 * max(g, 0.0)) + TOL64["host"] * float(
+            np.abs(inp["ylong"]).max())
+        holds[label + " vs host"] = {"max_abs_err": e, "gap": g, "bar": bar,
+                                     "rc": int(info.rc[0]),
+                                     "iters": int(info.iters[0])}
+        print(f"[f64 check] {label}: certified by its glue's gap {g:.4e} "
+              f"(rc {int(info.rc[0])}); max|x - x_host64| = {e:.3e} (bar "
+              f"sqrt(2 gap) = {bar:.3e}; float32 lands 2.1e-6 away)")
+        check(int(info.rc[0]) == RC_OK and e <= bar,
+              f"{label} misses its certificate")
+    # T2 in float64: L1.f64's labels bit for bit with the plain version on
+    # the same solutions, the backward against float64 on the CPU.
+    truth64 = torch.from_numpy(more["truth_t2"].astype(np.float64))
+    for key in ("T2", "T2 cp-acc"):
+        label, (x, gY) = lay[key]
+        xc_ = x.cpu()
+        g_c = 2 * (xc_ - truth64) / xc_.numel()
+        ref = diffprox._bwd2(xc_, g_c)
+        e = float((gY.cpu() - ref).abs().max()) / float(ref.abs().max())
+        holds[label + " backward vs CPU"] = {"rel_err": e}
+        print(f"[f64 check] {label}: backward vs float64 on the CPU (on the "
+              f"card's forward output): max|dgY| / max|gY| = {e:.3e} (bar "
+              f"{TOL64['backward']})")
+        check(e <= TOL64["backward"], f"{label}: the backward disagrees")
+    print(f"[f64] rows held by certified gaps (their iteration counts part "
+          f"at the stop tolerance): {sum(parted.values())} ({parted})")
+    rep["rows_parting"] = parted
+
     # -- B2.f64 at its main-path launches: held and timed ---------------
     kern = []
     for (Bs, ns), (count, kept) in sorted(b2_calls.items()):
@@ -1626,15 +2076,17 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
     check(sum(k_["launches"] for k_ in kern) == launches["B2.f64"],
           "the B2.f64 tap missed main-path launches")
 
-    # -- D1.f64, D3.f64, D4.f64: timed at their main-path shapes ---------
-    ops_pp = {"D1": TS_OPS_PER_POINT, "D3": CONDAT_OPS_PER_POINT,
-              "D4": CLASSIC_OPS_PER_POINT}
-    line = {"D1": 334, "D3": 468, "D4": 854}
+    # -- D1.f64-D4.f64: timed at their main-path shapes -------------------
+    ops_pp = {"D1": TS_OPS_PER_POINT, "D2": DP_OPS_PER_POINT,
+              "D3": CONDAT_OPS_PER_POINT, "D4": CLASSIC_OPS_PER_POINT}
+    line = {"D1": 334, "D2": 632, "D3": 468, "D4": 854}
     for kid, key, y, lam, what in (
-            ("D1", "D1", Y1d, LAM1D, f"{B1D}x{N1D}"),
-            ("D3", "D3", Ycon, LAM1D, f"{BW}x{N1D}"),
-            ("D4", "D4", Ycon, LAM1D, f"{BW}x{N1D}"),
-            ("D4", "walk", t(walk), LAM_WALK64, f"1x{N_WALK64}")):
+            ("D1", "D1", Y1d, LAM1D, f"{B1D}x{N1D} scalar"),
+            ("D2", "D2", Y1d, LAM1D, f"{B1D}x{N1D} scalar"),
+            ("D2", "D2 edge", Ycon, arg["Ww"], f"{BW}x{N1D} per-edge"),
+            ("D3", "D3", Ycon, LAM1D, f"{BW}x{N1D} scalar"),
+            ("D4", "D4", Ycon, LAM1D, f"{BW}x{N1D} scalar"),
+            ("D4", "walk", t(walk), LAM_WALK64, f"1x{N_WALK64} scalar")):
         mod, fn = D[kid], getattr(D[kid], fns[kid])
         out, launch = mod.bind(y, lam)
         launch()
@@ -1644,11 +2096,16 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
         ms = cuda_ms(lambda: fn(y, lam))
         kernel_ms = cuda_ms(launch)
         Bs, ns = y.shape
-        b, f = bound_ms(Bs * ns * 16, Bs * ns * ops_pp[kid],
+        lam_bytes = Bs * (ns - 1) * 8 if torch.is_tensor(lam) else 0
+        b, f = bound_ms(Bs * ns * 16 + lam_bytes, Bs * ns * ops_pp[kid],
                         PEAK_F64_FLOP_S)
-        src = {"D1": "tautstring", "D3": "condat", "D4": "classic_ts"}[kid]
+        src = {"D1": "tautstring", "D2": "dp", "D3": "condat",
+               "D4": "classic_ts"}[kid]
+        if kid == "D2":
+            what += (", warp layout" if D["D2"].warp_layout(
+                Bs, ns, torch.is_tensor(lam), f64) else ", thread layout")
         kern.append(dict(
-            name=f"{kid}.f64 {fns[kid]}_tv1_f64 ({what} scalar)",
+            name=f"{kid}.f64 {fns[kid]}_tv1_f64 ({what})",
             route="cuda", source=f"proxtv_tpu_torch/csrc/{src}.cu",
             replaces=f"proxtv_tpu/ops/tv1d_l1.py:{line[kid]} (XLA lock-step "
                      "scan; no TPU kernel)",
@@ -1656,7 +2113,47 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
             plain_ms=cpu[key][1] * 1e3, plain_device="cpu", bound_ms=b,
             bound_by=f, library_ms=None, kernel_ms=kernel_ms,
             dtype="float64"))
-    for kid in ("D1", "D3", "D4"):
+    # -- L1.f64 at its main-path launches (the T2 backwards): held bit for
+    # bit against the plain version on the card, timed through the wrapper
+    # and the C entry; bound: X read and the labels written, 12 bytes a
+    # pixel.
+    l1_shapes = {}
+    for X_, tol_ in l1_calls:
+        l1_shapes.setdefault(tuple(X_.shape), []).append((X_, tol_))
+    for (Bs, Ms, Ns), got in l1_shapes.items():
+        launchers, plain_s, same = [], 0.0, True
+        for X_, tol_ in got:
+            out = L1.component_labels(X_, tol_)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = L1.component_labels_plain(X_, tol_)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            same = same and bool(torch.equal(out, ref))
+            lab_, launch = L1.bind(X_, tol_)
+            launch()
+            torch.cuda.synchronize()
+            check(bool(torch.equal(lab_, out)),
+                  "L1.f64's C entry point and its wrapper disagree")
+            launchers.append(launch)
+        print(f"[f64 L1] main path {Bs}x{Ms}x{Ns} ({len(got)} launches): "
+              f"labels bit for bit with the float64 plain version: {same}")
+        check(same, f"L1.f64 {Bs}x{Ms}x{Ns} parts from its plain version")
+        ms = cuda_ms(lambda got=got: [L1.component_labels(*c_)
+                                      for c_ in got]) / len(got)
+        kernel_ms = cuda_ms(lambda ls=launchers: [l_() for l_ in ls]) / len(
+            got)
+        px = Bs * Ms * Ns
+        b, f = bound_ms(px * 12, px * LABEL_OPS_PER_PIXEL, PEAK_F64_FLOP_S)
+        kern.append(dict(
+            name=f"L1.f64 component_labels_f64 ({Bs}x{Ms}x{Ns})",
+            route="cuda", source="proxtv_tpu_torch/csrc/labels.cu",
+            replaces="proxtv_tpu/ops/diffprox.py:105 (XLA while_loop; no "
+                     "TPU kernel)", launches=len(got), max_abs_err=0.0,
+            ms=ms, plain_ms=plain_s * 1e3 / len(got), bound_ms=b,
+            bound_by=f, library_ms=None, kernel_ms=kernel_ms,
+            dtype="float64"))
+    for kid in ("D1", "D2", "D3", "D4", "L1"):
         n_kern = sum(k_["launches"] for k_ in kern
                      if k_["name"].startswith(kid + ".f64 "))
         check(n_kern == launches[kid + ".f64"],
@@ -1669,30 +2166,49 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
               + f"{k_['plain_ms']:.1f} ms"
               + (" (CPU)" if k_.get("plain_device") == "cpu" else "")
               + f", launches {k_['launches']}  ({card})")
-    # Wall of each float64 main-path call by CUDA events, and the device's
-    # share of it for the 1D calls and dr (one profiled call each).
+    # Wall of each float64 main-path call by CUDA events (name: call,
+    # repetitions), and the device's share of it (one profiled call each).
     timed = {
-        "tv1_batched 10000x1000 D1.f64": lambda: tv1d_l1.tv1_batched(
-            Y1d, LAM1D),
-        "tv1_batched 512x1000 condat D3.f64": lambda: tv1d_l1.tv1_batched(
-            Ycon, LAM1D, method="condat", strict=True),
-        "tv1_batched 512x1000 classictautstring D4.f64":
+        "tv1_batched 10000x1000 D1.f64": (lambda: tv1d_l1.tv1_batched(
+            Y1d, LAM1D), 20),
+        "tv1_batched 512x1000 condat D3.f64": (lambda: tv1d_l1.tv1_batched(
+            Ycon, LAM1D, method="condat", strict=True), 20),
+        "tv1_batched 512x1000 classictautstring D4.f64": (
             lambda: tv1d_l1.tv1_batched(Ycon, LAM1D,
                                         method="classictautstring",
-                                        strict=True),
-        "tv1_pn n=1000 B2.f64": lambda: tv1d_l1.tv1_pn(y1d, 2.0),
-        "tv1_2d_batched 1024^2 dr B2.f64": lambda: tv2d.tv1_2d_batched(
-            Y2d, LAM2D, method="dr"),
+                                        strict=True), 20),
+        "tv1_pn n=1000 B2.f64": (lambda: tv1d_l1.tv1_pn(y1d, 2.0), 20),
+        "tv1_2d_batched 1024^2 dr B2.f64": (lambda: tv2d.tv1_2d_batched(
+            Y2d, LAM2D, method="dr"), 3),
     }
+    # The table's calls at the bench's width (the slowest take seconds),
+    # each profiled in a window of PROFILE_SWEEPS sweeps where the call's
+    # depth is its sweeps.
+    short = {}
+    for row in rows.values():
+        if row.inputs[0] not in ("Y256", "V_small"):
+            a_ = tuple(arg[k] for k in row.inputs)
+            timed[row.label] = (lambda c=row.call, a_=a_: c(a_, ND_SWEEPS),
+                                20 if row.hold == "D2" else 1)
+            if row.swept:
+                short[row.label] = lambda c=row.call, a_=a_: c(
+                    a_, PROFILE_SWEEPS)
+    timed[lay["long"][0]] = (lambda: tv1d_long.tv1_long(ylong64[0], LAM1D),
+                             1)
+    timed[lay["T2"][0]] = (lambda: t2_step("dr"), 1)
+    short[lay["T2"][0]] = lambda: t2_step("dr", PROFILE_SWEEPS)
+    timed[lay["T2 cp-acc"][0]] = (lambda: t2_step("chambolle-pock-acc"), 1)
     walls = {}
-    for name, fn in timed.items():
-        ms_ = cuda_ms(fn, reps=3 if "1024" in name else 20)
-        prof = profile_call(fn, windows=1)
-        walls[name] = {"ms": ms_, "profile": prof}
+    for name, (fn, reps) in timed.items():
+        ms_ = cuda_ms(fn, reps=reps)
+        prof = profile_call(short.get(name, fn), windows=1)
+        walls[name] = {"ms": ms_, "profile": prof, "profile_sweeps":
+                       PROFILE_SWEEPS if name in short else None}
         busy = prof["busy_ms"]
         busy = busy if isinstance(busy, str) else f"{busy:.3f}"
         print(f"[f64 time] {name}: {ms_:.4f} ms by CUDA events; profiled "
-              f"wall {prof['wall_ms']:.3f} ms, device busy {busy} ms, "
+              + (f"at {PROFILE_SWEEPS} sweeps: " if name in short else "")
+              + f"wall {prof['wall_ms']:.3f} ms, device busy {busy} ms, "
               f"idle share {prof['idle_share']}  ({card})")
     rep.update(walls=walls, seconds={
         "drive": t_drive, "wait_cpu": t_wait, "host_engine": t_host,
@@ -1700,7 +2216,7 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32):
         "phase": time.perf_counter() - t_phase})
     print(f"[f64] phase: {rep['seconds']['phase']:.1f} s (driving "
           f"{t_drive:.1f} s, then waiting {t_wait:.1f} s for the CPU "
-          "references, which ran in three worker processes beside the "
+          "references, which ran in six worker processes beside the "
           "earlier phases)")
     return kern, rep
 
@@ -1810,8 +2326,10 @@ def main(out_dir):
     errs = {"pcr": 0.0, "pn": 0.0, "pdhg": 0.0, "ms": 0.0, "pdhg3d": 0.0,
             "lp": 0.0, "direct": 0.0}
     # The float64 phase's CPU references start now, in worker processes.
-    inp64, jobs64 = start_cpu64(Y1, {kid: kernel_module(kid).warp_max_n(
-        torch.float64) for kid in ("D1", "D3", "D4")})
+    inp64, jobs64 = start_cpu64(dict(Y1=Y1, Ww=Ww, ylong=ylong, Y2=Y2,
+                                     Y5=Y5, V=V), {
+        kid: kernel_module(kid).warp_max_n(torch.float64)
+        for kid in ("D1", "D3", "D4")})
 
     # -- 2. kernels vs plain versions at main-path shapes -----------------
     d = t((0.01 * rng.randn(B1D, N1D)).astype(np.float32))
@@ -2783,12 +3301,6 @@ def main(out_dir):
     # main path's certificate must hold; the engine run 1000 iterations must
     # land within XBAR elementwise, as the 2D check does; Parallel Dykstra
     # at the reference's 35 sweeps is printed.
-    def obj3d(X, Y, lam):
-        X = X.astype(np.float64)
-        return (0.5 * np.sum((X - Y) ** 2)
-                + lam * sum(np.abs(np.diff(X, axis=a)).sum()
-                            for a in range(3)))
-
     t0 = time.perf_counter()
     x_ref3, gap_ref3 = reference_3d(t(V.astype(np.float64)), LAM3, 20000)
     x_ref3 = x_ref3.cpu().numpy()
@@ -2865,14 +3377,6 @@ def main(out_dir):
               ptv.tvp_1d(y1, 2.0, 1.5, device="cpu"), y1, 2.0, 1.5)
     vs_cpu_lp("api.tv p 1.5", x_tvp, ptv.tv(y1, LAMP, p=1.5, device="cpu"),
               y1, LAMP, 1.5)
-
-    def obj_2dp(X, Y, lam, p):  # bench.py:_obj_2dp
-        X = X.astype(np.float64)
-        col = np.sum(np.sum(np.abs(np.diff(X, axis=0)) ** p, axis=0)
-                     ** (1.0 / p))
-        row = np.sum(np.sum(np.abs(np.diff(X, axis=1)) ** p, axis=1)
-                     ** (1.0 / p))
-        return 0.5 * np.sum((X - Y) ** 2) + lam * (col + row)
 
     t0 = time.time()
     x_2p_ref, info_2p_ref = ptv.tvp_2d(Y5.astype(np.float64), LAM2P, LAM2P,
@@ -4324,8 +4828,13 @@ def main(out_dir):
 
     stamp("phase 6 done")
     # -- 7. float64 on the card ------------------------------------------
-    kern64, report["float64"] = float64_phase(card, inp64, jobs64, Y2, y1,
-                                              x_ref, F_ref, x_dr)
+    kern64, report["float64"] = float64_phase(
+        card, inp64, jobs64, Y2, y1, x_ref, F_ref, x_dr, dict(
+            V=V, Y5=Y5, noisy_t2=noisy_t2, truth_t2=truth_t2,
+            x_p2_ref=x_p2_ref, x_2p_ref=x_2p_ref, x_ref3=x_ref3,
+            F3_ref=F3_ref, gap_ref3=gap_ref3, xl1_ref=xl1_ref,
+            dF_gen32=xc["tvgen Parallel Dykstra (main path, 35 sweeps)"][
+                "F_minus_F_ref"]))
     kern += kern64
     stop_pools()
 

@@ -13,25 +13,30 @@
 // popped from the back while it stays above w_i (UPPER) and the upper bound
 // pushed (UPPER_EXIT); then the backward pass x[i] = clip(x[i+1], lo[i],
 // hi[i]).  Each operation is the plain version's (tv1_dp_plain) in the
-// same order and float32 rounding; the two multiply-adds are written with
-// __fmul_rn/__fadd_rn so that they do not contract into FMAs.
+// same order and rounding; the two multiply-adds are written with
+// direct1d::mul_rn/add_rn (__fmul_rn/__fadd_rn in float, __dmul_rn/
+// __dadd_rn in double) so that they do not contract into FMAs, and the
+// divides are IEEE divisions.  The kernels are written for the signal's
+// type T and built for float (dp_tv1) and double (dp_tv1_f64, the float64
+// route of tv1_batched's DP names).
 //
 // What bounds it on this card: the function reads y (and the weights) once
-// and writes x once, ~8 bytes an element, as D1; the deque and the clip
-// bounds are the algorithm's workspace.  The operations form a dependent
-// chain per signal, so a signal is latency: its chain at the latency of
-// the memory that holds its deque.
+// and writes x once, ~8 bytes an element in float32 (16 in float64), as
+// D1; the deque and the clip bounds are the algorithm's workspace.  The
+// operations form a dependent chain per signal, so a signal is latency:
+// its chain at the latency of the memory that holds its deque.
 //
 // Design, two layouts by size (direct1d.cuh):
 // * n <= kWarpMaxN and a batch of at most kMaxWarpWaves waves of resident
 //   warps: one warp a signal, its deque arena (2n slots of
-//   breakpoint and slope) and clip bounds (lo, hi: n each) in shared
-//   memory, 24n bytes.  All 32 lanes run the deque operations redundantly
-//   (broadcast reads, the same value written to the same slot, uniform
-//   branches); y and the weights stream through registers 32 samples at a
-//   time (lane k holds sample c + k of this chunk and the next), read by
-//   shuffles.  The backward pass runs on every lane out of shared memory,
-//   lane k keeping sample c + k, and each 32 samples go out in one store.
+//   breakpoint and int32 slope) and clip bounds (lo, hi: n each) in shared
+//   memory, 24n bytes in float32 and 40n in float64.  All 32 lanes run
+//   the deque operations redundantly (broadcast reads, the same value
+//   written to the same slot, uniform branches); y and the weights
+//   stream through registers 32 samples at a time (lane k holds sample
+//   c + k of this chunk and the next), read by shuffles.  The backward
+//   pass runs on every lane out of shared memory, lane k keeping sample
+//   c + k, and each 32 samples go out in one store.
 // * longer signals or larger batches: one thread a signal, the arena and
 //   the bounds in a global workspace that the wrapper allocates, interleaved
 //   by signal
@@ -43,52 +48,69 @@
 
 namespace {
 
-using direct1d::Lam;
+using direct1d::add_rn;
+using direct1d::LamT;
+using direct1d::mul_rn;
+using direct1d::sub_rn;
+using direct1d::vmax;
+using direct1d::vmin;
+
+// A signal's shared memory in the warp layout, in elements of T: the
+// breakpoints (2n), the slopes (2n int32, kSlopesT n in T), the clip bounds
+// (n each).
+template <class T>
+constexpr int kSlopesT = 2 * sizeof(int) / sizeof(T);
+template <class T>
+constexpr int kWarpT = 4 + kSlopesT<T>;
 
 // The longest signal of the warp layout: its arena and bounds take 24n
-// bytes of shared memory, 192 KB at 8192 (a block takes at most 227 KB).
-constexpr int kWarpMaxN = 8192;
+// bytes of shared memory in float32, 192 KB at 8192, and 40n in float64,
+// 227 KB at 5808 (a block takes at most 227 KB).
+template <class T>
+constexpr int kWarpMaxN = sizeof(T) == 4 ? 8192 : 5808;
 // Shared memory caps the warp layout's signals in flight (9 an SM at
 // n = 1000), so a large batch runs in waves of one chain each; the thread
 // layout runs every signal at once, each chain slower from global memory
 // and parted by divergence.  Past this many waves the thread layout is the
 // faster (H100, n = 1000, tools/time_direct.py: warp 1.549 ms at 4 waves
-// against thread 1.735, 1.935 at 5 against 1.808; PERF.md).
+// against thread 1.735, 1.935 at 5 against 1.808; PERF.md).  Double
+// keeps the rule: both layouts' chains carry the same events, each a
+// double's latency longer, and a wave holds 40/24 fewer signals an SM.
 constexpr int kMaxWarpWaves = 4;
 
-template <bool kEdge>
+template <class T, bool kEdge>
 __global__ void __launch_bounds__(32 * direct1d::kMaxWarps)
-dp_warp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
+dp_warp_kernel(const T* __restrict__ y, LamT<T> lam, T* __restrict__ x,
                int B, int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // the whole warp
-  float* pl = smem + (size_t)warp * 6 * n;       // breakpoints, 2n
+  T* pl = reinterpret_cast<T*>(smem) + (size_t)warp * kWarpT<T> * n;
   int* ps = reinterpret_cast<int*>(pl + 2 * n);  // slopes, 2n
-  float* lo = pl + 4 * n;                        // clip bounds, n each
-  float* hi = pl + 5 * n;
-  const float* __restrict__ yb = y + (size_t)b * n;
-  float* __restrict__ xb = x + (size_t)b * n;
-  const float lc = kEdge ? 0.f : lam(b, 0);  // one weight a signal
+  T* lo = pl + (2 + kSlopesT<T>) * n;            // clip bounds, n each
+  T* hi = pl + (3 + kSlopesT<T>) * n;
+  const T* __restrict__ yb = y + (size_t)b * n;
+  T* __restrict__ xb = x + (size_t)b * n;
+  const T lc = kEdge ? T(0) : lam(b, 0);  // one weight a signal
   auto W = [&](int i) { return kEdge ? lam(b, i) : lc; };
   if (direct1d::warp_degenerate([&](int i) { return __ldg(yb + i); }, W, n,
                                 xb, lane))
     return;
   auto y_chunk = [&](int c) {
     const int k = c + lane;
-    return k < n ? __ldg(yb + k) : 0.f;
+    return k < n ? __ldg(yb + k) : T(0);
   };
   auto w_chunk = [&](int c) {
     const int k = c + lane;
-    return kEdge && k < n - 1 ? lam(b, k) : 0.f;
+    return kEdge && k < n - 1 ? lam(b, k) : T(0);
   };
 
   // The message at node 0 (reference :152-156).
   int L = n - 1, R = n;
-  const float w0 = W(0), y0 = __ldg(yb);
-  const float lo0 = -w0 + y0, hi0 = w0 + y0;
+  const T w0 = W(0), y0 = __ldg(yb);
+  const T lo0 = -w0 + y0, hi0 = w0 + y0;
   ps[L - 1] = -1;
   pl[L] = lo0;
   ps[L] = 0;
@@ -97,9 +119,9 @@ dp_warp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
   lo[0] = lo0;
   hi[0] = hi0;
   int A = 1;
-  float last_val, w_prev = w0;
-  float y_cur = y_chunk(0), w_cur = w_chunk(0);
-  float y_next = y_chunk(32), w_next = w_chunk(32);
+  T last_val, w_prev = w0;
+  T y_cur = y_chunk(0), w_cur = w_chunk(0);
+  T y_next = y_chunk(32), w_next = w_chunk(32);
   for (int i = 1;; ++i) {
     if ((i & 31) == 0) {
       y_cur = y_next;
@@ -109,31 +131,31 @@ dp_warp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
     }
     // INIT
     A += 1;
-    const float wp = w_prev;
-    const float wi = kEdge ? __shfl_sync(direct1d::kFull, w_cur, i & 31) : lc;
-    const float w = i < n - 1 ? wi : 0.f;
+    const T wp = w_prev;
+    const T wi = kEdge ? __shfl_sync(direct1d::kFull, w_cur, i & 31) : lc;
+    const T w = i < n - 1 ? wi : T(0);
     w_prev = w;
-    const float bi = __shfl_sync(direct1d::kFull, y_cur, i & 31);
-    float mmin = -wp + pl[L] - bi;
-    float mmax = wp + pl[R] - bi;
+    const T bi = __shfl_sync(direct1d::kFull, y_cur, i & 31);
+    T mmin = -wp + pl[L] - bi;
+    T mmax = wp + pl[R] - bi;
     int slope = 1;
     // LOWER: pop from the front while the message is below -w.
     while (mmin < -w) {
       slope = ps[L] + A;
       L += 1;
       if (L > R) break;
-      mmin = __fadd_rn(mmin, __fmul_rn(pl[L] - pl[L - 1], (float)slope));
+      mmin = add_rn(mmin, mul_rn(pl[L] - pl[L - 1], (T)slope));
     }
     // LOWER_EXIT
     if (i == n - 1) {
-      last_val = pl[L > R ? L - 1 : L] - mmin / (float)slope;
+      last_val = pl[L > R ? L - 1 : L] - mmin / (T)slope;
       break;
     }
     L -= 1;
     ps[L - 1] = -A;
     if (L == R) {  // the ends meet: both bounds from one breakpoint
-      const float p = pl[L];
-      const float hm = p - (mmax - w), lm = p - (mmax + w);
+      const T p = pl[L];
+      const T hm = p - (mmax - w), lm = p - (mmax + w);
       R += 1;
       ps[R] = -A;
       pl[R] = hm;
@@ -142,7 +164,7 @@ dp_warp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
       lo[i] = lm;
       continue;
     }
-    const float lon = pl[L + 1] - (w + mmin) / (float)slope;
+    const T lon = pl[L + 1] - (w + mmin) / (T)slope;
     pl[L] = lon;
     lo[i] = lon;
     slope = 1;
@@ -150,22 +172,22 @@ dp_warp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
     while (mmax > w) {
       R -= 1;
       slope = ps[R] + A;
-      mmax = __fsub_rn(mmax, __fmul_rn(pl[R + 1] - pl[R], (float)slope));
+      mmax = sub_rn(mmax, mul_rn(pl[R + 1] - pl[R], (T)slope));
       if (R == L) break;
     }
     // UPPER_EXIT
     R += 1;
-    const float hu = pl[R - 1] + (w - mmax) / (float)slope;
+    const T hu = pl[R - 1] + (w - mmax) / (T)slope;
     ps[R] = -A;
     pl[R] = hu;
     hi[i] = hu;
   }
   // Backward clamping pass (reference :216-221), 32 samples a round from
   // the top; lane k keeps sample c + k and the round stores them at once.
-  float xv = last_val, mine = 0.f;
+  T xv = last_val, mine = T(0);
   for (int c = (n - 1) & ~31; c >= 0; c -= 32) {
     for (int j = min(c + 31, n - 1); j >= c; --j) {
-      if (j < n - 1) xv = fminf(fmaxf(xv, lo[j]), hi[j]);
+      if (j < n - 1) xv = vmin(vmax(xv, lo[j]), hi[j]);
       if (lane == j - c) mine = xv;
     }
     if (c + lane < n) xb[c + lane] = mine;
@@ -174,24 +196,26 @@ dp_warp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
 
 // 1 when a (B, n) batch runs on the warp layout (planned into p), 0 when
 // it runs on the thread layout, a negative CUDA error.
+template <class T>
 int warp_layout(int B, int n, bool edge, direct1d::WarpPlan* p) {
-  if (n > kWarpMaxN) return 0;
-  const size_t per_warp = 24 * (size_t)n;
+  if (n > kWarpMaxN<T>) return 0;
+  const size_t per_warp = kWarpT<T> * sizeof(T) * (size_t)n;
   const cudaError_t e =
-      edge ? direct1d::warp_plan(dp_warp_kernel<true>, per_warp, B, p)
-           : direct1d::warp_plan(dp_warp_kernel<false>, per_warp, B, p);
+      edge ? direct1d::warp_plan(dp_warp_kernel<T, true>, per_warp, B, p)
+           : direct1d::warp_plan(dp_warp_kernel<T, false>, per_warp, B, p);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return p->waves <= kMaxWarpWaves;
 }
 
+template <class T>
 __global__ void __launch_bounds__(64)
-dp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
-          float* __restrict__ plam, int* __restrict__ pslope,
-          float* __restrict__ lohi, int B, int n) {
+dp_kernel(const T* __restrict__ y, LamT<T> lam, T* __restrict__ x,
+          T* __restrict__ plam, int* __restrict__ pslope,
+          T* __restrict__ lohi, int B, int n) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* __restrict__ yb = y + (size_t)b * n;
-  float* __restrict__ xb = x + (size_t)b * n;
+  const T* __restrict__ yb = y + (size_t)b * n;
+  T* __restrict__ xb = x + (size_t)b * n;
   if (direct1d::degenerate(yb, lam, b, n, xb)) return;
 
   const size_t S = (size_t)B;
@@ -201,8 +225,8 @@ dp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
 #define HI(k) lohi[((size_t)n + (k)) * S + b]
   // The message at node 0 (reference :152-156).
   int L = n - 1, R = n;
-  const float w0 = lam(b, 0), y0 = __ldg(yb);
-  const float lo0 = -w0 + y0, hi0 = w0 + y0;
+  const T w0 = lam(b, 0), y0 = __ldg(yb);
+  const T lo0 = -w0 + y0, hi0 = w0 + y0;
   PS(L - 1) = -1;
   PL(L) = lo0;
   PS(L) = 0;
@@ -211,33 +235,33 @@ dp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
   LO(0) = lo0;
   HI(0) = hi0;
   int A = 1;
-  float last_val;
+  T last_val;
   for (int i = 1;; ++i) {
     // INIT
     A += 1;
-    const float wp = lam(b, i - 1);
-    const float w = i < n - 1 ? lam(b, i) : 0.f;
-    const float bi = __ldg(yb + i);
-    float mmin = -wp + PL(L) - bi;
-    float mmax = wp + PL(R) - bi;
+    const T wp = lam(b, i - 1);
+    const T w = i < n - 1 ? lam(b, i) : T(0);
+    const T bi = __ldg(yb + i);
+    T mmin = -wp + PL(L) - bi;
+    T mmax = wp + PL(R) - bi;
     int slope = 1;
     // LOWER: pop from the front while the message is below -w.
     while (mmin < -w) {
       slope = PS(L) + A;
       L += 1;
       if (L > R) break;
-      mmin = __fadd_rn(mmin, __fmul_rn(PL(L) - PL(L - 1), (float)slope));
+      mmin = add_rn(mmin, mul_rn(PL(L) - PL(L - 1), (T)slope));
     }
     // LOWER_EXIT
     if (i == n - 1) {
-      last_val = PL(L > R ? L - 1 : L) - mmin / (float)slope;
+      last_val = PL(L > R ? L - 1 : L) - mmin / (T)slope;
       break;
     }
     L -= 1;
     PS(L - 1) = -A;
     if (L == R) {  // the ends meet: both bounds from one breakpoint
-      const float pl = PL(L);
-      const float hm = pl - (mmax - w), lm = pl - (mmax + w);
+      const T pl = PL(L);
+      const T hm = pl - (mmax - w), lm = pl - (mmax + w);
       R += 1;
       PS(R) = -A;
       PL(R) = hm;
@@ -246,7 +270,7 @@ dp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
       LO(i) = lm;
       continue;
     }
-    const float lon = PL(L + 1) - (w + mmin) / (float)slope;
+    const T lon = PL(L + 1) - (w + mmin) / (T)slope;
     PL(L) = lon;
     LO(i) = lon;
     slope = 1;
@@ -254,27 +278,52 @@ dp_kernel(const float* __restrict__ y, Lam lam, float* __restrict__ x,
     while (mmax > w) {
       R -= 1;
       slope = PS(R) + A;
-      mmax = __fsub_rn(mmax, __fmul_rn(PL(R + 1) - PL(R), (float)slope));
+      mmax = sub_rn(mmax, mul_rn(PL(R + 1) - PL(R), (T)slope));
       if (R == L) break;
     }
     // UPPER_EXIT
     R += 1;
-    const float hu = PL(R - 1) + (w - mmax) / (float)slope;
+    const T hu = PL(R - 1) + (w - mmax) / (T)slope;
     PS(R) = -A;
     PL(R) = hu;
     HI(i) = hu;
   }
   // Backward clamping pass (reference :216-221).
-  float xv = last_val;
+  T xv = last_val;
   xb[n - 1] = xv;
   for (int j = n - 2; j >= 0; --j) {
-    xv = fminf(fmaxf(xv, LO(j)), HI(j));
+    xv = vmin(vmax(xv, LO(j)), HI(j));
     xb[j] = xv;
   }
 #undef PL
 #undef PS
 #undef LO
 #undef HI
+}
+
+template <class T>
+int run(const T* y, const T* lam, int lam_rs, int lam_cs, T lam_s, T* x,
+        T* plam, int* pslope, T* lohi, int B, int n, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  const LamT<T> l{lam, (size_t)lam_rs, (size_t)lam_cs, lam_s};
+  direct1d::WarpPlan p;
+  const int warp = warp_layout<T>(B, n, l.per_edge(), &p);
+  if (warp < 0) return -warp;
+  if (warp) {
+    if (l.per_edge())
+      dp_warp_kernel<T, true><<<p.blocks, 32 * p.warps, p.smem, stream>>>(
+          y, l, x, B, n);
+    else
+      dp_warp_kernel<T, false><<<p.blocks, 32 * p.warps, p.smem, stream>>>(
+          y, l, x, B, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!plam || !pslope || !lohi)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 64;
+  dp_kernel<T><<<(B + threads - 1) / threads, threads, 0, stream>>>(
+      y, l, x, plam, pslope, lohi, B, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -288,32 +337,32 @@ extern "C" int dp_tv1(const float* y, const float* lam, int lam_rs,
                       int lam_cs, float lam_s, float* x, float* plam,
                       int* pslope, float* lohi, int B, int n,
                       cudaStream_t stream) {
-  if (B <= 0) return 0;
-  const Lam l{lam, (size_t)lam_rs, (size_t)lam_cs, lam_s};
-  direct1d::WarpPlan p;
-  const int warp = warp_layout(B, n, l.per_edge(), &p);
-  if (warp < 0) return -warp;
-  if (warp) {
-    if (l.per_edge())
-      dp_warp_kernel<true><<<p.blocks, 32 * p.warps, p.smem, stream>>>(
-          y, l, x, B, n);
-    else
-      dp_warp_kernel<false><<<p.blocks, 32 * p.warps, p.smem, stream>>>(
-          y, l, x, B, n);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (!plam || !pslope || !lohi)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 64;
-  dp_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      y, l, x, plam, pslope, lohi, B, n);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(y, lam, lam_rs, lam_cs, lam_s, x, plam, pslope, lohi, B,
+                    n, stream);
 }
 
-// 1 when dp_tv1 runs a (B, n) batch (per_edge: one weight an edge) on the
-// warp layout and needs no workspace, 0 on the thread layout, a negative
-// CUDA error.
+// The same in float64: y, x, the weights, plam and lohi double.
+extern "C" int dp_tv1_f64(const double* y, const double* lam, int lam_rs,
+                          int lam_cs, double lam_s, double* x, double* plam,
+                          int* pslope, double* lohi, int B, int n,
+                          cudaStream_t stream) {
+  return run<double>(y, lam, lam_rs, lam_cs, lam_s, x, plam, pslope, lohi, B,
+                     n, stream);
+}
+
+// 1 when dp_tv1 (dp_tv1_f64) runs a (B, n) batch (per_edge: one weight an
+// edge) on the warp layout and needs no workspace, 0 on the thread layout,
+// a negative CUDA error.
 extern "C" int dp_warp_layout(int B, int n, int per_edge) {
   direct1d::WarpPlan p;
-  return warp_layout(B, n, per_edge != 0, &p);
+  return warp_layout<float>(B, n, per_edge != 0, &p);
 }
+extern "C" int dp_warp_layout_f64(int B, int n, int per_edge) {
+  direct1d::WarpPlan p;
+  return warp_layout<double>(B, n, per_edge != 0, &p);
+}
+
+// The longest signal of the warp layout, in float32 and in float64 (a
+// batch of more than four waves takes the thread layout at any n).
+extern "C" int dp_warp_max_n() { return kWarpMaxN<float>; }
+extern "C" int dp_warp_max_n_f64() { return kWarpMaxN<double>; }

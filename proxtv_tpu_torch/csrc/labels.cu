@@ -8,21 +8,26 @@
 // nothing (one device-to-host check of the loop condition a trip; the
 // port's plain version, ops/kernels/labels.py, reads it on the host).  An
 // edge is flat where |X[next] - X[here]| <= tol[b], the plain version's
-// expression: an IEEE float32 subtraction, its absolute value and one
+// expression: an IEEE subtraction in X's type, its absolute value and one
 // comparison, so the edges are the plain version's bit for bit (a NaN on
-// either side is not flat).
+// either side is not flat).  The kernels that read X are written for its
+// type T and built for float (component_labels) and double
+// (component_labels_f64, the backward of a float64 tv2d_prox); the labels
+// are int32 in both.
 //
-// What bounds it on this card: the function reads X once (4 bytes a pixel)
-// and writes the labels once (4 bytes a pixel): 8 MB at 1024^2, 2.5 us at
-// 3.35 TB/s.  The propagation needs a trip per two hops of a component's
-// diameter (about 1000 trips on a flat 1024^2 image, 2^18 on a serpentine
-// one); union-find needs none.
+// What bounds it on this card: the function reads X once (4 bytes a pixel,
+// 8 in float64) and writes the labels once (4 bytes a pixel): 8 MB at
+// 1024^2, 2.5 us at 3.35 TB/s (12 MB, 3.8 us in float64).  The
+// propagation needs a trip per two hops of a component's diameter (about
+// 1000 trips on a flat 1024^2 image, 2^18 on a serpentine one);
+// union-find needs none.
 //
 // Design: block-based union-find in three launches, with no host read.
 // The labels array holds the parent pointers (per image linear indices),
 // so no workspace is needed.
 // * labels_local: a block owns a 32 x 32 tile, a warp a row.  It stages
-//   the tile in shared memory with coalesced loads.  A warp takes its
+//   the tile in shared memory with coalesced loads (4 KB, 8 KB in
+//   float64).  A warp takes its
 //   row's flat right edges as one ballot and points each pixel at the
 //   start of its flat run (no atomics, trees one deep); then each flat
 //   down edge unions the runs above and below (atomicMin on shared
@@ -58,6 +63,9 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ bool flat(float here, float next, float tol) {
   return fabsf(__fsub_rn(next, here)) <= tol;
+}
+__device__ __forceinline__ bool flat(double here, double next, double tol) {
+  return fabs(__dsub_rn(next, here)) <= tol;
 }
 
 // The parent arrays: the tile's in shared memory (Shared), an image's in
@@ -105,11 +113,12 @@ __device__ void unite(P a, int x, int y) {
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kTile* kTile)
-    labels_local(const float* __restrict__ X, const float* __restrict__ tol,
+    labels_local(const T* __restrict__ X, const T* __restrict__ tol,
                  int* __restrict__ lab, int M, int N, int tiles_x,
                  int tiles_y) {
-  __shared__ float xs[kTile][kTile];
+  __shared__ T xs[kTile][kTile];
   __shared__ int ps[kTile * kTile];
   __shared__ unsigned rights[kTile];  // a row's flat right edges, a bit each
   const int tx = threadIdx.x, ty = threadIdx.y;  // lane, warp
@@ -121,7 +130,7 @@ __global__ void __launch_bounds__(kTile* kTile)
   const size_t base = b * M * N;
   const int l = ty * kTile + tx;  // row-major in the tile, as in the image
   if (in) xs[ty][tx] = __ldg(X + base + (size_t)y * N + x);
-  const float t = __ldg(tol + b);
+  const T t = __ldg(tol + b);
   __syncthreads();
   // The start of this pixel's flat run in the row: one past the last edge
   // before it that is not flat.  (A pixel in the image has only pixels in
@@ -152,8 +161,9 @@ __global__ void __launch_bounds__(kTile* kTile)
 // Edge k of an image: first the (tiles_x - 1) M edges across the vertical
 // seams (seam s + 1 at column (s + 1) kTile, row y), then the
 // (tiles_y - 1) N across the horizontal ones.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    labels_seams(const float* __restrict__ X, const float* __restrict__ tol,
+    labels_seams(const T* __restrict__ X, const T* __restrict__ tol,
                  int* lab, int M, int N, int tiles_x, long long per_image,
                  long long total) {
   const long long nv = (long long)(tiles_x - 1) * M;
@@ -192,6 +202,33 @@ unsigned grid_for(long long total) {
   return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
+template <class T>
+int run(const T* X, const T* tol, int* labels, int B, int M, int N,
+        cudaStream_t stream) {
+  if (B <= 0 || M <= 0 || N <= 0) return 0;
+  const long long mn = (long long)M * N;
+  const int tiles_x = (N + kTile - 1) / kTile;
+  const int tiles_y = (M + kTile - 1) / kTile;
+  const long long tiles = (long long)tiles_x * tiles_y * B;
+  if (mn > INT_MAX || tiles > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  labels_local<T><<<(unsigned)tiles, dim3(kTile, kTile), 0, stream>>>(
+      X, tol, labels, M, N, tiles_x, tiles_y);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long per_image =
+      (long long)(tiles_x - 1) * M + (long long)(tiles_y - 1) * N;
+  if (per_image > 0) {
+    labels_seams<T><<<grid_for(per_image * B), kThreads, 0, stream>>>(
+        X, tol, labels, M, N, tiles_x, per_image, per_image * B);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  labels_flatten<<<grid_for(mn * B), kThreads, 0, stream>>>(labels, mn,
+                                                            mn * B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // X: (B, M, N) float32, tol: (B,) float32, labels: (B, M, N) int32 (the
@@ -200,26 +237,12 @@ unsigned grid_for(long long total) {
 // cudaErrorInvalidValue; the Python wrapper checks the first).
 extern "C" int component_labels(const float* X, const float* tol, int* labels,
                                 int B, int M, int N, cudaStream_t stream) {
-  if (B <= 0 || M <= 0 || N <= 0) return 0;
-  const long long mn = (long long)M * N;
-  const int tiles_x = (N + kTile - 1) / kTile;
-  const int tiles_y = (M + kTile - 1) / kTile;
-  const long long tiles = (long long)tiles_x * tiles_y * B;
-  if (mn > INT_MAX || tiles > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  labels_local<<<(unsigned)tiles, dim3(kTile, kTile), 0, stream>>>(
-      X, tol, labels, M, N, tiles_x, tiles_y);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long per_image =
-      (long long)(tiles_x - 1) * M + (long long)(tiles_y - 1) * N;
-  if (per_image > 0) {
-    labels_seams<<<grid_for(per_image * B), kThreads, 0, stream>>>(
-        X, tol, labels, M, N, tiles_x, per_image, per_image * B);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  labels_flatten<<<grid_for(mn * B), kThreads, 0, stream>>>(labels, mn,
-                                                            mn * B);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(X, tol, labels, B, M, N, stream);
+}
+
+// The same for float64 X and tol (the labels int32).
+extern "C" int component_labels_f64(const double* X, const double* tol,
+                                    int* labels, int B, int M, int N,
+                                    cudaStream_t stream) {
+  return run<double>(X, tol, labels, B, M, N, stream);
 }

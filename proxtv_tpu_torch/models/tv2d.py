@@ -27,12 +27,14 @@ composition, as the JAX package does) and the primal-dual engines run the
 chunked PDHG solve over kernel B3.  A fiber longer than 8192 runs the
 composition the JAX package runs there (``tv1_pn`` for p = 1).  A float64
 CUDA input takes the JAX package's float64 route: the p = 1 fibers by
-``tv1_pn`` (its Newton systems on kernel B2 in float64) and the
-primal-dual methods by the unfused iteration (:func:`_run_pdhg`, no
-kernel); the weighted primal-dual methods raise there, as the JAX
-package's do off its fused path, and p != 1 raises (the float64 forms of
-B4 and B5 are queued).  A CUDA input the kernels cannot take otherwise (a
-dtype other than float32 or float64, a side of 1) raises.  On the CPU the
+``tv1_pn`` (its Newton systems on kernel B2 in float64), the p = 2 fibers
+by the More-Sorensen composition (its shifted solves on B2 in float64),
+the other p by the TV-Lp compositions (the setup solve on B2 in float64),
+warm starts included, and the primal-dual methods by the unfused
+iteration (:func:`_run_pdhg`, no kernel); the weighted primal-dual
+methods raise there, as the JAX package's do off its fused path.  A CUDA
+input the kernels cannot take otherwise (a dtype other than float32 or
+float64, a side of 1) raises.  On the CPU the
 plain compositions run.  The loops are Python loops: each combiner sweep
 and each PDHG certificate reads one small value to the host.
 """

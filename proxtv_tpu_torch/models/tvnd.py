@@ -9,7 +9,9 @@ for a list of penalty terms (w_i, d_i, p_i), p_i >= 1 — the reference's
 generalized-TV problem (``src/TVNDopt.cpp``, ``TVgenopt.cpp:25-34``).  Each
 term's prox is a batched 1D prox over every fiber along its dimension
 (kernel B1 for p = 1, B4 for p = 2, B5 for TV-Lp inside its gate on the
-card).
+card; for a float64 CUDA stack the JAX package's float64 route of
+``tv2d._prox1d_ws``: ``tv1_pn`` and the TV-L2 and TV-Lp compositions, their
+systems on kernel B2 in float64).
 
 Engines:
 
@@ -20,7 +22,9 @@ Engines:
     consensus ADMM with rho = 10 (``Yang3_TV``, src/TVNDopt.cpp:678);
     ``'condat'`` / ``'chambolle-pock'`` / ``'chambolle-pock-acc'`` — the
     chunked 3D primal-dual solve over kernel B6, for (B, L, M, N) float32
-    volumes on the card penalized on all three dims with p = 1.
+    volumes on the card penalized on all three dims with p = 1 (a float64
+    volume raises the JAX package's error: it has no float64 primal-dual
+    ND route).
 *   :func:`tv_value` — the generalized TV penalty value (reference
     ``TVval``, src/TVNDopt.cpp:524).
 *   :func:`tvgen_dispatch` — the intended dispatch rule (MATLAB
@@ -138,9 +142,10 @@ def _loop(body, init_state, x_of, cap, tol):
 
 def _pdhg3d_fused_ok(Y, ds, ps):
     """The 3D primal-dual engines need (B, L, M, N) volumes penalized on all
-    three signal dims with p = 1, on the card: True there, False on the CPU;
-    a CUDA volume the kernel cannot take (not float32, N outside 1..2048)
-    raises in ``gating.gate``."""
+    three signal dims with p = 1, on the card: True there, False on the CPU
+    and for a float64 volume (the JAX gate's answer); a CUDA volume the
+    kernel cannot take otherwise (another dtype, N outside 1..2048) raises
+    in ``gating.gate``."""
     return (Y.ndim == 4 and tuple(sorted(ds)) == (1, 2, 3)
             and all(p == 1.0 for p in ps) and gating.gate(Y, "pdhg3d"))
 

@@ -162,10 +162,6 @@ def tv1_prox(y, lam, method: str = "pn"):
 # ---------------------------------------------------------------------------
 
 
-# The plain version's propagation, kept under its name.
-_component_labels = label_kernel._component_labels
-
-
 def _component_mean(g, labels):
     """Mean of g over each labeled component (labels = per-image linear ids)."""
     B, M, N = g.shape

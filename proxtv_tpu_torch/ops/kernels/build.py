@@ -78,11 +78,15 @@ _SIGNATURES = {
     # y, lam (or NULL), lam row stride, lam column stride, lam_scalar, x,
     # plam, pslope, lohi (workspace), B, n, stream
     "dp_tv1": (_P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _I, _P),
+    "dp_tv1_f64": (_P, _P, _I, _I, _D, _P, _P, _P, _P, _I, _I, _P),
     # the longest n of D1's warp layout (one warp a signal)
     "tautstring_warp_max_n": (),
     "tautstring_warp_max_n_f64": (),
     # B, n, per_edge -> 1 on D2's warp layout, 0 on its thread layout
     "dp_warp_layout": (_I, _I, _I),
+    "dp_warp_max_n": (),
+    "dp_warp_max_n_f64": (),
+    "dp_warp_layout_f64": (_I, _I, _I),
     # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, B, n,
     # stream
     "condat_tv1": (_P, _P, _I, _F, _P, _I, _I, _P),
@@ -103,6 +107,7 @@ _SIGNATURES = {
     "classic_ts_warp_max_n_f64": (),
     # X, tol, labels (the output and the parent array), B, M, N, stream
     "component_labels": (_P, _P, _P, _I, _I, _I, _P),
+    "component_labels_f64": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

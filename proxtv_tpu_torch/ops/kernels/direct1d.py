@@ -1,7 +1,7 @@
 """Argument helpers shared by the direct 1D kernels D1 (taut string), D2
 (message-passing DP), D3 (Condat) and D4 (classic taut string), the Python
-side of ``csrc/direct1d.cuh``.  D1, D3 and D4 are built in float32 and in
-float64 (their C entries' ``_f64`` forms, :func:`entry`); D2 in float32."""
+side of ``csrc/direct1d.cuh``.  All four are built in float32 and in
+float64 (their C entries' ``_f64`` forms, :func:`entry`)."""
 from __future__ import annotations
 
 import torch

@@ -17,12 +17,15 @@ alone:
 *   a CUDA float64 tensor takes the JAX package's float64 route, whose
     gate says no to every kernel ("f32 by design (f64 runs use the XLA
     compositions)", ``proxtv_tpu/ops/kernels/gating.py:8``): the families
-    whose callers compose (``pn``: ``tv1_pn``; ``pdhg2d``: the unfused
-    primal-dual iteration) say "not this kernel" at any length, the
-    families that the composition runs on (B2's ``pcr``) or that the
-    float64 route names (D1's ``tautstring``, D3's ``condat``, D4's
-    ``classic``) take the kernel's float64 instantiation, and every other
-    family raises: its float64 form on the card is queued.
+    whose callers compose (``pn``: ``tv1_pn``; ``pn_window``: the long
+    route's windows by ``tv1_pn``; ``pdhg2d``: the unfused primal-dual
+    iteration; ``ms``: the More-Sorensen composition; ``lp``: the TV-Lp
+    compositions) say "not this kernel" at any length, and so does
+    ``pdhg3d``, whose ND caller then raises the JAX package's own error
+    (it has no float64 primal-dual ND route); the families that the
+    compositions run on (B2's ``pcr``) or that the float64 route names
+    (D1's ``tautstring``, D2's ``dp``, D3's ``condat``, D4's ``classic``)
+    take the kernel's float64 instantiation.
 """
 from __future__ import annotations
 
@@ -88,9 +91,24 @@ _KIND_KERNEL = {
 }
 # The float64 route (module docstring): the families built in double, and
 # those whose callers run the JAX package's float64 composition instead.
-# Every other family's float64 form is queued: a float64 CUDA tensor raises.
-F64_KERNELS = frozenset({"pcr", "tautstring", "condat", "classic"})
-F64_COMPOSES = frozenset({"pn", "pdhg2d"})
+# Every family not built in double says "not this kernel" for float64;
+# pdhg3d, in neither set, has a caller that then raises as the JAX
+# package's does.
+F64_KERNELS = frozenset({"pcr", "tautstring", "dp", "condat", "classic"})
+F64_COMPOSES = frozenset({"pn", "pn_window", "pdhg2d", "ms", "lp"})
+
+
+def refuse_queued_f64(driver: str, kind: str, device, dtype):
+    """The banded drivers (``parallel.sharded.tv1_2d_banded``,
+    ``tv1_3d_banded``) run kernel ``kind`` on each rank's band and have no
+    composition on the card: a float64 tensor bound for a CUDA device
+    raises here, before any exchange, naming the kernel (its float64 form
+    under the banded driver is queued, ROADMAP F6).  The CPU runs it."""
+    if torch.device(device).type == "cuda" and dtype == torch.float64:
+        raise ValueError(
+            f"{driver} runs kernel {_KIND_KERNEL[kind]} on the card in "
+            "float32: its float64 form is queued (ROADMAP F6); run float64 "
+            "on the CPU")
 
 
 def lane_limits(kind: str):
@@ -105,8 +123,7 @@ def decide(kind: str, is_cuda: bool, dtype, n: int) -> bool:
     the composition the JAX package runs there); True: the kernel launches
     (its float64 instantiation for a float64 tensor).  Raises where the
     card has no path: the switch off, a dtype the family does not take on
-    the card (float64 where its float64 form is queued), or n outside the
-    family's lane limits."""
+    the card, or n outside the family's lane limits."""
     if not is_cuda:
         return False
     if not _fused_flag.get():
@@ -114,13 +131,8 @@ def decide(kind: str, is_cuda: bool, dtype, n: int) -> bool:
             f"the {kind} kernel is switched off (fused_ctx(False)) and a CUDA "
             "tensor has no other path; move the input to the CPU")
     if dtype == torch.float64:
-        if kind in F64_COMPOSES:
-            return False
         if kind not in F64_KERNELS:
-            raise ValueError(
-                f"the {kind} kernel {_KIND_KERNEL[kind]} takes float32 on the "
-                "card: its float64 form is queued (ROADMAP F6); run float64 "
-                "on the CPU")
+            return False
     elif dtype != torch.float32:
         raise ValueError(f"the {kind} kernel {_KIND_KERNEL[kind]} takes "
                          f"float32 (or, where built, float64) on the card; "
@@ -141,8 +153,9 @@ def gate(y: torch.Tensor, kind: str) -> bool:
     kernel cannot take raises: the switch off, a dtype it does not take,
     or last axis outside the family's lane limits, except that a tensor
     longer than the upper limit of a family whose callers compose there,
-    or a float64 tensor of a family whose float64 callers compose, returns
-    False (its caller runs the composition the JAX package runs there).
+    or a float64 tensor of a family not built in double, returns False
+    (its caller runs the composition the JAX package runs there, or
+    raises as the JAX package does).
     A torch tensor lives on one device, so there is no sharding test."""
     return decide(kind, y.is_cuda, y.dtype, y.shape[-1])
 

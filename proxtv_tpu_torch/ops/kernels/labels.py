@@ -4,9 +4,11 @@
 No TPU kernel: it replaces the JAX package's XLA ``while_loop``
 ``proxtv_tpu/ops/diffprox.py:_component_labels``; the CUDA source is
 ``proxtv_tpu_torch/csrc/labels.cu``, block-based union-find in three
-launches with no host read.  Each pixel's label is the minimum linear index
-(within its image) of its component, where an edge is flat when
-``|X[next] - X[here]| <= tol[b]``.
+launches with no host read, built for float32 and float64 X (the labels
+int32 in both; :data:`LAUNCHES` counts the float32 launches,
+:data:`LAUNCHES_F64` the float64 ones).  Each pixel's label is the minimum
+linear index (within its image) of its component, where an edge is flat
+when ``|X[next] - X[here]| <= tol[b]``.
 
 :func:`component_labels` launches the kernel for a CUDA tensor and runs
 :func:`component_labels_plain` (min-label propagation, one host read a
@@ -21,6 +23,7 @@ from ...utils import debug
 from . import build
 
 LAUNCHES = debug.Counter()
+LAUNCHES_F64 = debug.Counter()
 # Trips of the plain version's label propagation (two hops each).
 LABEL_TRIPS = debug.Counter()
 
@@ -77,10 +80,12 @@ def component_labels_plain(X, tol):
 
 
 def _check(X, tol):
-    if X.dtype != torch.float32 or tol.dtype != torch.float32:
-        raise TypeError(f"component_labels on the card takes float32 (X "
-                        f"{X.dtype}, tol {tol.dtype}): kernel L1 has no other "
-                        "type, and the card runs no plain version")
+    if (X.dtype not in (torch.float32, torch.float64)
+            or tol.dtype != X.dtype):
+        raise TypeError(f"component_labels on the card takes float32 or "
+                        f"float64, X and tol alike (X {X.dtype}, tol "
+                        f"{tol.dtype}): kernel L1 has no other type, and the "
+                        "card runs no plain version")
     if X.ndim != 3 or tuple(tol.shape) != (X.shape[0],):
         raise ValueError(f"component_labels takes X (B, M, N) and tol (B,), "
                          f"got {tuple(X.shape)} and {tuple(tol.shape)}")
@@ -104,23 +109,25 @@ def bind(X, tol):
     labels = torch.empty(X.shape, dtype=torch.int32, device=X.device)
     args = (build.ptr(X), build.ptr(tol), build.ptr(labels), B, M, N,
             build.stream_ptr(X.device))
+    name = ("component_labels_f64" if X.dtype == torch.float64
+            else "component_labels")
 
     # keep: every tensor the pointers name, the output too.
     def launch(keep=(X, tol, labels)):
-        build.check(build.lib().component_labels(*args), "component_labels")
+        build.check(getattr(build.lib(), name)(*args), name)
 
     return labels, launch
 
 
 def component_labels(X, tol):
     """(B, M, N) int32 labels of the flat components of ``X`` (B, M, N),
-    an edge flat within ``tol`` (B,).  A CUDA tensor must be float32 and
-    contiguous (kernel L1 launches or this raises); a CPU tensor runs the
-    plain version."""
+    an edge flat within ``tol`` (B,).  A CUDA tensor must be float32 or
+    float64 and contiguous (kernel L1's instantiation for it launches or
+    this raises); a CPU tensor runs the plain version."""
     if not X.is_cuda:
         return component_labels_plain(X, tol)
     labels, launch = bind(X, tol)
     if labels.numel() > 0:
         launch()
-        LAUNCHES.value += 1
+        (LAUNCHES_F64 if X.dtype == torch.float64 else LAUNCHES).value += 1
     return labels

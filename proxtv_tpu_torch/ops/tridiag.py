@@ -97,11 +97,13 @@ def spd_second_difference_solve(rhs, diag_shift=0.0, mask=None, method="pcr"):
     ``tridiag.py:145-164``, where the rest falls to the plain composition).
     A CUDA tensor past n = 8192 runs the plain composition, where the JAX
     package solves with its XLA ``pcr_solve``
-    (``proxtv_tpu/ops/tridiag.py:153-179``).
+    (``proxtv_tpu/ops/tridiag.py:153-179``).  So does a one-lane system
+    (a signal of two samples), which has nothing to reduce: x = rhs / a,
+    as the JAX package's gate sends it below the kernel's lower limit.
     """
     from .kernels import gating
 
-    if gating.gate(rhs, "pcr"):
+    if rhs.shape[-1] > 1 and gating.gate(rhs, "pcr"):
         return _spd_solve_kernel(rhs, diag_shift, mask, method)
     return spd_second_difference_composition(rhs, diag_shift, mask, method)
 

@@ -705,8 +705,9 @@ def tv1_dp_plain(y, lam):
 
 def tv1_dp(y, lam):
     """Batched message-passing DP TV-L1 prox: kernel D2 on a CUDA batch
-    (float32; it launches or raises: its float64 form is queued, ROADMAP
-    F6), :func:`tv1_dp_plain` on the CPU.
+    (float32 or float64, its instantiation for the batch's dtype; it
+    launches or raises), :func:`tv1_dp_plain` on the CPU.  Serves ``dp``,
+    ``kolmogorov`` and ``johnson``, scalar or per-edge weights.
     ``lam`` as :func:`tv1_tautstring`."""
     from .kernels import dp
 
@@ -999,8 +1000,8 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
     kernel B1 where ``gating.gate(y, "pn")`` says so (a CUDA float32 batch
     with 2 <= n <= 8192), and the named engine where it says no: on the CPU,
     past B1's lane limit, and for a float64 batch, which takes the JAX
-    package's float64 route (D1, D3 and D4 in float64; the DP's float64
-    form is queued and raises).  ``method="pn"`` runs B1 where the gate
+    package's float64 route (D1, D2, D3 and D4 in float64).
+    ``method="pn"`` runs B1 where the gate
     says so and :func:`tv1_pn` elsewhere (on a float64 CUDA batch its
     Newton systems on B2 in float64), strict or not.
     The unweighted engines (``condat``, ``classictautstring``) raise on

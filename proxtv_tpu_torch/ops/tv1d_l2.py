@@ -14,11 +14,12 @@ quadratic
 
 *   :func:`tv2_ms` — More-Sorensen secular iteration (reference ``more_TV2``,
     src/TVL2opt.cpp:35).  On a CUDA float32 batch with n <= 8192 it is one
-    launch of kernel B4 (:mod:`.kernels.ms_fused`); another CUDA batch with
-    n <= 8192 raises.  For n > 8192 both devices solve the secular equation
-    in the DST-I eigenbasis of DD' with ``torch.fft`` (the JAX package's
-    spectral path, which has no kernel there either); on the CPU at
-    n <= 8192 the plain composition runs (:func:`_tv2_ms_plain`).
+    launch of kernel B4 (:mod:`.kernels.ms_fused`).  For n > 8192 both
+    devices solve the secular equation in the DST-I eigenbasis of DD' with
+    ``torch.fft`` (the JAX package's spectral path, which has no kernel
+    there either); at n <= 8192 the CPU and a float64 CUDA batch (the JAX
+    package's float64 route) run the plain composition
+    (:func:`_tv2_ms_plain`), its shifted solves on kernel B2 on the card.
 *   :func:`tv2_pg` — projected gradient with fixed step 1/4 (reference
     ``PG_TV2``, src/TVL2opt.cpp:446).
 *   :func:`tv2_mspg` — the reference default hybrid (``morePG_TV2``,
@@ -41,6 +42,7 @@ from ..utils import debug, diffs
 from ..utils.config import DEFAULT_TV2, EPSILON, TV2Config
 from ..utils.info import RC_ITERS, RC_OK, make_info
 from . import tridiag
+from .kernels import gating
 
 
 def _gap_tv2(w, g, lam):
@@ -203,20 +205,20 @@ def _fft_friendly(L: int) -> bool:
 
 
 def _ms_kernel_ok(y):
-    """Route to kernel B4: True for a CUDA tensor with n <= 8192 the kernel
-    takes (anything else there raises in ``gating.gate``); False on the CPU
-    and for a float32 CUDA tensor with n > 8192, where the secular iteration
-    runs spectrally."""
-    from .kernels import gating
-
+    """Route to kernel B4: True for a float32 CUDA tensor with n <= 8192
+    (anything else there the kernel cannot take raises in
+    ``gating.gate``); False on the CPU, for a float32 CUDA tensor with
+    n > 8192, where the secular iteration runs spectrally, and for a
+    float64 CUDA tensor, which takes the composition as in the JAX
+    package."""
     return gating.gate(y, "ms")
 
 
 def tv2_ms(y, lam, cfg: TV2Config = DEFAULT_TV2, alpha_init=None,
            return_alpha: bool = False):
     """Batched More-Sorensen TV-L2 prox: kernel B4 on CUDA float32 with
-    n <= 8192, the composition :func:`_tv2_ms_plain` elsewhere (see there
-    for the contract)."""
+    n <= 8192, the composition :func:`_tv2_ms_plain` elsewhere (a float64
+    CUDA batch among them; see there for the contract)."""
     if _ms_kernel_ok(y):
         from .kernels import ms_fused
 
@@ -275,6 +277,14 @@ def _tv2_ms_plain(y, lam, cfg: TV2Config = DEFAULT_TV2, alpha_init=None,
     tolb = cfg.stop_boundary * safe_lam
 
     def solve(rhs, alpha):
+        # The JAX package's accelerator branch (tv1d_l2.py:301-308): on the
+        # card (a float64 batch, or a float32 one past B4's lanes) kernel
+        # B2 with a per-row shift up to 8192 lanes.  The CPU, longer
+        # systems and one-lane systems (n = 2) take the normalized PCR,
+        # which solves one lane in closed form on either device.
+        if rhs.shape[-1] > 1 and gating.gate(rhs, "pcr"):
+            return tridiag.spd_second_difference_solve(
+                rhs, diag_shift=alpha[:, None])
         return tridiag.spd_shifted_solve_normalized(rhs, alpha[:, None])
 
     if n > 8192:

@@ -25,10 +25,12 @@ cuts it into windows instead, and so does the port:
 A batch of long signals may be passed as (S, n): all S*K windows run in one
 launch.  Each ``jax.lax.cond`` of the JAX function is one host read here
 (``debug.HOST_SYNCS``): one for the pass-1 certificate, one more inside the
-escalation.  A CUDA tensor launches B1 or raises (float64 on the card, the
-fused-kernel switch off), as every kernel call site of the port does; a
-window longer than B1's 8192 lanes runs :func:`tv1d_l1.tv1_pn`, as kind
-``"pn"`` composes there.
+escalation.  A CUDA float32 tensor launches B1 or raises (the fused-kernel
+switch off), as every kernel call site of the port does; a float64 one
+takes the JAX package's float64 route, its windows by
+:func:`tv1d_l1.tv1_pn` (their Newton systems on kernel B2 in float64), as
+does a window longer than B1's 8192 lanes, where kind ``"pn_window"``
+composes.
 """
 from __future__ import annotations
 
@@ -151,8 +153,9 @@ def _windows(a, K: int, chunk: int, overlap: int):
 def _solve_windows(Yw, lam_w, w_init=None):
     """Exact TV-L1 solve of all (K, win) windows, returning (x, dual)
     (``tv1d_long.py:207``): one B1 launch on a CUDA float32 batch (the dual
-    (K, win) wide, its last column zero), :func:`tv1d_l1.tv1_pn` on the CPU
-    and past B1's lanes (the dual (K, win - 1) wide).  ``w_init`` is a
+    (K, win) wide, its last column zero), :func:`tv1d_l1.tv1_pn` on the
+    CPU, for a float64 batch and past B1's lanes (the dual (K, win - 1)
+    wide).  ``w_init`` is a
     previous call's dual, passed back to resume a solve (each resume
     re-arms the stall detector and the line-search budget).
 

@@ -24,8 +24,9 @@ via the dual ball-constrained quadratic
     (reference ``GPFW_TVp`` :1111, fallback :1144-1145).  On a CUDA float32
     batch with q in [1.12, 3.1] (p ~ 1.47-9.3, p != 2) and 2 <= n <= 8192
     the whole dual loop is one launch of kernel B5
-    (:mod:`.kernels.lp_fused`); elsewhere the torch composition runs, as
-    the JAX package runs its XLA composition there.
+    (:mod:`.kernels.lp_fused`); elsewhere (a float64 CUDA batch among
+    them) the torch composition runs, as the JAX package runs its XLA
+    composition there.
 
 The q-ball projection is :mod:`.lp`'s KKT root-find.  Closed-form exits
 mirror the reference (``src/TVLPopt.cpp:1193-1219``): the unconstrained dual
@@ -85,10 +86,6 @@ def _tol_of(cfg, den, dtype):
 
 
 def _common_setup(y, lam, p):
-    if y.dtype == torch.float64:
-        # TV-Lp's float64 route on the card (B5's and its compositions') is
-        # queued: a float64 CUDA batch raises here, before any composition.
-        gating.gate(y, "lp")
     B, n = y.shape
     dtype, dev = y.dtype, y.device
     lamv = _lam_vec(lam, B, dtype, dev)
@@ -313,9 +310,10 @@ def _fused_lp_ok(y, p: float) -> bool:
     """Route the GPFW driver to kernel B5, decided by p, q and n before any
     launch: q = p/(p-1) inside the joint-KKT Newton's float32 range
     [1.12, 3.1] (p ~ 1.47-9.3, p != 2) and n >= 2.  Then ``gating.gate``:
-    False on the CPU and for a float32 CUDA tensor with n > 8192; on the
-    card True, or it raises for a tensor the kernel cannot take (not
-    float32, the switch off)."""
+    False on the CPU, for a float32 CUDA tensor with n > 8192 and for a
+    float64 CUDA tensor (the JAX package's float64 route composes); on
+    the card True, or it raises for a tensor the kernel cannot take
+    (another dtype, the switch off)."""
     if p <= P_SMALL or p >= P_LARGE or p == 2.0:
         return False
     q = lp.dual_p(p)

@@ -410,6 +410,9 @@ def _no_plain_on_the_card(monkeypatch):
     trip(PK, "pcr_spd_solve_plain")
     trip(PPF, "pn_tv1_fused_plain")
     trip(PPK, "pdhg_chunk_plain")
+    trip(MSK, "ms_tv2_fused_plain")
+    trip(P3K, "pdhg3d_chunk_plain")
+    trip(LBK, "component_labels_plain")
 
 
 def _obj2d(X, Y, lam):
@@ -791,9 +794,12 @@ def test_tv2_and_tvnd_on_card_match_cpu_float64(dev):
 
 @pytest.mark.parametrize("case", ["tv2_ms_f64", "tv2_mspg_f64", "tvnd_cp_f64",
                                   "tvnd_wide_n", "ms_n1"])
-def test_new_call_sites_raise_on_the_card(case, dev):
+def test_new_call_sites_raise_on_the_card(case, dev, monkeypatch):
     """B4's and B6's call sites launch their kernel for a CUDA tensor or
-    raise; none runs the plain composition on the card."""
+    raise; none runs a kernel's plain version on the card.  A float64
+    tensor takes the JAX package's float64 route: TV-L2 the More-Sorensen
+    composition (no B4) with its shifted solves on B2 in float64, the ND
+    primal-dual methods the JAX package's refusal."""
     from proxtv_tpu_torch.models import tvnd
     from proxtv_tpu_torch.ops import tv1d_l2
 
@@ -809,6 +815,14 @@ def test_new_call_sites_raise_on_the_card(case, dev):
             (1.0,) * 3, method="chambolle-pock-acc"),
         "ms_n1": lambda: tv1d_l2.tv2_ms(y64[:, :1].float(), 0.5),
     }
+    if case.startswith("tv2_"):
+        _no_plain_on_the_card(monkeypatch)
+        b4, b2 = MSK.LAUNCHES.value, PK.LAUNCHES_F64.value
+        x, _ = calls[case]()
+        torch.cuda.synchronize()
+        assert x.dtype == torch.float64 and x.is_cuda
+        assert MSK.LAUNCHES.value == b4 and PK.LAUNCHES_F64.value > b2
+        return
     with pytest.raises(ValueError):
         calls[case]()
 
@@ -969,22 +983,29 @@ def test_tvp_paths_on_card_match_cpu_float64(dev):
 
 
 @pytest.mark.parametrize("case", ["gpfw_f64", "fw_f64", "switch_off"])
-def test_lp_call_sites_raise_on_the_card(case, dev):
-    """B5's call site launches it for a CUDA tensor or raises (float64, the
-    switch off); the composition's setup solve raises at B2's call site."""
+def test_lp_call_sites_raise_on_the_card(case, dev, monkeypatch):
+    """B5's call site launches it for a CUDA tensor or raises (the switch
+    off); a float64 tensor takes the JAX package's float64 route, the
+    compositions (no B5) with the setup solve on B2 in float64, and no
+    kernel's plain version runs on the card."""
     from proxtv_tpu_torch.ops import tv1d_lp
     from proxtv_tpu_torch.ops.kernels import gating
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
 
     y64 = torch.randn((4, 32), dtype=torch.float64, device=dev)
     if case == "switch_off":
         with gating.fused_ctx(False), pytest.raises(RuntimeError):
             tv1d_lp.tvp_gpfw(y64.float(), 0.5, 1.5)
         return
-    with pytest.raises(ValueError):
-        if case == "gpfw_f64":
-            tv1d_lp.tvp_gpfw(y64, 0.5, 1.5)
-        else:
-            tv1d_lp.tvp_batched(y64, 0.5, 1.5, method="fw")
+    _no_plain_on_the_card(monkeypatch)
+    b5, b2 = LPK.LAUNCHES.value, PK.LAUNCHES_F64.value
+    if case == "gpfw_f64":
+        x, _ = tv1d_lp.tvp_gpfw(y64, 0.5, 1.5)
+    else:
+        x, _ = tv1d_lp.tvp_batched(y64, 0.5, 1.5, method="fw")
+    torch.cuda.synchronize()
+    assert x.dtype == torch.float64 and x.is_cuda
+    assert LPK.LAUNCHES.value == b5 and PK.LAUNCHES_F64.value > b2
 
 
 # -- D1 (taut string) and D2 (message-passing DP): the direct 1D engines ----
@@ -1200,19 +1221,27 @@ def test_pn_kernel_on_long_signal_windows(dev):
 
 
 @pytest.mark.parametrize("case", ["f64", "switch_off"])
-def test_long_route_raises_instead_of_running_plain_on_the_card(case, dev):
-    """tv1_long's windows launch B1 or raise: float64 on the card and the
-    switch off raise at the window call site, as every kernel call site
-    does (the JAX package's respect_flag=False guards a jit cache the port
-    does not have)."""
+def test_long_route_raises_instead_of_running_plain_on_the_card(case, dev,
+                                                                monkeypatch):
+    """tv1_long's windows launch B1 or raise: the switch off raises at the
+    window call site, as every kernel call site does (the JAX package's
+    respect_flag=False guards a jit cache the port does not have); float64
+    takes the JAX package's float64 route, its windows by tv1_pn on B2 in
+    float64 (no B1, no plain version on the card), within 1e-6 of the same
+    call on the CPU."""
     from proxtv_tpu_torch.ops import tv1d_long as TL
     from proxtv_tpu_torch.ops.kernels import gating
 
     y = torch.randn(3000, dtype=torch.float64, device=dev)
     b1 = PPF.LAUNCHES.value
     if case == "f64":
-        with pytest.raises(ValueError):
-            TL.tv1_long(y, 0.7, chunk=512, overlap=64)
+        _no_plain_on_the_card(monkeypatch)
+        b2 = PK.LAUNCHES_F64.value
+        x, info = TL.tv1_long(y, 0.7, chunk=512, overlap=64)
+        torch.cuda.synchronize()
+        assert PK.LAUNCHES_F64.value > b2 and int(info.rc[0]) == 0
+        ref, _ = TL.tv1_long(y.cpu(), 0.7, chunk=512, overlap=64)
+        assert float((x.cpu() - ref).abs().max()) <= 1e-6
     else:
         with gating.fused_ctx(False), pytest.raises(RuntimeError):
             TL.tv1_long(y.float(), 0.7, chunk=512, overlap=64)
@@ -1292,9 +1321,8 @@ def test_direct_bind_launches_what_the_wrapper_does(kernel, dev):
 
 
 def test_direct_kernels_raise_on_unsupported_cuda_input(dev):
-    """D1-D4 take float32 on the card, and D1, D3 and D4 float64; another
-    dtype, float64 for D2 (its float64 form is queued), the switch off and
-    per-edge weights for the unweighted D3 and D4 raise."""
+    """D1-D4 take float32 and float64 on the card; another dtype, the
+    switch off and per-edge weights for the unweighted D3 and D4 raise."""
     from proxtv_tpu_torch.ops import tv1d_l1
     from proxtv_tpu_torch.ops.kernels import gating
 
@@ -1308,8 +1336,7 @@ def test_direct_kernels_raise_on_unsupported_cuda_input(dev):
             fn(y64.float(), 0.5)
         with gating.fused_ctx(False), pytest.raises(RuntimeError):
             fn(y64, 0.5)
-    with pytest.raises(ValueError, match="D2"):
-        tv1d_l1.tv1_dp(y64, 0.5)
+    assert tv1d_l1.tv1_dp(y64, 0.5).dtype == torch.float64
     for fn in (tv1d_l1.tv1_condat, tv1d_l1.tv1_classic_ts):
         with pytest.raises(ValueError, match="unweighted"):
             fn(y64.float(), torch.ones((4, 15), device=dev))
@@ -1685,8 +1712,9 @@ def test_label_kernel_matches_plain(case, dev):
 
 def test_tv2d_backward_on_the_card_runs_l1_without_host_sync(dev):
     """tv2d_prox's backward on the card: one L1 launch, no label trip and
-    no host sync; L1's wrapper (and so the backward) raises for float64 on
-    the card and for a non-contiguous X."""
+    no host sync; L1's wrapper (and so the backward) takes float64 too
+    (its double instantiation, counted apart), and raises for X and tol of
+    two dtypes, for float16 and for a non-contiguous X."""
     from proxtv_tpu_torch.ops import diffprox
     from proxtv_tpu_torch.utils import debug
 
@@ -1703,13 +1731,18 @@ def test_tv2d_backward_on_the_card_runs_l1_without_host_sync(dev):
     assert gy.is_cuda and bool(torch.isfinite(gy).all())
     X = x.detach().contiguous()
     tol = diffprox._seg_tol(X)
+    f64 = LBK.LAUNCHES_F64.value
+    gy64 = diffprox._bwd2(X.double(), X.double())
+    torch.cuda.synchronize()
+    assert LBK.LAUNCHES_F64.value == f64 + 1 and gy64.dtype == torch.float64
     with pytest.raises(TypeError):
-        LBK.component_labels(X.double(), tol.double())
+        LBK.component_labels(X.double(), tol)
     with pytest.raises(TypeError):
-        diffprox._bwd2(X.double(), X.double())
+        LBK.component_labels(X.half(), tol.half())
     with pytest.raises(ValueError):
         LBK.component_labels(X.transpose(1, 2), tol)
     assert LBK.LAUNCHES.value == c1[0]
+    assert LBK.LAUNCHES_F64.value == f64 + 1
 
 
 def test_layer_step_stays_on_the_card(dev):
@@ -1970,48 +2003,64 @@ def _f64_rows(rng, B, n):
 def test_float64_thresholds_and_counters(dev):
     """Each float64 warp layout ends at its own n (D1 and D3 at 8192, half
     their float32 16384; D4 at 3182, the longest whose double deques fit a
-    block), the float32 ones where they were; a float32 launch counts in
-    LAUNCHES and a float64 one in LAUNCHES_F64 only."""
+    block; D2 at 5808, its 40n bytes a signal in a block, and for at most
+    four waves), the float32 ones where they were; a float32 launch counts
+    in LAUNCHES and a float64 one in LAUNCHES_F64 only, L1's too."""
     from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
     from proxtv_tpu_torch.ops.kernels import condat as CDK
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
 
     f64 = torch.float64
-    assert (TSK.warp_max_n(), CDK.warp_max_n(), CTK.warp_max_n()) == (
-        16384, 16384, 6280)
+    assert (TSK.warp_max_n(), CDK.warp_max_n(), CTK.warp_max_n(),
+            DPK.warp_max_n()) == (16384, 16384, 6280, 8192)
     assert (TSK.warp_max_n(f64), CDK.warp_max_n(f64),
-            CTK.warp_max_n(f64)) == (8192, 8192, 3182)
+            CTK.warp_max_n(f64), DPK.warp_max_n(f64)) == (8192, 8192, 3182,
+                                                          5808)
+    for dt, top in ((torch.float32, 8192), (f64, 5808)):
+        for edge in (False, True):
+            assert DPK.warp_layout(1, top, edge, dt)
+            assert not DPK.warp_layout(1, top + 1, edge, dt)
+            assert DPK.warp_layout(512, 1000, edge, dt)
+            assert not DPK.warp_layout(10000, 1000, edge, dt)
     y = torch.randn((3, 100), dtype=f64, device=dev)
     for mod, fn in ((TSK, TSK.tautstring), (CDK, CDK.condat),
-                    (CTK, CTK.classic_ts), (PK, PK.pcr_spd_solve)):
+                    (CTK, CTK.classic_ts), (PK, PK.pcr_spd_solve),
+                    (DPK, DPK.dp),
+                    (LBK, lambda t, v: LBK.component_labels(
+                        t[None].contiguous(), torch.full(
+                            (1,), v, dtype=t.dtype, device=t.device)))):
         for t, hit in ((y.float(), "LAUNCHES"), (y, "LAUNCHES_F64")):
             before = (mod.LAUNCHES.value, mod.LAUNCHES_F64.value)
             out = fn(t) if mod is PK else fn(t, 0.5)
             torch.cuda.synchronize()
-            assert out.dtype == t.dtype
+            assert out.dtype == (torch.int32 if mod is LBK else t.dtype)
             after = (mod.LAUNCHES.value, mod.LAUNCHES_F64.value)
             want = (1, 0) if hit == "LAUNCHES" else (0, 1)
             assert tuple(a - b for a, b in zip(after, before)) == want
 
 
-@pytest.mark.parametrize("kernel", ["tautstring", "condat", "classic_ts"])
+@pytest.mark.parametrize("kernel", ["tautstring", "condat", "classic_ts",
+                                    "dp"])
 @pytest.mark.parametrize("case", ["64x1000", "row", "warp_max_n",
                                   "warp_max_n + 1"])
 def test_direct_kernels_f64_match_plain(kernel, case, dev):
-    """D1, D3 and D4 in float64 against their float64 plain versions (on
-    the CPU): bit for bit on every row the guards do not take (the same
+    """D1, D2, D3 and D4 in float64 against their float64 plain versions
+    (on the CPU): bit for bit on every row the guards do not take (the same
     events in the same float64 roundings), within 1e-12 of the data's size
     on the rows they take (the mean summed in another order); on 64 x 1000
-    at lam 0.7, per-signal weights (D1 also per edge), and one row each
-    side of the float64 warp layout's end (one warp a signal up to
-    warp_max_n(float64), one thread a signal past it; D4's deques then in
-    the wrapper's float64 workspace)."""
+    at lam 0.7, per-signal weights (D1 and D2 also per edge), and one row
+    each side of the float64 warp layout's end (one warp a signal up to
+    warp_max_n(float64), one thread a signal past it; D2's and D4's deques
+    then in the wrapper's float64 workspace)."""
     from proxtv_tpu_torch.ops import tv1d_l1
     from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
     from proxtv_tpu_torch.ops.kernels import condat as CDK
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
 
     mod, plain = {"tautstring": (TSK, tv1d_l1.tv1_tautstring_plain),
                   "condat": (CDK, tv1d_l1.tv1_condat_plain),
-                  "classic_ts": (CTK, tv1d_l1.tv1_classic_ts_plain)}[kernel]
+                  "classic_ts": (CTK, tv1d_l1.tv1_classic_ts_plain),
+                  "dp": (DPK, tv1d_l1.tv1_dp_plain)}[kernel]
     rng = np.random.RandomState(40 + len(case))
     lams = [0.7]
     if case == "64x1000":
@@ -2019,7 +2068,7 @@ def test_direct_kernels_f64_match_plain(kernel, case, dev):
     elif case == "row":
         y, deg = _f64_rows(rng, 37, 1000)
         lams = [torch.from_numpy(rng.rand(37) * 1.4)]
-        if kernel == "tautstring":
+        if kernel in ("tautstring", "dp"):
             lams.append(torch.from_numpy(rng.rand(37, 999) * 1.4))
     else:
         n = mod.warp_max_n(torch.float64) + case.endswith("+ 1")
@@ -2161,43 +2210,201 @@ def test_tv1_2d_batched_float64_on_the_card(method, dev, monkeypatch):
                                   info_ref.iters.numpy())
 
 
-@pytest.mark.parametrize("kind", ["dp", "ms", "lp", "pdhg3d", "pn_window",
-                                  "B1", "B3", "L1"])
+@pytest.mark.parametrize("kind", ["pdhg3d", "banded2d", "banded3d", "B1",
+                                  "B3", "L1"])
 def test_float64_queued_kinds_raise_on_the_card(kind, dev):
-    """The families whose float64 form is queued raise for a float64 CUDA
-    tensor at their call sites, naming their kernel (D2, B4, B5 and its
-    compositions, B6, B1's long-signal windows); the wrappers with no
-    double instantiation (B1, B3, L1) refuse one handed to them."""
+    """What still refuses float64 on the card: the ND primal-dual methods
+    raise the JAX package's own error (no float64 primal-dual ND route),
+    the banded 2D and 3D drivers raise naming B3 and B6 before any
+    exchange (queued, ROADMAP F6), and the wrappers with no double
+    instantiation (B1, B3) refuse one handed to them; L1, built in double
+    since, takes it (one LAUNCHES_F64)."""
     from proxtv_tpu_torch.models import tvnd
-    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_long, tv1d_lp
+    from proxtv_tpu_torch.parallel import sharded
+    from proxtv_tpu_torch.parallel.comm import Mesh
 
     y = torch.randn((3, 40), dtype=torch.float64, device=dev)
+    if kind == "L1":
+        before = LBK.LAUNCHES_F64.value
+        lab = LBK.component_labels(
+            y[None], torch.zeros(1, dtype=torch.float64, device=dev))
+        torch.cuda.synchronize()
+        assert LBK.LAUNCHES_F64.value == before + 1
+        assert lab.dtype == torch.int32 and lab.is_cuda
+        return
+    mesh = Mesh(group=None, axis="x", device=dev)
     calls = {
-        "dp": (lambda: tv1d_l1.tv1_batched(y, 0.5, method="dp",
-                                           strict=True), "D2"),
-        "ms": (lambda: tv1d_l2.tv2_batched(y, 0.5, method="ms"), "B4"),
-        "lp": (lambda: tv1d_lp.tvp_batched(y, 0.5, 1.5), "B5"),
         "pdhg3d": (lambda: tvnd.tv_nd_batched(
             torch.randn((1, 3, 4, 5), dtype=torch.float64, device=dev),
             (0.3,) * 3, (1, 2, 3), (1.0,) * 3, method="chambolle-pock-acc"),
-            "B6"),
-        "pn_window": (lambda: tv1d_long.tv1_long(
-            torch.randn(20000, dtype=torch.float64, device=dev), 0.7), "B1"),
+            "primal-dual ND methods need"),
+        "banded2d": (lambda: sharded.tv1_2d_banded(
+            np.zeros((64, 64)), 0.3, mesh), "B3"),
+        "banded3d": (lambda: sharded.tv1_3d_banded(
+            np.zeros((8, 16, 16)), 0.3, mesh), "B6"),
         "B1": (lambda: PPF.pn_tv1_fused(y, lam_scalar=0.5), "PN kernel"),
         "B3": (lambda: PPK.pdhg_chunk(
             torch.zeros((8, 4), device=dev),
             *([torch.zeros((32, 128), dtype=torch.float64, device=dev)] * 5),
             8, 32, 128, 32, 128, 1), "PDHG"),
-        "L1": (lambda: LBK.component_labels(
-            y[None], torch.zeros(1, dtype=torch.float64, device=dev)),
-            "float32"),
     }
     fn, name = calls[kind]
+    b6 = P3K.LAUNCHES.value
     with pytest.raises((ValueError, TypeError)) as e:
         fn()
     assert name in str(e.value)
-    if kind not in ("B1", "B3", "L1"):
+    assert P3K.LAUNCHES.value == b6
+    if kind.startswith("banded"):
         assert "float64 form is queued" in str(e.value)
+
+
+@pytest.mark.parametrize("case", ["p0.5", "serpentine", "B = 3 mixed",
+                                  "1024x1000 p0.5", "T2 dr"])
+def test_label_kernel_f64_matches_plain(case, dev):
+    """L1 in float64 against its float64 plain version on the card's
+    fields in double (tests/torch_label_fields.py's seeded fields, the
+    serpentine and its transpose at tile +-1 sizes, a mixed batch, 1024 x
+    1000, and a float64 dr solution): the int32 labels bit for bit, one
+    LAUNCHES_F64 a call, no label trip."""
+    from proxtv_tpu_torch.ops import diffprox
+
+    if case == "T2 dr":
+        _, _, y2, _ = _diff_cells(dev)
+        X = diffprox.tv2d_prox(y2.double(), 0.3, "dr").contiguous()
+        fields = [(X, diffprox._seg_tol(X))]
+    else:
+        fields = [(X.double(), diffprox._seg_tol(X.double()))
+                  for X, _ in _label_cases(case, dev)]
+    for X, tol in fields:
+        assert X.dtype == torch.float64
+        ref = LBK.component_labels_plain(X, tol)
+        before, trips = LBK.LAUNCHES_F64.value, LBK.LABEL_TRIPS.value
+        out = LBK.component_labels(X, tol)
+        torch.cuda.synchronize()
+        assert LBK.LAUNCHES_F64.value == before + 1
+        assert LBK.LABEL_TRIPS.value == trips
+        assert torch.equal(out, ref), (
+            f"{tuple(X.shape)}: {int((out != ref).sum())} labels differ")
+
+
+def _f64_layer_counts():
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+
+    return {"B1": PPF.LAUNCHES.value, "B3": PPK.LAUNCHES.value,
+            "B4": MSK.LAUNCHES.value, "B5": LPK.LAUNCHES.value,
+            "B6": P3K.LAUNCHES.value, "B2.f64": PK.LAUNCHES_F64.value,
+            "D2.f64": DPK.LAUNCHES_F64.value, "L1.f64": LBK.LAUNCHES_F64.value}
+
+
+@pytest.mark.parametrize("layer", ["dp", "tv2_ms", "tv2_mspg", "tvp_gpfw",
+                                   "tvp_fista", "tvp_2d", "tv_nd_pd",
+                                   "tv1_long", "tv2d_backward"])
+def test_float64_layers_on_the_card(layer, dev, monkeypatch):
+    """The float64 route of the layers above TV-L1 on a float64 CUDA
+    tensor: the DP's names on D2 in float64; TV-L2 on the More-Sorensen
+    composition (B4 never) with its shifted solves on B2 in float64; TV-Lp
+    on its compositions (B5 never; the setup solve on B2 in float64); the
+    2D and ND combiners over them; the long route's windows by tv1_pn on
+    B2 in float64 (B1 never); tv2d_prox's backward on L1 in float64.  No
+    kernel's plain version runs on the card.  Each against the same call
+    in float64 on the CPU: the DP at 1e-12 of the data's size, TV-L2 and
+    TV-Lp at 1e-8, the 2D and ND combiners (the ND one with a TV-Lp term)
+    and the long route at 1e-6 (chip_smoke.py TOL64["combiner"]), the
+    backward at 1e-10 relative."""
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import diffprox, tv1d_l1, tv1d_l2, tv1d_long
+    from proxtv_tpu_torch.ops import tv1d_lp
+
+    _no_plain_on_the_card(monkeypatch)
+    rng = np.random.RandomState(21)
+    Y = rng.randn(24, 300) + np.cumsum(rng.randn(24, 300), axis=1) * 0.2
+    img = rng.randn(2, 48, 40)
+    vol = rng.randn(1, 6, 20, 24)
+    walk = np.cumsum(rng.randn(1, 20000), axis=1) * 0.05 + rng.randn(1, 20000)
+    lams = rng.rand(24) * 3
+    calls = {
+        "dp": (lambda d: tv1d_l1.tv1_batched(
+            torch.from_numpy(Y).to(d), 0.7, method="kolmogorov",
+            strict=True), {"D2.f64"}, 1e-12),
+        "tv2_ms": (lambda d: tv1d_l2.tv2_ms(torch.from_numpy(Y).to(d),
+                                            torch.from_numpy(lams).to(d))[0],
+                   {"B2.f64"}, 1e-8),
+        "tv2_mspg": (lambda d: tv1d_l2.tv2_batched(
+            torch.from_numpy(Y).to(d), 1.0)[0], {"B2.f64"}, 1e-8),
+        "tvp_gpfw": (lambda d: tv1d_lp.tvp_batched(
+            torch.from_numpy(Y[:8]).to(d), 0.7, 1.5)[0], {"B2.f64"}, 1e-8),
+        "tvp_fista": (lambda d: tv1d_lp.tvp_batched(
+            torch.from_numpy(Y[:8]).to(d), 0.7, 3.0, method="fista")[0],
+            {"B2.f64"}, 1e-8),
+        "tvp_2d": (lambda d: tv2d.tvp_2d_batched(
+            torch.from_numpy(img).to(d), 0.3, 0.3, 2.0, 2.0,
+            max_iters=20)[0], {"B2.f64"}, 1e-6),
+        "tv_nd_pd": (lambda d: tvnd.tv_nd_batched(
+            torch.from_numpy(vol).to(d), (0.3, 0.3, 0.3), (1, 2, 3),
+            (1.0, 2.0, 1.5), max_iters=15)[0], {"B2.f64"}, 1e-6),
+        "tv1_long": (lambda d: tv1d_long.tv1_long(
+            torch.from_numpy(walk).to(d), 0.7)[0], {"B2.f64"}, 1e-6),
+    }
+    if layer == "tv2d_backward":
+        X = torch.from_numpy(img)
+        x = tv2d.tv1_2d_batched(X.to(dev), 0.3, method="dr")[0]
+        g = torch.from_numpy(rng.randn(*img.shape))
+        c0 = _f64_layer_counts()
+        out = diffprox._bwd2(x, g.to(dev))
+        torch.cuda.synchronize()
+        c1 = _f64_layer_counts()
+        assert {k for k in c0 if c1[k] != c0[k]} == {"L1.f64"}
+        assert c1["L1.f64"] == c0["L1.f64"] + 1
+        ref = diffprox._bwd2(x.cpu(), g)
+        err = float((out.cpu() - ref).abs().max())
+        assert err <= 1e-10 * float(ref.abs().max()), err
+        return
+    fn, moved, bar = calls[layer]
+    c0 = _f64_layer_counts()
+    out = fn(dev)
+    torch.cuda.synchronize()
+    c1 = _f64_layer_counts()
+    assert {k for k in c0 if c1[k] != c0[k]} == moved, (c0, c1)
+    assert out.is_cuda and out.dtype == torch.float64
+    ref = fn(torch.device("cpu"))
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((out.cpu() - ref).abs().max())
+    assert err <= bar * scale, err
+
+
+def test_float64_two_sample_signals_on_the_card(dev, monkeypatch):
+    """Signals of two samples on a float64 CUDA batch: tv1_pn, TV-L2 and
+    TV-Lp solve their one-lane systems in closed form, as the JAX
+    package does below the PCR kernel's lower limit (no kernel launch, no
+    kernel's plain version on the card), and tvp_2d_batched on a 2 x 9
+    image runs its columns so and its rows on B2 in float64; within 1e-10
+    (the 1D calls) and 1e-8 (TV-L2 and TV-Lp's bar, the image) of the
+    same call in float64 on the CPU."""
+    from proxtv_tpu_torch.models import tv2d
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_lp
+
+    _no_plain_on_the_card(monkeypatch)
+    rng = np.random.RandomState(12)
+    Y = torch.from_numpy(rng.randn(8, 2) * 2)
+    X = torch.from_numpy(rng.randn(1, 2, 9))
+    for fn, moved, bar in (
+            (lambda d: tv1d_l1.tv1_pn(Y.to(d), 0.3)[0], set(), 1e-10),
+            (lambda d: tv1d_l2.tv2_batched(Y.to(d), 0.8)[0], set(), 1e-10),
+            (lambda d: tv1d_lp.tvp_batched(Y.to(d), 0.8, 1.5)[0], set(),
+             1e-10),
+            *((lambda d, p=p: tv2d.tvp_2d_batched(X.to(d), 0.3, 0.2, p,
+                                                   p)[0], {"B2.f64"}, 1e-8)
+              for p in (1.0, 2.0, 1.5))):
+        c0 = _f64_layer_counts()
+        out = fn(dev)
+        torch.cuda.synchronize()
+        c1 = _f64_layer_counts()
+        assert {k for k in c0 if c1[k] != c0[k]} == moved, (c0, c1)
+        assert out.is_cuda and out.dtype == torch.float64
+        ref = fn(torch.device("cpu"))
+        err = float((out.cpu() - ref).abs().max())
+        assert err <= bar * max(1.0, float(ref.abs().max())), err
 
 
 def test_tv1_prox_float64_on_the_card(dev):

@@ -4,7 +4,9 @@ The JAX package's gate says no to every kernel for a float64 array ("f32
 by design (f64 runs use the XLA compositions)"), so a float64 batch runs
 its compositions and named engines wherever it lies.  The port takes the
 same route for a float64 CUDA batch, with kernels B2 (the Newton systems
-of ``tv1_pn``), D1, D3 and D4 in float64 (``ops/kernels/gating.py``).
+of ``tv1_pn``), D1, D2, D3 and D4 in float64 (``ops/kernels/gating.py``).
+The other layers' float64 route (TV-L2, TV-Lp, ND, the long signals, the
+2D backward) is held in tests/test_torch_float64_layers.py.
 
 Here, without a card, the route is asked of ``gating.decide`` and
 ``tv1d_l1.tv1_route`` (the decision ``tv1_batched`` and the 2D combiners
@@ -50,9 +52,9 @@ JAX_ENGINE = {"tautstring": "tv1_tautstring", "dp": "tv1_dp",
               "condat": "tv1_condat", "classic_ts": "tv1_classic_ts",
               "tv1_pn": "tv1_pn"}
 # The kernel each engine launches on a float64 CUDA batch (tv1_pn: its
-# Newton systems), or None where its float64 form is queued.
+# Newton systems).
 F64_KERNEL = {"tautstring": "D1", "condat": "D3", "classic_ts": "D4",
-              "tv1_pn": "B2", "dp": None}
+              "tv1_pn": "B2", "dp": "D2"}
 METHODS_2D = ["dr", "pd", "yang", "kolmogorov", "condat", "chambolle-pock",
               "chambolle-pock-acc"]
 
@@ -112,29 +114,28 @@ def _signals(seed, B, n):
 
 
 def test_gate_float64_rules():
-    """The gate's float64 rule for each family: the composing families say
-    "not this kernel" at any length, the four built in double take it
-    (B2 composes past its lane limit, as in float32), and every other
-    family raises naming its kernel.  The JAX package's gate says no to
-    every family for a float64 array."""
+    """The gate's float64 rule for each family: the composing families (and
+    pdhg3d, whose ND caller raises as the JAX package's does) say "not
+    this kernel" at any length, the five built in double take it (B2
+    composes past its lane limit, as in float32), and every family has one
+    of these rules.  The JAX package's gate says no to every family for a
+    float64 array."""
     y64 = jnp.zeros((2, 64), jnp.float64)
     for kind in gating._KIND_LANE_LIMITS:
         if kind in JG._KIND_LANE_LIMITS:
             assert JG.gate(y64, kind) is False
         for n in (64, 9000):
-            if kind in gating.F64_COMPOSES:
+            if kind not in gating.F64_KERNELS:
                 assert gating.decide(kind, True, F64, n) is False
-            elif kind in gating.F64_KERNELS:
+            else:
                 want = not (kind == "pcr" and n > 8192)
                 assert gating.decide(kind, True, F64, n) is want
-            else:
-                with pytest.raises(ValueError, match="float64 form is queued"
-                                   ) as e:
-                    gating.decide(kind, True, F64, n)
-                assert gating._KIND_KERNEL[kind].split()[0] in str(e.value)
             assert gating.decide(kind, False, F64, n) is False
-    assert gating.F64_KERNELS == {"pcr", "tautstring", "condat", "classic"}
-    assert gating.F64_COMPOSES == {"pn", "pdhg2d"}
+    assert gating.F64_KERNELS == {"pcr", "tautstring", "dp", "condat",
+                                  "classic"}
+    assert gating.F64_COMPOSES == {"pn", "pn_window", "pdhg2d", "ms", "lp"}
+    assert (set(gating._KIND_LANE_LIMITS) - gating.F64_KERNELS
+            - gating.F64_COMPOSES) == {"pdhg3d"}
     # float32 keeps its rules; other dtypes raise on the card.
     assert gating.decide("pn", True, torch.float32, 1000) is True
     assert gating.decide("pn", True, torch.float32, 9000) is False
@@ -148,10 +149,10 @@ def test_gate_float64_rules():
 def test_tv1_route_float64_matches_jax(lam_kind, monkeypatch):
     """Every tv1_batched name, strict or not, scalar or per-edge weights:
     the engine a float64 CUDA batch takes (tv1_route) is the engine the JAX
-    package's tv1_batched runs for a float64 array; where the JAX package
-    runs its DP, the port raises naming kernel D2 (its float64 form is
-    queued).  A float32 CUDA batch inside B1's lane limit takes B1 unless
-    strict (the JAX package's TPU route)."""
+    package's tv1_batched runs for a float64 array, and each launches its
+    kernel's float64 instantiation (the DP's names kernel D2).  A float32
+    CUDA batch inside B1's lane limit takes B1 unless strict (the JAX
+    package's TPU route)."""
     B, n = 3, 16
     lam = 0.5 if lam_kind == "scalar" else np.full((B, n - 1), 0.5)
     for m in METHODS:
@@ -167,9 +168,6 @@ def test_tv1_route_float64_matches_jax(lam_kind, monkeypatch):
                 assert got.startswith("raise"), (m, strict, got)
                 assert "unweighted" in got
                 continue
-            if want == "tv1_dp":
-                assert got.startswith("raise") and "D2" in got, (m, got)
-                continue
             assert JAX_ENGINE[got] == want, (m, strict, got, want)
             assert F64_KERNEL[got] is not None
             f32 = P.tv1_route(m, lam, B, n, strict, is_cuda=True,
@@ -182,17 +180,12 @@ def test_tv1_batched_float64_card_route_matches_jax(card_route):
     """Every name through tv1_batched on the card's float64 route (the
     direct engines' and B2's plain versions on the CPU): the kernel each
     call would launch in float64, and the result against the JAX package's
-    float64 tv1_batched (1e-12 the direct engines, 5e-4 tv1_pn); the DP's
-    names raise naming D2."""
+    float64 tv1_batched (1e-12 the direct engines, the DP's names on D2
+    among them; 5e-4 tv1_pn)."""
     _, Y = _signals(7, 3, 50)
     for m in METHODS:
         for strict in (False, True):
             card_route.clear()
-            if m in ("dp", "kolmogorov", "johnson"):
-                with pytest.raises(ValueError, match="D2"):
-                    P.tv1_route(m, 0.6, 3, 50, strict, is_cuda=True,
-                                dtype=F64)
-                continue
             engine = P.tv1_route(m, 0.6, 3, 50, strict, is_cuda=True,
                                  dtype=F64)
             x = P.tv1_batched(torch.from_numpy(Y), 0.6, method=m,
@@ -316,25 +309,45 @@ def test_tv1w_2d_batched_float64_card_route_matches_jax(method, card_route):
 
 
 def test_queued_float64_routes_raise_on_the_card(card_route):
-    """The routes whose float64 form is queued raise on the card naming
-    their kernel, before any composition: the DP (D2), TV-L2 (B4), TV-Lp
-    (B5 and its compositions), the 3D primal-dual (B6) and the long-signal
-    windows (B1)."""
+    """What still refuses float64 on the card: the ND primal-dual methods
+    raise the JAX package's own ValueError (it has no float64 primal-dual
+    ND route; the port's gate says "not this kernel" for pdhg3d, as the
+    JAX gate does), before any kernel or composition runs; the banded 2D
+    and 3D drivers raise naming kernels B3 and B6 before any exchange
+    (their float64 form under the banded driver is queued).  The routes
+    that raised before this slice (D2, TV-L2, TV-Lp, the long windows) are
+    held in tests/test_torch_float64_layers.py."""
+    from proxtv_tpu.models import tvnd as JN
     from proxtv_tpu_torch.models import tvnd
-    from proxtv_tpu_torch.ops import tv1d_l2, tv1d_long, tv1d_lp
+    from proxtv_tpu_torch.parallel import sharded
+    from proxtv_tpu_torch.parallel.comm import Mesh
 
-    y = torch.from_numpy(np.random.RandomState(2).randn(3, 40))
+    V = np.zeros((1, 3, 4, 5))
+    for method in ("condat", "chambolle-pock", "chambolle-pock-acc"):
+        with pytest.raises(ValueError, match="primal-dual ND methods need"
+                           ) as e:
+            tvnd.tv_nd_batched(torch.from_numpy(V), (0.3,) * 3, (1, 2, 3),
+                               (1.0,) * 3, method=method)
+        with pytest.raises(ValueError, match="primal-dual ND methods need"
+                           ) as ej:
+            JN.tv_nd_batched(jnp.asarray(V), (0.3,) * 3, (1, 2, 3),
+                             (1.0,) * 3, method=method)
+        assert "method='pd', 'pdr' or 'yang'" in str(e.value)
+        assert "method='pd', 'pdr' or 'yang'" in str(ej.value)
+    assert card_route == []
+    # The mesh is never asked for its rank: the refusal comes first.
+    mesh = Mesh(group=None, axis="x", device=torch.device("cuda"))
     cases = {
-        "D2": lambda: P.tv1_dp(y, 0.5) if gating.gate(y, "dp") else None,
-        "B4": lambda: tv1d_l2.tv2_ms(y, 0.5),
-        "B5": lambda: tv1d_lp.tvp_batched(y, 0.5, 1.5, method="fw"),
-        "B6": lambda: tvnd.tv_nd_batched(
-            torch.zeros((1, 3, 4, 5), dtype=F64), (0.3,) * 3, (1, 2, 3),
-            (1.0,) * 3, method="chambolle-pock-acc"),
-        "pn_window": lambda: tv1d_long.tv1_long(
-            torch.zeros((1, 20000), dtype=F64), 0.5),
+        "B3": lambda: sharded.tv1_2d_banded(np.zeros((8, 9)), 0.3, mesh),
+        "B3w": lambda: sharded.tv1w_2d_banded(
+            np.zeros((8, 9)), np.ones((7, 9)), np.ones((8, 8)), mesh),
+        "B6": lambda: sharded.tv1_3d_banded(np.zeros((4, 5, 6)), 0.3, mesh),
     }
     for kid, fn in cases.items():
         with pytest.raises(ValueError, match="float64 form is queued") as e:
             fn()
-        assert (kid if kid != "pn_window" else "B1") in str(e.value)
+        assert kid[:2] in str(e.value)
+    # float32 passes the refusal (its geometry then needs a process group).
+    gating.refuse_queued_f64("tv1_2d_banded", "pdhg2d", "cuda",
+                             torch.float32)
+    gating.refuse_queued_f64("tv1_2d_banded", "pdhg2d", "cpu", F64)

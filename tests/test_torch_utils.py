@@ -66,20 +66,23 @@ def test_gate_raises_for_cuda_input_the_kernel_cannot_take(case):
     """A CUDA tensor takes its kernel or raises; it never takes the plain
     composition (past the upper limit of a family whose callers compose
     there, it is routed to them: see the next test; the 3D PDHG chunk's
-    callers do not).  A float64 tensor raises where the family's float64
-    form is queued (B4's here); B1's and B3's families route it to their
-    callers' float64 composition and B2 takes it (the float64 route,
-    tests/test_torch_float64_route.py).  The gate reads only device, dtype
-    and shape, so a stand-in with those attributes plays the card tensor
+    callers do not).  A float64 tensor takes the float64 route (the
+    families built in double take it, the others route it to their
+    callers' float64 composition, or, for B6's, to the JAX package's
+    refusal: tests/test_torch_float64_route.py); another dtype (float16
+    here, at B4's family) raises.  The gate reads only device, dtype and
+    shape, so a stand-in with those attributes plays the card tensor
     here."""
     n = {"lane_too_long": 9000, "lane_too_short": 1}.get(case, 64)
     kind = {"lane_too_long": "pdhg3d", "float64": "ms"}.get(case, "pn")
-    dtype = torch.float64 if case == "float64" else torch.float32
+    dtype = torch.float16 if case == "float64" else torch.float32
     if case == "float64":
-        y64 = types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=(4, n))
-        assert gating.gate(y64, "pn") is False
-        assert gating.gate(y64, "pdhg2d") is False
-        assert gating.gate(y64, "pcr") is True
+        y64 = types.SimpleNamespace(is_cuda=True, dtype=torch.float64,
+                                    shape=(4, n))
+        for k in ("pn", "pn_window", "pdhg2d", "ms", "lp", "pdhg3d"):
+            assert gating.gate(y64, k) is False
+        for k in ("pcr", "tautstring", "dp", "condat", "classic"):
+            assert gating.gate(y64, k) is True
     y = types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=(4, n))
     err = RuntimeError if case == "switch_off" else ValueError
     with gating.fused_ctx(case != "switch_off"):
@@ -98,10 +101,10 @@ def test_gate_composes_past_the_upper_limit_per_family(kind, case):
     """Past the upper lane limit of a family whose JAX callers run a
     composition there (B1, B2, B4, B5), a float32 CUDA tensor routes to the
     port's caller, which runs the same composition (False).  A float64 one
-    takes the float64 route: B1's and B3's callers compose at any length,
-    B2's past its limit as in float32, and the families whose float64 form
-    is queued (B4, B5, B6) raise.  The switch off still raises at any
-    length, and so does a lane below the lower limit.  The 3D chunk raises
+    takes the float64 route: B1's, B3's, B4's and B5's callers compose at
+    any length, B2's past its limit as in float32, and B6's caller raises
+    the JAX package's error (False here too).  The switch off still raises
+    at any length, and so does a lane below the lower limit.  The 3D chunk raises
     past its N = 2048, as the JAX driver does; the 2D chunk has no such
     limit."""
     lo, hi = gating.lane_limits(kind)
@@ -112,9 +115,9 @@ def test_gate_composes_past_the_upper_limit_per_family(kind, case):
         if case == "long_switch_off":
             with pytest.raises(RuntimeError, match=f"{kind} kernel"):
                 gating.gate(y, kind)
-        elif case == "long_float64" and kind in ("pn", "pcr", "pdhg2d"):
+        elif case == "long_float64":
             assert gating.gate(y, kind) is False
-        elif (case in ("long_float64", "too_short")
+        elif (case == "too_short"
               or (case == "long" and kind == "pdhg3d")):
             with pytest.raises(ValueError, match=f"{kind} kernel"):
                 gating.gate(y, kind)

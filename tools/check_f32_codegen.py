@@ -29,8 +29,7 @@ sys.path.insert(0, REPO)
 
 from proxtv_tpu_torch.ops.kernels import build  # noqa: E402
 
-DEFAULT = ("pcr.cu", "ms_fused.cu", "lp_fused.cu", "tautstring.cu", "dp.cu",
-           "condat.cu", "classic_ts.cu")
+DEFAULT = build.SOURCES  # every kernel
 
 
 def tool(name):

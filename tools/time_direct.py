@@ -6,7 +6,7 @@ batch sizes.
 
     python3 tools/time_direct.py [--rows 1,32,132,1024,10000] [--n 1000]
                                  [--kernels D1,D2,D3,D4] [--no-events]
-                                 [--repo DIR]
+                                 [--dtype float32|float64] [--repo DIR]
 
 For each batch of B signals of length n (randn, seeded, lam 0.7), for a
 batch of 32 copies of one signal (every signal takes the same path), for
@@ -28,8 +28,11 @@ that fits in one wave); ``--no-events`` leaves the counts out.
 ``--kernels`` picks the kernels timed.  ``--repo`` times the package of
 another checkout (an unpacked parent commit, say) with the same cases, so
 that two versions are compared in one call on one card; a kernel that
-checkout lacks is left out.  Prints one JSON line with the card's name and
-power limit and each case's ms per launch.  Imports nothing of JAX.
+checkout lacks is left out.  ``--dtype float64`` times each kernel's
+float64 instantiation on the same draws in double, held against the
+float64 plain versions.  Each D2 case also records whether it ran on D2's
+warp layout.  Prints one JSON line with the card's name and power limit
+and each case's ms per launch.  Imports nothing of JAX.
 """
 import argparse
 import json
@@ -126,7 +129,7 @@ def cases(rows, n):
     return out
 
 
-def main(rows, n, repo, only, count_events=True):
+def main(rows, n, repo, only, count_events=True, dtype="float32"):
     sys.path.insert(0, repo)
     import torch
 
@@ -152,8 +155,11 @@ def main(rows, n, repo, only, count_events=True):
         if kid in only:
             kernels[kid] = (mod, getattr(tv1d_l1, plain))
     out = {"card": card, "repo": os.path.abspath(repo), "n": n, "lam": LAM,
-           "cases": []}
+           "dtype": dtype, "cases": []}
     for name, y, lam in cases(rows, n):
+        y = y.astype(dtype)
+        if isinstance(lam, np.ndarray):
+            lam = lam.astype(dtype)
         yt = torch.from_numpy(y).cuda()
         lt = torch.from_numpy(lam).cuda() if isinstance(lam, np.ndarray) \
             else lam
@@ -167,6 +173,10 @@ def main(rows, n, repo, only, count_events=True):
                 continue  # one lambda a signal: no per-edge case
             res, launch = mod.bind(yt, lt)
             launch()
+            if kid == "D2":
+                f64 = (yt.dtype,) if dtype == "float64" else ()
+                rec["D2_warp_layout"] = mod.warp_layout(
+                    *y.shape, isinstance(lam, np.ndarray), *f64)
             ref = plain(y_c, lam_c)
             torch.cuda.synchronize()
             err = float((res[rows_].cpu() - ref).abs().max()) / max(
@@ -189,7 +199,11 @@ def main(rows, n, repo, only, count_events=True):
                 f"{rec[k[:2] + '_ns_per_event']:.1f} ns each)"
                 if k[:2] + "_events_max" in rec else "")
             for k, v in rec.items() if k.endswith("_ms"))
-        print(f"[{name}] {times} ({card}; {out['repo']})", flush=True)
+        if "D2_warp_layout" in rec:
+            times += (" (warp layout)" if rec["D2_warp_layout"]
+                      else " (thread layout)")
+        print(f"[{name}] {times} ({dtype}; {card}; {out['repo']})",
+              flush=True)
     print(json.dumps(out))
 
 
@@ -201,8 +215,10 @@ if __name__ == "__main__":
                     help="the kernels to time")
     ap.add_argument("--no-events", action="store_true",
                     help="leave out D3's and D4's event counts")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package is timed")
     a = ap.parse_args()
     main([int(r) for r in a.rows.split(",")], a.n, a.repo,
-         a.kernels.split(","), not a.no_events)
+         a.kernels.split(","), not a.no_events, a.dtype)

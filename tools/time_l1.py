@@ -2,7 +2,7 @@
 """Time kernel L1 (the 2D backward's flat-component labelling,
 ``csrc/labels.cu``) per call on one CUDA card.
 
-    python3 tools/time_l1.py [--repo DIR]
+    python3 tools/time_l1.py [--dtype float32|float64] [--repo DIR]
 
 Cases, all one image: the dr solution (``diffprox.tv2d_prox``, lam 0.3) of
 a blocky 1024^2 image (64 x 64 blocks of randn plus 0.3 randn, seed 0),
@@ -14,8 +14,10 @@ flat and serpentine images, against their known labels, bit for bit; then
 the C entry point (``labels.bind``, arguments made once) is timed by CUDA
 events, 20 calls after one untimed.  ``--repo`` times the package of
 another checkout with the same cases, so that two versions are compared in
-one call on one card.  Prints one line a case and one JSON line with the
-card's name and power limit.  Imports nothing of JAX.
+one call on one card.  ``--dtype float64`` labels the same images in
+double (the dr solution a float64 solve), on L1's float64 instantiation.
+Prints one line a case and one JSON line with the card's name and power
+limit.  Imports nothing of JAX.
 """
 import argparse
 import json
@@ -44,7 +46,7 @@ def time_ms(fn):
     return start.elapsed_time(end) / REPS
 
 
-def main(repo):
+def main(repo, dtype="float32"):
     sys.path.insert(0, HERE)
     from chip_smoke import serpentine
 
@@ -62,7 +64,7 @@ def main(repo):
     rng = np.random.RandomState(0)
     truth = np.kron(rng.randn(16, 16), np.ones((64, 64)))
     Y = torch.from_numpy((truth + 0.3 * rng.randn(1024, 1024))[None]
-                         .astype(np.float32)).cuda()
+                         .astype(dtype)).cuda()
     X_dr = diffprox.tv2d_prox(Y, 0.3, "dr").contiguous()
     cases = [("dr solution 1024^2", X_dr, None),
              ("p0.52 1024x1000", STEP * rng.randint(0, 5, (1024, 1000)), None),
@@ -70,10 +72,11 @@ def main(repo):
              ("flat 1024^2", np.zeros((1024, 1024)),
               np.zeros((1024, 1024), np.int32)),
              ("serpentine 1024^2", *serpentine(1024, 1024))]
-    out = {"card": card, "repo": os.path.abspath(repo), "cases": []}
+    out = {"card": card, "repo": os.path.abspath(repo), "dtype": dtype,
+           "cases": []}
     for name, X, known in cases:
         if not torch.is_tensor(X):
-            X = torch.from_numpy(X[None].astype(np.float32)).cuda()
+            X = torch.from_numpy(X[None].astype(dtype)).cuda()
         tol = diffprox._seg_tol(X)
         labels, launch = L1.bind(X, tol)
         launch()
@@ -91,7 +94,8 @@ def main(repo):
                "components": int(torch.unique(labels).numel())}
         out["cases"].append(rec)
         print(f"[{name}] L1 C entry {rec['ms']:.4f} ms, {rec['components']} "
-              f"components, plain trips {trips} ({card}; {out['repo']})",
+              f"components, plain trips {trips} ({dtype}; {card}; "
+              f"{out['repo']})",
               flush=True)
     print(json.dumps(out))
 
@@ -100,4 +104,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=HERE,
                     help="checkout whose package is timed")
-    main(ap.parse_args().repo)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
+    a = ap.parse_args()
+    main(a.repo, a.dtype)

@@ -149,7 +149,23 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    backward within ``TOL64["backward"]``), and each double
    kernel timed through its wrapper and its C entry (``B2.f64`` at each
    shape, ``D1.f64``-``D4.f64`` and ``L1.f64`` entries of the ``kernels``
-   line, bounds at the float64 rate).
+   line, bounds at the float64 rate);
+8. the numpy API in float64 on the card (``api64_phase``; ``[api64]``
+   lines): under ``torch.set_default_dtype(torch.float64)`` (restored
+   after), every API row of phase 3 at its width (``tv1_2d`` auto, now dr,
+   and ``tv1w_2d`` at 1024^2; ``tv1_1d`` pn, auto, condat,
+   classictautstring and dp, ``tv1w_1d`` auto, dp and pn, ``tv2_1d`` and
+   ``tvp_1d`` p = 1.5 at n = 1000; ``tv1_1d`` auto on the 10^6 signal and
+   on C2's walk; ``tv2_1d`` ms at 10^6; ``tvp_2d`` p = 2 at 1024^2 and
+   p = 1.5 at 512^2 with 35 sweeps; ``tvgen`` and ``tvgen_nd`` pd on the
+   volume at 35 sweeps; ``tv_value``), each float64, launching only its
+   float64 kernels (B2, D1-D4 in double) and no kernel's plain version on
+   the card, bit for bit with the batched call it wraps (phase 7's output
+   where phase 7 ran it), timed by CUDA events beside phase 4's float32
+   API wall, and at a small size within TOL64 of the same call with
+   ``device="cpu"``; ``tvgen_nd`` chambolle-pock-acc and
+   ``tv1_2d_banded`` must raise, as the JAX package's do; a float32 batch
+   under the float64 default keeps its kernels, counts and output.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 card line and the ``kernels`` line come before it.  Details (the report and
@@ -373,6 +389,11 @@ PS_MIXED = (1.0, 2.0, 1.5)
 V64_SMALL = (4, 64, 64)
 ND_SWEEPS = 35
 PROFILE_SWEEPS = 5
+# Phase 8 (the API in float64): the small sizes at which each call on the
+# card is held against the same call with device="cpu" (a signal of
+# API64_N, an API64_M^2 image, an API64_V volume; the spectral TV-L2 path
+# past 8192 lanes at API64_SPECTRAL; the long route on C2's walk).
+API64_N, API64_M, API64_V, API64_SPECTRAL = 300, 64, (4, 16, 16), 9000
 
 
 class Fail(Exception):
@@ -435,6 +456,50 @@ def kernel_module(kid):
 
     return importlib.import_module(
         f"proxtv_tpu_torch.ops.kernels.{WRAPPERS[kid][0]}")
+
+
+def launch_counters():
+    """Every kernel's launch counter, its float32 instantiation's (``B1``
+    ...) and, where built in double, its float64 one's (``B2.f64`` ...)."""
+    counters = {kid: kernel_module(kid).LAUNCHES for kid in WRAPPERS}
+    counters.update({kid + ".f64": kernel_module(kid).LAUNCHES_F64
+                     for kid in F64_KIDS})
+    return counters
+
+
+def trip_plain(counter):
+    """Make every kernel's plain version add one to ``counter`` when it is
+    called on a CUDA tensor (the float64 route may run compositions on the
+    card, never a kernel's plain version).  Returns the (module, name,
+    original) triples that undo it."""
+    import torch
+
+    from proxtv_tpu_torch.ops import tv1d_l1
+
+    saved = []
+
+    def trip(mod, name):
+        orig = getattr(mod, name)
+
+        def f(y, *a, **k):
+            counter.value += bool(torch.is_tensor(y) and y.is_cuda)
+            return orig(y, *a, **k)
+
+        saved.append((mod, name, orig))
+        setattr(mod, name, f)
+
+    for name in ("tv1_tautstring_plain", "tv1_condat_plain",
+                 "tv1_classic_ts_plain", "tv1_dp_plain"):
+        trip(tv1d_l1, name)
+    for kid, name in (("B2", "pcr_spd_solve_plain"),
+                      ("B1", "pn_tv1_fused_plain"),
+                      ("B3", "pdhg_chunk_plain"),
+                      ("B4", "ms_tv2_fused_plain"),
+                      ("B5", "gpfw_fused_plain"),
+                      ("B6", "pdhg3d_chunk_plain"),
+                      ("L1", "component_labels_plain")):
+        trip(kernel_module(kid), name)
+    return saved
 
 
 def event_busy(fn):
@@ -1503,7 +1568,7 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
     (and D1, D3, D4 one past their float64 warp layouts) against its
     float64 plain version, the outputs against float64 witnesses (TOL64),
     and times each double kernel through its wrapper and its C entry.
-    Returns (kernels line entries, report)."""
+    Returns (kernels line entries, report, the outputs phase 8 reuses)."""
     import torch
 
     import shutil
@@ -1529,21 +1594,9 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
     fns = {"D1": "tautstring", "D2": "dp", "D3": "condat",
            "D4": "classic_ts"}
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    counters = {kid: kernel_module(kid).LAUNCHES for kid in WRAPPERS}
-    counters.update({kid + ".f64": kernel_module(kid).LAUNCHES_F64
-                     for kid in F64_KIDS})
+    counters = launch_counters()
     plain_on_card = debug.Counter()
-    saved, b2_calls, l1_calls, tap_on = [], {}, [], [False]
-
-    def trip(mod, name):  # a plain version called on a CUDA tensor counts
-        orig = getattr(mod, name)
-
-        def f(y, *a, **k):
-            plain_on_card.value += bool(torch.is_tensor(y) and y.is_cuda)
-            return orig(y, *a, **k)
-
-        saved.append((mod, name, orig))
-        setattr(mod, name, f)
+    b2_calls, l1_calls, tap_on = {}, [], [False]
 
     def tap_b2(rhs, mask=None, diag_shift=None):
         if tap_on[0] and rhs.dtype == f64:
@@ -1560,16 +1613,7 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
             l1_calls.append((X.clone(), tol.clone()))
         return launch_l1(X, tol)
 
-    for name in ("tv1_tautstring_plain", "tv1_condat_plain",
-                 "tv1_classic_ts_plain", "tv1_dp_plain"):
-        trip(tv1d_l1, name)
-    trip(B2, "pcr_spd_solve_plain")
-    trip(kernel_module("B1"), "pn_tv1_fused_plain")
-    trip(kernel_module("B3"), "pdhg_chunk_plain")
-    trip(kernel_module("B4"), "ms_tv2_fused_plain")
-    trip(kernel_module("B5"), "gpfw_fused_plain")
-    trip(kernel_module("B6"), "pdhg3d_chunk_plain")
-    trip(L1, "component_labels_plain")
+    saved = trip_plain(plain_on_card)
     launch_b2, launch_l1 = B2.pcr_spd_solve, L1.component_labels
     saved.append((B2, "pcr_spd_solve", launch_b2))
     saved.append((L1, "component_labels", launch_l1))
@@ -2218,7 +2262,327 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
           f"{t_drive:.1f} s, then waiting {t_wait:.1f} s for the CPU "
           "references, which ran in six worker processes beside the "
           "earlier phases)")
-    return kern, rep
+    outs = {"dr": x_dr[0], "pn": x_pn[0], "long": lay["long"][1][0],
+            "tvgen": lay["tvgen"][1][0],
+            **{k: lay[k][1][0][0] for k in ("tvp_2d p2", "tvp_2d p1.5")}}
+    return kern, rep, outs
+
+
+# Phase 8's calls: the numpy API at PERF.md section 2's widths in float64
+# on the card (torch's default dtype float64).  A row: its label; the
+# API call; the batched call it wraps (a key of phase 7's outputs, or a
+# function run here on the card in float64 on the same input); the float64
+# kernels it must launch (and no others); the key of phase 4's float32
+# API wall (None: timed here); the same call at a small size (run on the
+# card and with device="cpu") and the TOL64 bar of its family there, with
+# whether the bar is relative to max|y| (phase 7's holds).
+Api64 = collections.namedtuple(
+    "Api64", "label call twin kernels f32_key small bar relative")
+
+
+def _api64_table(ptv, x):
+    """Phase 8's rows (:class:`Api64`), on main's inputs ``x``."""
+    import torch
+
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_long, tv1d_lp
+    from proxtv_tpu_torch.utils.config import TV1Config
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(  # noqa: E731  float64 on the card
+        np.ascontiguousarray(a, dtype=np.float64)).to(dev)
+    rng = np.random.RandomState(SEED + 10)  # this phase's small inputs
+    ys = np.cumsum(rng.randn(API64_N)) * 0.3 + 0.2 * rng.randn(API64_N)
+    ws = rng.rand(API64_N - 1) * LAMW
+    Xs = rng.randn(API64_M, API64_M)
+    Wcs = LAMW2D * (0.5 + rng.rand(API64_M - 1, API64_M))
+    Wrs = LAMW2D * (0.5 + rng.rand(API64_M, API64_M - 1))
+    Vs = rng.randn(*API64_V)
+    y9 = np.cumsum(rng.randn(API64_SPECTRAL)) * 0.05 + rng.randn(
+        API64_SPECTRAL)
+    y1, ww1, Y2, Y5, V = x["y1"], x["ww1"], x["Y2"], x["Y5"], x["V"]
+    cfg = TV1Config(sigma=0.05)
+    b2, nd = {"B2.f64"}, dict(max_iters=ND_SWEEPS)
+    rows = [
+        Api64(f"api.tv1_2d {M2D}^2 lam {LAM2D} auto (dr)",
+              lambda **k: ptv.tv1_2d(Y2, LAM2D, **k), "dr", b2,
+              "tv1_2d_auto_ms", lambda **k: ptv.tv1_2d(Xs, LAM2D, **k),
+              "dr_cpu", False),
+        Api64(f"api.tv1w_2d {M2D}^2 dr",
+              lambda **k: ptv.tv1w_2d(Y2, x["Wc2"], x["Wr2"], **k),
+              lambda: tv2d.tv1w_2d_batched(t(Y2)[None], t(x["Wc2"])[None],
+                                           t(x["Wr2"])[None])[0][0],
+              b2, "tv1w_2d_dr_ms",
+              lambda **k: ptv.tv1w_2d(Xs, Wcs, Wrs, **k), "dr_cpu", False),
+        Api64(f"api.tv1_1d n={N1D} w 2.0 pn",
+              lambda **k: ptv.tv1_1d(y1, 2.0, method="pn", **k), "pn", b2,
+              "tv1_1d_ms", lambda **k: ptv.tv1_1d(ys, 2.0, method="pn", **k),
+              "pn", False),
+        Api64(f"api.tv1_1d n={N1D} w 2.0 auto",
+              lambda **k: ptv.tv1_1d(y1, 2.0, **k),
+              lambda: tv1d_l1.tv1_batched(t(y1)[None], 2.0, strict=False)[0],
+              {"D1.f64"}, "tv1_1d_auto_ms",
+              lambda **k: ptv.tv1_1d(ys, 2.0, **k), "host", True),
+    ]
+    for m, kid, key in (("condat", "D3", "tv1_1d_condat_ms"),
+                        ("classictautstring", "D4", "tv1_1d_classic_ms"),
+                        ("dp", "D2", None)):
+        rows.append(Api64(
+            f"api.tv1_1d n={N1D} w 2.0 {m}",
+            lambda m=m, **k: ptv.tv1_1d(y1, 2.0, method=m, **k),
+            lambda m=m: tv1d_l1.tv1_batched(t(y1)[None], 2.0, method=m,
+                                            strict=True)[0],
+            {kid + ".f64"}, key,
+            lambda m=m, **k: ptv.tv1_1d(ys, 2.0, method=m, **k),
+            "direct_guard", True))
+    rows += [
+        Api64(f"api.tv1_1d n=1e6 lam {LAM1D} auto (long route)",
+              lambda **k: ptv.tv1_1d(x["ylong"], LAM1D, **k), "long", b2,
+              "tv1_1d_long_ms",
+              lambda **k: ptv.tv1_1d(x["yc2"], LAMC2, **k), "combiner",
+              True),
+        Api64(f"api.tv1_1d n={NC2} w {LAMC2} auto (C2 walk, long route)",
+              lambda **k: ptv.tv1_1d(x["yc2"], LAMC2, **k),
+              lambda: tv1d_long.tv1_long(t(x["yc2"]), LAMC2)[0], b2,
+              "tv1_1d_c2_ms",
+              lambda **k: ptv.tv1_1d(x["yc2"], LAMC2, **k), "combiner",
+              True),
+        Api64(f"api.tv1w_1d n={N1D} auto",
+              lambda **k: ptv.tv1w_1d(y1, ww1, **k),
+              lambda: tv1d_l1.tv1_tautstring(t(y1)[None], t(ww1)[None])[0],
+              {"D1.f64"}, "tv1w_1d_auto_ms",
+              lambda **k: ptv.tv1w_1d(ys, ws, **k), "host", True),
+        Api64(f"api.tv1w_1d n={N1D} dp",
+              lambda **k: ptv.tv1w_1d(y1, ww1, method="dp", **k),
+              lambda: tv1d_l1.tv1_dp(t(y1)[None], t(ww1)[None])[0],
+              {"D2.f64"}, "tv1w_1d_dp_cuda_ms",
+              lambda **k: ptv.tv1w_1d(ys, ws, method="dp", **k),
+              "direct_guard", True),
+        Api64(f"api.tv1w_1d n={N1D} pn",
+              lambda **k: ptv.tv1w_1d(y1, ww1, method="pn", **k),
+              lambda: tv1d_l1.tv1_pn(t(y1)[None], t(ww1)[None],
+                                     cfg=cfg)[0][0],
+              b2, "tv1w_1d_pn_cuda_ms",
+              lambda **k: ptv.tv1w_1d(ys, ws, method="pn", **k), "pn",
+              False),
+        Api64(f"api.tv2_1d n={N1D} w 2.0 mspg",
+              lambda **k: ptv.tv2_1d(y1, 2.0, **k),
+              lambda: tv1d_l2.tv2_batched(t(y1)[None], 2.0)[0][0], b2,
+              "tv2_1d_ms", lambda **k: ptv.tv2_1d(ys, 2.0, **k), "route",
+              True),
+        Api64(f"api.tv2_1d n=1e6 w {LAMLONG} ms (spectral)",
+              lambda **k: ptv.tv2_1d(x["ylong"], LAMLONG, method="ms", **k),
+              lambda: tv1d_l2.tv2_batched(t(x["ylong"])[None], LAMLONG,
+                                          method="ms")[0][0],
+              set(), "tv2_1d_long_ms",
+              lambda **k: ptv.tv2_1d(y9, LAMLONG, method="ms", **k),
+              "route", True),
+        Api64(f"api.tvp_1d n={N1D} w 2.0 p 1.5 gpfw",
+              lambda **k: ptv.tvp_1d(y1, 2.0, 1.5, **k),
+              lambda: tv1d_lp.tvp_batched(t(y1)[None], 2.0, 1.5)[0][0], b2,
+              "tvp_1d_ms", lambda **k: ptv.tvp_1d(ys, 2.0, 1.5, **k),
+              "route", True),
+        Api64(f"api.tvp_2d {M2D}^2 lam {LAM2D} p 2",
+              lambda **k: ptv.tvp_2d(Y2, LAM2D, LAM2D, 2, 2, **k),
+              "tvp_2d p2", b2, "tvp_2d_p2_ms",
+              lambda **k: ptv.tvp_2d(Xs, LAM2D, LAM2D, 2, 2, **k),
+              "combiner", True),
+        Api64(f"api.tvp_2d {M5}^2 lam {LAM2P} p {P2P} {ND_SWEEPS} sweeps",
+              lambda **k: ptv.tvp_2d(Y5, LAM2P, LAM2P, P2P, P2P, **nd, **k),
+              "tvp_2d p1.5", b2, "tvp_2d_p1.5_ms",
+              lambda **k: ptv.tvp_2d(Xs, LAM2P, LAM2P, P2P, P2P, **nd, **k),
+              "combiner", True),
+        Api64(f"api.tvgen {L3}x{M3}x{N3} lam {LAM3} p 1 {ND_SWEEPS} sweeps "
+              "(pd)", lambda **k: ptv.tvgen(V, [LAM3] * 3, [1, 2, 3],
+                                            [1.0] * 3, **nd, **k),
+              "tvgen", b2, "tvgen_pd_3d_ms",
+              lambda **k: ptv.tvgen(Vs, [LAM3] * 3, [1, 2, 3], [1.0] * 3,
+                                    **nd, **k), "combiner", True),
+        Api64(f"api.tvgen_nd pd {L3}x{M3}x{N3} lam {LAM3} p 1 {ND_SWEEPS} "
+              "sweeps", lambda **k: ptv.tvgen_nd(V, [LAM3] * 3, [1, 2, 3],
+                                                 [1.0] * 3, **nd, **k),
+              "tvgen", b2, None,
+              lambda **k: ptv.tvgen_nd(Vs, [LAM3] * 3, [1, 2, 3], [1.0] * 3,
+                                       **nd, **k), "combiner", True),
+        Api64(f"api.tv_value {L3}x{M3}x{N3} ws {PS_MIXED} p {PS_MIXED}",
+              lambda **k: ptv.tv_value(V, list(PS_MIXED), [1, 2, 3],
+                                       list(PS_MIXED), **k),
+              lambda: float(tvnd.tv_value(t(V), list(PS_MIXED), [1, 2, 3],
+                                          list(PS_MIXED))), set(), None,
+              lambda **k: ptv.tv_value(Vs, list(PS_MIXED), [1, 2, 3],
+                                       list(PS_MIXED), **k), "route", True),
+    ]
+    return rows
+
+
+def api64_phase(card, ptv, x, outs64, times):
+    """Phase 8: the numpy API in float64 on the card.  Under a float64
+    default dtype (restored before it returns), each row of
+    :func:`_api64_table` at the bench's width must give a float64 result,
+    launch its float64 kernels and no other kernel (no float32 kernel, no
+    kernel's plain version on the card), and be bit for bit the batched
+    call it wraps on the same input (phase 7's output ``outs64`` where
+    phase 7 ran that call); the same call at a small size on the card must
+    land within its family's TOL64 bar of the call with device="cpu".
+    tvgen_nd with a primal-dual ND method and the banded 2D driver must
+    raise, as the JAX package's do, and a float32 batch under the float64
+    default must take the float32 route unchanged.  Each row's wall by
+    CUDA events beside phase 4's float32 API wall (or one timed here).
+    Returns the report."""
+    import torch
+
+    from proxtv_tpu_torch import parallel
+    from proxtv_tpu_torch.models import tv2d
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.parallel.comm import Mesh
+    from proxtv_tpu_torch.utils import debug
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rows = _api64_table(ptv, x)
+    counters = launch_counters()
+    plain_on_card = debug.Counter()
+    rep = {"calls": {}, "small": {}}
+    f32_ms = {}
+    for row in rows:  # the float32 API walls phase 4 did not time
+        if row.f32_key is None:
+            f32_ms[row.label] = cuda_ms(row.call, reps=3)
+
+    def counted(fn):
+        for c in counters.values():
+            c.reset()
+        plain_on_card.reset()
+        debug.HOST_SYNCS.reset()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        got = {k: c.value for k, c in counters.items() if c.value}
+        return res, start.elapsed_time(end), got, debug.HOST_SYNCS.value
+
+    saved = trip_plain(plain_on_card)
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for row in rows:
+            out, ms, got, syncs = counted(row.call)
+            reps = 1
+            if ms < 500.0:  # a few repetitions for the short calls
+                reps = 5
+                ms = cuda_ms(row.call, reps=reps)
+            twin = (outs64[row.twin] if isinstance(row.twin, str)
+                    else row.twin())
+            if torch.is_tensor(twin):
+                same = (isinstance(out, np.ndarray) and out.dtype == np.float64
+                        and np.array_equal(out, twin.cpu().numpy()))
+            else:
+                same = isinstance(out, float) and out == twin
+            ms32 = (times[row.f32_key] if row.f32_key is not None
+                    else f32_ms[row.label])
+            where = "phase 7" if isinstance(row.twin, str) else "run here"
+            rep["calls"][row.label] = {
+                "ms": ms, "reps": reps, "float32_ms": ms32,
+                "launches": got, "host_syncs": syncs,
+                "plain_on_card": plain_on_card.value,
+                "bit_for_bit_with_batched": bool(same)}
+            print(f"[api64] {row.label}: {ms:.4f} ms float64 by CUDA events "
+                  f"({reps} rep{'s' if reps > 1 else ''}; float32 API "
+                  f"{ms32:.4f} ms, {ms / ms32:.1f}x), launches {got}, host "
+                  f"syncs {syncs}, plain versions on the card "
+                  f"{plain_on_card.value}; bit for bit with the batched "
+                  f"call it wraps ({where}): "
+                  f"{bool(same)}  ({card})")
+            check(set(got) == set(row.kernels),
+                  f"{row.label} launched {sorted(got)}, not "
+                  f"{sorted(row.kernels)}")
+            check(plain_on_card.value == 0,
+                  f"{row.label} ran a kernel's plain version on the card")
+            check(same, f"{row.label} is not float64 bit for bit with the "
+                  "batched call it wraps")
+            # (d) at a small size: the card within TOL64 of the CPU.
+            small = row.small()
+            ref = row.small(device="cpu")
+            if isinstance(small, float):
+                err = abs(small - ref) / abs(ref)
+                lim = TOL64[row.bar]
+            else:
+                check(small.dtype == np.float64, f"{row.label}: the small "
+                      "call on the card is not float64")
+                err = float(np.abs(small - ref).max())
+                lim = TOL64[row.bar] * (max(1.0, float(np.abs(ref).max()))
+                                        if row.relative else 1.0)
+            rep["small"][row.label] = {"max_abs_err": err, "bar": lim,
+                                       "family": row.bar}
+            print(f"[api64 small] {row.label} at a small size: max|card - "
+                  f"cpu| = {err:.3e} (TOL64[{row.bar!r}]: {lim:.3e})")
+            check(err <= lim, f"{row.label}: the small call on the card is "
+                  f"{err} from the CPU's")
+        # What raises as the JAX package's does, before any launch.
+        for c in counters.values():
+            c.reset()
+        msgs = {}
+        for name, fn in (
+                ("tvgen_nd chambolle-pock-acc", lambda: ptv.tvgen_nd(
+                    x["V"], [LAM3] * 3, [1, 2, 3], [1.0] * 3,
+                    method="chambolle-pock-acc")),
+                ("tv1_2d_banded", lambda: parallel.tv1_2d_banded(
+                    x["Y2"].astype(np.float64), LAM2D,
+                    Mesh(group=None, axis="x", device=dev)))):
+            try:
+                fn()
+                msgs[name] = None
+            except ValueError as e:
+                msgs[name] = str(e)
+            print(f"[api64] {name} float64 on the card: raises "
+                  f"{msgs[name]!r}")
+        check(msgs["tvgen_nd chambolle-pock-acc"] is not None
+              and "primal-dual ND methods need"
+              in msgs["tvgen_nd chambolle-pock-acc"],
+              "tvgen_nd cp-acc in float64 did not raise the JAX error")
+        check(msgs["tv1_2d_banded"] is not None and "banded driver takes "
+              "float32 only" in msgs["tv1_2d_banded"],
+              "tv1_2d_banded in float64 on the card did not refuse")
+        check(not any(c.value for c in counters.values()),
+              "a refused float64 call launched a kernel")
+        rep["raises"] = msgs
+    finally:
+        torch.set_default_dtype(before)
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+    # A float32 batch under a float64 default: the float32 route, its
+    # launches and its output unchanged.
+    Y1t = torch.from_numpy(x["Y1"]).to(dev)
+    Y2t = torch.from_numpy(x["Y2"]).to(dev)[None]
+    f32 = {"tv1_batched pn (B1)": lambda: tv1d_l1.tv1_batched(
+               Y1t, LAM1D, method="pn"),
+           "tv1_2d_batched cp-acc (B3)": lambda: tv2d.tv1_2d_batched(
+               Y2t, LAM2D, method="chambolle-pock-acc")[0]}
+    for name, fn in f32.items():
+        res = []
+        for default in (torch.float32, torch.float64):
+            torch.set_default_dtype(default)
+            try:
+                out, _, got, _ = counted(fn)
+            finally:
+                torch.set_default_dtype(before)
+            res.append((out, got))
+        same = bool(res[1][0].dtype == torch.float32
+                    and torch.equal(res[0][0], res[1][0]))
+        rep["calls"][name + " float32 under a float64 default"] = {
+            "launches": res[1][1], "launches_float32_default": res[0][1],
+            "bit_for_bit": same}
+        print(f"[api64] {name}, a float32 batch under a float64 default: "
+              f"launches {res[1][1]} (under float32: {res[0][1]}), bit for "
+              f"bit: {same}")
+        check(same and res[0][1] == res[1][1] and res[0][1]
+              and all("." not in k for k in res[0][1]),
+              f"{name}: a float32 batch moved under a float64 default")
+    rep["seconds"] = time.perf_counter() - t_phase
+    print(f"[api64] phase: {rep['seconds']:.1f} s")
+    return rep
 
 
 def main(out_dir):
@@ -4828,7 +5192,7 @@ def main(out_dir):
 
     stamp("phase 6 done")
     # -- 7. float64 on the card ------------------------------------------
-    kern64, report["float64"] = float64_phase(
+    kern64, report["float64"], outs64 = float64_phase(
         card, inp64, jobs64, Y2, y1, x_ref, F_ref, x_dr, dict(
             V=V, Y5=Y5, noisy_t2=noisy_t2, truth_t2=truth_t2,
             x_p2_ref=x_p2_ref, x_2p_ref=x_2p_ref, x_ref3=x_ref3,
@@ -4837,6 +5201,13 @@ def main(out_dir):
                 "F_minus_F_ref"]))
     kern += kern64
     stop_pools()
+    stamp("phase 7 done")
+    # -- 8. the numpy API in float64 on the card --------------------------
+    report["api64"] = api64_phase(card, ptv, dict(
+        y1=y1, ww1=ww1, Y1=Y1, Y2=Y2, Wc2=Wc2, Wr2=Wr2, Y5=Y5, V=V,
+        ylong=ylong, yc2=yc2), outs64, times)
+    del outs64
+    stamp("phase 8 done")
 
     report.update(errors=errs, main_path=main, times=times, kernels=kern,
                   queue=queue,

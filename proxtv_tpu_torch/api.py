@@ -8,9 +8,15 @@ Ported: ``tv1_1d``, ``tv1w_1d``, ``tv2_1d``, ``tvp_1d``, ``tv1_2d``,
 kernel B1, dual glue, certificate), as the JAX package does.
 
 Inputs are numpy-like arrays; outputs are numpy arrays.  The entry points run
-on the card (``device="cuda"``, float32, the JAX package's accelerator
-precision) unless the caller passes ``device="cpu"`` (float64, as the tests
-run).  With no card and no ``device="cpu"`` they raise.  ``tv1_1d`` and
+on the card (``device="cuda"``) unless the caller passes ``device="cpu"``
+(float64, as the tests run).  With no card and no ``device="cpu"`` they
+raise.  On the card they solve in float32, the JAX package's accelerator
+precision, unless torch's default dtype is float64
+(``torch.set_default_dtype(torch.float64)``, the counterpart of the JAX
+package's ``jax_enable_x64``, under which its API computes in float64):
+then they solve in float64 on the JAX package's float64 route (the
+kernels' double instantiations, ``LAUNCHES_F64``) and return float64.
+:func:`_dtype` decides it for every entry point.  ``tv1_1d`` and
 ``tv1w_1d`` run a taut-string solve on the native host engine
 (``runtime.native``) only when the caller asks for the host: with
 ``device="cpu"`` (where the JAX package's host policy applies) or with
@@ -41,19 +47,27 @@ _BACKENDS = ("auto", "cuda", "host")
 _HOST_MAX_N = 16384
 
 
+def _dtype(dev):
+    """The dtype a solve on ``dev`` takes: float64 on the CPU; on the card
+    float64 where torch's default dtype is float64 (the JAX package's
+    ``jax_enable_x64``), float32 otherwise."""
+    if dev.type == "cpu" or torch.get_default_dtype() == torch.float64:
+        return torch.float64
+    return torch.float32
+
+
 def _device(device):
-    """The solve's device and dtype: CUDA float32 by default, float64 on an
-    explicit CPU request."""
+    """The solve's device (CUDA unless ``device`` says otherwise) and its
+    dtype (:func:`_dtype`)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "proxtv_tpu_torch runs on a CUDA card and none is available; "
                 "pass device='cpu' to solve on the CPU")
-        return dev, torch.float32
-    if dev.type != "cpu":
+    elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
-    return dev, torch.float64
+    return dev, _dtype(dev)
 
 
 def _tensor(x, dev, dt):
@@ -70,8 +84,7 @@ def _ret(x2d, info, return_info):
 
 def _host_route(backend, device, method, family, return_info, auto, n):
     """Whether a 1D TV-L1 call runs on the native host engine, and the
-    dtype its result takes (the device route's: float32 unless
-    ``device="cpu"``).
+    dtype its result takes (the device route's, :func:`_dtype`).
 
     ``backend="host"`` asks for it: a taut-string method without
     ``return_info``, and a compiler to build the engine, or this raises.
@@ -81,8 +94,9 @@ def _host_route(backend, device, method, family, return_info, auto, n):
     does.  Returns ``(take, dtype)``."""
     from .runtime import native
 
-    cpu = torch.device("cuda" if device is None else device).type == "cpu"
-    dt = np.float64 if cpu else np.float32
+    dev = torch.device("cuda" if device is None else device)
+    cpu = dev.type == "cpu"
+    dt = np.float64 if _dtype(dev) == torch.float64 else np.float32
     if backend == "host":
         if method not in family or return_info:
             raise ValueError(
@@ -108,7 +122,9 @@ def tv1_1d(x, w, method="auto", sigma=0.05, maxbacktracks=None,
     reference's default), pn, condat, dp, condattautstring, kolmogorov.
 
     **Auto policy** on the card: ``tv1_batched(..., strict=False)``,
-    kernel B1 up to n = 8192 and the taut string past it (kernel D1).  Past
+    kernel B1 up to n = 8192 and the taut string past it (kernel D1); in
+    float64 (:func:`_dtype`) the taut string at every n (D1 in double), as
+    the JAX package's float64 route runs it.  Past
     n = 16384 auto runs the long-signal route on both devices
     (:func:`tv1d_long.tv1_long`: its windows in one launch of kernel B1 on
     the card, then the dual glue and its certificate, whose
@@ -225,24 +241,31 @@ def tv1w_1d(x, w, method="auto", sigma=0.05, return_info=False,
     raise ValueError(f"unknown method {method}")
 
 
+def _tv1_2d_auto(is_cuda, dtype):
+    """``tv1_2d``'s auto method: the fused accelerated primal-dual on the
+    card in float32 (``proxtv_tpu/api.py:241-244`` picks it only for
+    float32 on its accelerator), Douglas-Rachford otherwise."""
+    return ("chambolle-pock-acc" if is_cuda and dtype == torch.float32
+            else "dr")
+
+
 def tv1_2d(x, w, n_threads=1, max_iters=0, method="auto", return_info=False,
            device=None):
     """2D anisotropic TV-L1 prox (reference prox_tv/__init__.py:355-443).
 
     Methods: auto (default — the fused accelerated primal-dual, kernel B3,
-    on CUDA float32, Douglas-Rachford elsewhere, mirroring the JAX package's
-    auto on its accelerator), dr (the reference default; its fiber passes
-    run kernel B1 on the card), pd, yang, condat, chambolle-pock,
-    chambolle-pock-acc, kolmogorov.  ``n_threads`` is accepted for API
-    compatibility.
+    on CUDA float32, Douglas-Rachford elsewhere, float64 on the card
+    among them, mirroring the JAX package's auto on its accelerator), dr
+    (the reference default; its fiber passes run kernel B1 on the card),
+    pd, yang, condat, chambolle-pock, chambolle-pock-acc, kolmogorov.
+    ``n_threads`` is accepted for API compatibility.
     """
     from .models import tv2d
 
     dev, dt = _device(device)
     y = _tensor(x, dev, dt)[None]
     if method == "auto":
-        method = ("chambolle-pock-acc"
-                  if y.is_cuda and y.dtype == torch.float32 else "dr")
+        method = _tv1_2d_auto(y.is_cuda, y.dtype)
     out, info = tv2d.tv1_2d_batched(y, float(w), method=method,
                                     max_iters=int(max_iters))
     return _ret(out, info, return_info)

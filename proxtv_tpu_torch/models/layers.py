@@ -12,9 +12,11 @@ Example::
 
 The one weight, ``raw_lam``, is made at construction on ``device`` in
 ``dtype`` (flax makes it lazily, in the input's dtype): by default on the
-card in float32, as the API solves; ``device="cpu"`` gives float64, as the
-tests run.  ``utils.interop.layer_state`` / ``layer_params`` carry it to and
-from the flax layers' ``{"params": {"raw_lam": ...}}``.
+card in the dtype the API solves in there (``api._dtype``: float32, or
+float64 where torch's default dtype is float64); ``device="cpu"`` gives
+float64, as the tests run.  ``utils.interop.layer_state`` /
+``layer_params`` carry it to and from the flax layers'
+``{"params": {"raw_lam": ...}}``.
 """
 from __future__ import annotations
 

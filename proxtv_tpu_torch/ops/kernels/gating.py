@@ -98,17 +98,30 @@ F64_KERNELS = frozenset({"pcr", "tautstring", "dp", "condat", "classic"})
 F64_COMPOSES = frozenset({"pn", "pn_window", "pdhg2d", "ms", "lp"})
 
 
-def refuse_queued_f64(driver: str, kind: str, device, dtype):
+# Where the JAX package's banded drivers meet a float64 array: the
+# kernel's float32 output against the float64 fori_loop carry.
+_BANDED_F32_OUT = {
+    "pdhg2d": "proxtv_tpu/ops/kernels/pdhg_fused.py:335 against the carry "
+              "of proxtv_tpu/models/tv2d.py:939",
+    "pdhg3d": "proxtv_tpu/ops/kernels/pdhg3d_fused.py:278 against the "
+              "carry of proxtv_tpu/models/tvnd.py:473",
+}
+
+
+def refuse_banded_f64(driver: str, kind: str, device, dtype):
     """The banded drivers (``parallel.sharded.tv1_2d_banded``,
-    ``tv1_3d_banded``) run kernel ``kind`` on each rank's band and have no
-    composition on the card: a float64 tensor bound for a CUDA device
-    raises here, before any exchange, naming the kernel (its float64 form
-    under the banded driver is queued, ROADMAP F6).  The CPU runs it."""
+    ``tv1_3d_banded``) run kernel ``kind`` on each rank's band and take
+    float32 only on the card, as the JAX package's do: its kernels declare
+    float32 outputs, so a float64 array raises a ``TypeError`` in its
+    ``fori_loop``.  A float64 tensor bound for a CUDA device raises here,
+    before any exchange, naming the kernel.  The CPU runs it (the port's
+    plain versions take float64)."""
     if torch.device(device).type == "cuda" and dtype == torch.float64:
         raise ValueError(
             f"{driver} runs kernel {_KIND_KERNEL[kind]} on the card in "
-            "float32: its float64 form is queued (ROADMAP F6); run float64 "
-            "on the CPU")
+            "float32 only: the JAX package's banded driver takes float32 "
+            f"only, because its kernel writes float32 "
+            f"({_BANDED_F32_OUT[kind]}); run float64 on the CPU")
 
 
 def lane_limits(kind: str):

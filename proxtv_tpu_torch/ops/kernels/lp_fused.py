@@ -185,7 +185,7 @@ def gpfw_fused_plain(y, w0, lam, mu0, run_mask, p: float, max_iters: int,
     v = (torch.arange(n, device=dev) < n - 1).to(dtype).expand(Bp, n)
 
     def rows(a):
-        a = torch.broadcast_to(torch.as_tensor(a, device=dev).to(dtype)
+        a = torch.broadcast_to(torch.as_tensor(a, dtype=dtype, device=dev)
                                .reshape(-1), (B,))
         return pad_rows(a.reshape(B, 1), tb)
 
@@ -301,7 +301,8 @@ def bind(y, w0, lam, mu0, run_mask, p: float, max_iters: int,
         raise ValueError(f"w0 must be (B, n) = {(B, n)} and fw_cycles >= 1")
 
     def rows(a):
-        a = torch.as_tensor(a, device=y.device).to(torch.float32).reshape(-1)
+        a = torch.as_tensor(a, dtype=torch.float32,
+                            device=y.device).reshape(-1)
         return torch.broadcast_to(a, (B,)).contiguous()
 
     y = y.contiguous()
@@ -383,7 +384,7 @@ def fixed_trips_agree(y, lam, p: float, w, it, w_r, it_r, ref64=None,
     converged bars (``x_atol``; ``obj_rtol`` relative plus ``obj_atol``).
     Returns ``(ok, numbers)``."""
     def f64(a):
-        return torch.as_tensor(a).detach().to("cpu", torch.float64)
+        return torch.as_tensor(a, dtype=torch.float64).detach().to("cpu")
 
     y, w, w_r, it, it_r = map(f64, (y, w, w_r, it, it_r))
     B = y.shape[0]

@@ -197,7 +197,8 @@ def bind(y, lam=None, lam_rows=None, alpha_init=None, max_iters: int = 100,
     def rows(a, name):
         if a is None:
             return None
-        a = torch.as_tensor(a, device=y.device).to(torch.float32).reshape(-1)
+        a = torch.as_tensor(a, dtype=torch.float32,
+                            device=y.device).reshape(-1)
         if a.shape[0] != B:
             raise ValueError(f"{name} must be (B,)")
         return a.contiguous()

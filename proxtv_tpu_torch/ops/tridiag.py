@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .kernels.common import shift_left as _shift_left
@@ -146,12 +147,12 @@ def _spd_solve_kernel(rhs, diag_shift, mask, method):
     if method != "pcr":
         raise ValueError(f"method={method!r} runs on the CPU only; a CUDA "
                          "tensor takes the PCR kernel (method='pcr')")
-    shift_arr = torch.as_tensor(diag_shift)
-    if shift_arr.ndim >= 1 and shift_arr.shape[-1] == n and n > 1:
+    shape = np.shape(diag_shift)  # a tensor's own shape; no tensor is made
+    if len(shape) >= 1 and shape[-1] == n and n > 1:
         raise ValueError("the PCR kernel takes a shift constant along the "
                          "system axis; got one that varies along it")
     shift = None
-    if not (shift_arr.ndim == 0 and float(shift_arr) == 0.0):
+    if not (len(shape) == 0 and float(diag_shift) == 0.0):
         shift = torch.broadcast_to(
             torch.as_tensor(diag_shift, dtype=rhs.dtype, device=rhs.device),
             rhs.shape)[..., 0].reshape(-1)

@@ -39,6 +39,7 @@ events change nothing).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import debug, diffs
@@ -918,8 +919,8 @@ _DP_METHODS = {"dp", "kolmogorov", "johnson"}
 
 
 def _per_edge(lam, B, n):
-    lam_a = torch.as_tensor(lam)
-    return lam_a.ndim >= 2 or (lam_a.ndim == 1 and lam_a.shape[0] == n - 1
+    shape = np.shape(lam)  # a tensor's own shape; no tensor is made
+    return len(shape) >= 2 or (len(shape) == 1 and shape[0] == n - 1
                                and B != n - 1)
 
 
@@ -1026,7 +1027,7 @@ def tv1_batched(y, lam, method: str = "hybridtautstring",
     if engine == "pn_fused":
         from .kernels import pn_fused
 
-        if torch.as_tensor(lam).ndim == 0:
+        if np.ndim(lam) == 0:
             # Uniform penalty rides to the kernel as a scalar argument — no
             # (B, n) penalty field is read.
             x, _ = pn_fused.pn_tv1_fused(y, lam_scalar=float(lam),

@@ -225,12 +225,13 @@ def tv2_ms(y, lam, cfg: TV2Config = DEFAULT_TV2, alpha_init=None,
         B = y.shape[0]
         kw = dict(max_iters=cfg.max_iters,
                   stop_boundary=float(cfg.stop_boundary))
-        if torch.as_tensor(lam).ndim == 0:
+        if np.ndim(lam) == 0:
             x, alpha, gap, iters = ms_fused.ms_tv2_fused(
                 y, lam=float(lam), alpha_init=alpha_init, **kw)
         else:
             x, alpha, gap, iters = ms_fused.ms_tv2_fused(
-                y, lam_rows=torch.as_tensor(lam).reshape(B),
+                y, lam_rows=torch.as_tensor(lam, dtype=y.dtype,
+                                            device=y.device).reshape(B),
                 alpha_init=alpha_init, **kw)
         rc = torch.where(iters >= cfg.max_iters, RC_ITERS, RC_OK)
         info = make_info(iters, gap, rc)

@@ -353,7 +353,7 @@ def tv1_2d_banded(Y, lam, mesh: Mesh, method: str = "chambolle-pock-acc",
         (1,)-shaped ``SolverInfo``.
     """
     Y = _host(Y)
-    gating.refuse_queued_f64("tv1_2d_banded", "pdhg2d", mesh.device, Y.dtype)
+    gating.refuse_banded_f64("tv1_2d_banded", "pdhg2d", mesh.device, Y.dtype)
     M, N = Y.shape
     # Orientation: with the auto geometry a wide image runs transposed, so
     # that the longer axis is banded.  The exchange moves 2K rows of N per
@@ -450,7 +450,7 @@ def tv1_3d_banded(Y, lam, mesh: Mesh, method: str = "chambolle-pock-acc",
         (x, info): the (L, M, N) solution and the (1,)-shaped info.
     """
     Y = _host(Y)
-    gating.refuse_queued_f64("tv1_3d_banded", "pdhg3d", mesh.device, Y.dtype)
+    gating.refuse_banded_f64("tv1_3d_banded", "pdhg3d", mesh.device, Y.dtype)
     P = mesh.size
     # Band the longer of L and M: the exchange moves whole cross-sections
     # of the banded axis, so a shallow band is all halo.  One lam on all

@@ -2213,12 +2213,12 @@ def test_tv1_2d_batched_float64_on_the_card(method, dev, monkeypatch):
 @pytest.mark.parametrize("kind", ["pdhg3d", "banded2d", "banded3d", "B1",
                                   "B3", "L1"])
 def test_float64_queued_kinds_raise_on_the_card(kind, dev):
-    """What still refuses float64 on the card: the ND primal-dual methods
-    raise the JAX package's own error (no float64 primal-dual ND route),
-    the banded 2D and 3D drivers raise naming B3 and B6 before any
-    exchange (queued, ROADMAP F6), and the wrappers with no double
-    instantiation (B1, B3) refuse one handed to them; L1, built in double
-    since, takes it (one LAUNCHES_F64)."""
+    """What refuses float64 on the card: the ND primal-dual methods raise
+    the JAX package's own error (no float64 primal-dual ND route), the
+    banded 2D and 3D drivers raise naming B3 and B6 before any exchange
+    (the JAX package's banded drivers take float32 only), and the wrappers
+    with no double instantiation (B1, B3) refuse one handed to them; L1,
+    built in double since, takes it (one LAUNCHES_F64)."""
     from proxtv_tpu_torch.models import tvnd
     from proxtv_tpu_torch.parallel import sharded
     from proxtv_tpu_torch.parallel.comm import Mesh
@@ -2255,7 +2255,7 @@ def test_float64_queued_kinds_raise_on_the_card(kind, dev):
     assert name in str(e.value)
     assert P3K.LAUNCHES.value == b6
     if kind.startswith("banded"):
-        assert "float64 form is queued" in str(e.value)
+        assert "banded driver takes float32 only" in str(e.value)
 
 
 @pytest.mark.parametrize("case", ["p0.5", "serpentine", "B = 3 mixed",
@@ -2430,3 +2430,244 @@ def test_tv1_prox_float64_on_the_card(dev):
                                rtol=0)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-6,
                                rtol=0)
+
+
+# -- the numpy API in float64 on the card (torch's default dtype float64) --
+
+@pytest.fixture
+def default64():
+    """torch's default dtype float64 for the test (the API then solves in
+    float64 on the card), restored after it."""
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(before)
+
+
+def _all_counts():
+    """Every kernel's launch counter: float32 (``B1`` ...) and, where built
+    in double, float64 (``B2.f64`` ...)."""
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+    from proxtv_tpu_torch.ops.kernels import condat as CDK
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+    from proxtv_tpu_torch.ops.kernels import lp_fused as LPK
+
+    mods = {"B1": PPF, "B2": PK, "B3": PPK, "B4": MSK, "B5": LPK, "B6": P3K,
+            "D1": TSK, "D2": DPK, "D3": CDK, "D4": CTK, "L1": LBK}
+    out = {k: m.LAUNCHES.value for k, m in mods.items()}
+    out.update({k + ".f64": m.LAUNCHES_F64.value for k, m in mods.items()
+                if hasattr(m, "LAUNCHES_F64")})
+    return out
+
+
+def _api64_cases():
+    """name -> (API call, the batched call it wraps on a tensor ``t`` of the
+    same input (a function of the device), the kernels its float64 route
+    launches, chip_smoke.py's TOL64 bar of its family against the same
+    call with device="cpu", relative to max|y|)."""
+    import proxtv_tpu_torch as P
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_long, tv1d_lp
+    from proxtv_tpu_torch.utils.config import TV1Config
+
+    rng = np.random.RandomState(50)
+    y = np.cumsum(rng.randn(300)) * 0.3 + 0.2 * rng.randn(300)
+    w = rng.rand(299) * 1.5
+    ylong = np.cumsum(rng.randn(20000)) * 0.3 + rng.randn(20000)
+    y9 = np.cumsum(rng.randn(9000)) * 0.05 + rng.randn(9000)
+    X = rng.randn(64, 64)
+    Wc, Wr = 0.3 * (0.5 + rng.rand(63, 64)), 0.3 * (0.5 + rng.rand(64, 63))
+    V = rng.randn(4, 16, 16)
+    cfg = TV1Config(sigma=0.05)
+
+    def t(a, d):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+    b1 = lambda fn: (lambda d: fn(d)[0])  # noqa: E731  the row of a batch
+    return {
+        "tv1_1d auto": (lambda **k: P.tv1_1d(y, 2.0, **k), b1(
+            lambda d: tv1d_l1.tv1_batched(t(y[None], d), 2.0, strict=False)),
+            {"D1.f64"}, 1e-12),
+        "tv1_1d auto long": (lambda **k: P.tv1_1d(ylong, 2.0, **k),
+                             lambda d: tv1d_long.tv1_long(t(ylong, d),
+                                                          2.0)[0],
+                             {"B2.f64"}, 1e-6),
+        "tv1_1d pn": (lambda **k: P.tv1_1d(y, 2.0, method="pn", **k), b1(
+            lambda d: tv1d_l1.tv1_pn(t(y[None], d), 2.0, cfg=cfg)[0]),
+            {"B2.f64"}, 5e-4),
+        **{f"tv1_1d {m}": (lambda m=m, **k: P.tv1_1d(y, 2.0, method=m, **k),
+                           b1(lambda d, m=m: tv1d_l1.tv1_batched(
+                               t(y[None], d), 2.0, method=m, strict=True)),
+                           {kid}, 1e-12)
+           for m, kid in (("condat", "D3.f64"),
+                          ("classictautstring", "D4.f64"),
+                          ("dp", "D2.f64"))},
+        "tv1w_1d auto": (lambda **k: P.tv1w_1d(y, w, **k), b1(
+            lambda d: tv1d_l1.tv1_tautstring(t(y[None], d), t(w[None], d))),
+            {"D1.f64"}, 1e-12),
+        "tv1w_1d dp": (lambda **k: P.tv1w_1d(y, w, method="dp", **k), b1(
+            lambda d: tv1d_l1.tv1_dp(t(y[None], d), t(w[None], d))),
+            {"D2.f64"}, 1e-12),
+        "tv1w_1d pn": (lambda **k: P.tv1w_1d(y, w, method="pn", **k), b1(
+            lambda d: tv1d_l1.tv1_pn(t(y[None], d), t(w[None], d),
+                                     cfg=cfg)[0]), {"B2.f64"}, 5e-4),
+        "tv2_1d": (lambda **k: P.tv2_1d(y, 2.0, **k), b1(
+            lambda d: tv1d_l2.tv2_batched(t(y[None], d), 2.0,
+                                          method="mspg")[0]),
+            {"B2.f64"}, 1e-8),
+        "tv2_1d ms spectral": (lambda **k: P.tv2_1d(y9, 50.0, method="ms",
+                                                    **k), b1(
+            lambda d: tv1d_l2.tv2_batched(t(y9[None], d), 50.0,
+                                          method="ms")[0]), set(), 1e-8),
+        "tvp_1d": (lambda **k: P.tvp_1d(y, 2.0, 1.5, **k), b1(
+            lambda d: tv1d_lp.tvp_batched(t(y[None], d), 2.0, 1.5)[0]),
+            {"B2.f64"}, 1e-8),
+        "tv1_2d auto": (lambda **k: P.tv1_2d(X, 0.3, **k), b1(
+            lambda d: tv2d.tv1_2d_batched(t(X[None], d), 0.3,
+                                          method="dr")[0]),
+            {"B2.f64"}, 1e-6),
+        "tv1w_2d": (lambda **k: P.tv1w_2d(X, Wc, Wr, **k), b1(
+            lambda d: tv2d.tv1w_2d_batched(t(X[None], d), t(Wc[None], d),
+                                           t(Wr[None], d))[0]),
+            {"B2.f64"}, 1e-6),
+        "tvp_2d p2": (lambda **k: P.tvp_2d(X, 0.3, 0.3, 2, 2, **k), b1(
+            lambda d: tv2d.tvp_2d_batched(t(X[None], d), 0.3, 0.3, 2.0,
+                                          2.0)[0]), {"B2.f64"}, 1e-6),
+        "tvp_2d p1.5": (lambda **k: P.tvp_2d(X, 0.3, 0.3, 1.5, 1.5,
+                                             max_iters=35, **k), b1(
+            lambda d: tv2d.tvp_2d_batched(t(X[None], d), 0.3, 0.3, 1.5, 1.5,
+                                          max_iters=35)[0]),
+            {"B2.f64"}, 1e-6),
+        "tvgen": (lambda **k: P.tvgen(V, [0.3] * 3, [1, 2, 3], [1] * 3,
+                                      max_iters=35, **k),
+                  lambda d: tvnd.tvgen_dispatch(t(V, d), [0.3] * 3,
+                                                [1, 2, 3], [1] * 3,
+                                                max_iters=35)[0],
+                  {"B2.f64"}, 1e-6),
+        "tvgen_nd pd": (lambda **k: P.tvgen_nd(V, [0.3] * 3, [1, 2, 3],
+                                               [1.0] * 3, max_iters=35, **k),
+                        b1(lambda d: tvnd.tv_nd_batched(
+                            t(V[None], d), (0.3,) * 3, (1, 2, 3),
+                            (1.0,) * 3, max_iters=35, method="pd")[0]),
+                        {"B2.f64"}, 1e-6),
+        "tv_value": (lambda **k: P.tv_value(V, [0.3, 0.2, 0.4], [1, 2, 3],
+                                            [1.0, 2.0, 1.5], **k),
+                     lambda d: float(tvnd.tv_value(
+                         t(V, d), [0.3, 0.2, 0.4], [1, 2, 3],
+                         [1.0, 2.0, 1.5])), set(), 1e-8),
+    }
+
+
+@pytest.mark.parametrize("entry", ["tv1_1d auto", "tv1_1d auto long",
+                                   "tv1_1d pn", "tv1_1d condat",
+                                   "tv1_1d classictautstring", "tv1_1d dp",
+                                   "tv1w_1d auto", "tv1w_1d dp",
+                                   "tv1w_1d pn", "tv2_1d",
+                                   "tv2_1d ms spectral", "tvp_1d",
+                                   "tv1_2d auto", "tv1w_2d", "tvp_2d p2",
+                                   "tvp_2d p1.5", "tvgen", "tvgen_nd pd",
+                                   "tv_value"])
+def test_api_float64_on_the_card(entry, dev, default64, monkeypatch):
+    """Each entry point of the numpy API under a float64 default on the
+    card: a float64 result, only its route's float64 kernels (no float32
+    kernel, no kernel's plain version on the card), bit for bit with the
+    batched call it wraps on the same input in float64 on the card, and
+    within chip_smoke.py's TOL64 bar of its family of the same call with
+    device="cpu"."""
+    _no_plain_on_the_card(monkeypatch)
+    call, twin, kernels, bar = _api64_cases()[entry]
+    c0 = _all_counts()
+    out = call()
+    torch.cuda.synchronize()
+    c1 = _all_counts()
+    assert {k for k in c0 if c1[k] != c0[k]} == kernels, (c0, c1)
+    ref = call(device="cpu")
+    got = twin(dev)
+    if entry == "tv_value":
+        assert isinstance(out, float) and out == got
+        assert abs(out - ref) <= bar * abs(ref)
+        return
+    assert out.dtype == np.float64
+    np.testing.assert_array_equal(out, got.cpu().numpy())
+    scale = max(1.0, float(np.abs(ref).max()))
+    assert float(np.abs(out - ref).max()) <= bar * scale
+
+
+def test_api_float64_on_the_card_raises_where_jax_does(dev, default64):
+    """Under a float64 default: tvgen_nd with a primal-dual ND method raises
+    the JAX package's error, and the banded 2D driver on a float64 image
+    refuses before any exchange, naming B3; neither launches a kernel."""
+    import proxtv_tpu_torch as P
+    from proxtv_tpu_torch import parallel
+    from proxtv_tpu_torch.parallel.comm import Mesh
+
+    c0 = _all_counts()
+    with pytest.raises(ValueError, match="primal-dual ND methods need"):
+        P.tvgen_nd(np.zeros((4, 8, 8)), [0.3] * 3, [1, 2, 3], [1.0] * 3,
+                   method="chambolle-pock-acc")
+    mesh = Mesh(group=None, axis="x", device=dev)
+    with pytest.raises(ValueError, match="banded driver takes float32 only"):
+        parallel.tv1_2d_banded(np.zeros((64, 64)), 0.3, mesh)
+    assert _all_counts() == c0
+
+
+def test_float32_batches_under_a_float64_default_on_the_card(dev):
+    """A float32 CUDA batch under a float64 default takes the float32 route
+    unchanged: the same kernels with the same launch counts, and bit for
+    bit the output it gives under a float32 default (B1, B3, B4, B5, B6,
+    D1 and the API's float32 call, tv1_2d auto on B3)."""
+    import proxtv_tpu_torch as P
+    from proxtv_tpu_torch.models import tv2d, tvnd
+    from proxtv_tpu_torch.ops import tv1d_l1, tv1d_l2, tv1d_lp
+
+    rng = np.random.RandomState(51)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa
+    Y = f(rng.randn(40, 500) + np.cumsum(rng.randn(40, 500), axis=1) * 0.1)
+    img, vol = f(rng.randn(1, 64, 64)), f(rng.randn(1, 8, 32, 32))
+    lams = [0.5 + 0.05 * i for i in range(40)]
+    X = rng.randn(64, 64)
+    calls = {
+        "pn": lambda: tv1d_l1.tv1_batched(Y, 0.7, method="pn"),
+        "tautstring": lambda: tv1d_l1.tv1_batched(Y, 0.7,
+                                                  method="tautstring",
+                                                  strict=True),
+        "cp-acc": lambda: tv2d.tv1_2d_batched(
+            img, 0.3, method="chambolle-pock-acc")[0],
+        "ms per-row": lambda: tv1d_l2.tv2_batched(Y, lams, method="ms")[0],
+        "gpfw": lambda: tv1d_lp.tvp_batched(Y, lams, 1.5)[0],
+        "cp-acc 3d": lambda: tvnd.tv_nd_batched(
+            vol, (0.3,) * 3, (1, 2, 3), (1.0,) * 3,
+            method="chambolle-pock-acc")[0],
+    }
+    before = torch.get_default_dtype()
+    runs = []
+    try:
+        for default in (torch.float32, torch.float64):
+            torch.set_default_dtype(default)
+            res = {}
+            for name, fn in calls.items():
+                c0 = _all_counts()
+                x = fn()
+                torch.cuda.synchronize()
+                c1 = _all_counts()
+                res[name] = (x.cpu(), {k: c1[k] - c0[k] for k in c0
+                                       if c1[k] != c0[k]})
+            if default == torch.float32:
+                c0 = _all_counts()
+                res["api"] = (torch.from_numpy(P.tv1_2d(X, 0.3)),
+                              {k: v - c0[k] for k, v in _all_counts().items()
+                               if v != c0[k]})
+            runs.append(res)
+    finally:
+        torch.set_default_dtype(before)
+    f32, f64 = runs
+    for name in calls:
+        x32, n32 = f32[name]
+        x64, n64 = f64[name]
+        assert n32 == n64 and n32 and all("." not in k for k in n32), (
+            name, n32, n64)
+        assert x64.dtype == torch.float32 and torch.equal(x32, x64), name
+    assert f32["api"][0].dtype == torch.float32
+    assert set(f32["api"][1]) == {"B3"}

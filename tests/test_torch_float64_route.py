@@ -309,12 +309,13 @@ def test_tv1w_2d_batched_float64_card_route_matches_jax(method, card_route):
 
 
 def test_queued_float64_routes_raise_on_the_card(card_route):
-    """What still refuses float64 on the card: the ND primal-dual methods
-    raise the JAX package's own ValueError (it has no float64 primal-dual
-    ND route; the port's gate says "not this kernel" for pdhg3d, as the
-    JAX gate does), before any kernel or composition runs; the banded 2D
-    and 3D drivers raise naming kernels B3 and B6 before any exchange
-    (their float64 form under the banded driver is queued).  The routes
+    """What refuses float64 on the card, as the JAX package does: the ND
+    primal-dual methods raise the JAX package's own ValueError (it has no
+    float64 primal-dual ND route; the port's gate says "not this kernel"
+    for pdhg3d, as the JAX gate does), before any kernel or composition
+    runs; the banded 2D and 3D drivers raise naming kernels B3 and B6
+    before any exchange (the JAX package's banded drivers take float32
+    only: their kernels write float32).  The routes
     that raised before this slice (D2, TV-L2, TV-Lp, the long windows) are
     held in tests/test_torch_float64_layers.py."""
     from proxtv_tpu.models import tvnd as JN
@@ -344,10 +345,11 @@ def test_queued_float64_routes_raise_on_the_card(card_route):
         "B6": lambda: sharded.tv1_3d_banded(np.zeros((4, 5, 6)), 0.3, mesh),
     }
     for kid, fn in cases.items():
-        with pytest.raises(ValueError, match="float64 form is queued") as e:
+        with pytest.raises(ValueError, match="banded driver takes float32 "
+                           "only") as e:
             fn()
         assert kid[:2] in str(e.value)
     # float32 passes the refusal (its geometry then needs a process group).
-    gating.refuse_queued_f64("tv1_2d_banded", "pdhg2d", "cuda",
+    gating.refuse_banded_f64("tv1_2d_banded", "pdhg2d", "cuda",
                              torch.float32)
-    gating.refuse_queued_f64("tv1_2d_banded", "pdhg2d", "cpu", F64)
+    gating.refuse_banded_f64("tv1_2d_banded", "pdhg2d", "cpu", F64)

@@ -104,16 +104,20 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    B4, B5, D1 and D2 at each of their main-path shapes, by replaying that
    shape's launches (B2's, B4's, B5's, D1-D4's and L1's first held against
    their plain versions on each of them), through the wrapper and, for
-   B1-B6, D1-D4 and L1, through the C entry point; and L1 on a flat and a
-   serpentine 1024^2 image, held against their known labels;
+   B1-B6, D1-D4 and L1, through the C entry point, and B2 beside
+   ``torch.linalg.solve`` on the dense form of one launch's systems (its
+   yardstick, ``pcr_library``); and L1 on a flat and a serpentine 1024^2
+   image, held against their known labels;
 5. profile the main-path calls: device time by kernel and the idle share
    (a window that records none of the port's kernels that the call
    launched is profiled again, up to three windows; then the port's
-   launches of one more call are timed by CUDA events, ``event_busy``);
+   launches of one more call are timed by CUDA events, ``event_busy``,
+   which gives each kernel the profiler missed its own device time);
 6. run the training cells again, untapped: each step's forward and
    backward by CUDA events, its launches (B1, B3, L1), host syncs and label
    trips, and one profiled step a cell; then the redesign queue (each
-   kernel's device time over its main-path launches, less their bounds);
+   kernel's device time over its main-path launches, less their bounds,
+   ``[queue]`` lines; each must read a device time);
 7. float64, the JAX package's float64 route on the card, with B2, D1-D4
    and L1 built in double (``float64_phase``; ``[f64]`` lines): TV-L1,
    ``tv1_batched`` at 10000 x 1000 (D1; dp strict, D2), dp strict on the
@@ -135,7 +139,9 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    and no float32 kernel and running no kernel's plain version on the
    card.  Then each double kernel is held at its main-path launches
    against its float64 plain version (D1-D4 bit for bit, and D1, D3, D4
-   one past their float64 warp layouts; L1's labels bit for bit; the
+   one past their float64 warp layouts, D4 also one past its ring
+   layout; B2 in the float64 layout it takes at each shape, named on its
+   line; L1's labels bit for bit; the
    plain versions of D1-D4 run on the CPU in six worker processes started
    after the build), the outputs against float64 witnesses (the native
    host taut string, the same route in float64 on the CPU, within
@@ -148,8 +154,10 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    the long routes within sqrt(2 gap) of the host taut string, the
    backward within ``TOL64["backward"]``), and each double
    kernel timed through its wrapper and its C entry (``B2.f64`` at each
-   shape, ``D1.f64``-``D4.f64`` and ``L1.f64`` entries of the ``kernels``
-   line, bounds at the float64 rate);
+   shape beside ``torch.linalg.solve``, ``D1.f64``-``D4.f64`` and
+   ``L1.f64`` entries of the ``kernels`` line, bounds at the float64
+   rate); then the float64 queue (``[queue64]`` lines: each double
+   kernel's phase 7 launches times its C entry's time less its bound);
 8. the numpy API in float64 on the card (``api64_phase``; ``[api64]``
    lines): under ``torch.set_default_dtype(torch.float64)`` (restored
    after), every API row of phase 3 at its width (``tv1_2d`` auto, now dr,
@@ -504,10 +512,10 @@ def trip_plain(counter):
 
 def event_busy(fn):
     """Device ms of the port's kernel launches in one call of ``fn``, by
-    CUDA events around each wrapper call.  The events also span the
-    wrapper's own work on the stream before its launch, so this bounds the
-    kernels' time from above and the call's device busy time from below
-    (PyTorch's own ops are not timed)."""
+    CUDA events around each wrapper call: ``(total, {kernel id: ms})``.
+    The events also span the wrapper's own work on the stream before its
+    launch, so this bounds each kernel's time from above and the call's
+    device busy time from below (PyTorch's own ops are not timed)."""
     import torch
 
     pairs, saved = [], []
@@ -516,12 +524,12 @@ def event_busy(fn):
         orig = getattr(mod, attr)
         saved.append((mod, attr, orig))
 
-        def tap(*a, _orig=orig, **kw):
+        def tap(*a, _orig=orig, _kid=kid, **kw):
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             e0.record()
             out = _orig(*a, **kw)
             e1.record()
-            pairs.append((e0, e1))
+            pairs.append((_kid, e0, e1))
             return out
 
         setattr(mod, attr, tap)
@@ -531,7 +539,10 @@ def event_busy(fn):
     finally:
         for mod, attr, orig in saved:
             setattr(mod, attr, orig)
-    return sum(e0.elapsed_time(e1) for e0, e1 in pairs)
+    per = {}
+    for kid, e0, e1 in pairs:
+        per[kid] = per.get(kid, 0.0) + e0.elapsed_time(e1)
+    return sum(per.values()), per
 
 
 def profile_call(fn, windows=3):
@@ -541,9 +552,11 @@ def profile_call(fn, windows=3):
     records none of the port's kernels that the call launched (their
     LAUNCHES counters) is profiled again, up to ``windows``; if none does,
     the busy time is the port's launches in one more call by CUDA events
-    (event_busy, ``busy_source``).  A rank of a world passes ``windows=1``
-    and gets no event timing: one more call would leave its collectives
-    without a partner."""
+    (event_busy, ``busy_source``), and so is the device time (``ours``) of
+    each launched kernel that the profiler did not record
+    (``ours_source``).  A rank of a world passes ``windows=1`` and gets no
+    event timing: one more call would leave its collectives without a
+    partner."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -583,14 +596,23 @@ def profile_call(fn, windows=3):
         if complete:
             break
     busy, source = sum(per.values()), "profiler"
+    ours_source = {kid: "profiler" for kid in ours}
     if not complete:
-        busy, source = ((event_busy(fn), "port kernels by CUDA events")
-                        if windows > 1 and launched else (0.0, "not measured"))
+        if windows > 1 and launched:
+            busy, by_kid = event_busy(fn)
+            source = "port kernels by CUDA events"
+            for kid in launched:
+                if kid not in ours:
+                    ours[kid] = by_kid.get(kid, 0.0)
+                    ours_source[kid] = "CUDA events"
+        else:
+            busy, source = 0.0, "not measured"
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms": wall, "busy_ms": busy, "kernels": n,
             "windows": window, "busy_source": source,
             "idle_share": (1.0 - busy / wall) if busy > 0 else "not measured",
-            "top": [(k[:60], v) for k, v in top], "ours": ours}
+            "top": [(k[:60], v) for k, v in top], "ours": ours,
+            "ours_source": ours_source}
 
 
 # The __global__ functions of each kernel, as the profiler names them.
@@ -1233,6 +1255,55 @@ def bound_ms(nbytes, flops, peak_flop_s=PEAK_F32_FLOP_S):
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+# The most bytes of dense matrices torch.linalg.solve is given as B2's
+# yardstick (its LU copies them once more).
+DENSE_FIT_BYTES = 30e9
+
+
+def pcr_library(rhs, mask=None, diag_shift=None):
+    """B2's yardstick: ms of torch.linalg.solve on the dense (B, n, n) form
+    of one launch's systems (``pcr.pcr_spd_solve_plain``'s: DD' plus the
+    shift, masked rows identity rows with zero right-hand side, a coupling
+    only between two unmasked rows), the matrices made outside the timed
+    window; ``(ms, None)``, or ``(None, why)`` where they do not fit on the
+    card.  The port never calls it."""
+    import torch
+
+    from proxtv_tpu_torch.ops.kernels import pcr
+
+    B, n = rhs.shape
+    need = B * n * n * rhs.element_size()
+    if need > DENSE_FIT_BYTES:
+        return None, (f"does not fit: {need / 1e9:.1f} GB of dense "
+                      f"{rhs.dtype} matrices a launch")
+    if mask is None:
+        diag = torch.full_like(rhs, 2.0)
+        if diag_shift is not None:
+            diag = diag + diag_shift.to(rhs.dtype).reshape(-1, 1)
+        off = torch.full((B, n - 1), -1.0, dtype=rhs.dtype,
+                         device=rhs.device)
+        r = rhs
+    else:
+        m = mask.to(rhs.dtype)
+        diag, off, r = 1.0 + m, -(m[:, 1:] * m[:, :-1]), m * rhs
+    A = (torch.diag_embed(diag) + torch.diag_embed(off, 1)
+         + torch.diag_embed(off, -1))
+    b = r.unsqueeze(-1)
+    # Its first system in float64 against B2's float64 plain version.
+    x = torch.linalg.solve(A[:1].double(), b[:1].double())[..., 0]
+    ref = pcr.pcr_spd_solve_plain(
+        rhs[:1].double(), mask=None if mask is None else mask[:1],
+        diag_shift=None if diag_shift is None else diag_shift[:1].double())
+    check(float((x - ref).abs().max()) <= 1e-8 * max(
+        1.0, float(ref.abs().max())), "the dense yardstick solves another "
+          "system than B2")
+    ms = cuda_ms(lambda: torch.linalg.solve(A, b), target_s=0.3,
+                 max_reps=50)
+    del A, b
+    torch.cuda.empty_cache()
+    return ms, None
+
+
 def obj2d(X, Y, lam):
     """The 2D TV-L1 prox objective of X for Y at lam, in float64."""
     X = X.astype(np.float64)
@@ -1500,7 +1571,8 @@ def start_cpu64(arrays, wmax):
     versions of D1 and D2 (10000 x 1000), D3 and D4 (512 x 1000) at lam
     LAM1D on the main path's rows in float64, D2's on the
     per-edge-weighted 512 x 1000 batch, D4's on ROADMAP C's walk, D1, D3
-    and D4 on two walks one past their float64 warp layouts (``wmax``), dr
+    and D4 on two walks one past their float64 warp layouts (``wmax``), D4
+    on one walk one past its float64 ring layout (``wmax["D4 thread"]``), dr
     on the 256^2 image, and every row of :func:`_route64_table` held
     against the CPU.  ``arrays``: the main path's Y1, Ww, ylong, Y2, Y5
     and V.  Returns the float64 inputs and the pending results."""
@@ -1516,6 +1588,11 @@ def start_cpu64(arrays, wmax):
            "walk": (np.cumsum(rng15.randn(N_WALK64)) * 0.3
                     + rng15.randn(N_WALK64))[None]}
     for kid, n in wmax.items():
+        if kid == "D4 thread":  # one signal, from its own seed
+            r_ = np.random.RandomState(SEED + 10)
+            inp["cross " + kid] = (r_.randn(1, n + 1) + np.cumsum(
+                r_.randn(1, n + 1), axis=1) * 0.1)
+            continue
         inp["cross " + kid] = (rng.randn(2, n + 1)
                                + np.cumsum(rng.randn(2, n + 1), axis=1) * 0.1)
     inp["V_small"] = rng.randn(*V64_SMALL)
@@ -1539,6 +1616,8 @@ def start_cpu64(arrays, wmax):
         if key not in jobs and row.hold not in ("D2", "phase3"):
             jobs[key] = pool.apply_async(_cpu_job, (
                 "route", key, [inp[k] for k in row.inputs], 1))
+    jobs["cross D4 thread"] = pool.apply_async(
+        _cpu_job, (plain["D4"], inp["cross D4 thread"], LAM1D))
     for kid, name in plain.items():  # the slowest (D4) first
         jobs["cross " + kid] = pool.apply_async(
             _cpu_job, (name, inp["cross " + kid], LAM1D))
@@ -1814,8 +1893,20 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
         out = getattr(D[kid], fns[kid])(t(y), LAM1D)
         torch.cuda.synchronize()
         ref, _ = cpu["cross " + kid]
-        bit_hold(kid, y, out, ref, f"thread layout {y.shape[0]}x"
-                 f"{y.shape[1]} (warp layout to {wmax[kid]})")
+        bit_hold(kid, y, out, ref, (
+            f"ring layout {y.shape[0]}x{y.shape[1]} (warp layout to "
+            f"{wmax[kid]}, ring to {D['D4'].ring_max_n()})"
+            if kid == "D4" else f"thread layout {y.shape[0]}x{y.shape[1]} "
+            f"(warp layout to {wmax[kid]})"))
+    # D4's thread layout, one past its ring layout.
+    y = inp["cross D4 thread"]
+    check(y.shape[1] == D["D4"].ring_max_n() + 1, "the crossing is not "
+          "one past D4's float64 ring layout")
+    out = D["D4"].classic_ts(t(y), LAM1D)
+    torch.cuda.synchronize()
+    bit_hold("D4", y, out, cpu["cross D4 thread"][0],
+             f"thread layout {y.shape[0]}x{y.shape[1]} (ring layout to "
+             f"{D['D4'].ring_max_n()})")
     check(native.available(), "the native host engine did not build")
     t0 = time.perf_counter()
     host = {"Y1": native.tv1_batch_host(inp["Y1"], LAM1D),
@@ -2090,8 +2181,8 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
                   "B2.f64's C entry point and its wrapper disagree")
             launchers.append(launch)
         print(f"[f64 B2] main path {Bs}x{ns} ({count} launches, {len(kept)} "
-              f"held): max|kernel - plain| / max|plain| = {worst:.3e} (bar "
-              f"{TOL64['pcr']})")
+              f"held, layout {B2.layout_f64(ns)}): max|kernel - plain| / "
+              f"max|plain| = {worst:.3e} (bar {TOL64['pcr']})")
         check(worst <= TOL64["pcr"], f"B2.f64 {Bs}x{ns} disagrees")
 
         def replay(fn, kept=kept):
@@ -2110,13 +2201,15 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
                      + (Bs * 8 if s_ is not None else 0)
                      for _, m_, s_ in kept) / len(kept)
         b, f = bound_ms(nbytes, Bs * ns * TRIDIAG_OPS, PEAK_F64_FLOP_S)
+        lib_ms, lib_note = pcr_library(*kept[0])
         kern.append(dict(
             name=f"B2.f64 pcr_spd_solve_f64 ({Bs}x{ns})", route="cuda",
             source="proxtv_tpu_torch/csrc/pcr.cu",
             replaces="proxtv_tpu/ops/kernels/pcr.py:100",
             launches=count, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-            bound_ms=b, bound_by=f, library_ms=None, kernel_ms=kernel_ms,
-            dtype="float64"))
+            bound_ms=b, bound_by=f, library_ms=lib_ms, library_note=lib_note,
+            library_call="torch.linalg.solve, dense, first launch",
+            kernel_ms=kernel_ms, dtype="float64", layout=B2.layout_f64(ns)))
     check(sum(k_["launches"] for k_ in kern) == launches["B2.f64"],
           "the B2.f64 tap missed main-path launches")
 
@@ -2148,6 +2241,10 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
         if kid == "D2":
             what += (", warp layout" if D["D2"].warp_layout(
                 Bs, ns, torch.is_tensor(lam), f64) else ", thread layout")
+        if kid == "D4":
+            what += (", warp layout" if ns <= D["D4"].warp_max_n(f64)
+                     else ", ring layout" if ns <= D["D4"].ring_max_n()
+                     else ", thread layout")
         kern.append(dict(
             name=f"{kid}.f64 {fns[kid]}_tv1_f64 ({what})",
             route="cuda", source=f"proxtv_tpu_torch/csrc/{src}.cu",
@@ -2204,9 +2301,13 @@ def float64_phase(card, inp, jobs, Y2, y1, x_ref, F_ref, x_dr32, more):
               f"{kid}.f64: {n_kern} timed launches, "
               f"{launches[kid + '.f64']} on the path")
     for k_ in kern:
+        lib = ("" if "library_call" not in k_ else
+               f", torch.linalg.solve {k_['library_ms']:.4f} ms"
+               if k_["library_ms"] is not None else
+               f", torch.linalg.solve {k_['library_note']}")
         print(f"[f64 time] {k_['name']}: wrapper {k_['ms']:.4f} ms, C entry "
               f"{k_['kernel_ms']:.4f} ms, bound {k_['bound_ms']:.6f} ms "
-              f"({k_['bound_by']}), plain "
+              f"({k_['bound_by']}){lib}, plain "
               + f"{k_['plain_ms']:.1f} ms"
               + (" (CPU)" if k_.get("plain_device") == "cpu" else "")
               + f", launches {k_['launches']}  ({card})")
@@ -2692,8 +2793,9 @@ def main(out_dir):
     # The float64 phase's CPU references start now, in worker processes.
     inp64, jobs64 = start_cpu64(dict(Y1=Y1, Ww=Ww, ylong=ylong, Y2=Y2,
                                      Y5=Y5, V=V), {
-        kid: kernel_module(kid).warp_max_n(torch.float64)
-        for kid in ("D1", "D3", "D4")})
+        **{kid: kernel_module(kid).warp_max_n(torch.float64)
+           for kid in ("D1", "D3", "D4")},
+        "D4 thread": kernel_module("D4").ring_max_n()})
 
     # -- 2. kernels vs plain versions at main-path shapes -----------------
     d = t((0.01 * rng.randn(B1D, N1D)).astype(np.float32))
@@ -4549,6 +4651,7 @@ def main(out_dir):
         b, f = bound_ms(nbytes, Bs * ns * (TRIDIAG_OPS + extra))
         b_pcr, f_pcr = bound_ms(nbytes, Bs * ns * (
             PCR_OPS_PER_STEP * math.ceil(math.log2(ns)) + 5))
+        lib_ms, lib_note = pcr_library(*calls[0][1:])
         kern.append(dict(
             name=f"B2 pcr_spd_solve ({Bs}x{ns} {'/'.join(kinds)}, "
                  f"{', '.join(paths)})",
@@ -4558,8 +4661,9 @@ def main(out_dir):
             launches_by_path={p_: sum(1 for c in calls if c[0] == p_)
                               for p_ in paths},
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=f, library_ms=None, kernel_ms=kernel_ms,
-            bound_ms_pcr=b_pcr, bound_by_pcr=f_pcr))
+            bound_by=f, library_ms=lib_ms, library_note=lib_note,
+            library_call="torch.linalg.solve, dense, first launch",
+            kernel_ms=kernel_ms, bound_ms_pcr=b_pcr, bound_by_pcr=f_pcr))
     # B1 at each main-path shape: the path's own launches replayed in order
     # (ms per launch through the wrapper; kernel_ms through the C entry
     # point with each launch's arguments made once, pn_fused.bind); the
@@ -5023,7 +5127,10 @@ def main(out_dir):
     report["l1_stress"] = l1_stress
     for k_ in kern:
         extra = "".join(f", {key} {k_[key]:.4f} ms" for key in (
-            "kernel_ms", "bound_ms_pcr") if key in k_)
+            "kernel_ms", "bound_ms_pcr", "library_ms")
+            if k_.get(key) is not None)
+        if k_.get("library_note"):
+            extra += f", library {k_['library_note']}"
         print(f"[kernel] {k_['name']}: {k_['ms']:.4f} ms (plain "
               f"{k_['plain_ms']:.4f} ms, bound {k_['bound_ms']:.4f} ms by "
               f"{k_['bound_by']}{extra}), {k_['launches']} launches on the "
@@ -5168,15 +5275,20 @@ def main(out_dir):
     # B6).  L1 runs only in the training cells' backwards: its device time
     # is the profiled step's (one launch, phase 6) times the cell's
     # main-path launches.
+    # A kernel that no profiler window recorded is timed by CUDA events
+    # around its wrapper calls (profile_call; "events" on its line).
     at_shape = {"B6": sum(by_path["B6"].values())}
     queue = {}
     for kid in counters:
-        dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in (
-            *breakdown.values(), *dist_prof.values(), *f_prof.values()))
+        profs = (*breakdown.values(), *dist_prof.values(), *f_prof.values())
+        dev_ms = sum(b_["ours"].get(kid, 0.0) for b_ in profs)
+        src = {b_.get("ours_source", {}).get(kid) for b_ in profs} - {None}
         if kid == "L1":
             dev_ms = sum(v["profile"]["ours"].get("L1", 0.0)
                          * by_path["L1"].get(train_main[c_]["path"], 0)
                          for c_, v in train_times.items())
+            src = {v["profile"].get("ours_source", {}).get("L1")
+                   for v in train_times.values()} - {None}
         per_shape = kid in ("B1", "B2", "B3", "B4", "B5", "D1", "D2", "D3",
                             "D4", "L1")
         bnd = sum(k_["bound_ms"] * (k_["launches"] if per_shape
@@ -5184,11 +5296,16 @@ def main(out_dir):
                   for k_ in kern if k_["name"].startswith(kid + " "))
         queue[kid] = {"device_ms": dev_ms, "bound_ms": bnd,
                       "gap_ms": dev_ms - bnd,
-                      "launches": sum(by_path[kid].values())}
+                      "launches": sum(by_path[kid].values()),
+                      "source": sorted(src)}
     for kid, q in sorted(queue.items(), key=lambda kv: -kv[1]["gap_ms"]):
         print(f"[queue] {kid}: {q['device_ms']:.4f} ms of device time over "
               f"{q['launches']} main-path launches, bounds {q['bound_ms']:.4f}"
-              f" ms: {q['gap_ms']:.4f} ms over  ({card})")
+              f" ms: {q['gap_ms']:.4f} ms over ("
+              + (" and ".join(q["source"]) or "no profiled call")
+              + f")  ({card})")
+        check(q["launches"] == 0 or q["device_ms"] > 0,
+              f"[queue] {kid}: no device time over its main-path launches")
 
     stamp("phase 6 done")
     # -- 7. float64 on the card ------------------------------------------
@@ -5201,6 +5318,21 @@ def main(out_dir):
                 "F_minus_F_ref"]))
     kern += kern64
     stop_pools()
+    # The float64 queue: each double kernel's phase 7 launches times its C
+    # entry's time less its bound, summed over its shapes.
+    queue64 = {}
+    for k_ in kern64:
+        kid = k_["name"].split(" ", 1)[0]
+        q = queue64.setdefault(kid, {"gap_ms": 0.0, "launches": 0,
+                                     "shapes": 0})
+        q["gap_ms"] += k_["launches"] * (k_["kernel_ms"] - k_["bound_ms"])
+        q["launches"] += k_["launches"]
+        q["shapes"] += 1
+    for kid, q in sorted(queue64.items(), key=lambda kv: -kv[1]["gap_ms"]):
+        print(f"[queue64] {kid}: {q['launches']} phase-7 launches x (C entry "
+              f"- bound), over {q['shapes']} shapes: {q['gap_ms']:.4f} ms  "
+              f"({card})")
+    report["queue64"] = queue64
     stamp("phase 7 done")
     # -- 8. the numpy API in float64 on the card --------------------------
     report["api64"] = api64_phase(card, ptv, dict(

@@ -44,6 +44,13 @@ _SIGNATURES = {
     # rhs, mask (u8 or NULL), shift (or NULL), out, B, n, stream
     "pcr_spd_solve": (_P, _P, _P, _P, _I, _I, _P),
     "pcr_spd_solve_f64": (_P, _P, _P, _P, _I, _I, _P),
+    # the same, and the float64 layout's number
+    "pcr_spd_solve_f64_layout": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # layout -> its longest n (0 past the last); n -> its layout's number
+    "pcr_f64_layout_max_n": (_I,),
+    "pcr_f64_layout_of": (_I,),
+    # stream: an empty kernel's launch
+    "pcr_empty_launch": (_P,),
     # y, lam_field (or NULL), lam_scalar, w0 (or NULL), x, w (or NULL), iters
     # (or NULL), B, n, max_iters, max_armijo, sigma, stop_rel, tol_eps,
     # head_steps, stream
@@ -92,7 +99,7 @@ _SIGNATURES = {
     "condat_tv1": (_P, _P, _I, _F, _P, _I, _I, _P),
     "condat_tv1_f64": (_P, _P, _I, _D, _P, _I, _I, _P),
     # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, ws
-    # (the thread layout's workspace, or NULL), B, n, stream
+    # (the workspace past the warp layout, or NULL), B, n, stream
     "classic_ts_tv1": (_P, _P, _I, _F, _P, _P, _I, _I, _P),
     "classic_ts_tv1_f64": (_P, _P, _I, _D, _P, _P, _I, _I, _P),
     # the same with the most events a signal runs (a test of D4's cap)
@@ -105,6 +112,8 @@ _SIGNATURES = {
     "condat_warp_max_n_f64": (),
     "classic_ts_warp_max_n": (),
     "classic_ts_warp_max_n_f64": (),
+    # the longest n of D4's float64 ring layout
+    "classic_ts_ring_max_n_f64": (),
     # X, tol, labels (the output and the parent array), B, M, N, stream
     "component_labels": (_P, _P, _P, _I, _I, _I, _P),
     "component_labels_f64": (_P, _P, _P, _I, _I, _I, _P),
@@ -183,8 +192,9 @@ def lib():
                 fn = getattr(handle, name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
-            handle.proxtv_error_string.argtypes = [ctypes.c_int]
-            handle.proxtv_error_string.restype = ctypes.c_char_p
+            for name in ("proxtv_error_string", "pcr_f64_layout_name"):
+                getattr(handle, name).argtypes = [ctypes.c_int]
+                getattr(handle, name).restype = ctypes.c_char_p
             _lib = handle
     return _lib
 

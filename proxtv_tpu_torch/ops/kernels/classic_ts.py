@@ -5,14 +5,19 @@ No TPU kernel: it replaces the JAX package's XLA lock-step deque machine
 ``proxtv_tpu/ops/tv1d_l1.py:tv1_classic_ts``; the CUDA source is
 ``proxtv_tpu_torch/csrc/classic_ts.cu``, which runs the same hull events as
 one sequential pass a sample per signal.  Up to n = :func:`warp_max_n`
-(6280 in float32, 3182 in float64) a warp runs a signal, its two deques, y
+(6280 in float32, 4741 in float64) a warp runs a signal, its two deques, y
 and the runs' marks in shared memory, and writes x after the chain by the
-plain version's forward fill; past it one thread runs a signal, its deques
-in a workspace that the wrapper allocates once per call (2 x (n + 2) x B
-slots of 16 bytes in float32, 32 in float64, interleaved by signal).  The
-kernel is built for float32 and for float64 (whose tube is built from
-float64 prefix sums); :data:`LAUNCHES` counts the float32 launches,
-:data:`LAUNCHES_F64` the float64 ones.
+plain version's forward fill.  In float64, up to n = :func:`ring_max_n`
+(23549) a warp still runs a signal, each deque in a ring of 512 slots in
+shared memory (a signal whose deque outgrows its ring runs again with its
+deques in a workspace).  Past those one thread runs a signal, its deques
+in the workspace.  The wrapper allocates the workspace
+once per call past :func:`warp_max_n`: 2 x (n + 2) x B slots of 16 bytes
+in float32, interleaved by signal, and of 20 bytes in float64 (a slot's
+rise and slope as two doubles, then its length as an int32, in two
+arrays).  The kernel is built for float32 and for float64 (whose tube is
+built from float64 prefix sums); :data:`LAUNCHES` counts the float32
+launches, :data:`LAUNCHES_F64` the float64 ones.
 
 :func:`classic_ts` launches the kernel for a CUDA tensor and runs
 :func:`~proxtv_tpu_torch.ops.tv1d_l1.tv1_classic_ts_plain` for a CPU
@@ -35,13 +40,26 @@ REF = "reference classicTautString_TV1, src/TVL1opt_tautstring.cpp:256,"
 
 def warp_max_n(dtype=torch.float32):
     """The longest signal of the warp layout in ``dtype``, which needs no
-    workspace (``csrc/classic_ts.cu`` kWarpMaxN)."""
+    workspace (``csrc/classic_ts.cu`` kWarpMaxN, kWarpMaxN64)."""
     return getattr(build.lib(), entry("classic_ts_warp_max_n", dtype))()
+
+
+def ring_max_n():
+    """The longest float64 signal that a warp still runs, its deques in
+    rings in shared memory (the ring layout; ``csrc/classic_ts.cu``
+    kRingMaxN64).  Past it one thread runs a signal."""
+    return build.lib().classic_ts_ring_max_n_f64()
+
+
+def workspace_bytes(B, n, dtype):
+    """The bytes of the workspace that a (B, n) batch of ``dtype`` takes
+    past :func:`warp_max_n`: two deques of (n + 2) x B slots."""
+    return 2 * (n + 2) * B * (16 if dtype == torch.float32 else 20)
 
 
 def bind(y, lam, cap=None):
     """The C entry point's call for a CUDA batch, its arguments and its
-    workspace (the thread layout's, past :func:`warp_max_n`) made once.
+    workspace (past :func:`warp_max_n`) made once.
     Returns ``(out, launch)`` as :func:`.tautstring.bind`; ``launch`` does
     not count in :data:`LAUNCHES`.  Raises when the workspace does not fit
     on the card.  ``cap``: the most events a signal runs, for a test of
@@ -55,15 +73,15 @@ def bind(y, lam, cap=None):
     ws = None
     wmax = warp_max_n(y.dtype)
     if n > wmax:
-        try:  # two deques of (n + 2) x B slots (ix, iy, slope, ix as y's)
-            ws = torch.empty((2, n + 2, B, 4), dtype=y.dtype,
-                             device=y.device)
+        nbytes = workspace_bytes(B, n, y.dtype)
+        try:
+            ws = torch.empty(nbytes, dtype=torch.uint8, device=y.device)
         except torch.cuda.OutOfMemoryError as e:
             raise RuntimeError(
                 f"the classic taut-string kernel needs a workspace of "
-                f"{8 * y.element_size() * (n + 2) * B} bytes for a ({B}, "
-                f"{n}) {y.dtype} batch past its warp layout (n > {wmax}); "
-                "it does not fit on the card: split the batch") from e
+                f"{nbytes} bytes for a ({B}, {n}) {y.dtype} batch past its "
+                f"warp layout (n > {wmax}); it does not fit on the card: "
+                "split the batch") from e
     args = (build.ptr(y), build.ptr(lamv), rs, lam_s, build.ptr(out),
             build.ptr(ws), B, n)
     stream = build.stream_ptr(y.device)

@@ -8,7 +8,8 @@ solves each row exactly in O(n) (each lane's chunk in registers, the lanes'
 and warps' interface rows by PCR over shuffles, one step of iterative
 refinement), so it rounds differently from the plain version and lands
 closer to the float64 solution.  The kernel is built for float32 and for
-float64 (the Newton systems of ``tv1_pn`` on a float64 batch);
+float64 (the Newton systems of ``tv1_pn`` on a float64 batch), which has
+layouts of its own (:func:`layouts_f64`: short rows one thread a row);
 :data:`LAUNCHES` counts the float32 launches, :data:`LAUNCHES_F64` the
 float64 ones.
 
@@ -78,14 +79,32 @@ def pcr_spd_solve_plain(rhs, mask=None, diag_shift=None):
     return _pcr_body(a, b, c, rhs, n)
 
 
-def bind(rhs, mask=None, diag_shift=None):
+def layouts_f64():
+    """The float64 instantiation's layouts: ``{name: longest n}`` in the
+    kernel's order (``csrc/pcr.cu`` kLayouts64)."""
+    lib, out, i = build.lib(), {}, 0
+    while lib.pcr_f64_layout_name(i) is not None:
+        out[lib.pcr_f64_layout_name(i).decode()] = lib.pcr_f64_layout_max_n(i)
+        i += 1
+    return out
+
+
+def layout_f64(n):
+    """The name of the float64 layout that a system of n takes."""
+    lib = build.lib()
+    return lib.pcr_f64_layout_name(lib.pcr_f64_layout_of(n)).decode()
+
+
+def bind(rhs, mask=None, diag_shift=None, layout=None):
     """The C entry point's call for a CUDA batch, its arguments made once.
 
     Checks the arguments as :func:`pcr_spd_solve` does and allocates the
     output.  Returns ``(out, launch)``: each ``launch()`` runs the kernel
     into ``out`` and raises on a refused launch.  ``launch`` does not count
     in :data:`LAUNCHES`; timing tools call it to time the kernel without the
-    wrapper's host work."""
+    wrapper's host work.  ``layout``: a float64 batch in the named layout
+    of :func:`layouts_f64` instead of its own (for tools and tests that
+    compare the layouts)."""
     if mask is not None and diag_shift is not None:
         raise ValueError("pcr_spd_solve takes a mask or a shift, not both")
     if not rhs.is_cuda:
@@ -113,6 +132,13 @@ def bind(rhs, mask=None, diag_shift=None):
             n, build.stream_ptr(rhs.device))
     name = ("pcr_spd_solve_f64" if rhs.dtype == torch.float64
             else "pcr_spd_solve")
+    if layout is not None:
+        names = list(layouts_f64())
+        if rhs.dtype != torch.float64 or layout not in names:
+            raise ValueError(f"layout {layout!r} names none of the float64 "
+                             f"layouts {names}")
+        name += "_layout"
+        args = args[:-1] + (names.index(layout), args[-1])
 
     # keep: every tensor the pointers name, the output too: a caller may
     # drop it and launch again.

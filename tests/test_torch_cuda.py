@@ -2002,10 +2002,11 @@ def _f64_rows(rng, B, n):
 
 def test_float64_thresholds_and_counters(dev):
     """Each float64 warp layout ends at its own n (D1 and D3 at 8192, half
-    their float32 16384; D4 at 3182, the longest whose double deques fit a
-    block; D2 at 5808, its 40n bytes a signal in a block, and for at most
-    four waves), the float32 ones where they were; a float32 launch counts
-    in LAUNCHES and a float64 one in LAUNCHES_F64 only, L1's too."""
+    their float32 16384; D4 at 4741, the longest whose 20-byte double slots
+    fit a block, and its ring layout at 23549; D2 at 5808, its 40n bytes a
+    signal in a block, and for at most four waves), the float32 ones where
+    they were; a float32 launch counts in LAUNCHES and a float64 one in
+    LAUNCHES_F64 only, L1's too."""
     from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
     from proxtv_tpu_torch.ops.kernels import condat as CDK
     from proxtv_tpu_torch.ops.kernels import dp as DPK
@@ -2014,8 +2015,9 @@ def test_float64_thresholds_and_counters(dev):
     assert (TSK.warp_max_n(), CDK.warp_max_n(), CTK.warp_max_n(),
             DPK.warp_max_n()) == (16384, 16384, 6280, 8192)
     assert (TSK.warp_max_n(f64), CDK.warp_max_n(f64),
-            CTK.warp_max_n(f64), DPK.warp_max_n(f64)) == (8192, 8192, 3182,
+            CTK.warp_max_n(f64), DPK.warp_max_n(f64)) == (8192, 8192, 4741,
                                                           5808)
+    assert CTK.ring_max_n() == 23549
     for dt, top in ((torch.float32, 8192), (f64, 5808)):
         for edge in (False, True):
             assert DPK.warp_layout(1, top, edge, dt)
@@ -2115,6 +2117,76 @@ def test_pcr_kernel_f64_matches_plain(n, dev):
             atol=bar * max(1.0, float(np.abs(ref).max())), err_msg=str(kw))
 
 
+def _pcr_f64_cases(rng, B, n):
+    """Plain, masked (long runs) and shifted float64 systems of (B, n)."""
+    d = torch.from_numpy(0.01 * rng.randn(B, n))
+    return d, ({}, {"mask": _pcr_masks(rng, B, n)},
+               {"diag_shift": torch.from_numpy(rng.rand(B) + 0.5)})
+
+
+@pytest.mark.parametrize("B,n", [(4099, 2), (4099, 3), (4099, 31),
+                                 (4099, 32), (4099, 33), (300, 255),
+                                 (300, 256), (300, 257), (64, 512),
+                                 (64, 513), (64, 1023), (64, 1024),
+                                 (64, 1025)])
+def test_pcr_f64_layout_edges(B, n, dev):
+    """B2 in float64 through its wrapper at the edges of its layouts (the
+    row layout, one thread a row, to n = 32; one warp a row to 256; the
+    block layouts above, the staged E8W4s from 513 to 1024), on batches
+    that leave a block part full: plain, masked and shifted within 1e-10
+    of the solution's size of the float64 plain version, as
+    test_pcr_kernel_f64_matches_plain."""
+    rng = np.random.RandomState(7 * n + B)
+    d, kws = _pcr_f64_cases(rng, B, n)
+    bar = 1e-10 * max(1.0, (n / 1000) ** 2)
+    for kw in kws:
+        ref = PK.pcr_spd_solve_plain(d, **kw).numpy()
+        before = PK.LAUNCHES_F64.value
+        out = PK.pcr_spd_solve(d.to(dev), **{k: v.to(dev)
+                                             for k, v in kw.items()})
+        torch.cuda.synchronize()
+        assert PK.LAUNCHES_F64.value == before + 1
+        np.testing.assert_allclose(
+            out.cpu().numpy(), ref, rtol=0,
+            atol=bar * max(1.0, float(np.abs(ref).max())),
+            err_msg=f"{PK.layout_f64(n)} {list(kw)}")
+
+
+def test_pcr_f64_every_layout_matches_plain(dev):
+    """Each float64 layout of B2 (``pcr.layouts_f64``), forced through
+    ``bind(layout=...)`` at n = 2, 31 and its longest n, B = 7: plain,
+    masked and shifted within the bar of test_pcr_kernel_f64_matches_plain
+    of the float64 plain version; each n takes the first layout that
+    covers it; a layout named for a float32 batch or past its longest n
+    raises."""
+    layouts = PK.layouts_f64()
+    assert list(layouts) == ["rows", "E4W1", "E8W1", "E8W2", "E8W4s",
+                             "E8W8", "E8W16", "E16W16"]
+    assert [PK.layout_f64(n) for n in (32, 33, 1024, 1025, 8192)] == [
+        "rows", "E4W1", "E8W4s", "E8W8", "E16W16"]
+    for name, top in layouts.items():
+        for n in sorted({2, min(31, top), top}):
+            rng = np.random.RandomState(n)
+            d, kws = _pcr_f64_cases(rng, 7, n)
+            bar = 1e-10 * max(1.0, (n / 1000) ** 2)
+            for kw in kws:
+                ref = PK.pcr_spd_solve_plain(d, **kw).numpy()
+                out, launch = PK.bind(d.to(dev), layout=name,
+                                      **{k: v.to(dev) for k, v in kw.items()})
+                launch()
+                torch.cuda.synchronize()
+                np.testing.assert_allclose(
+                    out.cpu().numpy(), ref, rtol=0,
+                    atol=bar * max(1.0, float(np.abs(ref).max())),
+                    err_msg=f"{name} n={n} {list(kw)}")
+    with pytest.raises(ValueError):
+        PK.bind(torch.zeros((2, 8), device=dev), layout="rows")
+    out, launch = PK.bind(torch.zeros((2, 33), dtype=torch.float64,
+                                      device=dev), layout="rows")
+    with pytest.raises(RuntimeError):
+        launch()
+
+
 def test_pcr_f64_composes_past_its_lane_limit(dev):
     """Past n = 8192 a float64 system takes the composition the JAX package
     runs there (its XLA pcr_solve) on the card, as float32 does: no B2
@@ -2162,6 +2234,32 @@ def test_tv1_batched_float64_routes_on_the_card(method, dev, monkeypatch):
         bar = 5e-4 if method == "pn" else 1e-12 * float(np.abs(Y).max())
         np.testing.assert_allclose(x.cpu().numpy(), ref.numpy(), atol=bar,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("case", ["ring overrun", "ring_max_n",
+                                  "ring_max_n + 1"])
+def test_classic_ts_f64_ring_and_thread_layouts(case, dev):
+    """D4 in float64 past its warp layout, bit for bit with its float64
+    plain version (on the CPU): the ring layout (each deque in a ring of
+    512 slots) on a ramp whose minorant holds 896 segments, which
+    overflows its ring, so the warp runs the signal again with its deques
+    in the workspace (tools/classic_ts_depths.py), at its longest n, and
+    the thread layout one past it."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
+
+    if case == "ring overrun":
+        y, lam = np.linspace(0.0, 30.0, 6000)[None], 1000.0
+    else:
+        n = CTK.ring_max_n() + case.endswith("+ 1")
+        y, _ = _f64_rows(np.random.RandomState(n), 1, n)
+        lam = 0.7
+    before = CTK.LAUNCHES_F64.value
+    out = CTK.classic_ts(torch.from_numpy(y).to(dev), lam)
+    torch.cuda.synchronize()
+    assert CTK.LAUNCHES_F64.value == before + 1
+    ref = tv1d_l1.tv1_classic_ts_plain(torch.from_numpy(y), lam).numpy()
+    np.testing.assert_array_equal(out.cpu().numpy(), ref)
 
 
 def test_classic_ts_f64_on_the_long_walk(dev):

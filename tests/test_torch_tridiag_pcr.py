@@ -132,3 +132,30 @@ def test_bind_refuses_a_cpu_batch():
     before anything is built or launched."""
     with pytest.raises(ValueError):
         PK.bind(torch.zeros((2, 8)))
+
+
+@pytest.mark.parametrize("n", [2, 3, 31, 32, 33, 64, 255])
+@pytest.mark.parametrize("mode", ["plain", "masked", "shifted"])
+def test_pcr_plain_matches_jax_solve_at_the_float64_layout_edges(mode, n):
+    """B2's plain version, which the card holds the float64 kernel against
+    (within 1e-10 of the solution's size), against the JAX package's
+    ``spd_second_difference_solve`` in float64 at the float64 layouts'
+    edges (the row layout's last n and one past it, the one-warp
+    layouts'): within 1e-12 of the solution's size."""
+    rng = np.random.RandomState(100 + n)
+    B = 6
+    d = 0.01 * rng.randn(B, n)
+    mask = rng.rand(B, n) > 0.3
+    mask[0] = True
+    sh = rng.rand(B) + 0.5
+    kw_j, kw_p = {}, {}
+    if mode == "masked":
+        kw_j["mask"], kw_p["mask"] = jnp.asarray(mask), torch.from_numpy(mask)
+    if mode == "shifted":
+        kw_j["diag_shift"] = jnp.asarray(sh[:, None])
+        kw_p["diag_shift"] = torch.from_numpy(sh)
+    xj = np.asarray(JT.spd_second_difference_solve(jnp.asarray(d), **kw_j))
+    xp = PK.pcr_spd_solve(torch.from_numpy(d), **kw_p)
+    assert xp.dtype == torch.float64
+    np.testing.assert_allclose(xp.numpy(), xj, rtol=0,
+                               atol=1e-12 * max(1.0, float(np.abs(xj).max())))

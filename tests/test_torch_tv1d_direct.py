@@ -360,3 +360,19 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
     assert not any(p.name.endswith(".so") for p in tmp_path.rglob("*"))
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     assert PN.available() is False
+
+
+@pytest.mark.parametrize("n", [3183, 4742])
+def test_classic_ts_plain_matches_jax_at_the_float64_layout_edges(n):
+    """Kernel D4's plain version, which the card holds the float64 kernel
+    against bit for bit, against the JAX package's float64
+    ``tv1_classic_ts`` one signal one past the old float64 warp layout
+    (3182) and one past the new one (4741, the longest signal whose 20-byte
+    slots fit a block: the ring layout's first n), within 1e-12.  The
+    plain version's lock-step scan takes 15-30 s a signal here."""
+    rng, Y = _signals(n, 1, n)
+    lam = float(rng.rand() + 0.3)
+    xj = np.asarray(J.tv1_classic_ts(jnp.asarray(Y), lam))
+    xp = P.tv1_classic_ts_plain(torch.from_numpy(Y), lam)
+    assert xp.dtype == torch.float64
+    np.testing.assert_allclose(xp.numpy(), xj, atol=BAR, rtol=0)

@@ -98,8 +98,8 @@ __global__ void scan_d4(const float* y, int n, float lam, long long* out) {
   int runs = 0;
   const long long t0 = clock64();
   d4::classic_scan<true>([&](int i) { return ys[i]; }, lam, n,
-                         8 * n + 64, d4::Deque{dq, 1},
-                         d4::Deque{dq + n + 2, 1},
+                         8 * n + 64, d4::Deque<float>{dq, 1},
+                         d4::Deque<float>{dq + n + 2, 1},
                          [&](int, float) { ++runs; });
   out[0] = clock64() - t0;
   out[1] = runs;

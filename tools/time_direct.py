@@ -7,6 +7,7 @@ batch sizes.
     python3 tools/time_direct.py [--rows 1,32,132,1024,10000] [--n 1000]
                                  [--kernels D1,D2,D3,D4] [--no-events]
                                  [--dtype float32|float64] [--repo DIR]
+                                 [--wrapper] [--walk]
 
 For each batch of B signals of length n (randn, seeded, lam 0.7), for a
 batch of 32 copies of one signal (every signal takes the same path), for
@@ -30,8 +31,13 @@ another checkout (an unpacked parent commit, say) with the same cases, so
 that two versions are compared in one call on one card; a kernel that
 checkout lacks is left out.  ``--dtype float64`` times each kernel's
 float64 instantiation on the same draws in double, held against the
-float64 plain versions.  Each D2 case also records whether it ran on D2's
-warp layout.  Prints one JSON line with the card's name and power limit
+float64 plain versions.  ``--wrapper`` also times each kernel's Python
+wrapper (``tautstring.tautstring`` ...), in turns with its C entry (C
+entry, wrapper, wrapper, C entry) on the same inputs.  Each D2 case also
+records whether it ran on D2's warp layout.  ``--walk`` (float64) adds
+ROADMAP C's walk, n = 11621 at lam 1.3 (seed 15), held against the native
+host taut string within 1e-9 (the plain versions take a minute there on
+the CPU; ``chip_smoke.py`` phase 7 holds D4 on it bit for bit).  Prints one JSON line with the card's name and power limit
 and each case's ms per launch.  Imports nothing of JAX.
 """
 import argparse
@@ -46,6 +52,7 @@ REPS = 20
 TOL = 1e-5
 LAM = 0.7
 LAMW, ZERO_W = 1.4, 0.05
+WALK_C = "1x11621 C walk, lam 1.3"
 
 
 def time_ms(fn):
@@ -110,9 +117,9 @@ def events(plain, y, lam):
     return float(e.mean()), int(e.max())
 
 
-def cases(rows, n):
+def cases(rows, n, walk=False):
     """(name, y, lam) of every case, from seeded numpy draws."""
-    Ymain, walk = main_path_inputs(n)
+    Ymain, walk1 = main_path_inputs(n)
     rng = np.random.RandomState(0)
     out = [(f"{B}x{n}", rng.randn(B, n).astype(np.float32), LAM)
            for B in rows]
@@ -125,11 +132,16 @@ def cases(rows, n):
         w[rng.rand(B, n - 1) < ZERO_W] = 0.0
         out.append((f"{B}x{n} per-edge", y, w.astype(np.float32)))
     out.append((f"512x{n} main path", Ymain, LAM))
-    out.append((f"1x{n} walk, lam 2.0", walk, 2.0))
+    out.append((f"1x{n} walk, lam 2.0", walk1, 2.0))
+    if walk:
+        rng15 = np.random.RandomState(15)
+        out.append((WALK_C, (np.cumsum(rng15.randn(11621)) * 0.3
+                             + rng15.randn(11621))[None], 1.3))
     return out
 
 
-def main(rows, n, repo, only, count_events=True, dtype="float32"):
+def main(rows, n, repo, only, count_events=True, dtype="float32",
+         wrapper=False, walk=False):
     sys.path.insert(0, repo)
     import torch
 
@@ -156,7 +168,7 @@ def main(rows, n, repo, only, count_events=True, dtype="float32"):
             kernels[kid] = (mod, getattr(tv1d_l1, plain))
     out = {"card": card, "repo": os.path.abspath(repo), "n": n, "lam": LAM,
            "dtype": dtype, "cases": []}
-    for name, y, lam in cases(rows, n):
+    for name, y, lam in cases(rows, n, walk and dtype == "float64"):
         y = y.astype(dtype)
         if isinstance(lam, np.ndarray):
             lam = lam.astype(dtype)
@@ -177,14 +189,29 @@ def main(rows, n, repo, only, count_events=True, dtype="float32"):
                 f64 = (yt.dtype,) if dtype == "float64" else ()
                 rec["D2_warp_layout"] = mod.warp_layout(
                     *y.shape, isinstance(lam, np.ndarray), *f64)
-            ref = plain(y_c, lam_c)
+            if name == WALK_C:
+                from proxtv_tpu_torch.runtime import native
+
+                ref = torch.from_numpy(native.tv1_host(y[0], lam)[None])
+            else:
+                ref = plain(y_c, lam_c)
             torch.cuda.synchronize()
             err = float((res[rows_].cpu() - ref).abs().max()) / max(
                 1.0, float(np.abs(y).max()))
-            if err > TOL:
+            if err > (1e-9 if name == WALK_C else TOL):
                 sys.exit(f"{kid} {name}: max|kernel - plain| / scale {err} > "
                          f"{TOL}")
-            rec[kid + "_ms"] = time_ms(launch)
+            if wrapper:
+                wrap = getattr(mod, {"D1": "tautstring", "D2": "dp",
+                                     "D3": "condat",
+                                     "D4": "classic_ts"}[kid])
+                turns = [time_ms(launch), time_ms(lambda: wrap(yt, lt)),
+                         time_ms(lambda: wrap(yt, lt)), time_ms(launch)]
+                rec[kid + "_turns_c_w_w_c"] = turns
+                rec[kid + "_wrapper_ms"] = (turns[1] + turns[2]) / 2
+                rec[kid + "_ms"] = (turns[0] + turns[3]) / 2
+            else:
+                rec[kid + "_ms"] = time_ms(launch)
             rec[kid + "_err"] = err
             if count_events and kid in ("D3", "D4") and name.endswith(
                     ("main path", "walk, lam 2.0")):
@@ -194,10 +221,10 @@ def main(rows, n, repo, only, count_events=True, dtype="float32"):
                 rec[kid + "_ns_per_event"] = rec[kid + "_ms"] * 1e6 / most
         out["cases"].append(rec)
         times = ", ".join(
-            f"{k[:2]} {v:.4f} ms" + (
-                f" ({rec[k[:2] + '_events_max']} events, "
-                f"{rec[k[:2] + '_ns_per_event']:.1f} ns each)"
-                if k[:2] + "_events_max" in rec else "")
+            f"{k[:-3]} {v:.4f} ms" + (
+                f" ({rec[k[:-3] + '_events_max']} events, "
+                f"{rec[k[:-3] + '_ns_per_event']:.1f} ns each)"
+                if k[:-3] + "_events_max" in rec else "")
             for k, v in rec.items() if k.endswith("_ms"))
         if "D2_warp_layout" in rec:
             times += (" (warp layout)" if rec["D2_warp_layout"]
@@ -219,6 +246,10 @@ if __name__ == "__main__":
                     choices=("float32", "float64"))
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout whose package is timed")
+    ap.add_argument("--wrapper", action="store_true",
+                    help="time each wrapper too, in turns with its C entry")
+    ap.add_argument("--walk", action="store_true",
+                    help="float64: add ROADMAP C's n = 11621 walk")
     a = ap.parse_args()
     main([int(r) for r in a.rows.split(",")], a.n, a.repo,
-         a.kernels.split(","), not a.no_events, a.dtype)
+         a.kernels.split(","), not a.no_events, a.dtype, a.wrapper, a.walk)

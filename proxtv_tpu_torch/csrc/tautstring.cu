@@ -35,6 +35,8 @@
 //   by the lanes, 32 elements a store.
 // * n > kWarpMaxN, one thread a signal, y and the weights read from global
 //   memory; each closed segment is written straight to the output.
+//
+// Float64 has layouts of its own (below).
 #include <cuda_runtime.h>
 
 #include "direct1d.cuh"
@@ -161,6 +163,251 @@ cudaError_t launch_warp(const T* y, const LamT<T>& l, T* x, int B, int n,
   return cudaGetLastError();
 }
 
+// ---- The float64 layouts --------------------------------------------------
+//
+// G lanes a signal, 32 / G signals a warp.  G = 32 stages y (and the
+// weight row) in shared memory as the float32 warp layout does: one warp
+// a signal, for single signals and batches below kGroup64MinB.  Shared
+// memory caps that layout at 28 signals an SM at n = 1000, and past 16 an
+// SM the resident warps queue for issue slots, each spending 32 lanes on
+// one chain (tools/time_direct.py: 0.285 ms a launch from 1 to 4 signals an
+// SM, 0.449 at 24, 1.289 for 10000 signals in three waves).  A larger batch
+// runs G = kGroup64 lanes a signal, 32 / kGroup64 chains advancing with
+// each issued instruction, and reads y and the weights from global memory
+// through L1 (the next sample read an event ahead) instead of staging them,
+// so that every signal of the batch is resident at once, and takes an
+// advance's wall touches by selects.  Both divide by i - last through
+// direct1d.cuh div_exact, the reciprocal made at the start of each event,
+// apart from the chain.
+
+// The lanes a signal of the layout for large batches and its smallest
+// batch, where it overtakes the staged layout's second wave (one wave
+// holds 28 signals an SM at n = 1000; tools/time_direct.py --layouts on an
+// H100 at n = 1000: 32 lanes 0.3225 ms and 8 lanes 0.4302 at 2112 signals,
+// 0.5135 and 0.5563 at 3696, 0.6589 and 0.5918 at 4224, 1.2549 and 0.7606
+// at 10000).
+constexpr int kGroup64 = 8;
+constexpr int kGroup64MinB = 3960;
+
+// A group of G lanes copies count doubles to shared memory: 16-byte loads
+// over the aligned body, 8-byte loads at the ragged ends.
+template <int G>
+__device__ __forceinline__ void stage_row_g(const double* __restrict__ src,
+                                            int count, double* dst, int lg) {
+  int head = (int)((16u - ((uintptr_t)src & 15u)) & 15u) >> 3;
+  if (head > count) head = count;
+  if (lg < head) dst[lg] = __ldg(src + lg);
+  const int nv = (count - head) >> 1;
+  const double2* __restrict__ s2 =
+      reinterpret_cast<const double2*>(src + head);
+  double* d = dst + head;
+  for (int v = lg; v < nv; v += G) {
+    const double2 q = __ldg(s2 + v);
+    d[2 * v] = q.x;
+    d[2 * v + 1] = q.y;
+  }
+  for (int k = head + 2 * nv + lg; k < count; k += G) dst[k] = __ldg(src + k);
+}
+
+// direct1d::warp_degenerate for a group of G lanes (mask gm): the same
+// tests, the lanes over strided samples, combined by shuffles inside the
+// group.
+template <int G, class YF, class LF>
+__device__ __forceinline__ bool group_degenerate(YF yv, LF lv, int n,
+                                                 double* __restrict__ xb,
+                                                 int lg, unsigned gm) {
+  double sum = 0.0, dymax = 0.0, lmin = INFINITY;
+  bool nonzero = false;
+  for (int i = lg; i < n; i += G) {
+    const double yi = yv(i);
+    sum += yi;
+    if (i + 1 < n) {
+      dymax = fmax(dymax, fabs(yv(i + 1) - yi));
+      const double l = lv(i);
+      lmin = fmin(lmin, l);
+      nonzero = nonzero || !(l <= 0.0);
+    }
+  }
+  if (!__any_sync(gm, nonzero)) {
+    for (int i = lg; i < n; i += G) xb[i] = yv(i);
+    return true;
+  }
+  for (int o = G / 2; o; o >>= 1) {
+    sum += __shfl_xor_sync(gm, sum, o);
+    dymax = fmax(dymax, __shfl_xor_sync(gm, dymax, o));
+    lmin = fmin(lmin, __shfl_xor_sync(gm, lmin, o));
+  }
+  if (lmin >= (double)n * (double)n * dymax) {
+    const double m = sum / n;
+    for (int i = lg; i < n; i += G) xb[i] = m;
+    return true;
+  }
+  return false;
+}
+
+template <int G, bool kEdge>
+__global__ void __launch_bounds__(32 * direct1d::kMaxWarps)
+tautstring_group64_kernel(const double* __restrict__ y, LamT<double> lam,
+                          double* __restrict__ x, int B, int n) {
+  constexpr bool kStage = G == 32;  // one warp a signal stages y
+  double* smem = dyn_smem<double>();
+  constexpr double kEps = direct1d::kEps<double>;
+  constexpr int K = 32 / G;  // signals a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane / G, lg = lane % G;
+  const unsigned gm = G == 32 ? direct1d::kFull
+                              : ((1u << (G & 31)) - 1u) << (g * G);
+  const int slot = warp * K + g;
+  const int b = (blockIdx.x * (blockDim.x >> 5) + warp) * K + g;
+  if (b >= B) return;  // the whole group
+  double* yss = smem + (size_t)slot * (kStage ? (kEdge ? 2 * n - 1 : n) : 0);
+  double* ls = yss + n;  // per-edge weights (kEdge)
+  double* __restrict__ xb = x + (size_t)b * n;
+  const double* __restrict__ yb = y + (size_t)b * n;
+  if (kStage) {
+    stage_row_g<G>(yb, n, yss, lg);
+    if (kEdge) {
+      const double* __restrict__ row = lam.p + (size_t)b * lam.rs;
+      if (lam.cs == 1)
+        stage_row_g<G>(row, n - 1, ls, lg);
+      else
+        for (int k = lg; k < n - 1; k += G)
+          ls[k] = __ldg(row + (size_t)k * lam.cs);
+    }
+    __syncwarp(gm);
+  }
+  const double lc = kEdge ? 0.0 : lam(b, 0);  // one weight a signal
+  auto W = [&](int i) {
+    return kEdge ? (kStage ? ls[i] : lam(b, i)) : lc;
+  };
+  auto ys = [&](int i) { return kStage ? yss[i] : __ldg(yb + i); };
+  if (group_degenerate<G>([&](int i) { return ys(i); }, W, n, xb, lg, gm))
+    return;
+
+  const double l0 = W(0);
+  double mn = ys(0) - l0, mx = ys(0) + l0;  // segment value bounds
+  double mnH = 0.0, mxH = 0.0;  // tube heights of the two bounds
+  int mnB = 0, mxB = 0;         // last touches of the walls
+  int last = -1;                // end of the last closed segment
+  int i = 0;
+  double yi = ys(0), li = l0;   // sample i and its weight W(min(i, n - 2))
+  while (i < n) {
+    // The next sample and weight read ahead, the reciprocal of i - last
+    // made apart from the chain; a restart branches.
+    const direct1d::RecipX q = direct1d::recip_exact((double)(i - last));
+    const bool is_last = i == n - 1;
+    const int i1 = min(i + 1, n - 1);
+    const double y1 = ys(i1), l1 = W(min(i1, n - 2));
+    const double mnH1 = mnH + mn - yi;
+    const double mxH1 = mxH + mx - yi;
+    const bool ceil_v = is_last ? mnH1 > kEps : li < mnH1;
+    const bool floor_v = !ceil_v && (is_last ? mxH1 < -kEps : -li > mxH1);
+    if (ceil_v || floor_v) {
+      // Close the segment at the pinned wall and restart after it.
+      const int b_end = ceil_v ? mnB : mxB;
+      const double b_val = ceil_v ? mn : mx;
+      for (int k = last + 1 + lg; k <= b_end; k += G) xb[k] = b_val;
+      const int j = b_end + 1;
+      if (j >= n) return;  // a re-break at the restarted end point
+      const double yj = ys(j);
+      const double lp = W(j - 1);
+      const double ln = (is_last && j == n - 1) ? 0.0 : W(min(j, n - 2));
+      const double base = ceil_v ? yj + lp : yj - lp;
+      mn = base - ln;
+      mx = base + ln;
+      if (is_last) {
+        mnH = mxH = ceil_v ? -lp : lp;
+      } else {
+        mnH = -ln;
+        mxH = ln;
+      }
+      mnB = mxB = j;
+      last = b_end;
+      i = is_last ? j : j + 1;
+      yi = ys(min(i, n - 1));
+      li = W(min(i, n - 2));
+      continue;
+    }
+    if (is_last) {
+      // Tie the string to the end point and close the last segment.
+      const double v = mnH1 <= 0.0 ? mn + direct1d::div_exact(-mnH1, q) : mn;
+      for (int k = last + 1 + lg; k < n; k += G) xb[k] = v;
+      return;
+    }
+    if constexpr (kStage) {
+      // One signal a warp: a wall touch branches, uniformly, and divides
+      // only where it is touched (fewer instructions where many warps
+      // share an SM).
+      if (mxH1 >= li) {
+        mx = mx + direct1d::div_exact(li - mxH1, q);
+        mxH = li;
+        mxB = i;
+      } else {
+        mxH = mxH1;
+      }
+      if (mnH1 <= -li) {
+        mn = mn + direct1d::div_exact(-li - mnH1, q);
+        mnH = -li;
+        mnB = i;
+      } else {
+        mnH = mnH1;
+      }
+    } else {
+      // Several signals a warp: both walls' quotients, taken by selects,
+      // so that the signals part only where one restarts.
+      const bool tx = mxH1 >= li, tn = mnH1 <= -li;
+      const double ax = li - mxH1, an = -li - mnH1;
+      double dx = direct1d::div_exact_fast(ax, q);
+      double dn = direct1d::div_exact_fast(an, q);
+      if (__builtin_expect(
+              !(direct1d::div_exact_ok(ax) && direct1d::div_exact_ok(an)),
+              0)) {
+        dx = __ddiv_rn(ax, q.d);
+        dn = __ddiv_rn(an, q.d);
+      }
+      mx = tx ? mx + dx : mx;
+      mxH = tx ? li : mxH1;
+      mxB = tx ? i : mxB;
+      mn = tn ? mn + dn : mn;
+      mnH = tn ? -li : mnH1;
+      mnB = tn ? i : mnB;
+    }
+    yi = y1;
+    li = l1;
+    ++i;
+  }
+}
+
+// The float64 layout of a (B, n) batch: the lanes a signal (32 or
+// kGroup64; past kWarpMaxN<double>, 0: the thread layout).
+int group64(int B, int n) {
+  if (n > kWarpMaxN<double>) return 0;
+  return B >= kGroup64MinB ? kGroup64 : 32;
+}
+
+template <int G, bool kEdge>
+cudaError_t launch_group64(const double* y, const LamT<double>& l, double* x,
+                           int B, int n, cudaStream_t stream) {
+  auto kernel = tautstring_group64_kernel<G, kEdge>;
+  constexpr int K = 32 / G;
+  const size_t per_warp =
+      G == 32 ? sizeof(double) * (kEdge ? 2 * (size_t)n - 1 : n) : 0;
+  direct1d::WarpPlan p;
+  const cudaError_t e =
+      direct1d::warp_plan(kernel, per_warp, (B + K - 1) / K, &p);
+  if (e != cudaSuccess) return e;
+  kernel<<<p.blocks, 32 * p.warps, p.smem, stream>>>(y, l, x, B, n);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_lanes64(const double* y, const LamT<double>& l, double* x,
+                           int B, int n, cudaStream_t stream) {
+  return l.per_edge() ? launch_group64<G, true>(y, l, x, B, n, stream)
+                      : launch_group64<G, false>(y, l, x, B, n, stream);
+}
+
 template <class T>
 __global__ void __launch_bounds__(64)
 tautstring_kernel(const T* __restrict__ y, LamT<T> lam,
@@ -235,11 +482,28 @@ tautstring_kernel(const T* __restrict__ y, LamT<T> lam,
   }
 }
 
+// G: the lanes a signal of a float64 batch (0: the rule's, group64);
+// float32 takes 0.
 template <class T>
 int run(const T* y, const T* lam, int lam_rs, int lam_cs, T lam_s, T* x,
-        int B, int n, cudaStream_t stream) {
+        int B, int n, cudaStream_t stream, int G = 0) {
   if (B <= 0) return 0;
   const LamT<T> l{lam, (size_t)lam_rs, (size_t)lam_cs, lam_s};
+  if constexpr (sizeof(T) == 8) {
+    if (G == 0) G = group64(B, n);
+    cudaError_t e = cudaErrorInvalidValue;
+    switch (G) {
+      case 32: e = launch_lanes64<32>(y, l, x, B, n, stream); break;
+      case kGroup64: e = launch_lanes64<kGroup64>(y, l, x, B, n, stream); break;
+      case 0:
+        tautstring_kernel<T><<<(B + 63) / 64, 64, 0, stream>>>(y, l, x, B,
+                                                               n);
+        e = cudaGetLastError();
+        break;
+      default: break;
+    }
+    return static_cast<int>(e);
+  }
   if (n <= kWarpMaxN<T>)
     return static_cast<int>(l.per_edge()
                                 ? launch_warp<T, true>(y, l, x, B, n, stream)
@@ -269,7 +533,27 @@ extern "C" int tautstring_tv1_f64(const double* y, const double* lam,
   return run<double>(y, lam, lam_rs, lam_cs, lam_s, x, B, n, stream);
 }
 
+// The same in float64 with G lanes a signal (32 or kGroup64), for the
+// tools and tests that time or hold each.
+extern "C" int tautstring_tv1_f64_group(const double* y, const double* lam,
+                                        int lam_rs, int lam_cs, double lam_s,
+                                        double* x, int B, int n, int G,
+                                        cudaStream_t stream) {
+  if ((G != 32 && G != kGroup64) || n > kWarpMaxN<double>)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run<double>(y, lam, lam_rs, lam_cs, lam_s, x, B, n, stream, G);
+}
+
 // The longest signal the warp layout takes (the layouts' threshold), in
-// float32 and in float64.
+// float32 and in float64; the lanes a signal that tautstring_tv1_f64 gives
+// a (B, n) batch (32: one warp a signal; 1: the thread layout).
 extern "C" int tautstring_warp_max_n() { return kWarpMaxN<float>; }
 extern "C" int tautstring_warp_max_n_f64() { return kWarpMaxN<double>; }
+extern "C" int tautstring_group_f64(int B, int n) {
+  const int G = group64(B, n);
+  return G ? G : 1;
+}
+// The float64 layout for large batches: its lanes a signal and its
+// smallest batch.
+extern "C" int tautstring_group_lanes_f64() { return kGroup64; }
+extern "C" int tautstring_group_min_b_f64() { return kGroup64MinB; }

@@ -82,18 +82,31 @@ _SIGNATURES = {
     # n, stream
     "tautstring_tv1": (_P, _P, _I, _I, _F, _P, _I, _I, _P),
     "tautstring_tv1_f64": (_P, _P, _I, _I, _D, _P, _I, _I, _P),
+    # the same with the lanes a signal (32 or 8)
+    "tautstring_tv1_f64_group": (_P, _P, _I, _I, _D, _P, _I, _I, _I, _P),
     # y, lam (or NULL), lam row stride, lam column stride, lam_scalar, x,
     # plam, pslope, lohi (workspace), B, n, stream
     "dp_tv1": (_P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _I, _P),
-    "dp_tv1_f64": (_P, _P, _I, _I, _D, _P, _P, _P, _P, _I, _I, _P),
-    # the longest n of D1's warp layout (one warp a signal)
+    # the same in float64, with the ring reruns' count (int32 on the card,
+    # or NULL) before B; then with a layout (dp.LAYOUTS_F64)
+    "dp_tv1_f64": (_P, _P, _I, _I, _D, _P, _P, _P, _P, _P, _I, _I, _P),
+    "dp_tv1_f64_layout": (_P, _P, _I, _I, _D, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _P),
+    # the longest n of D1's warp layout (one warp a signal); B, n -> the
+    # lanes a signal of D1's float64 layout for that batch
     "tautstring_warp_max_n": (),
     "tautstring_warp_max_n_f64": (),
+    "tautstring_group_f64": (_I, _I),
+    "tautstring_group_lanes_f64": (),
+    "tautstring_group_min_b_f64": (),
     # B, n, per_edge -> 1 on D2's warp layout, 0 on its thread layout
     "dp_warp_layout": (_I, _I, _I),
     "dp_warp_max_n": (),
-    "dp_warp_max_n_f64": (),
-    "dp_warp_layout_f64": (_I, _I, _I),
+    # B -> D2's float64 layout (1 warp, 2 lane); its ring's slots and the
+    # largest batch of its warp layout
+    "dp_layout_f64": (_I,),
+    "dp_ring_slots_f64": (),
+    "dp_warp_max_b_f64": (),
     # y, lam (one a signal, or NULL), lam row stride, lam_scalar, x, B, n,
     # stream
     "condat_tv1": (_P, _P, _I, _F, _P, _I, _I, _P),

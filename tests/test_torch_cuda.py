@@ -2003,10 +2003,12 @@ def _f64_rows(rng, B, n):
 def test_float64_thresholds_and_counters(dev):
     """Each float64 warp layout ends at its own n (D1 and D3 at 8192, half
     their float32 16384; D4 at 4741, the longest whose 20-byte double slots
-    fit a block, and its ring layout at 23549; D2 at 5808, its 40n bytes a
-    signal in a block, and for at most four waves), the float32 ones where
-    they were; a float32 launch counts in LAUNCHES and a float64 one in
-    LAUNCHES_F64 only, L1's too."""
+    fit a block, and its ring layout at 23549), the float32 ones where
+    they were; D2's float64 layouts take any n, one warp a signal to a
+    batch of DP_WARP_MAX_B and one signal a lane past it, its deque in a
+    ring of 64; D1's float64 batches of TS_GROUP_MIN_B signals or more run
+    8 lanes a signal to n = 8192; a float32 launch counts in LAUNCHES and a
+    float64 one in LAUNCHES_F64 only, L1's too."""
     from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
     from proxtv_tpu_torch.ops.kernels import condat as CDK
     from proxtv_tpu_torch.ops.kernels import dp as DPK
@@ -2016,14 +2018,22 @@ def test_float64_thresholds_and_counters(dev):
             DPK.warp_max_n()) == (16384, 16384, 6280, 8192)
     assert (TSK.warp_max_n(f64), CDK.warp_max_n(f64),
             CTK.warp_max_n(f64), DPK.warp_max_n(f64)) == (8192, 8192, 4741,
-                                                          5808)
+                                                          None)
     assert CTK.ring_max_n() == 23549
-    for dt, top in ((torch.float32, 8192), (f64, 5808)):
-        for edge in (False, True):
-            assert DPK.warp_layout(1, top, edge, dt)
-            assert not DPK.warp_layout(1, top + 1, edge, dt)
-            assert DPK.warp_layout(512, 1000, edge, dt)
-            assert not DPK.warp_layout(10000, 1000, edge, dt)
+    for edge in (False, True):
+        assert DPK.warp_layout(1, 8192, edge)
+        assert not DPK.warp_layout(1, 8193, edge)
+        assert DPK.warp_layout(512, 1000, edge)
+        assert not DPK.warp_layout(10000, 1000, edge)
+        for n in (1000, 20000):
+            assert DPK.layout(DP_WARP_MAX_B, n, edge, f64) == "warp"
+            assert DPK.layout(DP_WARP_MAX_B + 1, n, edge, f64) != "warp"
+    assert (DPK.ring_slots(), DPK.warp_max_b()) == (64, DP_WARP_MAX_B)
+    assert TSK.group_limits() == (8, TS_GROUP_MIN_B)
+    assert (TSK.lanes(TS_GROUP_MIN_B - 1, 1000), TSK.lanes(TS_GROUP_MIN_B,
+                                                           1000),
+            TSK.lanes(TS_GROUP_MIN_B, 8192), TSK.lanes(TS_GROUP_MIN_B, 8193),
+            TSK.lanes(1, 8192), TSK.lanes(1, 8193)) == (32, 8, 8, 1, 32, 1)
     y = torch.randn((3, 100), dtype=f64, device=dev)
     for mod, fn in ((TSK, TSK.tautstring), (CDK, CDK.condat),
                     (CTK, CTK.classic_ts), (PK, PK.pcr_spd_solve),
@@ -2052,8 +2062,9 @@ def test_direct_kernels_f64_match_plain(kernel, case, dev):
     on the rows they take (the mean summed in another order); on 64 x 1000
     at lam 0.7, per-signal weights (D1 and D2 also per edge), and one row
     each side of the float64 warp layout's end (one warp a signal up to
-    warp_max_n(float64), one thread a signal past it; D2's and D4's deques
-    then in the wrapper's float64 workspace)."""
+    warp_max_n(float64), one thread a signal past it; D4's deques then in
+    the wrapper's float64 workspace; D2, whose float64 layouts take any n,
+    at its float32 end, 8192 and 8193)."""
     from proxtv_tpu_torch.ops import tv1d_l1
     from proxtv_tpu_torch.ops.kernels import classic_ts as CTK
     from proxtv_tpu_torch.ops.kernels import condat as CDK
@@ -2072,8 +2083,9 @@ def test_direct_kernels_f64_match_plain(kernel, case, dev):
         lams = [torch.from_numpy(rng.rand(37) * 1.4)]
         if kernel in ("tautstring", "dp"):
             lams.append(torch.from_numpy(rng.rand(37, 999) * 1.4))
-    else:
-        n = mod.warp_max_n(torch.float64) + case.endswith("+ 1")
+    else:  # D2's float64 layouts take any n: one past its float32 one
+        n = (mod.warp_max_n(torch.float64) or DPK.warp_max_n()) \
+            + case.endswith("+ 1")
         y, deg = _f64_rows(rng, 3, n)
     yt = torch.from_numpy(y)
     scale = max(1.0, float(np.abs(y).max()))
@@ -2277,6 +2289,150 @@ def test_classic_ts_f64_on_the_long_walk(dev):
     assert native.available()
     ref = native.tv1_host(y, 1.3)
     np.testing.assert_allclose(x.cpu().numpy()[0], ref, atol=1e-9, rtol=0)
+
+
+def _f64_layout_case(rng, B, n, kind):
+    """Float64 signals and weights of a D1 / D2 layout case: walks plus
+    noise and, B > 2, a constant row (its mean); the weights scalar, per
+    signal or per edge (U[0, 1.4], 5% zeroed; with B > 3 a zero-weight row,
+    the identity, and a huge one, the mean), all zero or huge.  Returns
+    (y, lam, degenerate rows)."""
+    y, deg = _f64_rows(rng, B, n)
+    if kind == "scalar":
+        return y, 0.7, deg
+    if kind == "zero":
+        return y, torch.zeros((B, n - 1), dtype=torch.float64), list(range(B))
+    if kind == "huge":
+        return y, 1e7, list(range(B))
+    w = rng.rand(B) * 1.4 if kind == "row" else rng.rand(B, n - 1) * 1.4
+    if kind == "edge":
+        w[rng.rand(B, n - 1) < 0.05] = 0.0
+    if B > 3:
+        w[0], w[2] = 0.0, 1e7
+        deg += [0, 2]
+    return y, torch.from_numpy(w), sorted(set(deg))
+
+
+# D1's and D2's float64 batch rules (csrc/tautstring.cu kGroup64MinB,
+# csrc/dp.cu kWarp64MaxB), which the thresholds test holds the library to.
+TS_GROUP_MIN_B, DP_WARP_MAX_B = 3960, 2640
+
+
+@pytest.mark.parametrize("kind", ["scalar", "row", "edge", "zero", "huge"])
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 132, 133])
+@pytest.mark.parametrize("kernel,layout", [
+    ("dp", "warp"), ("dp", "lane"), ("dp", "lane16"), ("dp", "lane8"),
+    ("dp", "lane4"), ("tautstring", 32), ("tautstring", 8)])
+def test_direct_f64_layouts_match_plain_bit_for_bit(kernel, layout, B, kind,
+                                                    dev):
+    """D2's float64 layouts (one warp a signal; one signal a lane, 32, 16,
+    8 or 4 signals a warp) and D1's float64 layouts (32 lanes a signal, y
+    staged; 8 lanes a signal, y from global memory), each forced through
+    ``bind``, bit for bit with the float64 plain version on every row the
+    guards do not take, within 1e-12 of the data's size on the rows they
+    take (the mean summed in another order): scalar, per-signal,
+    per-edge, zero and huge weights, at B = 1, 31, 32, 33, 132 and 133
+    (n = 200)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+
+    mod, plain, kw = {
+        "dp": (DPK, tv1d_l1.tv1_dp_plain, {"layout": layout}),
+        "tautstring": (TSK, tv1d_l1.tv1_tautstring_plain,
+                       {"lanes": layout})}[kernel]
+    n = 200
+    y, lam, deg = _f64_layout_case(np.random.RandomState(B + n), B, n, kind)
+    out, launch = mod.bind(torch.from_numpy(y).to(dev), lam.to(dev)
+                           if torch.is_tensor(lam) else lam, **kw)
+    launch()
+    torch.cuda.synchronize()
+    out = out.cpu().numpy()
+    ref = plain(torch.from_numpy(y), lam).numpy()
+    rest = np.setdiff1d(np.arange(B), deg)
+    np.testing.assert_array_equal(out[rest], ref[rest])
+    np.testing.assert_allclose(out, ref, atol=1e-12 * max(
+        1.0, float(np.abs(y).max())), rtol=0)
+
+
+@pytest.mark.parametrize("kernel,side", [
+    ("dp", "warp"), ("dp", "lane"), ("dp", "10000"),
+    ("tautstring", "batch below"), ("tautstring", "batch")])
+def test_direct_f64_batch_rules_match_plain_bit_for_bit(kernel, side, dev):
+    """D2 and D1 in float64 through their wrappers on each side of their
+    batch rules (D2: warp_max_b() signals on one warp a signal, one more on
+    the lane layout, and 10000 signals; D1: one signal below the smallest
+    batch of its layout for large batches on 32 lanes a signal, that batch
+    on its lanes), bit for bit with the float64 plain version on 40 spread
+    rows (the rows are independent)."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+
+    g_l, g_b = TSK.group_limits()
+    n = 1000
+    if kernel == "dp":
+        B = {"warp": DPK.warp_max_b(), "lane": DPK.warp_max_b() + 1,
+             "10000": 10000}[side]
+        assert (DPK.layout(B, n, False, torch.float64) == "warp") == (
+            side == "warp")
+    else:
+        B = g_b - (side == "batch below")
+        assert TSK.lanes(B, n) == (g_l if side == "batch" else 32)
+    y, _ = _f64_rows(np.random.RandomState(B + n), B, n)
+    mod, fn, plain = {"dp": (DPK, DPK.dp, tv1d_l1.tv1_dp_plain),
+                      "tautstring": (TSK, TSK.tautstring,
+                                     tv1d_l1.tv1_tautstring_plain)}[kernel]
+    before = mod.LAUNCHES_F64.value
+    out = fn(torch.from_numpy(y).to(dev), 0.7)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_F64.value == before + 1
+    rows = np.unique(np.linspace(2, B - 1, 40).astype(int))
+    ref = plain(torch.from_numpy(y[rows]), 0.7).numpy()
+    np.testing.assert_array_equal(out.cpu().numpy()[rows], ref)
+
+
+@pytest.mark.parametrize("layout", ["warp", "lane"])
+def test_dp_f64_ring_overflow_runs_again(layout, dev):
+    """D2 in float64 on the signal whose deque outgrows its ring of 64
+    slots (a ramp of 1000 from 0 to 1 at lam 2: 91 breakpoints at once,
+    tools/dp_depths.py overflow_signal), in a batch of 40 among randn rows
+    at lam 2 on each layout: the ramp's rows run again from the workspace,
+    counted in RING_RERUNS (and no other row), and every row is bit for
+    bit with the float64 plain version."""
+    from proxtv_tpu_torch.ops import tv1d_l1
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+
+    rng = np.random.RandomState(64)
+    y = rng.randn(40, 1000)
+    ramp = [3, 17, 39]
+    y[ramp] = np.linspace(0.0, 1.0, 1000)
+    DPK.RING_RERUNS.reset()
+    out, launch = DPK.bind(torch.from_numpy(y).to(dev), 2.0, layout=layout)
+    launch()
+    torch.cuda.synchronize()
+    assert DPK.RING_RERUNS.value == len(ramp)
+    ref = tv1d_l1.tv1_dp_plain(torch.from_numpy(y), 2.0).numpy()
+    np.testing.assert_array_equal(out.cpu().numpy(), ref)
+
+
+def test_direct_f64_missing_entry_raises(dev, monkeypatch):
+    """A float64 launch of D1 or D2 whose C entry the library lacks raises;
+    no wrapper falls back to its plain version on a CUDA tensor."""
+    from proxtv_tpu_torch.ops.kernels import build
+    from proxtv_tpu_torch.ops.kernels import dp as DPK
+
+    lib = build.lib()
+
+    class Lacking:
+        def __getattr__(self, name):
+            if name in ("dp_tv1_f64", "tautstring_tv1_f64"):
+                raise AttributeError(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(build, "lib", lambda: Lacking())
+    y = torch.randn((3, 50), dtype=torch.float64, device=dev)
+    for fn in (DPK.dp, TSK.tautstring):
+        with pytest.raises(AttributeError):
+            fn(y, 0.7)
 
 
 @pytest.mark.parametrize("method", ["dr", "pd", "yang", "kolmogorov",

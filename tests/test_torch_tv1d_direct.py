@@ -376,3 +376,72 @@ def test_classic_ts_plain_matches_jax_at_the_float64_layout_edges(n):
     xp = P.tv1_classic_ts_plain(torch.from_numpy(Y), lam)
     assert xp.dtype == torch.float64
     np.testing.assert_allclose(xp.numpy(), xj, atol=BAR, rtol=0)
+
+
+# The float64 batch rules of kernels D1 and D2, which the card reads from
+# its library (csrc/tautstring.cu kGroup64MinB, csrc/dp.cu kWarp64MaxB):
+# the CPU builds no library, so they are written here.
+TS_GROUP_MIN_B, DP_WARP_MAX_B = 3960, 2640
+
+
+def _dp_depths():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "dp_depths.py")
+    spec = importlib.util.spec_from_file_location("dp_depths", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["randn", "walk lam 2", "per-edge", "ramp"])
+def test_dp_depths_replica_matches_plain(case):
+    """``tools/dp_depths.py``'s replica of kernel D2's scan, which sets the
+    float64 ring's slots, gives the float64 plain version's output bit for
+    bit on short signals (n <= 300; the plain version's lock-step scan is
+    slow here), per-edge weights with zeros and a ramp among them; its
+    live-breakpoint count is at least the two of a fresh deque."""
+    dd = _dp_depths()
+    rng = np.random.RandomState(len(case))
+    n = 300
+    if case == "randn":
+        y, lam = rng.randn(n), 0.7
+    elif case == "walk lam 2":
+        y, lam = np.cumsum(rng.randn(n)), 2.0
+    elif case == "per-edge":
+        y = rng.randn(n) + np.cumsum(rng.randn(n)) * 0.1
+        lam = rng.rand(n - 1) * 1.4
+        lam[rng.rand(n - 1) < 0.05] = 0.0
+    else:
+        y, lam = np.linspace(0.0, 1.0, n), 0.7
+    x, most, over = dd.scan(y, lam)
+    lp = lam if np.ndim(lam) == 0 else torch.from_numpy(lam[None])
+    ref = P.tv1_dp_plain(torch.from_numpy(y[None]), lp)[0].numpy()
+    np.testing.assert_array_equal(x, ref)
+    assert most >= 2 and over[dd.RING] == 0
+
+
+@pytest.mark.parametrize("engine,case", [
+    ("tautstring", "batch of the layout for large batches"),
+    ("dp", "batch past the warp layout"),
+    ("dp", "ring overflow")])
+def test_direct_plain_matches_jax_at_the_float64_layout_edges(engine, case):
+    """Kernels D1's and D2's plain versions, which the card holds their
+    float64 layouts against bit for bit, against the JAX package's float64
+    ``tv1_tautstring`` / ``tv1_dp`` within 1e-12 where those layouts part:
+    the smallest batch of D1's layout for large batches (3960 signals of
+    n = 8, per-edge weights), D2's smallest batch past one warp a signal
+    (2641 signals of n = 8), and the signal whose deque outgrows D2's ring
+    of 64 slots (``tools/dp_depths.py`` overflow_signal: a ramp of 1000 at
+    lam 2, 91 breakpoints at once)."""
+    if case == "ring overflow":
+        y, lam = _dp_depths().overflow_signal()
+        Y = y[None]
+    else:
+        B = TS_GROUP_MIN_B if engine == "tautstring" else DP_WARP_MAX_B + 1
+        rng, Y = _signals(B, B, 8)
+        lam = rng.rand(B, 7) * 1.5
+    xp, xj = _both(engine, Y, lam)
+    np.testing.assert_allclose(xp, xj, atol=BAR, rtol=0)

@@ -21,8 +21,8 @@ Newton systems, the TV-Lp setup) by Thomas's elimination in place of PCR
 roundings are neither), and in float32, and
 prints for each how far it lands from A: max|dx| and the root mean square
 of dx, both over max(1, max|y|), and the objective's relative change.
-``--shape phase7`` is phase 7's small volume (4 x 64 x 64, drawn as
-``chip_smoke.start_cpu64`` draws it); ``--seeds A-B`` runs randn volumes
+``--shape phase7`` is phase 7's small volume (4 x 64 x 64,
+``chip_smoke.v64_small``); ``--seeds A-B`` runs randn volumes
 of each seed in turn.  Calls: ``mixed`` (``tv_nd_batched`` pd, p = (1, 2, 1.5),
 lam 0.3 on every axis), ``tvgen`` (``tvgen`` pd, p = 1), on the bench
 volume of ``chip_smoke.py`` at 32 x 256 x 256 or a randn volume of another
@@ -61,23 +61,6 @@ def main():
     witness(a)
 
 
-# The float64 warp layouts' longest n of D1, D3 and D4 (csrc/tautstring.cu,
-# condat.cu, classic_ts.cu; chip_smoke.py reads them from the built
-# library, which the CPU does not build).
-F64_WARP_MAX = (8192, 8192, 4741)
-
-
-def phase7_small(cs):
-    """chip_smoke.start_cpu64's V_small: its draws after the 256^2 image
-    and the walks one past each float64 warp layout of D1, D3 and D4."""
-    rng = np.random.RandomState(cs.SEED + 9)
-    rng.randn(1, cs.M64, cs.M64)
-    for n in F64_WARP_MAX:
-        rng.randn(2, n + 1)
-        rng.randn(2, n + 1)
-    return rng.randn(*cs.V64_SMALL)
-
-
 def witness(a):
     sys.path.insert(0, HERE)
     import torch
@@ -104,7 +87,7 @@ def witness(a):
     else:
         shape = (cs.V64_SMALL if a.shape == "phase7"
                  else tuple(int(v) for v in a.shape.split("x")))
-        y = (phase7_small(cs) if a.shape == "phase7"
+        y = (cs.v64_small() if a.shape == "phase7"
              else rng3.randn(*shape).astype(np.float32).astype(np.float64)
              if shape == (cs.L3, cs.M3, cs.N3)
              else np.random.RandomState(a.seed).randn(*shape))

@@ -7,7 +7,7 @@ batch sizes.
     python3 tools/time_direct.py [--rows 1,32,132,1024,10000] [--n 1000]
                                  [--kernels D1,D2,D3,D4] [--no-events]
                                  [--dtype float32|float64] [--repo DIR]
-                                 [--wrapper] [--walk]
+                                 [--wrapper] [--walk] [--layouts]
 
 For each batch of B signals of length n (randn, seeded, lam 0.7), for a
 batch of 32 copies of one signal (every signal takes the same path), for
@@ -34,7 +34,11 @@ float64 instantiation on the same draws in double, held against the
 float64 plain versions.  ``--wrapper`` also times each kernel's Python
 wrapper (``tautstring.tautstring`` ...), in turns with its C entry (C
 entry, wrapper, wrapper, C entry) on the same inputs.  Each D2 case also
-records whether it ran on D2's warp layout.  ``--walk`` (float64) adds
+records the layout it ran on, and each float64 D1 case the lanes a
+signal.  ``--layouts`` (float64) also times D1 at 32 and 8 lanes a
+signal and D2 on its warp layout and its lane layout at 32, 16, 8 and 4
+signals a warp (``bind(..., lanes=)``, ``bind(..., layout=)``), each first
+held bit for bit against the plain version on the case's three rows.  ``--walk`` (float64) adds
 ROADMAP C's walk, n = 11621 at lam 1.3 (seed 15), held against the native
 host taut string within 1e-9 (the plain versions take a minute there on
 the CPU; ``chip_smoke.py`` phase 7 holds D4 on it bit for bit).  Prints one JSON line with the card's name and power limit
@@ -141,7 +145,7 @@ def cases(rows, n, walk=False):
 
 
 def main(rows, n, repo, only, count_events=True, dtype="float32",
-         wrapper=False, walk=False):
+         wrapper=False, walk=False, layouts=False):
     sys.path.insert(0, repo)
     import torch
 
@@ -187,8 +191,15 @@ def main(rows, n, repo, only, count_events=True, dtype="float32",
             launch()
             if kid == "D2":
                 f64 = (yt.dtype,) if dtype == "float64" else ()
-                rec["D2_warp_layout"] = mod.warp_layout(
-                    *y.shape, isinstance(lam, np.ndarray), *f64)
+                if hasattr(mod, "layout"):
+                    rec["D2_layout"] = mod.layout(
+                        *y.shape, isinstance(lam, np.ndarray), *f64)
+                else:  # a checkout before the float64 ring layouts
+                    rec["D2_layout"] = "warp" if mod.warp_layout(
+                        *y.shape, isinstance(lam, np.ndarray), *f64) \
+                        else "thread"
+            if kid == "D1" and dtype == "float64" and hasattr(mod, "lanes"):
+                rec["D1_lanes"] = mod.lanes(*y.shape)
             if name == WALK_C:
                 from proxtv_tpu_torch.runtime import native
 
@@ -201,6 +212,19 @@ def main(rows, n, repo, only, count_events=True, dtype="float32",
             if err > (1e-9 if name == WALK_C else TOL):
                 sys.exit(f"{kid} {name}: max|kernel - plain| / scale {err} > "
                          f"{TOL}")
+            if layouts and dtype == "float64" and kid in ("D1", "D2"):
+                # Every float64 layout on the same case, held first.
+                for lay in ((32, 8) if kid == "D1"
+                            else ("warp", "lane", "lane16", "lane8", "lane4")):
+                    kw = {"lanes": lay} if kid == "D1" else {"layout": lay}
+                    r_l, l_l = mod.bind(yt, lt, **kw)
+                    l_l()
+                    torch.cuda.synchronize()
+                    e_l = float((r_l[rows_].cpu() - ref).abs().max())
+                    if e_l != 0.0 and name != WALK_C:
+                        sys.exit(f"{kid} {name} {lay}: not bit for bit "
+                                 f"({e_l})")
+                    rec[f"{kid}_{lay}_ms"] = time_ms(l_l)
             if wrapper:
                 wrap = getattr(mod, {"D1": "tautstring", "D2": "dp",
                                      "D3": "condat",
@@ -226,9 +250,10 @@ def main(rows, n, repo, only, count_events=True, dtype="float32",
                 f"{rec[k[:-3] + '_ns_per_event']:.1f} ns each)"
                 if k[:-3] + "_events_max" in rec else "")
             for k, v in rec.items() if k.endswith("_ms"))
-        if "D2_warp_layout" in rec:
-            times += (" (warp layout)" if rec["D2_warp_layout"]
-                      else " (thread layout)")
+        if "D2_layout" in rec:
+            times += f" (D2 {rec['D2_layout']} layout)"
+        if "D1_lanes" in rec:
+            times += f" (D1 {rec['D1_lanes']} lanes a signal)"
         print(f"[{name}] {times} ({dtype}; {card}; {out['repo']})",
               flush=True)
     print(json.dumps(out))
@@ -250,6 +275,10 @@ if __name__ == "__main__":
                     help="time each wrapper too, in turns with its C entry")
     ap.add_argument("--walk", action="store_true",
                     help="float64: add ROADMAP C's n = 11621 walk")
+    ap.add_argument("--layouts", action="store_true",
+                    help="float64: also time D1 at 32 and 8 lanes a signal "
+                    "and D2 on its warp and lane layouts")
     a = ap.parse_args()
     main([int(r) for r in a.rows.split(",")], a.n, a.repo,
-         a.kernels.split(","), not a.no_events, a.dtype, a.wrapper, a.walk)
+         a.kernels.split(","), not a.no_events, a.dtype, a.wrapper, a.walk,
+         a.layouts)
